@@ -24,12 +24,32 @@ failure:
    float32), under two launch geometries, byte-equal; with the times of
    the kernel (CUDA events), of the plain version and, for the
    elementwise kernel, of ``torch.sub``, beside each kernel's bound.
-5. One ``{"kernels": [...]}`` line, the card line again, and last
+5. The model path, with every launch count set to 0 just before its CLI
+   run and read just after:
+
+   a. ``tpulab_torch generate`` through the CLI's entry point: the demo
+      labformer (d128, 8 heads, 4 layers, float32) greedy over a seeded
+      1024-byte prompt for 32 steps; the prefill takes the flash kernel
+      (B4) once per layer;
+   b. the serving labformer (d512, 8 heads, head_dim 64, 8 layers, d_ff
+      2048; ``tpulab/bench.py:244-247``) in float32, batch 1, a
+      1024-token prompt, on the card and on the CPU (plain versions):
+      prefill logits within 1e-3, and greedy tokens equal up to the first
+      step whose CPU top-2 margin is below 1e-2;
+   c. the same model in bfloat16, batch 8, 1024-token prompts, 64 new
+      tokens: prefill ms and decode ms per token (CUDA events);
+   d. B4 against its plain version at the two main-path shapes, at
+      (8, 8, 4096, 64) causal in bfloat16 and float32, and with a window,
+      GQA and a query offset, with its time beside its bound and beside
+      ``scaled_dot_product_attention`` where that computes the same
+      function.
+6. One ``{"model": {...}}`` line with phase 5's numbers, one
+   ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published rates (NVIDIA data sheet): 3.35 TB/s
 of device memory, 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the
-tensor cores.
+tensor cores, 989 TFLOP/s bfloat16 on the tensor cores.
 """
 
 from __future__ import annotations
@@ -48,6 +68,7 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 FP64_FLOPS = 34e12
+BF16_FLOPS = 989e12
 #: flops per pixel of the Roberts function: luminance (1 mul, 2 fma),
 #: two differences, magnitude (1 mul, 1 fma, sqrt), clamp
 ROBERTS_FLOPS_PER_PIXEL = 14
@@ -170,19 +191,36 @@ def make_inputs(sizes: dict, seed: int = 0) -> dict:
     return inp
 
 
+LAB_KERNELS = ("roberts", "elementwise", "classify")
+MODEL_KERNELS = ("flash_fwd",)
+
+
 def counters() -> dict:
+    from tpulab_torch.ops.cuda.attention import flash_attention_with_lse
     from tpulab_torch.ops.cuda.classify import classify_u32
     from tpulab_torch.ops.cuda.elementwise import binary
     from tpulab_torch.ops.cuda.stencil import roberts_u32
 
-    return {"roberts": roberts_u32, "elementwise": binary, "classify": classify_u32}
+    return {"roberts": roberts_u32, "elementwise": binary, "classify": classify_u32,
+            "flash_fwd": flash_attention_with_lse}
+
+
+def zero_counts() -> dict:
+    wrappers = counters()
+    for fn in wrappers.values():
+        fn.launches = 0
+    return wrappers
+
+
+def check_launched(launches: dict, names, device, path: str) -> None:
+    for name in names:
+        check(launches[name] > 0 or device.type == "cpu",
+              f"kernel {name} was not launched on the {path}")
 
 
 def drive_main_path(inp: dict, backend: str) -> tuple:
     """The CLI runs of the main path; (stdouts, launches per kernel)."""
-    wrappers = counters()
-    for fn in wrappers.values():
-        fn.launches = 0
+    wrappers = zero_counts()
     dev = ["--backend", backend]
     outs = {
         "lab1": cli(["run", "lab1", *dev], inp["lab1_text"]),
@@ -379,40 +417,316 @@ def kernel_rows(inp: dict, sizes: dict, device) -> dict:
                                                  [None, (256, 256)], 5, 2)
     return rows
 
+# ---------------------------------------------------------------- model path
+
+#: the serving-size labformer the JAX package benchmarks decode on
+#: (tpulab/bench.py:244-247): head_dim 64
+SERVING = dict(d_model=512, n_heads=8, n_layers=8, d_ff=2048, max_seq=1024)
+
+
+def seeded_text(n: int, seed: int) -> str:
+    """``n`` printable ASCII bytes from ``seed`` (one token each)."""
+    return bytes(np.random.default_rng(seed).integers(32, 127, n).astype(np.uint8)).decode()
+
+
+def drive_model_path(sizes: dict, backend: str) -> tuple:
+    """``tpulab_torch generate`` through the CLI; (stdout, launches per kernel)."""
+    from tpulab_torch.models.generate import demo_config
+
+    wrappers = zero_counts()
+    prompt = seeded_text(sizes["gen_prompt"], 3)
+    out = cli(["generate", "--backend", backend, "--prompt", prompt, "--steps",
+               str(sizes["gen_steps"]), "--temperature", "0"], "")
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    check(out.startswith(prompt) and out.endswith("\n") and len(out) > len(prompt) + 1,
+          f"generate printed {out[-80:]!r}")
+    want = demo_config().n_layers if sizes["gen_prompt"] >= 1024 else 0
+    check(backend == "cpu" or launches["flash_fwd"] == want,
+          f"flash launches {launches['flash_fwd']} on the CLI prefill, want {want}")
+    check(all(launches[k] == 0 for k in LAB_KERNELS), f"lab kernels ran: {launches}")
+    return out, launches
+
+
+def greedy_with_logits(model, prompt, steps: int) -> tuple:
+    """Greedy tokens (b, steps) and the logits each was taken from
+    (b, steps, vocab), through the port's prefill and step on the model's
+    device; both returned on the CPU."""
+    import torch
+
+    from tpulab_torch.models import generate as tgen
+
+    b, p = prompt.shape
+    with torch.inference_mode():
+        logits, kc, vc = tgen._prefill(model, prompt, p + steps)
+        toks, rows = [logits.argmax(-1)], [logits]
+        for i in range(steps - 1):
+            logits, kc, vc = tgen._forward_step(model, toks[-1], kc, vc, p + i)
+            toks.append(logits.argmax(-1))
+            rows.append(logits)
+    return torch.stack(toks, 1).cpu(), torch.stack(rows, 1).float().cpu()
+
+
+def check_serving_f32(sizes: dict, device) -> dict:
+    """The serving model in f32 on ``device`` against the port on the CPU."""
+    import torch
+
+    from tpulab_torch.models.labformer import Labformer, LabformerConfig, init_params
+
+    cfg = LabformerConfig(**sizes["serving"], dtype=torch.float32)
+    params = init_params(cfg, seed=0)
+    prompt = torch.from_numpy(
+        np.random.default_rng(4).integers(0, 256, (1, sizes["serve_prompt"])))
+    steps, tol = sizes["f32_steps"], 1e-3
+    t0 = time.perf_counter()
+    cpu_toks, cpu_logits = greedy_with_logits(Labformer.from_numpy(params, cfg, "cpu"),
+                                              prompt, steps)
+    cpu_s = time.perf_counter() - t0
+    card = Labformer.from_numpy(params, cfg, device)
+    dev_toks, dev_logits = greedy_with_logits(card, prompt.to(device), steps)
+    err = float((dev_logits[:, 0] - cpu_logits[:, 0]).abs().max())
+    check(err <= tol, f"f32 prefill logits differ from the CPU's by {err} > {tol}")
+    top2 = cpu_logits.topk(2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1])[0]
+    checked = 0
+    while checked < steps and margin[checked] >= 10 * tol:
+        check(int(dev_toks[0, checked]) == int(cpu_toks[0, checked]),
+              f"greedy token {checked} differs: card {int(dev_toks[0, checked])}, "
+              f"CPU {int(cpu_toks[0, checked])} (CPU margin {float(margin[checked])})")
+        step_err = float((dev_logits[:, checked] - cpu_logits[:, checked]).abs().max())
+        check(step_err <= tol, f"f32 logits of step {checked} differ by {step_err}")
+        checked += 1
+    where = ("no step's CPU top-2 margin was below " + str(10 * tol) if checked == steps else
+             f"stopped at step {checked}, whose CPU top-2 margin "
+             f"{float(margin[checked]):.6f} < {10 * tol}")
+    print(f"serving f32 b1 p{sizes['serve_prompt']}: prefill logits max |card - CPU| = {err}; "
+          f"greedy tokens equal through {checked} of {steps} steps ({where}); "
+          f"CPU run {cpu_s:.1f} s", flush=True)
+    return {"prefill_logits_max_abs_err": err, "greedy_steps_equal": checked, "steps": steps}
+
+
+def event_ms(fn, device, reps: int = 3) -> float:
+    """Median wall time of ``fn()`` between CUDA events (host clock on the CPU)."""
+    import statistics
+
+    import torch
+
+    samples = []
+    for _ in range(reps):
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            samples.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            fn()
+            samples.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(samples)
+
+
+def profile_window(fn, device) -> dict:
+    """Device busy time of ``fn()`` from ``torch.profiler`` (CUPTI): the sum
+    of kernel times over the host's wall time, and the kernels that took
+    most.  On the CPU, or where the trace holds no kernel, "not measured"."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if device.type != "cuda":
+        return {"busy_share": "not measured"}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = lambda e: getattr(e, "self_device_time_total", None) or e.self_cuda_time_total
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    if not busy_ms:
+        return {"busy_share": "not measured", "wall_ms": wall_ms}
+    top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
+            "kernel_launches": sum(e.count for e in kernels),
+            "top": [[e.key[:80], dev_us(e) / 1e3, e.count] for e in top]}
+
+
+def time_serving_bf16(sizes: dict, device, card: str) -> dict:
+    """Prefill ms and decode ms per token of the serving model in bf16."""
+    import torch
+
+    from tpulab_torch.models import generate as tgen
+    from tpulab_torch.models.labformer import Labformer, LabformerConfig, init_params
+
+    cfg = LabformerConfig(**sizes["serving"], dtype=torch.bfloat16)
+    model = Labformer.from_numpy(init_params(cfg, seed=0), cfg, device)
+    b, p, steps = sizes["serve_batch"], sizes["serve_prompt"], sizes["serve_steps"]
+    prompts = np.random.default_rng(5).integers(0, 256, (b, p)).astype(np.int32)
+    out = tgen.generate(model, prompts, steps=2, temperature=0.0)  # warm-up
+    tp = torch.from_numpy(prompts).long().to(device)
+    with torch.inference_mode():
+        logits = tgen._prefill(model, tp, p + steps)[0]
+        check(bool(torch.isfinite(logits.float()).all()), "bf16 prefill logits are not finite")
+        prefill_ms = event_ms(lambda: tgen._prefill(model, tp, p + steps), device)
+    gen_ms = event_ms(lambda: tgen.generate(model, prompts, steps=steps, temperature=0.0), device)
+    out = tgen.generate(model, prompts, steps=steps, temperature=0.0)
+    check(out.shape == (b, steps) and out.min() >= 0 and out.max() < cfg.vocab,
+          f"bf16 generate gave {out.shape} in [{out.min()}, {out.max()}]")
+    decode_ms = (gen_ms - prefill_ms) / (steps - 1)
+    print(f"serving bf16 b{b} p{p}: prefill {prefill_ms:.6f} ms ({card})", flush=True)
+    print(f"serving bf16 b{b} p{p}: decode {decode_ms:.6f} ms/token over {steps} new tokens, "
+          f"generate {gen_ms:.6f} ms in all ({card})", flush=True)
+
+    def decode_steps(n=8):
+        with torch.inference_mode():
+            logits, kc, vc = tgen._prefill(model, tp, p + n)
+            tok = logits.argmax(-1)
+            for i in range(n):
+                logits, kc, vc = tgen._forward_step(model, tok, kc, vc, p + i)
+                tok = logits.argmax(-1)
+
+    with torch.inference_mode():
+        prof = {"prefill": profile_window(lambda: tgen._prefill(model, tp, p + steps), device)}
+    prof["prefill_and_8_decode_steps"] = profile_window(decode_steps, device)
+    for what, pr in prof.items():
+        print(f"profile {what}: {json.dumps(pr)}", flush=True)
+    return {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms, "generate_ms": gen_ms,
+            "batch": b, "prompt": p, "new_tokens": steps, "profile": prof}
+
+
+def visible_pairs(s: int, causal: bool, window: int, q_offset: int) -> int:
+    """(query, key) pairs the mask keeps: the work this call's data needs."""
+    if not causal:
+        return s * s
+    q = q_offset + np.arange(s, dtype=np.int64)
+    hi = np.minimum(q, s - 1)
+    lo = np.maximum(q - window + 1, 0) if window else np.zeros_like(q)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_row(shape, dtype, device, iters, plain_iters, *, kvh=None, window=0, q_offset=0,
+              seed=0) -> dict:
+    """B4 against its plain version at one shape, with its times and bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpulab_torch.ops.cuda.attention import flash_attention_plain, flash_attention_with_lse
+
+    b, h, s, d = shape
+    kvh = kvh or h
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(device, dtype)
+               for sh in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d)))
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    want_o, want_lse = flash_attention_plain(q, k, v, **kw)
+    got_o, got_lse = flash_attention_with_lse(q, k, v, **kw)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    dead = torch.isneginf(want_lse)
+    check(torch.equal(torch.isneginf(got_lse), dead) and bool((got_o.float()[dead] == 0).all()),
+          f"flash {shape}: rows with no visible key differ")
+    if dtype == torch.float32:
+        tol = 2e-5 + 2e-5 * float(want_o.abs().max())
+    else:  # one bf16 ulp of the largest |o|
+        tol = 2.0 ** (np.floor(np.log2(float(want_o.float().abs().max()))) - 7)
+    err = max_abs_err(got_o, want_o)
+    lse_err = max_abs_err(got_lse[~dead], want_lse[~dead])
+    check(err <= tol, f"flash {shape} {dtype}: max |o - plain| = {err} > {tol}")
+    lse_tol = 2e-5 + 2e-5 * float(want_lse[~dead].abs().max())
+    check(lse_err <= lse_tol, f"flash {shape} {dtype}: max |lse - plain| = {lse_err}")
+    e = q.element_size()
+    nbytes = (2 * b * s * h * d + 2 * b * s * kvh * d) * e + b * s * h * 4
+    flops = 4.0 * b * h * d * visible_pairs(s, True, window, q_offset)
+    row = {"shape": [b, h, s, d], "kv_heads": kvh, "dtype": str(dtype).split(".")[1],
+           "window": window, "q_offset": q_offset, "max_abs_err": err, "tolerance": tol,
+           "lse_max_abs_err": lse_err,
+           "ms": time_ms(lambda: flash_attention_with_lse(q, k, v, **kw), (), device, iters),
+           "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, **kw), (), device,
+                               plain_iters),
+           "library_ms": None}
+    if not window and not q_offset:  # one PyTorch call computes the same function
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        row["library_ms"] = time_ms(
+            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=kvh != h), (), device, iters)
+    row["bound_ms"], row["bound_by"] = bound(
+        nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+    return row
+
+
+def flash_rows(sizes: dict, device) -> dict:
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    main_shape, serve_shape, big = sizes["b4_demo"], sizes["b4_serving"], sizes["b4_big"]
+    row = flash_row(main_shape, f32, device, 50, 10)
+    row["serving"] = flash_row(serve_shape, bf16, device, 20, 5, seed=1)
+    row["at_scale"] = [flash_row(big, bf16, device, 5, 2, seed=2),
+                       flash_row(big, f32, device, 5, 2, seed=3)]
+    s = big[2]
+    row["variants"] = [
+        flash_row(big, bf16, device, 5, 2, window=256, seed=4),
+        flash_row(big, bf16, device, 5, 2, kvh=2, seed=5),
+        flash_row(big, bf16, device, 5, 2, window=s // 4, q_offset=s, seed=6),
+    ]
+    return row
+
+
+def run_model_path(sizes: dict, device, backend: str, card: str) -> tuple:
+    """Phase 5: (the flash row, its model-path launches, the model numbers)."""
+    t0 = time.perf_counter()
+    out, launches = drive_model_path(sizes, backend)
+    print(f"model path: {json.dumps(launches)} launches; generate printed "
+          f"{len(out) - 1 - sizes['gen_prompt']} characters after the prompt", flush=True)
+    check_launched(launches, MODEL_KERNELS, device, "model path")
+    model = {"serving_f32": check_serving_f32(sizes, device),
+             "serving_bf16": time_serving_bf16(sizes, device, card)}
+    row = flash_rows(sizes, device)
+    print(f"phase 5 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return row, launches, model
+
 
 KERNEL_META = {
     "roberts": ("tpulab_torch/csrc/stencil.cu", "tpulab/ops/pallas/stencil.py:82"),
     "elementwise": ("tpulab_torch/csrc/elementwise.cu", "tpulab/ops/pallas/elementwise.py:57"),
     "classify": ("tpulab_torch/csrc/classify.cu", "tpulab/ops/pallas/classify.py:83"),
+    "flash_fwd": ("tpulab_torch/csrc/flash_fwd.cu", "tpulab/ops/pallas/attention.py:215"),
 }
 
 FULL_SIZES = {
     "lab1_n": 1000, "lab2_side": 1024, "lab3_side": 1024, "lab3_nc": 8,
     "b1_side": 8192, "b2_n": 2**26, "b3_side": 4096,
+    "gen_prompt": 1024, "gen_steps": 32, "serving": SERVING, "serve_prompt": 1024,
+    "f32_steps": 16, "serve_batch": 8, "serve_steps": 64,
+    "b4_demo": (1, 8, 1024, 16), "b4_serving": (8, 8, 1024, 64), "b4_big": (8, 8, 4096, 64),
 }
 
 
-def run(device, sizes: dict, backend: str) -> dict:
-    """Phases 2 to 4 on ``device``; the ``kernels`` payload."""
+def run(device, sizes: dict, backend: str, card: str = "cpu") -> dict:
+    """Phases 2 to 5 on ``device``; the ``kernels`` payload."""
     t0 = time.perf_counter()
     inp = make_inputs(sizes)
     outs, launches = drive_main_path(inp, backend)
     print(f"main path: {json.dumps(launches)} launches; " + "; ".join(
         f"{k}: {v.splitlines()[0]}" for k, v in outs.items()), flush=True)
     check_main_path(inp, outs, device)
-    for name, count in launches.items():
-        check(count > 0 or device.type == "cpu", f"kernel {name} was not launched on the main path")
+    check_launched(launches, LAB_KERNELS, device, "lab path")
     if device.type == "cuda":
         check_sweep_subprocess(inp)
     print(f"goldens: {check_goldens(backend)} byte-equal", flush=True)
     rows = kernel_rows(inp, sizes, device)
+    print(f"phases 2-4 took {time.perf_counter() - t0:.1f} s", flush=True)
+    rows["flash_fwd"], model_launches, model = run_model_path(sizes, device, backend, card)
+    launches["flash_fwd"] = model_launches["flash_fwd"]
     kernels = []
     for name, row in rows.items():
         source, replaces = KERNEL_META[name]
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], **row})
-    print(f"phases 2-4 took {time.perf_counter() - t0:.1f} s", flush=True)
-    return {"kernels": kernels}
+    return {"kernels": kernels, "model": model}
 
 
 def main() -> int:
@@ -436,8 +750,12 @@ def main() -> int:
         if "Used" in line or "Compiling entry" in line:
             print("  " + line.strip())
 
-    payload = run(torch.device("cuda", 0), FULL_SIZES, "cuda")
-    print(json.dumps(payload), flush=True)
+    # f32 products stay f32 on the card (no TF32), in the port and in its plain versions
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    payload = run(torch.device("cuda", 0), FULL_SIZES, "cuda", card)
+    print(json.dumps({"model": payload["model"]}), flush=True)
+    print(json.dumps({"kernels": payload["kernels"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

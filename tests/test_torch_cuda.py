@@ -6,11 +6,18 @@ neither JAX nor ``tpulab``, so on a machine without JAX it runs alone::
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
 
 from tpulab_torch.ops.cuda import _build
+from tpulab_torch.ops.cuda.attention import (
+    HEAD_DIMS,
+    flash_attention_plain,
+    flash_attention_with_lse,
+)
 from tpulab_torch.ops.cuda.classify import classify_u32, classify_u32_plain, pack_stats
 from tpulab_torch.ops.cuda.elementwise import OPS, binary, binary_plain
 from tpulab_torch.ops.cuda.stencil import roberts_u32, roberts_u32_plain
@@ -26,6 +33,8 @@ SPECIALS = [float("nan"), -float("nan"), 0.0, -0.0, float("inf"), -float("inf"),
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU with CUDA")
+    # the plain versions' f32 products must be f32, not TF32
+    torch.backends.cuda.matmul.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -100,3 +109,96 @@ def test_cuda_wrappers_refuse_bad_geometry_before_launch(cuda_device):
     with pytest.raises(ValueError):
         roberts_u32(u, (64, 32, 1, 1))
     assert roberts_u32.launches == before
+
+
+# B4 flash forward: (b, s, h, kv_heads, causal, window, q_offset)
+FLASH_CASES = [
+    (2, 128, 4, 4, True, 0, 0),
+    (2, 128, 4, 4, False, 0, 0),
+    (1, 100, 4, 4, True, 0, 0),
+    (2, 20, 2, 2, True, 0, 0),
+    (1, 5, 2, 2, True, 0, 0),
+    (1, 300, 4, 4, True, 64, 0),
+    (1, 300, 4, 4, True, 17, 0),
+    (1, 300, 4, 4, True, 256, 0),
+    (1, 64, 4, 4, True, 100, 128),   # rows past the window's reach: o = 0, lse = -inf
+    (1, 128, 4, 4, True, 0, 40),
+    (2, 200, 8, 2, True, 0, 0),     # GQA
+    (1, 1030, 2, 1, True, 0, 0),
+    (1, 2048, 2, 2, True, 300, 1024),
+]
+
+
+def _flash_inputs(case, d, dtype, device):
+    b, s, h, kvh = case[:4]
+    rng = np.random.default_rng(s * d + h)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(device, dtype)
+            for shape in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d))]
+
+
+def _assert_flash_close(got, want, dtype):
+    """f32: rtol = atol = 2e-5 (sums in another order).  bf16 o: one bf16
+    ulp of the largest |o| (p and o round to bf16 from f32 values that
+    differ by f32 rounding); lse stays f32."""
+    (o, lse), (wo, wlse) = got, want
+    dead = torch.isneginf(wlse)
+    assert torch.equal(torch.isneginf(lse), dead)
+    assert torch.all(o.float()[dead] == 0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, wo, rtol=2e-5, atol=2e-5)
+    else:
+        ulp = 2.0 ** (math.floor(math.log2(wo.float().abs().max().item())) - 7)
+        torch.testing.assert_close(o.float(), wo.float(), rtol=0, atol=ulp)
+    torch.testing.assert_close(lse[~dead], wlse[~dead], rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain(cuda_device, dtype, d, case):
+    q, k, v = _flash_inputs(case, d, dtype, cuda_device)
+    causal, window, q_offset = case[4:]
+    before = flash_attention_with_lse.launches
+    got = flash_attention_with_lse(q, k, v, causal=causal, window=window, q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention_with_lse.launches == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    _assert_flash_close(got, flash_attention_plain(q, k, v, causal, window, q_offset), dtype)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_strided_inputs(cuda_device):
+    rng = np.random.default_rng(0)
+    qkv = torch.from_numpy(rng.standard_normal((2, 96, 3, 4, 32)).astype(np.float32)).to(cuda_device)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    assert not q.is_contiguous()
+    got = flash_attention_with_lse(q, k, v, window=24)
+    want = flash_attention_with_lse(q.contiguous(), k.contiguous(), v.contiguous(), window=24)
+    _assert_flash_close(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+def test_flash_gqa_equals_repeated_call_on_card(cuda_device):
+    q, k, v = _flash_inputs((2, 256, 8, 2), 64, torch.bfloat16, cuda_device)
+    got = flash_attention_with_lse(q, k, v)
+    rep = flash_attention_with_lse(q, k.repeat_interleave(4, dim=2), v.repeat_interleave(4, dim=2))
+    assert torch.equal(got[0], rep[0]) and torch.equal(got[1], rep[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("what", ["head_dim", "dtype", "requires_grad"])
+def test_flash_kernel_refuses_before_launch(cuda_device, what):
+    q, k, v = _flash_inputs((1, 64, 2, 2), 32, torch.float32, cuda_device)
+    exc = ValueError
+    if what == "head_dim":
+        q, k, v = q[..., :24], k[..., :24], v[..., :24]
+    elif what == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+    else:
+        q.requires_grad_(True)
+        exc = NotImplementedError
+    before = flash_attention_with_lse.launches
+    with pytest.raises(exc):
+        flash_attention_with_lse(q, k, v)
+    assert flash_attention_with_lse.launches == before

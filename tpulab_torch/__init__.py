@@ -14,10 +14,14 @@ Layout (mirroring ``tpulab``):
     tpulab_torch.io         binary/hex/png image codecs, stdin protocol grammars
     tpulab_torch.ops        compute ops (roberts, elementwise, mahalanobis)
     tpulab_torch.ops.cuda   kernel wrappers, each beside its plain PyTorch version
+                            (stencil, elementwise, classify, attention)
     tpulab_torch.labs       per-workload stdin/stdout entry points (lab1..lab3)
+    tpulab_torch.models     the labformer (nn.Module + weight bridge), int8
+                            decode weights, KV-cached generation
+    tpulab_torch.parallel   the dense attention oracle and the flash dispatch
     tpulab_torch.runtime    device selection, introspection, timing
     tpulab_torch.utils      CLI config coercion
-    tpulab_torch.cli        ``python -m tpulab_torch``
+    tpulab_torch.cli        ``python -m tpulab_torch`` (run, info, generate)
 
 Entry points run on the CUDA card unless the caller asks for the CPU
 (``--backend cpu``); with no card they raise.

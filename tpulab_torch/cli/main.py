@@ -3,6 +3,7 @@
 Subcommands:
     tpulab_torch info              device introspection (gpu_info)
     tpulab_torch run <workload>    run a workload over the stdin/stdout protocol
+    tpulab_torch generate          byte-level sampling from the labformer demo model
 
 ``python -m tpulab_torch`` routes here as well.  Work runs on the CUDA
 card unless ``--backend cpu`` asks for the host.
@@ -31,6 +32,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     run_p.add_argument("--backend", default=None, choices=BACKENDS,
                        help="cuda (default) or cpu")
 
+    sub.add_parser("generate", help="sample bytes from the labformer demo model",
+                   add_help=False)
+
     args, extra = parser.parse_known_args(argv)
 
     if args.command == "info":
@@ -45,6 +49,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         return run_workload(
             args.workload, sweep=args.to_plot, backend=args.backend, extra=extra
         )
+
+    if args.command == "generate":
+        from tpulab_torch.models.generate import main as gen_main
+
+        return gen_main(extra)
 
     parser.print_help()
     return 2

@@ -58,6 +58,10 @@ SIGNATURES: Dict[str, List] = {
     "tl_binary": [_I, _I, _P, _P, _P, _L, _I, _I, _P],
     # dtype, in, out, stats, nc, n, blocks, threads, stream
     "tl_classify": [_I, _P, _P, _P, _I, _L, _I, _I, _P],
+    # dtype, d, q, k, v, o, lse, b, s, h, kv_heads, strides of q, k, v
+    # (batch, seq, head; elements), scale, causal, window, q_offset, stream
+    "tl_flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, *[_L] * 9,
+                     ctypes.c_float, _I, _I, _I, _P],
 }
 
 
