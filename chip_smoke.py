@@ -24,25 +24,30 @@ failure:
    float32), under two launch geometries, byte-equal; with the times of
    the kernel (CUDA events), of the plain version and, for the
    elementwise kernel, of ``torch.sub``, beside each kernel's bound.
-5. The model path, with every launch count set to 0 just before its CLI
-   run and read just after:
+5. The model path.  Each run of it is made with every launch count set to
+   0 just before and read just after, and must launch the flash kernel
+   (B4) once per layer of each 1024-token prefill and no lab kernel:
 
    a. ``tpulab_torch generate`` through the CLI's entry point: the demo
       labformer (d128, 8 heads, 4 layers, float32) greedy over a seeded
-      1024-byte prompt for 32 steps; the prefill takes the flash kernel
-      (B4) once per layer;
+      1024-byte prompt for 32 steps;
    b. the serving labformer (d512, 8 heads, head_dim 64, 8 layers, d_ff
       2048; ``tpulab/bench.py:244-247``) in float32, batch 1, a
       1024-token prompt, on the card and on the CPU (plain versions):
       prefill logits within 1e-3, and greedy tokens equal up to the first
       step whose CPU top-2 margin is below 1e-2;
-   c. the same model in bfloat16, batch 8, 1024-token prompts, 64 new
-      tokens: prefill ms and decode ms per token (CUDA events);
-   d. B4 against its plain version at the two main-path shapes, at
-      (8, 8, 4096, 64) causal in bfloat16 and float32, and with a window,
-      GQA and a query offset, with its time beside its bound and beside
-      ``scaled_dot_product_attention`` where that computes the same
-      function.
+   c. the same model in bfloat16, batch 8, 1024-token prompts: prefill ms
+      (CUDA events around each of 3 calls, the median), decode ms per
+      token (CUDA events around each of 8 runs of 8 decode steps after one
+      prefill: the median and every run), and ``generate`` of 64 tokens;
+   d. B4 against its plain version, element by element within
+      ``o_tolerance``, at the two main-path shapes, at (8, 8, 4096, 64)
+      causal in bfloat16 and float32, and with a window, GQA and a query
+      offset; at the bfloat16 main-path and at-scale shapes the same limit
+      must reject the plain version with one key tile skipped.  Its time
+      stands beside its bound and beside ``scaled_dot_product_attention``
+      (``is_causal``, or the window's band as a boolean mask) wherever
+      that computes the same function.
 6. One ``{"model": {...}}`` line with phase 5's numbers, one
    ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
@@ -216,6 +221,20 @@ def check_launched(launches: dict, names, device, path: str) -> None:
     for name in names:
         check(launches[name] > 0 or device.type == "cpu",
               f"kernel {name} was not launched on the {path}")
+
+
+def counted(fn, device, want_flash: int, path: str) -> tuple:
+    """``fn()`` with every launch count set to 0 just before and read just
+    after; (its result, launches per kernel).  On the card the flash kernel
+    must have launched ``want_flash`` times and no lab kernel at all."""
+    wrappers = zero_counts()
+    result = fn()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    if device.type == "cuda":
+        check(launches["flash_fwd"] == want_flash,
+              f"flash launches {launches['flash_fwd']} on the {path}, want {want_flash}")
+        check(all(launches[k] == 0 for k in LAB_KERNELS), f"lab kernels ran on the {path}: {launches}")
+    return result, launches
 
 
 def drive_main_path(inp: dict, backend: str) -> tuple:
@@ -482,7 +501,10 @@ def check_serving_f32(sizes: dict, device) -> dict:
                                               prompt, steps)
     cpu_s = time.perf_counter() - t0
     card = Labformer.from_numpy(params, cfg, device)
-    dev_toks, dev_logits = greedy_with_logits(card, prompt.to(device), steps)
+    # one prefill (B4 once per layer); the decode steps take no flash
+    (dev_toks, dev_logits), launches = counted(
+        lambda: greedy_with_logits(card, prompt.to(device), steps), device, cfg.n_layers,
+        "serving f32 run")
     err = float((dev_logits[:, 0] - cpu_logits[:, 0]).abs().max())
     check(err <= tol, f"f32 prefill logits differ from the CPU's by {err} > {tol}")
     top2 = cpu_logits.topk(2, dim=-1).values
@@ -500,8 +522,9 @@ def check_serving_f32(sizes: dict, device) -> dict:
              f"{float(margin[checked]):.6f} < {10 * tol}")
     print(f"serving f32 b1 p{sizes['serve_prompt']}: prefill logits max |card - CPU| = {err}; "
           f"greedy tokens equal through {checked} of {steps} steps ({where}); "
-          f"CPU run {cpu_s:.1f} s", flush=True)
-    return {"prefill_logits_max_abs_err": err, "greedy_steps_equal": checked, "steps": steps}
+          f"CPU run {cpu_s:.1f} s; launches {json.dumps(launches)}", flush=True)
+    return {"prefill_logits_max_abs_err": err, "greedy_steps_equal": checked, "steps": steps,
+            "launches": launches}
 
 
 def event_ms(fn, device, reps: int = 3) -> float:
@@ -554,8 +577,40 @@ def profile_window(fn, device) -> dict:
             "top": [[e.key[:80], dev_us(e) / 1e3, e.count] for e in top]}
 
 
+def decode_samples(model, prompt, reps: int, n: int, device) -> list:
+    """ms per token of ``reps`` runs of ``n`` greedy decode steps, one after
+    another after one prefill, each run between two CUDA events (host
+    clock on the CPU)."""
+    import torch
+
+    from tpulab_torch.models import generate as tgen
+
+    p = prompt.shape[1]
+    samples = []
+    with torch.inference_mode():
+        logits, kc, vc = tgen._prefill(model, prompt, p + reps * n)
+        tok, pos = logits.argmax(-1), p
+        for _ in range(reps):
+            if device.type == "cuda":
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                logits, kc, vc = tgen._forward_step(model, tok, kc, vc, pos)
+                tok, pos = logits.argmax(-1), pos + 1
+            if device.type == "cuda":
+                end.record()
+                end.synchronize()
+                samples.append(start.elapsed_time(end) / n)
+            else:
+                samples.append((time.perf_counter() - t0) * 1e3 / n)
+    return samples
+
+
 def time_serving_bf16(sizes: dict, device, card: str) -> dict:
     """Prefill ms and decode ms per token of the serving model in bf16."""
+    import statistics
+
     import torch
 
     from tpulab_torch.models import generate as tgen
@@ -564,21 +619,33 @@ def time_serving_bf16(sizes: dict, device, card: str) -> dict:
     cfg = LabformerConfig(**sizes["serving"], dtype=torch.bfloat16)
     model = Labformer.from_numpy(init_params(cfg, seed=0), cfg, device)
     b, p, steps = sizes["serve_batch"], sizes["serve_prompt"], sizes["serve_steps"]
+    reps, n = sizes["decode_reps"], steps // sizes["decode_reps"]
+    L = cfg.n_layers
     prompts = np.random.default_rng(5).integers(0, 256, (b, p)).astype(np.int32)
-    out = tgen.generate(model, prompts, steps=2, temperature=0.0)  # warm-up
+    tgen.generate(model, prompts, steps=2, temperature=0.0)  # warm-up
     tp = torch.from_numpy(prompts).long().to(device)
+    launches = {}
     with torch.inference_mode():
         logits = tgen._prefill(model, tp, p + steps)[0]
         check(bool(torch.isfinite(logits.float()).all()), "bf16 prefill logits are not finite")
-        prefill_ms = event_ms(lambda: tgen._prefill(model, tp, p + steps), device)
-    gen_ms = event_ms(lambda: tgen.generate(model, prompts, steps=steps, temperature=0.0), device)
+        prefill_ms, launches["prefill"] = counted(
+            lambda: event_ms(lambda: tgen._prefill(model, tp, p + steps), device), device,
+            3 * L, "bf16 prefill (3 timed calls)")
+    decode, launches["decode"] = counted(lambda: decode_samples(model, tp, reps, n, device),
+                                         device, L, f"bf16 prefill and {reps}x{n} decode steps")
+    gen_ms, launches["generate"] = counted(
+        lambda: event_ms(lambda: tgen.generate(model, prompts, steps=steps, temperature=0.0),
+                         device), device, 3 * L, "bf16 generate (3 timed calls)")
     out = tgen.generate(model, prompts, steps=steps, temperature=0.0)
     check(out.shape == (b, steps) and out.min() >= 0 and out.max() < cfg.vocab,
           f"bf16 generate gave {out.shape} in [{out.min()}, {out.max()}]")
-    decode_ms = (gen_ms - prefill_ms) / (steps - 1)
+    decode_ms = statistics.median(decode)
     print(f"serving bf16 b{b} p{p}: prefill {prefill_ms:.6f} ms ({card})", flush=True)
-    print(f"serving bf16 b{b} p{p}: decode {decode_ms:.6f} ms/token over {steps} new tokens, "
-          f"generate {gen_ms:.6f} ms in all ({card})", flush=True)
+    print(f"serving bf16 b{b} p{p}: decode {decode_ms:.6f} ms/token, median of {reps} runs "
+          f"of {n} steps (min {min(decode):.6f}, max {max(decode):.6f}; "
+          f"{', '.join(f'{x:.6f}' for x in decode)}) ({card})", flush=True)
+    print(f"serving bf16 b{b} p{p}: generate of {steps} new tokens {gen_ms:.6f} ms "
+          f"({card}); launches {json.dumps(launches)}", flush=True)
 
     def decode_steps(n=8):
         with torch.inference_mode():
@@ -593,8 +660,10 @@ def time_serving_bf16(sizes: dict, device, card: str) -> dict:
     prof["prefill_and_8_decode_steps"] = profile_window(decode_steps, device)
     for what, pr in prof.items():
         print(f"profile {what}: {json.dumps(pr)}", flush=True)
-    return {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms, "generate_ms": gen_ms,
-            "batch": b, "prompt": p, "new_tokens": steps, "profile": prof}
+    return {"prefill_ms": prefill_ms, "decode_ms_per_token": decode_ms,
+            "decode_ms_per_token_runs": decode, "decode_steps_per_run": n,
+            "generate_ms": gen_ms, "batch": b, "prompt": p, "new_tokens": steps,
+            "launches": launches, "profile": prof}
 
 
 def visible_pairs(s: int, causal: bool, window: int, q_offset: int) -> int:
@@ -607,13 +676,35 @@ def visible_pairs(s: int, causal: bool, window: int, q_offset: int) -> int:
     return int(np.maximum(hi - lo + 1, 0).sum())
 
 
+def skipped_tile(q, k, v, tile: int, bk: int = 64):
+    """The plain causal flash forward with one planted fault: query rows past
+    key tile ``tile`` do not see that tile's keys."""
+    import torch
+
+    from tpulab_torch.ops.cuda.attention import softmax_scale
+
+    s, d = q.shape[1], q.shape[3]
+    qs = (q.float() * softmax_scale(d)).to(q.dtype).float()
+    scores = torch.einsum("bqhd,bkhd->bhqk", qs, k.float())
+    pos = torch.arange(s, device=q.device)
+    hide = (pos[None, :] > pos[:, None]) | (
+        (pos[None, :] // bk == tile) & (pos[:, None] >= (tile + 1) * bk))
+    p = torch.softmax(scores.masked_fill(hide, -float("inf")), dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(), v.float()).to(q.dtype)
+
+
 def flash_row(shape, dtype, device, iters, plain_iters, *, kvh=None, window=0, q_offset=0,
-              seed=0) -> dict:
-    """B4 against its plain version at one shape, with its times and bound."""
+              seed=0, plant=False) -> dict:
+    """B4 against its plain version at one shape, with its times and bound;
+    with ``plant``, also check that the tolerance rejects a skipped key tile."""
     import torch
     import torch.nn.functional as F
 
-    from tpulab_torch.ops.cuda.attention import flash_attention_plain, flash_attention_with_lse
+    from tpulab_torch.ops.cuda.attention import (
+        flash_attention_plain,
+        flash_attention_with_lse,
+        over_tolerance,
+    )
 
     b, h, s, d = shape
     kvh = kvh or h
@@ -628,30 +719,38 @@ def flash_row(shape, dtype, device, iters, plain_iters, *, kvh=None, window=0, q
     dead = torch.isneginf(want_lse)
     check(torch.equal(torch.isneginf(got_lse), dead) and bool((got_o.float()[dead] == 0).all()),
           f"flash {shape}: rows with no visible key differ")
-    if dtype == torch.float32:
-        tol = 2e-5 + 2e-5 * float(want_o.abs().max())
-    else:  # one bf16 ulp of the largest |o|
-        tol = 2.0 ** (np.floor(np.log2(float(want_o.float().abs().max()))) - 7)
-    err = max_abs_err(got_o, want_o)
+    err, ratio = max_abs_err(got_o, want_o), over_tolerance(got_o, want_o)
+    check(ratio <= 1, f"flash {shape} {dtype}: |o - plain| reaches {ratio} of o_tolerance "
+                      f"(max |o - plain| = {err})")
     lse_err = max_abs_err(got_lse[~dead], want_lse[~dead])
-    check(err <= tol, f"flash {shape} {dtype}: max |o - plain| = {err} > {tol}")
     lse_tol = 2e-5 + 2e-5 * float(want_lse[~dead].abs().max())
     check(lse_err <= lse_tol, f"flash {shape} {dtype}: max |lse - plain| = {lse_err}")
+    row = {"shape": [b, h, s, d], "kv_heads": kvh, "dtype": str(dtype).split(".")[1],
+           "window": window, "q_offset": q_offset, "max_abs_err": err,
+           "tolerance": "o_tolerance (tpulab_torch/ops/cuda/attention.py)",
+           "err_over_tolerance": ratio, "lse_max_abs_err": lse_err}
+    if plant:  # the same limit must reject a kernel that skips one key tile
+        for tile in (s // 128, s // 64 - 2):
+            fault = over_tolerance(skipped_tile(q, k, v, tile), want_o)
+            check(fault > 10, f"flash {shape}: a skipped key tile {tile} is only {fault} of "
+                              f"o_tolerance")
+            row.setdefault("skipped_tile_over_tolerance", []).append([tile, fault])
     e = q.element_size()
     nbytes = (2 * b * s * h * d + 2 * b * s * kvh * d) * e + b * s * h * 4
     flops = 4.0 * b * h * d * visible_pairs(s, True, window, q_offset)
-    row = {"shape": [b, h, s, d], "kv_heads": kvh, "dtype": str(dtype).split(".")[1],
-           "window": window, "q_offset": q_offset, "max_abs_err": err, "tolerance": tol,
-           "lse_max_abs_err": lse_err,
-           "ms": time_ms(lambda: flash_attention_with_lse(q, k, v, **kw), (), device, iters),
-           "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, **kw), (), device,
-                               plain_iters),
-           "library_ms": None}
-    if not window and not q_offset:  # one PyTorch call computes the same function
+    row["ms"] = time_ms(lambda: flash_attention_with_lse(q, k, v, **kw), (), device, iters)
+    row["plain_ms"] = time_ms(lambda: flash_attention_plain(q, k, v, **kw), (), device,
+                              plain_iters)
+    row["library_ms"] = None
+    if not q_offset:  # one PyTorch call computes the same function
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        row["library_ms"] = time_ms(
-            lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                   enable_gqa=kvh != h), (), device, iters)
+        pos = torch.arange(s, device=device)
+        # causal: is_causal; a window: the (s, s) band as a boolean mask
+        band = dict(is_causal=True) if not window else dict(
+            attn_mask=(pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window))
+        library = lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=kvh != h, **band)
+        row["library_max_abs_err"] = max_abs_err(library().transpose(1, 2), want_o)
+        row["library_ms"] = time_ms(library, (), device, iters)
     row["bound_ms"], row["bound_by"] = bound(
         nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
     return row
@@ -663,8 +762,8 @@ def flash_rows(sizes: dict, device) -> dict:
     f32, bf16 = torch.float32, torch.bfloat16
     main_shape, serve_shape, big = sizes["b4_demo"], sizes["b4_serving"], sizes["b4_big"]
     row = flash_row(main_shape, f32, device, 50, 10)
-    row["serving"] = flash_row(serve_shape, bf16, device, 20, 5, seed=1)
-    row["at_scale"] = [flash_row(big, bf16, device, 5, 2, seed=2),
+    row["serving"] = flash_row(serve_shape, bf16, device, 20, 5, seed=1, plant=True)
+    row["at_scale"] = [flash_row(big, bf16, device, 5, 2, seed=2, plant=True),
                        flash_row(big, f32, device, 5, 2, seed=3)]
     s = big[2]
     row["variants"] = [
@@ -682,7 +781,8 @@ def run_model_path(sizes: dict, device, backend: str, card: str) -> tuple:
     print(f"model path: {json.dumps(launches)} launches; generate printed "
           f"{len(out) - 1 - sizes['gen_prompt']} characters after the prompt", flush=True)
     check_launched(launches, MODEL_KERNELS, device, "model path")
-    model = {"serving_f32": check_serving_f32(sizes, device),
+    model = {"cli_generate": {"launches": launches},
+             "serving_f32": check_serving_f32(sizes, device),
              "serving_bf16": time_serving_bf16(sizes, device, card)}
     row = flash_rows(sizes, device)
     print(f"phase 5 took {time.perf_counter() - t0:.1f} s", flush=True)
@@ -700,7 +800,7 @@ FULL_SIZES = {
     "lab1_n": 1000, "lab2_side": 1024, "lab3_side": 1024, "lab3_nc": 8,
     "b1_side": 8192, "b2_n": 2**26, "b3_side": 4096,
     "gen_prompt": 1024, "gen_steps": 32, "serving": SERVING, "serve_prompt": 1024,
-    "f32_steps": 16, "serve_batch": 8, "serve_steps": 64,
+    "f32_steps": 16, "serve_batch": 8, "serve_steps": 64, "decode_reps": 8,
     "b4_demo": (1, 8, 1024, 16), "b4_serving": (8, 8, 1024, 64), "b4_big": (8, 8, 4096, 64),
 }
 

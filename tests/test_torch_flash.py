@@ -6,10 +6,14 @@ Inputs are made from a seed with numpy and fed to both.  Tolerances:
 * float32: rtol = atol = 2e-5, as ``tests/test_flash.py`` holds the Pallas
   kernel to the dense oracle: the two sum the same products in another
   order, and exp and log differ by an ulp between XLA and PyTorch.
-* bfloat16: compared in float32, within one bf16 ulp of the output's
+* bfloat16: compared in float32, element by element, within
+  ``o_tolerance``: two bf16 ulps of the element plus two of its row's
   largest magnitude.  Both round p to bf16 before P.V and o to bf16 at the
   end, from f32 values that differ by f32 rounding, so an element can land
-  on the neighbouring bf16 value.
+  on the neighbouring bf16 value, and a p-rounding moves it by a fraction
+  of the row's ulp.  The same limit holds kernel B4 to its plain version on
+  the card; the last tests here show that it admits B4's tile-by-tile
+  recurrence and rejects that recurrence with one key tile skipped.
 """
 
 import math
@@ -27,6 +31,9 @@ from tpulab_torch.ops.cuda.attention import (
     flash_attention,
     flash_attention_plain,
     flash_attention_with_lse,
+    o_tolerance,
+    over_tolerance,
+    softmax_scale,
 )
 
 torch.set_num_threads(2)
@@ -54,11 +61,6 @@ def _torch(fn, arrays, dtype=torch.float32, **kw):
     if isinstance(out, tuple):
         return tuple(x.float().numpy() for x in out)
     return out.float().numpy()
-
-
-def _bf16_ulp(x: np.ndarray) -> float:
-    """One bfloat16 ulp at the largest magnitude of ``x``."""
-    return 2.0 ** (math.floor(math.log2(float(np.abs(x).max()))) - 7)
 
 
 @pytest.mark.parametrize("causal,s", [(True, 128), (False, 128), (True, 100),
@@ -121,7 +123,8 @@ def test_flash_bf16_matches_tpulab(causal, window):
     o, lse = flash_attention_with_lse(*(torch.from_numpy(a).to(torch.bfloat16) for a in qkv),
                                       causal=causal, window=window)
     assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
-    np.testing.assert_allclose(o.float().numpy(), want_o, rtol=0, atol=_bf16_ulp(want_o))
+    tol = o_tolerance(torch.from_numpy(want_o).to(torch.bfloat16)).numpy()
+    assert np.all(np.abs(o.float().numpy() - want_o) <= tol)
     # lse stays f32 from the same bf16 inputs: f32 tolerance
     np.testing.assert_allclose(lse.numpy(), want_lse, **F32_TOL)
 
@@ -172,3 +175,74 @@ def test_flash_plain_is_the_cpu_path():
     o, lse = flash_attention_with_lse(*qkv, window=20)
     po, plse = flash_attention_plain(*qkv, True, 20, 0)
     assert torch.equal(o, po) and torch.equal(lse, plse)
+
+
+def _tiled_recurrence(q, k, v, causal=True, window=0, q_offset=0, skip_tile=None):
+    """Kernel B4's recurrence in PyTorch: key tiles of 64 (32 at head_dim
+    128) in order, a running max, p rounded to v's dtype at that max, f32
+    accumulator and denominator rescaled at each tile.  ``skip_tile`` plants
+    a fault: rows past that tile do not see its keys."""
+    b, s, h, d = q.shape
+    bk = 64 if d <= 64 else 32
+    qs = (q.float() * softmax_scale(d)).to(q.dtype).float().transpose(1, 2)
+    kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)
+    q_pos = q_offset + torch.arange(s)[:, None]
+    m = torch.full((b, h, s, 1), -math.inf)
+    l, acc = torch.zeros(b, h, s, 1), torch.zeros(b, h, s, d)
+    for k0 in range(0, s, bk):
+        k_pos = torch.arange(k0, min(k0 + bk, s))[None, :]
+        keep = torch.ones(s, k_pos.shape[1], dtype=torch.bool)
+        if causal:
+            keep = k_pos <= q_pos
+            if window:
+                keep = keep & (k_pos > q_pos - window)
+        if skip_tile is not None and k0 == skip_tile * bk:
+            keep = keep & (q_pos < k0 + bk)
+        sc = (qs @ kf[:, :, k0:k0 + bk].transpose(-1, -2)).masked_fill(~keep, -math.inf)
+        m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
+        live = m_new > -math.inf
+        m_ref = torch.where(live, m_new, torch.zeros_like(m_new))
+        alpha = torch.where(live, torch.exp(m - m_ref), torch.ones_like(m))
+        p = torch.exp(sc - m_ref)
+        acc = acc * alpha + p.to(v.dtype).float() @ vf[:, :, k0:k0 + bk]
+        l = l * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+    o = torch.where(l > 0, acc / torch.where(l > 0, l, torch.ones_like(l)), torch.zeros_like(acc))
+    return o.transpose(1, 2).to(q.dtype)
+
+
+# (b, s, h, d, dtype, window, q_offset): the serving and demo prefills (one
+# batch row of each), a window and a query offset at 4096, head_dim 128
+TILED_CASES = [
+    (1, 1024, 8, 64, torch.bfloat16, 0, 0),
+    (1, 1024, 8, 16, torch.float32, 0, 0),
+    (1, 1024, 8, 16, torch.bfloat16, 0, 0),
+    (1, 4096, 2, 64, torch.bfloat16, 256, 0),
+    (1, 4096, 2, 64, torch.bfloat16, 1024, 4096),
+    (1, 1024, 4, 128, torch.bfloat16, 0, 0),
+]
+
+
+def _seeded(case):
+    b, s, h, d, dtype = case[:5]
+    rng = np.random.default_rng(s + d)
+    return [torch.from_numpy(rng.standard_normal((b, s, h, d), dtype=np.float32)).to(dtype)
+            for _ in range(3)]
+
+
+@pytest.mark.parametrize("case", TILED_CASES)
+def test_o_tolerance_admits_the_kernels_recurrence(case):
+    q, k, v = _seeded(case)
+    window, q_offset = case[5:]
+    want = flash_attention_plain(q, k, v, True, window, q_offset)[0]
+    assert over_tolerance(_tiled_recurrence(q, k, v, True, window, q_offset), want) <= 1
+
+
+@pytest.mark.parametrize("case,tile", [(TILED_CASES[0], 8), (TILED_CASES[0], 14),
+                                       (TILED_CASES[1], 14), (TILED_CASES[2], 14),
+                                       (TILED_CASES[3], 62), (TILED_CASES[4], 62)])
+def test_o_tolerance_rejects_a_skipped_key_tile(case, tile):
+    q, k, v = _seeded(case)
+    window, q_offset = case[5:]
+    want = flash_attention_plain(q, k, v, True, window, q_offset)[0]
+    assert over_tolerance(_tiled_recurrence(q, k, v, True, window, q_offset, tile), want) > 10

@@ -128,6 +128,40 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.permute(0, 2, 1, 3).to(q.dtype), lse[..., 0].permute(0, 2, 1).contiguous()
 
 
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """One bfloat16 ulp at each ``|x|`` (0 where ``x`` is 0), in f32."""
+    a = x.float().abs()
+    _, e = torch.frexp(a)  # a = m * 2**e with m in [0.5, 1)
+    return torch.where(a > 0, torch.ldexp(torch.ones_like(a), e - 8), torch.zeros_like(a))
+
+
+def o_tolerance(want_o: torch.Tensor) -> torch.Tensor:
+    """Per-element limit on ``|o - want_o|`` for ``o`` from the kernel and
+    ``want_o`` from :func:`flash_attention_plain` on the same inputs, in f32.
+
+    float32: ``2e-5 + 2e-5 * |want_o|``: the same products summed in
+    another order.  bfloat16: two bf16 ulps of the element plus two of
+    the largest ``|want_o|`` in its (batch, seq, head) row.  Both round p
+    to bf16, the kernel at each tile's running maximum and the plain
+    version at the row's, so an element moves by a few p-roundings of the
+    row's scale, and o's final rounding adds an ulp of its own.  A kernel
+    that drops or doubles one key tile for a late row misses by tens of
+    the row's ulps (pinned in ``tests/test_torch_flash.py``).
+    """
+    w = want_o.float()
+    if want_o.dtype == torch.float32:
+        return 2e-5 + 2e-5 * w.abs()
+    row = w.abs().amax(dim=-1, keepdim=True)
+    return 2 * bf16_ulp(w) + 2 * bf16_ulp(row)
+
+
+def over_tolerance(o: torch.Tensor, want_o: torch.Tensor) -> float:
+    """Largest ``|o - want_o|`` over its :func:`o_tolerance` (<= 1 passes;
+    a row with no visible key is 0 in both, where the limit is 0 too)."""
+    err = (o.float() - want_o.float()).abs()
+    return float(torch.where(err == 0, 0.0, err / o_tolerance(want_o)).max())
+
+
 def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              causal: bool = True, window: int = 0,
                              q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
