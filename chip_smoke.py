@@ -48,7 +48,34 @@ failure:
       stands beside its bound and beside ``scaled_dot_product_attention``
       (``is_causal``, or the window's band as a boolean mask) wherever
       that computes the same function.
-6. One ``{"model": {...}}`` line with phase 5's numbers, one
+6. The training path.  Each run of it is made with every launch count set
+   to 0 just before and read just after, and must launch B4 (flash
+   forward), B5 (flash dq) and B6 (flash dk, dv) once per layer of each
+   step, and no lab kernel; phase 5's serving runs must launch neither B5
+   nor B6:
+
+   a. ``tpulab_torch train`` through the CLI's entry point: the CLI's
+      labformer (d128, 8 heads, head_dim 16, 4 layers, float32), ``--seq
+      1024 --batch 2 --steps 4``: finite losses and the final JSON line;
+   b. the flagship training config (d512, 8 heads, head_dim 64, 8 layers,
+      d_ff 2048; ``tpulab/bench.py:142-149``) in float32 at batch 1, 1024
+      tokens, 3 adamw steps on the card and on the CPU (plain versions):
+      the losses of every step within ``TRAIN_LOSS_RTOL``, the first
+      step's gradients leaf by leaf within ``TRAIN_GRAD_REL`` of the
+      leaf's largest magnitude;
+   c. the same config in bfloat16 at batch 8, 2048 tokens: step ms (CUDA
+      events around each of 5 steps: the median and every step), tokens/s,
+      peak device memory, and one profiled step;
+   d. B5 and B6 against the plain backward, element by element within
+      ``grad_tolerance``, at (8, 8, 2048, 64) bfloat16 (the training step's
+      shape), at (8, 8, 4096, 64) in bfloat16 and float32, and with a
+      window, GQA and a query offset with an lse cotangent; at the
+      training shape the same limit must reject the plain backward with
+      one key tile skipped.  Their times stand beside their bounds, their
+      plain versions and the backward of ``scaled_dot_product_attention``
+      (``torch.autograd.grad`` of its output alone; dq, dk and dv
+      together), wherever that computes the same function.
+7. One ``{"model": {...}}`` line with phases 5 and 6's numbers, one
    ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -198,16 +225,22 @@ def make_inputs(sizes: dict, seed: int = 0) -> dict:
 
 LAB_KERNELS = ("roberts", "elementwise", "classify")
 MODEL_KERNELS = ("flash_fwd",)
+TRAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
 
 def counters() -> dict:
-    from tpulab_torch.ops.cuda.attention import flash_attention_with_lse
+    from tpulab_torch.ops.cuda.attention import (
+        flash_attention_bwd_dkv,
+        flash_attention_bwd_dq,
+        flash_attention_with_lse,
+    )
     from tpulab_torch.ops.cuda.classify import classify_u32
     from tpulab_torch.ops.cuda.elementwise import binary
     from tpulab_torch.ops.cuda.stencil import roberts_u32
 
     return {"roberts": roberts_u32, "elementwise": binary, "classify": classify_u32,
-            "flash_fwd": flash_attention_with_lse}
+            "flash_fwd": flash_attention_with_lse, "flash_dq": flash_attention_bwd_dq,
+            "flash_dkv": flash_attention_bwd_dkv}
 
 
 def zero_counts() -> dict:
@@ -223,16 +256,18 @@ def check_launched(launches: dict, names, device, path: str) -> None:
               f"kernel {name} was not launched on the {path}")
 
 
-def counted(fn, device, want_flash: int, path: str) -> tuple:
+def counted(fn, device, want: dict, path: str) -> tuple:
     """``fn()`` with every launch count set to 0 just before and read just
-    after; (its result, launches per kernel).  On the card the flash kernel
-    must have launched ``want_flash`` times and no lab kernel at all."""
+    after; (its result, launches per kernel).  On the card each flash kernel
+    must have launched as often as ``want`` says (absent: never), and no
+    lab kernel at all."""
     wrappers = zero_counts()
     result = fn()
     launches = {name: w.launches for name, w in wrappers.items()}
     if device.type == "cuda":
-        check(launches["flash_fwd"] == want_flash,
-              f"flash launches {launches['flash_fwd']} on the {path}, want {want_flash}")
+        for name in TRAIN_KERNELS:
+            check(launches[name] == want.get(name, 0),
+                  f"{name} launches {launches[name]} on the {path}, want {want.get(name, 0)}")
         check(all(launches[k] == 0 for k in LAB_KERNELS), f"lab kernels ran on the {path}: {launches}")
     return result, launches
 
@@ -462,6 +497,8 @@ def drive_model_path(sizes: dict, backend: str) -> tuple:
     want = demo_config().n_layers if sizes["gen_prompt"] >= 1024 else 0
     check(backend == "cpu" or launches["flash_fwd"] == want,
           f"flash launches {launches['flash_fwd']} on the CLI prefill, want {want}")
+    check(launches["flash_dq"] == launches["flash_dkv"] == 0,
+          f"a backward kernel ran while serving: {launches}")
     check(all(launches[k] == 0 for k in LAB_KERNELS), f"lab kernels ran: {launches}")
     return out, launches
 
@@ -503,8 +540,8 @@ def check_serving_f32(sizes: dict, device) -> dict:
     card = Labformer.from_numpy(params, cfg, device)
     # one prefill (B4 once per layer); the decode steps take no flash
     (dev_toks, dev_logits), launches = counted(
-        lambda: greedy_with_logits(card, prompt.to(device), steps), device, cfg.n_layers,
-        "serving f32 run")
+        lambda: greedy_with_logits(card, prompt.to(device), steps), device,
+        {"flash_fwd": cfg.n_layers}, "serving f32 run")
     err = float((dev_logits[:, 0] - cpu_logits[:, 0]).abs().max())
     check(err <= tol, f"f32 prefill logits differ from the CPU's by {err} > {tol}")
     top2 = cpu_logits.topk(2, dim=-1).values
@@ -630,12 +667,13 @@ def time_serving_bf16(sizes: dict, device, card: str) -> dict:
         check(bool(torch.isfinite(logits.float()).all()), "bf16 prefill logits are not finite")
         prefill_ms, launches["prefill"] = counted(
             lambda: event_ms(lambda: tgen._prefill(model, tp, p + steps), device), device,
-            3 * L, "bf16 prefill (3 timed calls)")
+            {"flash_fwd": 3 * L}, "bf16 prefill (3 timed calls)")
     decode, launches["decode"] = counted(lambda: decode_samples(model, tp, reps, n, device),
-                                         device, L, f"bf16 prefill and {reps}x{n} decode steps")
+                                         device, {"flash_fwd": L},
+                                         f"bf16 prefill and {reps}x{n} decode steps")
     gen_ms, launches["generate"] = counted(
         lambda: event_ms(lambda: tgen.generate(model, prompts, steps=steps, temperature=0.0),
-                         device), device, 3 * L, "bf16 generate (3 timed calls)")
+                         device), device, {"flash_fwd": 3 * L}, "bf16 generate (3 timed calls)")
     out = tgen.generate(model, prompts, steps=steps, temperature=0.0)
     check(out.shape == (b, steps) and out.min() >= 0 and out.max() < cfg.vocab,
           f"bf16 generate gave {out.shape} in [{out.min()}, {out.max()}]")
@@ -789,11 +827,264 @@ def run_model_path(sizes: dict, device, backend: str, card: str) -> tuple:
     return row, launches, model
 
 
+# ------------------------------------------------------------- training path
+
+#: the flagship training config (tpulab/bench.py:142-149,
+#: bench_labformer_train): the serving model's width
+TRAIN = dict(d_model=512, n_heads=8, n_layers=8, d_ff=2048)
+#: layers of the CLI trainer's labformer (tpulab_torch/train.py)
+TRAIN_CLI_LAYERS = 4
+#: card against CPU, f32: relative limit on each step's loss, and on each
+#: first-step gradient leaf's largest |card - CPU| over its largest |CPU|
+#: (the same sums in other orders through 8 layers and back)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_REL = 1e-3
+
+
+def drive_train_path(sizes: dict, backend: str) -> tuple:
+    """``tpulab_torch train`` through the CLI; (its losses, launches per kernel)."""
+    wrappers = zero_counts()
+    steps, seq = sizes["train_cli_steps"], sizes["train_cli_seq"]
+    out = cli(["train", "--backend", backend, "--seq", str(seq), "--batch",
+               str(sizes["train_cli_batch"]), "--steps", str(steps)], "")
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    lines = out.splitlines()
+    losses = [float(ln.split()[4]) for ln in lines if ln.startswith("[train] step")]
+    final = json.loads(lines[-1])
+    check(final["final_step"] == steps and len(losses) == steps
+          and all(np.isfinite(losses)) and np.isfinite(final["loss"]),
+          f"train printed {out[-600:]!r}")
+    want = steps * TRAIN_CLI_LAYERS if seq >= 1024 else 0
+    for name in TRAIN_KERNELS:
+        check(backend == "cpu" or launches[name] == want,
+              f"{name} launches {launches[name]} on the CLI training run, want {want}")
+    check(all(launches[k] == 0 for k in LAB_KERNELS), f"lab kernels ran: {launches}")
+    return losses, launches
+
+
+def check_train_f32(sizes: dict, device) -> dict:
+    """The flagship config in f32 on ``device`` against the port on the CPU."""
+    import torch
+
+    from tpulab_torch.models.labformer import LabformerConfig, init_train_state
+    from tpulab_torch.train import batches
+
+    b, s, steps = sizes["train_f32_batch"], sizes["train_f32_seq"], sizes["train_f32_steps"]
+    cfg = LabformerConfig(**sizes["train"], max_seq=s, dtype=torch.float32)
+    batch_at = batches(cfg.vocab, b, s, 0)
+
+    def run(dev):
+        model, state, step = init_train_state(cfg, None, seed=0, device=dev)
+        losses, grads = [], None
+        for i in range(steps):
+            model, state, loss = step(model, state, batch_at(i))
+            losses.append(float(loss))
+            if i == 0:
+                grads = model.to_numpy(grads=True)
+        return losses, grads
+
+    t0 = time.perf_counter()
+    cpu_losses, cpu_grads = run("cpu")
+    cpu_s = time.perf_counter() - t0
+    n = steps * cfg.n_layers
+    (losses, grads), launches = counted(lambda: run(device), device,
+                                        dict.fromkeys(TRAIN_KERNELS, n), "f32 training run")
+    loss_err = max(abs(a - w) / abs(w) for a, w in zip(losses, cpu_losses))
+    check(all(np.isfinite(losses)) and loss_err <= TRAIN_LOSS_RTOL,
+          f"f32 training losses {losses} differ from the CPU's {cpu_losses}")
+    flat = lambda tree: {**{f"blocks/{k}": v for k, v in tree["blocks"].items()},
+                         **{k: v for k, v in tree.items() if k != "blocks"}}
+    ratios = {}
+    for name, want in flat(cpu_grads).items():
+        got = flat(grads)[name].astype(np.float64)
+        want = want.astype(np.float64)
+        ratios[name] = float(np.abs(got - want).max() / (TRAIN_GRAD_REL * np.abs(want).max()))
+    worst = max(ratios, key=ratios.get)
+    check(ratios[worst] <= 1, f"f32 first-step gradient {worst} differs from the CPU's by "
+                              f"{ratios[worst]} of its limit")
+    print(f"training f32 b{b} s{s}: {steps} steps, losses {losses} (CPU {cpu_losses}, worst "
+          f"relative difference {loss_err:.3e}); first-step gradients within "
+          f"{ratios[worst]:.4f} of their limit at worst ({worst}); CPU run {cpu_s:.1f} s; "
+          f"launches {json.dumps(launches)}", flush=True)
+    return {"losses": losses, "cpu_losses": cpu_losses, "loss_max_rel_err": loss_err,
+            "grad_worst_leaf": worst, "grad_err_over_limit": ratios[worst],
+            "loss_rtol": TRAIN_LOSS_RTOL, "grad_rel": TRAIN_GRAD_REL, "launches": launches}
+
+
+def time_train_bf16(sizes: dict, device, card: str) -> dict:
+    """Step ms, tokens/s and one profiled step of the flagship config in bf16."""
+    import statistics
+
+    import torch
+
+    from tpulab_torch.models.labformer import LabformerConfig, init_train_state
+    from tpulab_torch.train import batches
+
+    b, s, n = sizes["train_batch"], sizes["train_seq"], sizes["train_steps"]
+    cfg = LabformerConfig(**sizes["train"], max_seq=s, dtype=torch.bfloat16)
+    model, state, step = init_train_state(cfg, None, seed=0, device=device)
+    batch_at = batches(cfg.vocab, b, s, 0)
+    tokens = [model.tokens(batch_at(i)) for i in range(n + 2)]
+    losses = [float(step(model, state, tokens[0])[2])]  # warm-up
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+    def timed_steps():
+        samples = []
+        for i in range(n):
+            if device.type == "cuda":
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+            t0 = time.perf_counter()
+            loss = step(model, state, tokens[1 + i])[2]
+            if device.type == "cuda":
+                end.record()
+                end.synchronize()
+                samples.append(start.elapsed_time(end))
+            else:
+                samples.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(loss))
+        return samples
+
+    samples, launches = counted(timed_steps, device,
+                                dict.fromkeys(TRAIN_KERNELS, n * cfg.n_layers),
+                                f"{n} bf16 training steps")
+    check(all(np.isfinite(losses)), f"bf16 training losses {losses}")
+    step_ms = statistics.median(samples)
+    peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+    prof = profile_window(lambda: step(model, state, tokens[-1]), device)
+    print(f"training bf16 b{b} s{s}: step {step_ms:.6f} ms, median of {n} (min "
+          f"{min(samples):.6f}, max {max(samples):.6f}; "
+          f"{', '.join(f'{x:.6f}' for x in samples)}), {b * s / (step_ms / 1e3):.1f} tokens/s, "
+          f"peak memory {peak} bytes ({card}); losses {losses}; launches "
+          f"{json.dumps(launches)}", flush=True)
+    print(f"profile training step: {json.dumps(prof)}", flush=True)
+    return {"step_ms": step_ms, "step_ms_runs": samples, "tokens_per_s": b * s / (step_ms / 1e3),
+            "batch": b, "seq": s, "losses": losses, "peak_memory_bytes": peak,
+            "launches": launches, "profile": prof}
+
+
+def bwd_rows(shape, dtype, device, iters, plain_iters, *, kvh=None, window=0, q_offset=0,
+             seed=0, plant=False) -> tuple:
+    """B5 and B6 against the plain backward at one shape, with their times
+    and bounds: (the dq row, the dk/dv row).  With ``plant``, also check
+    that the tolerance rejects a backward that skips one key tile."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpulab_torch.ops.cuda import attention as A
+
+    b, h, s, d = shape
+    kvh = kvh or h
+    rng = np.random.default_rng(seed)
+    make = lambda *sh: torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(device,
+                                                                                       dtype)
+    q, k, v, do = make(b, s, h, d), make(b, s, kvh, d), make(b, s, kvh, d), make(b, s, h, d)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    o, lse = A.flash_attention_with_lse(q, k, v, **kw)
+    dlse = None
+    if q_offset:  # a cotangent on lse, as ring attention gives it
+        dlse = torch.from_numpy(rng.standard_normal((b, s, h), dtype=np.float32)).to(device)
+    delta = A.bwd_delta(o, do, dlse)
+    keep = A.visible(s, True, window, q_offset, device)
+    want = A.flash_bwd_plain_masked(q, k, v, do, lse, delta, keep)
+    dq = A.flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = A.flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    base = {"shape": [b, h, s, d], "kv_heads": kvh, "dtype": str(dtype).split(".")[1],
+            "window": window, "q_offset": q_offset, "lse_cotangent": dlse is not None,
+            "tolerance": "grad_tolerance (tpulab_torch/ops/cuda/attention.py)"}
+    rows = ({**base}, {**base})
+    for row, names, got, wanted in ((rows[0], ("dq",), (dq,), want[:1]),
+                                    (rows[1], ("dk", "dv"), (dk, dv), want[1:])):
+        row["max_abs_err"] = max(max_abs_err(g, w) for g, w in zip(got, wanted))
+        for name, g, w in zip(names, got, wanted):
+            ratio = A.grad_over_tolerance(g, w)
+            check(bool(torch.isfinite(g.float()).all()) and ratio <= 1,
+                  f"flash backward {shape} {dtype}: {name} reaches {ratio} of grad_tolerance")
+            row[f"{name}_err_over_tolerance"] = ratio
+    if plant:  # the same limit must reject a backward that skips one key tile
+        pos = torch.arange(s, device=device)
+        for tile in (s // 128, s // 64 - 2):
+            hide = (pos[None, :] // 64 == tile) & (pos[:, None] >= (tile + 1) * 64)
+            bad = A.flash_bwd_plain_masked(q, k, v, do, lse, delta, keep & ~hide)
+            faults = [A.grad_over_tolerance(x, w) for x, w in zip(bad, want)]
+            check(min(faults) > 10, f"flash backward {shape}: a skipped key tile {tile} is "
+                                    f"only {faults} of grad_tolerance")
+            rows[0].setdefault("skipped_tile_over_tolerance", []).append([tile, faults[0]])
+            rows[1].setdefault("skipped_tile_over_tolerance", []).append([tile, *faults[1:]])
+            del bad
+    del want
+    e = q.element_size()
+    pairs = visible_pairs(s, True, window, q_offset)
+    operands = (2 * b * s * h * d + 2 * b * s * kvh * d) * e + 2 * b * s * h * 4
+    args = (q, k, v, do, lse, delta)
+    rows[0]["ms"] = time_ms(lambda: A.flash_attention_bwd_dq(*args, **kw), (), device, iters)
+    rows[1]["ms"] = time_ms(lambda: A.flash_attention_bwd_dkv(*args, **kw), (), device, iters)
+    rows[0]["plain_ms"] = time_ms(lambda: A.flash_bwd_plain_masked(*args, keep, want_dkv=False),
+                                  (), device, plain_iters)
+    rows[1]["plain_ms"] = time_ms(lambda: A.flash_bwd_plain_masked(*args, keep, want_dq=False),
+                                  (), device, plain_iters)
+    library_ms = None
+    if not q_offset:  # one PyTorch call computes the same gradient
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        band = dict(is_causal=True) if not window else dict(attn_mask=keep)
+        out = F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=kvh != h, **band)
+        dot = do.transpose(1, 2)
+        library = lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+        rows[0]["library_dq_max_abs_err"] = max_abs_err(library()[0].transpose(1, 2), dq)
+        library_ms = time_ms(library, (), device, iters)
+        del out
+    bf = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+    for row, nbytes, flops in ((rows[0], operands + b * s * h * d * e, 6.0 * d * pairs * b * h),
+                               (rows[1], operands + 2 * b * s * kvh * d * e,
+                                8.0 * d * pairs * b * h)):
+        row["library_ms"] = library_ms
+        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, bf)
+    return rows
+
+
+def bwd_kernel_rows(sizes: dict, device) -> tuple:
+    """(the B5 row, the B6 row) for the kernels line."""
+    import torch
+
+    f32, bf16 = torch.float32, torch.bfloat16
+    main_shape, big = sizes["b5_main"], sizes["b5_big"]
+    dq, dkv = bwd_rows(main_shape, bf16, device, 10, 3, seed=11, plant=True)
+    s = big[2]
+    for key, runs in (("at_scale", [dict(dtype=bf16, seed=12), dict(dtype=f32, seed=13)]),
+                      ("variants", [dict(dtype=bf16, window=256, seed=14),
+                                    dict(dtype=bf16, kvh=2, seed=15),
+                                    dict(dtype=bf16, window=s // 4, q_offset=s, seed=16)])):
+        for run in runs:
+            a, b = bwd_rows(big, run.pop("dtype"), device, 3, 2, **run)
+            dq.setdefault(key, []).append(a)
+            dkv.setdefault(key, []).append(b)
+    return dq, dkv
+
+
+def run_train_path(sizes: dict, device, backend: str, card: str) -> tuple:
+    """Phase 6: (the B5 row, the B6 row, their launches, the training numbers)."""
+    t0 = time.perf_counter()
+    losses, launches = drive_train_path(sizes, backend)
+    print(f"training path: {json.dumps(launches)} launches; CLI losses {losses}", flush=True)
+    check_launched(launches, TRAIN_KERNELS, device, "training path")
+    training = {"cli_train": {"launches": launches, "losses": losses},
+                "train_f32": check_train_f32(sizes, device),
+                "train_bf16": time_train_bf16(sizes, device, card)}
+    dq, dkv = bwd_kernel_rows(sizes, device)
+    print(f"phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return dq, dkv, launches, training
+
+
 KERNEL_META = {
     "roberts": ("tpulab_torch/csrc/stencil.cu", "tpulab/ops/pallas/stencil.py:82"),
     "elementwise": ("tpulab_torch/csrc/elementwise.cu", "tpulab/ops/pallas/elementwise.py:57"),
     "classify": ("tpulab_torch/csrc/classify.cu", "tpulab/ops/pallas/classify.py:83"),
     "flash_fwd": ("tpulab_torch/csrc/flash_fwd.cu", "tpulab/ops/pallas/attention.py:215"),
+    "flash_dq": ("tpulab_torch/csrc/flash_bwd.cu", "tpulab/ops/pallas/attention.py:435"),
+    "flash_dkv": ("tpulab_torch/csrc/flash_bwd.cu", "tpulab/ops/pallas/attention.py:458"),
 }
 
 FULL_SIZES = {
@@ -802,11 +1093,15 @@ FULL_SIZES = {
     "gen_prompt": 1024, "gen_steps": 32, "serving": SERVING, "serve_prompt": 1024,
     "f32_steps": 16, "serve_batch": 8, "serve_steps": 64, "decode_reps": 8,
     "b4_demo": (1, 8, 1024, 16), "b4_serving": (8, 8, 1024, 64), "b4_big": (8, 8, 4096, 64),
+    "train_cli_seq": 1024, "train_cli_batch": 2, "train_cli_steps": 4, "train": TRAIN,
+    "train_f32_batch": 1, "train_f32_seq": 1024, "train_f32_steps": 3,
+    "train_batch": 8, "train_seq": 2048, "train_steps": 5,
+    "b5_main": (8, 8, 2048, 64), "b5_big": (8, 8, 4096, 64),
 }
 
 
 def run(device, sizes: dict, backend: str, card: str = "cpu") -> dict:
-    """Phases 2 to 5 on ``device``; the ``kernels`` payload."""
+    """Phases 2 to 6 on ``device``; the ``kernels`` and ``model`` payloads."""
     t0 = time.perf_counter()
     inp = make_inputs(sizes)
     outs, launches = drive_main_path(inp, backend)
@@ -821,6 +1116,10 @@ def run(device, sizes: dict, backend: str, card: str = "cpu") -> dict:
     print(f"phases 2-4 took {time.perf_counter() - t0:.1f} s", flush=True)
     rows["flash_fwd"], model_launches, model = run_model_path(sizes, device, backend, card)
     launches["flash_fwd"] = model_launches["flash_fwd"]
+    rows["flash_dq"], rows["flash_dkv"], train_launches, model["training"] = run_train_path(
+        sizes, device, backend, card)
+    launches["flash_dq"] = train_launches["flash_dq"]
+    launches["flash_dkv"] = train_launches["flash_dkv"]
     kernels = []
     for name, row in rows.items():
         source, replaces = KERNEL_META[name]

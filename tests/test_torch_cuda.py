@@ -13,8 +13,13 @@ import torch
 from tpulab_torch.ops.cuda import _build
 from tpulab_torch.ops.cuda.attention import (
     HEAD_DIMS,
+    bwd_delta,
+    flash_attention_bwd_dkv,
+    flash_attention_bwd_dq,
+    flash_attention_bwd_plain,
     flash_attention_plain,
     flash_attention_with_lse,
+    grad_over_tolerance,
     over_tolerance,
 )
 from tpulab_torch.ops.cuda.classify import classify_u32, classify_u32_plain, pack_stats
@@ -187,15 +192,103 @@ def test_flash_gqa_equals_repeated_call_on_card(cuda_device):
 @pytest.mark.parametrize("what", ["head_dim", "dtype", "requires_grad"])
 def test_flash_kernel_refuses_before_launch(cuda_device, what):
     q, k, v = _flash_inputs((1, 64, 2, 2), 32, torch.float32, cuda_device)
-    exc = ValueError
     if what == "head_dim":
         q, k, v = q[..., :24], k[..., :24], v[..., :24]
     elif what == "dtype":
         q, k, v = q.half(), k.half(), v.half()
-    else:
+    else:  # the autograd path makes the same checks before B4 launches
+        q, k, v = q[..., :24], k[..., :24], v[..., :24]
         q.requires_grad_(True)
-        exc = NotImplementedError
     before = flash_attention_with_lse.launches
-    with pytest.raises(exc):
+    with pytest.raises(ValueError):
         flash_attention_with_lse(q, k, v)
     assert flash_attention_with_lse.launches == before
+
+
+def _bwd_inputs(case, d, dtype, device):
+    """q, k, v, o, lse from the plain forward, and cotangents do, dlse
+    (dlse only with a query offset, as ring attention gives it)."""
+    q, k, v = _flash_inputs(case, d, dtype, device)
+    causal, window, q_offset = case[4:]
+    o, lse = flash_attention_plain(q, k, v, causal, window, q_offset)
+    rng = np.random.default_rng(d + 1)
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).to(device, dtype)
+    dlse = None
+    if q_offset:
+        dlse = torch.from_numpy(rng.standard_normal(lse.shape).astype(np.float32)).to(device)
+    return q, k, v, o, lse, do, dlse
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_bwd_kernels_match_plain(cuda_device, dtype, d, case):
+    """B5 (dq) and B6 (dk, dv) element by element within grad_tolerance of
+    the plain backward: f32 2e-5 of the element, of its row's and of its
+    (batch, head)'s largest magnitude (sums in another order, rows that
+    cancel); bf16 two bf16 ulps of the element and two of its row's largest
+    magnitude (p and ds round to bf16 from f32 values that differ by f32
+    rounding), plus the same 2e-5 of the head's."""
+    q, k, v, o, lse, do, dlse = _bwd_inputs(case, d, dtype, cuda_device)
+    kw = dict(zip(("causal", "window", "q_offset"), case[4:]))
+    delta = bwd_delta(o, do, dlse)
+    before = (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert (flash_attention_bwd_dq.launches, flash_attention_bwd_dkv.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = flash_attention_bwd_plain(q, k, v, o, lse, do, dlse, **kw)
+    for got, w, name in zip((dq, dk, dv), want, ("dq", "dk", "dv")):
+        assert got.dtype == dtype and got.shape == w.shape, name
+        assert torch.isfinite(got.float()).all(), name
+        assert grad_over_tolerance(got, w) <= 1, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_runs_b4_b5_b6(cuda_device, dtype):
+    q, k, v, _, _, do, dlse = _bwd_inputs((2, 256, 8, 2, True, 0, 0), 64, dtype, cuda_device)
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    before = [f.launches for f in (flash_attention_with_lse, flash_attention_bwd_dq,
+                                   flash_attention_bwd_dkv)]
+    o, lse = flash_attention_with_lse(q, k, v)
+    dlse = torch.randn(lse.shape, device=cuda_device, generator=torch.Generator(
+        cuda_device).manual_seed(0))
+    got = torch.autograd.grad((o, lse), (q, k, v), (do, dlse))
+    torch.cuda.synchronize()
+    after = [f.launches for f in (flash_attention_with_lse, flash_attention_bwd_dq,
+                                  flash_attention_bwd_dkv)]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    want = flash_attention_bwd_plain(q.detach(), k.detach(), v.detach(), o.detach(),
+                                     lse.detach(), do, dlse)
+    for g, w in zip(got, want):
+        assert grad_over_tolerance(g, w) <= 1
+    with pytest.raises(RuntimeError):  # no second-order gradient
+        gq = torch.autograd.grad(flash_attention_with_lse(q, k, v)[0].sum(), q,
+                                 create_graph=True)[0]
+        gq.sum().backward()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", [False, True])
+def test_train_step_launches_per_layer(cuda_device, remat):
+    """One step of a flash labformer launches B5 and B6 once per layer, and
+    B4 once per layer, twice with remat (the backward recomputes each
+    block); serving under inference_mode launches no backward kernel."""
+    from tpulab_torch.models.generate import generate
+    from tpulab_torch.models.labformer import LabformerConfig, init_train_state
+
+    cfg = LabformerConfig(d_model=64, n_heads=4, n_layers=3, d_ff=128, max_seq=64,
+                          attn_impl="flash", remat=remat)
+    model, state, step = init_train_state(cfg, None, seed=0, device=cuda_device)
+    tokens = np.random.default_rng(0).integers(0, 256, (2, 65)).astype(np.int32)
+    kernels = (flash_attention_with_lse, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+    before = [f.launches for f in kernels]
+    loss = float(step(model, state, tokens)[2])
+    assert np.isfinite(loss)
+    assert [f.launches - b for f, b in zip(kernels, before)] == [3 * (1 + remat), 3, 3]
+    before = [f.launches for f in kernels]
+    generate(model, tokens[:, :8], steps=2, temperature=0.0)
+    assert [f.launches - b for f, b in zip(kernels[1:], before[1:])] == [0, 0]

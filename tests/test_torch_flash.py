@@ -160,9 +160,12 @@ def test_flash_refuses_what_the_kernel_cannot_take(what):
     elif what == "dtype":
         q, k, v = q.half(), k.half(), v.half()
         exc = ValueError
-    elif what == "requires_grad":
+    elif what == "requires_grad":  # first-order gradients run (B5, B6); a second is refused
         q.requires_grad_(True)
-        exc = NotImplementedError
+        gq = torch.autograd.grad(flash_attention(q, k, v).sum(), q, create_graph=True)[0]
+        with pytest.raises(RuntimeError):
+            gq.sum().backward()
+        return
     else:
         k, v = k[:, :, :3], v[:, :, :3]
         exc = ValueError

@@ -4,6 +4,7 @@ Subcommands:
     tpulab_torch info              device introspection (gpu_info)
     tpulab_torch run <workload>    run a workload over the stdin/stdout protocol
     tpulab_torch generate          byte-level sampling from the labformer demo model
+    tpulab_torch train             train the labformer (flash backward: kernels B5, B6)
 
 ``python -m tpulab_torch`` routes here as well.  Work runs on the CUDA
 card unless ``--backend cpu`` asks for the host.
@@ -34,6 +35,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     sub.add_parser("generate", help="sample bytes from the labformer demo model",
                    add_help=False)
+    sub.add_parser("train", help="train the labformer", add_help=False)
 
     args, extra = parser.parse_known_args(argv)
 
@@ -54,6 +56,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         from tpulab_torch.models.generate import main as gen_main
 
         return gen_main(extra)
+
+    if args.command == "train":
+        from tpulab_torch.train import main as train_main
+
+        return train_main(extra)
 
     parser.print_help()
     return 2

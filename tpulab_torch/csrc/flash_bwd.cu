@@ -1,0 +1,383 @@
+// Kernels B5 and B6: the flash-attention backward over (batch, seq, heads,
+// head_dim), the gradient of kernel B4 (csrc/flash_fwd.cu).
+//
+// B5 replaces tpulab/ops/pallas/attention.py::_flash_bwd_dq_kernel and B6
+// replaces _flash_bwd_dkv_kernel, both reached through _flash_bwd_call.
+// With q' = q * (1/sqrt(d)) rounded to q's dtype (the forward's prescale),
+// s = q'.k, p = exp(s - lse), dp = do.v and ds = p * (dp - delta), where
+// delta = rowsum(do * o) - dlse comes in from the wrapper:
+//   B5: dq' = sum_k ds * k, then dq = dq' * (1/sqrt(d)) in f32 rounded to
+//       q's dtype: the chain autodiff gives the prescale, which tpulab
+//       applies outside its custom_vjp and the port inside B4;
+//   B6: dv = sum_q p * do, dk = sum_q ds * q'.
+// Numerics follow the Pallas kernels: scores from the model-dtype q' and k
+// summed in f32, p in f32 with masked positions set to 0 (never exp of a
+// -inf lse), ds and p rounded to the operand dtype before their products,
+// f32 accumulators, one rounding to the model dtype at the end.
+//
+// Blocks run in parallel, so the Pallas grids' sequential axes become loops
+// inside a block: B5 has one block per (64-query tile, batch*head) and
+// walks the key tiles; B6 has one block per (64-key tile, batch*kv_head)
+// and walks the query tiles of every query head of its GQA group, so dk
+// and dv come out at kv width, summed over the group in f32, with no
+// atomics.  Each row lives in registers of TPR threads (flash_common.cuh);
+// the tile that every row of the block reads is staged in shared memory as
+// f32.  Tiles no row can see are never loaded (the Pallas kernels'
+// _block_edges, at this kernel's tile size), and tiles that every row sees
+// whole skip the positional mask.  No padding: positions past the sequence
+// end are masked.
+//
+// Bound: operations at the model path's shapes (B5 6*d and B6 8*d flops per
+// visible (query, key) pair, against ~4 reads of (s, d) per head).  Like B4
+// these first kernels run on the f32 FMA pipes, not the tensor cores.
+
+#include "flash_common.cuh"
+
+#include <math.h>
+
+namespace {
+
+using namespace tl_flash;
+
+template <int D, typename T>
+__global__ void __launch_bounds__(Geometry<D>::THREADS)
+flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                    const T* __restrict__ dout, const float* __restrict__ lse,
+                    const float* __restrict__ delta, T* __restrict__ dq, int s, int h, int kvh,
+                    float scale, int causal, int window, int q_offset) {
+  using G = Geometry<D>;
+  constexpr int TPR = G::TPR, DPT = G::DPT, CPT = G::CPT, BK = G::BK, NC = D / 4;
+  __shared__ float4 ks[BK][NC];
+  __shared__ float4 vs[BK][NC];
+  float* ksf = reinterpret_cast<float*>(ks);
+  float* vsf = reinterpret_cast<float*>(vs);
+
+  const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
+  const int bi = blockIdx.y / h;
+  const int hi = blockIdx.y % h;
+  const int kh = hi / (h / kvh);
+  const int row = threadIdx.x / TPR;
+  const int t = threadIdx.x % TPR;
+  const int qi = qt * BQ + row;
+  const long long qpos = static_cast<long long>(q_offset) + qi;
+  // this row's index in the (batch, seq, heads) layout of q, do, lse, delta
+  const long long r = (static_cast<long long>(bi) * s + min(qi, s - 1)) * h + hi;
+
+  float qr[DPT], dor[DPT], acc[DPT];
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const long long at = r * D + (c * TPR + t) * 4 + e;
+      qr[c * 4 + e] = prescaled<T>(q[at], scale);
+      dor[c * 4 + e] = to_f32<T>(dout[at]);
+      acc[c * 4 + e] = 0.0f;
+    }
+  }
+  const float row_lse = lse[r];
+  const float row_delta = delta[r];
+
+  // the keys this query tile can see (the forward's range)
+  const long long q_lo = static_cast<long long>(q_offset) + qt * BQ;
+  const long long q_hi = static_cast<long long>(q_offset) + min(qt * BQ + BQ, s) - 1;
+  long long k_begin = 0, k_end = s - 1;  // inclusive
+  if (causal) {
+    k_end = min(k_end, q_hi);
+    if (window > 0) k_begin = max(0LL, q_lo - window + 1);
+  }
+  const int kt_begin = static_cast<int>(k_begin / BK);
+  const int kt_end = k_end >= k_begin ? static_cast<int>(k_end / BK) + 1 : kt_begin;
+
+  const long long kv_row = static_cast<long long>(kvh) * D;  // elements between keys
+  const T* kbase = k + static_cast<long long>(bi) * s * kv_row + kh * D;
+  const T* vbase = v + static_cast<long long>(bi) * s * kv_row + kh * D;
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // every row is done with the previous tile
+    for (int e = threadIdx.x; e < BK * D; e += G::THREADS) {
+      const int j = e / D;
+      const int dd = e % D;
+      const int kj = k0 + j;
+      float kx = 0.0f, vx = 0.0f;
+      if (kj < s) {
+        kx = to_f32<T>(kbase[kj * kv_row + dd]);
+        vx = to_f32<T>(vbase[kj * kv_row + dd]);
+      }
+      ksf[j * D + dd] = kx;
+      vsf[j * D + dd] = vx;
+    }
+    __syncthreads();
+
+    // a tile inside every row's range needs no positional mask
+    const bool full = k0 + BK <= s &&
+                      (!causal || (k0 + BK - 1 <= q_lo && (window == 0 || k0 > q_hi - window)));
+#pragma unroll 4
+    for (int j = 0; j < BK; ++j) {
+      float sp = 0.0f, dpp = 0.0f;
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const float4 kk = ks[j][c * TPR + t];
+        const float4 vv = vs[j][c * TPR + t];
+        sp = fmaf(qr[c * 4 + 0], kk.x, sp);
+        sp = fmaf(qr[c * 4 + 1], kk.y, sp);
+        sp = fmaf(qr[c * 4 + 2], kk.z, sp);
+        sp = fmaf(qr[c * 4 + 3], kk.w, sp);
+        dpp = fmaf(dor[c * 4 + 0], vv.x, dpp);
+        dpp = fmaf(dor[c * 4 + 1], vv.y, dpp);
+        dpp = fmaf(dor[c * 4 + 2], vv.z, dpp);
+        dpp = fmaf(dor[c * 4 + 3], vv.w, dpp);
+      }
+      sp = row_sum<TPR>(sp);
+      dpp = row_sum<TPR>(dpp);
+      bool keep = true;
+      if (!full) {
+        const long long kp = k0 + j;
+        keep = kp < s;
+        if (causal) {
+          keep = keep && kp <= qpos;
+          if (window > 0) keep = keep && kp > qpos - window;
+        }
+      }
+      const float p = keep ? expf(sp - row_lse) : 0.0f;
+      const float ds = round_to<T>(p * (dpp - row_delta));
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        const float4 kk = ks[j][c * TPR + t];
+        acc[c * 4 + 0] = fmaf(ds, kk.x, acc[c * 4 + 0]);
+        acc[c * 4 + 1] = fmaf(ds, kk.y, acc[c * 4 + 1]);
+        acc[c * 4 + 2] = fmaf(ds, kk.z, acc[c * 4 + 2]);
+        acc[c * 4 + 3] = fmaf(ds, kk.w, acc[c * 4 + 3]);
+      }
+    }
+  }
+
+  if (qi < s) {
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float dq_scaled = __fmul_rn(round_to<T>(acc[c * 4 + e]), scale);
+        dq[r * D + (c * TPR + t) * 4 + e] = from_f32<T>(dq_scaled);
+      }
+    }
+  }
+}
+
+template <int D, typename T>
+__global__ void __launch_bounds__(Geometry<D>::THREADS)
+flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                     int s, int h, int kvh, float scale, int causal, int window, int q_offset) {
+  using G = Geometry<D>;
+  constexpr int TPR = G::TPR, DPT = G::DPT, CPT = G::CPT, BT = G::BK, NC = D / 4;
+  __shared__ float4 qs[BT][NC];
+  __shared__ float4 dos[BT][NC];
+  __shared__ float lses[BT];
+  __shared__ float deltas[BT];
+  float* qsf = reinterpret_cast<float*>(qs);
+  float* dosf = reinterpret_cast<float*>(dos);
+
+  const int kt = blockIdx.x;  // the first key tiles see the most causal query tiles
+  const int bi = blockIdx.y / kvh;
+  const int kh = blockIdx.y % kvh;
+  const int group = h / kvh;
+  const int row = threadIdx.x / TPR;
+  const int t = threadIdx.x % TPR;
+  const int kj = kt * BQ + row;
+  // this key's index in the (batch, seq, kv_heads) layout of k, v, dk, dv
+  const long long rk = (static_cast<long long>(bi) * s + min(kj, s - 1)) * kvh + kh;
+
+  float kr[DPT], vr[DPT], dk_acc[DPT], dv_acc[DPT];
+#pragma unroll
+  for (int c = 0; c < CPT; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const long long at = rk * D + (c * TPR + t) * 4 + e;
+      kr[c * 4 + e] = to_f32<T>(k[at]);
+      vr[c * 4 + e] = to_f32<T>(v[at]);
+      dk_acc[c * 4 + e] = 0.0f;
+      dv_acc[c * 4 + e] = 0.0f;
+    }
+  }
+
+  // the query rows that see some key of this tile
+  const long long k_lo = static_cast<long long>(kt) * BQ;
+  const long long k_hi = k_lo + BQ - 1;
+  long long i_begin = 0, i_end = s - 1;  // inclusive, query row indices
+  if (causal) {
+    i_begin = max(0LL, k_lo - q_offset);
+    if (window > 0) i_end = min(i_end, min(k_hi, s - 1LL) + window - 1 - q_offset);
+  }
+  const int qt_begin = static_cast<int>(i_begin / BT);
+  const int qt_end = i_end >= i_begin ? static_cast<int>(i_end / BT) + 1 : qt_begin;
+
+  for (int hi = kh * group; hi < kh * group + group; ++hi) {
+    for (int qt = qt_begin; qt < qt_end; ++qt) {
+      const int q0 = qt * BT;
+      __syncthreads();  // every row is done with the previous tile
+      for (int e = threadIdx.x; e < BT * D; e += G::THREADS) {
+        const int i = e / D;
+        const int dd = e % D;
+        const int qi = q0 + i;
+        float qx = 0.0f, dx = 0.0f;
+        if (qi < s) {
+          const long long at = ((static_cast<long long>(bi) * s + qi) * h + hi) * D + dd;
+          qx = prescaled<T>(q[at], scale);
+          dx = to_f32<T>(dout[at]);
+        }
+        qsf[i * D + dd] = qx;
+        dosf[i * D + dd] = dx;
+      }
+      for (int i = threadIdx.x; i < BT; i += G::THREADS) {
+        const int qi = q0 + i;
+        float l = 0.0f, dl = 0.0f;
+        if (qi < s) {
+          const long long rq = (static_cast<long long>(bi) * s + qi) * h + hi;
+          l = lse[rq];
+          dl = delta[rq];
+        }
+        lses[i] = l;
+        deltas[i] = dl;
+      }
+      __syncthreads();
+
+      // a tile whose every query row sees every key of this block needs no mask
+      const long long q_lo = static_cast<long long>(q_offset) + q0;
+      const long long q_hi = q_lo + BT - 1;
+      const bool full = q0 + BT <= s &&
+                        (!causal || (k_hi <= q_lo && (window == 0 || k_lo > q_hi - window)));
+#pragma unroll 4
+      for (int i = 0; i < BT; ++i) {
+        float sp = 0.0f, dpp = 0.0f;
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          const float4 qq = qs[i][c * TPR + t];
+          const float4 dd = dos[i][c * TPR + t];
+          sp = fmaf(qq.x, kr[c * 4 + 0], sp);
+          sp = fmaf(qq.y, kr[c * 4 + 1], sp);
+          sp = fmaf(qq.z, kr[c * 4 + 2], sp);
+          sp = fmaf(qq.w, kr[c * 4 + 3], sp);
+          dpp = fmaf(dd.x, vr[c * 4 + 0], dpp);
+          dpp = fmaf(dd.y, vr[c * 4 + 1], dpp);
+          dpp = fmaf(dd.z, vr[c * 4 + 2], dpp);
+          dpp = fmaf(dd.w, vr[c * 4 + 3], dpp);
+        }
+        sp = row_sum<TPR>(sp);
+        dpp = row_sum<TPR>(dpp);
+        bool keep = true;
+        if (!full) {
+          const int qi = q0 + i;
+          keep = qi < s;
+          if (causal) {
+            const long long qpos = static_cast<long long>(q_offset) + qi;
+            keep = keep && kj <= qpos;
+            if (window > 0) keep = keep && kj > qpos - window;
+          }
+        }
+        const float p = keep ? expf(sp - lses[i]) : 0.0f;
+        const float ds = p * (dpp - deltas[i]);
+        const float pr = round_to<T>(p);
+        const float dsr = round_to<T>(ds);
+#pragma unroll
+        for (int c = 0; c < CPT; ++c) {
+          const float4 qq = qs[i][c * TPR + t];
+          const float4 dd = dos[i][c * TPR + t];
+          dv_acc[c * 4 + 0] = fmaf(pr, dd.x, dv_acc[c * 4 + 0]);
+          dv_acc[c * 4 + 1] = fmaf(pr, dd.y, dv_acc[c * 4 + 1]);
+          dv_acc[c * 4 + 2] = fmaf(pr, dd.z, dv_acc[c * 4 + 2]);
+          dv_acc[c * 4 + 3] = fmaf(pr, dd.w, dv_acc[c * 4 + 3]);
+          dk_acc[c * 4 + 0] = fmaf(dsr, qq.x, dk_acc[c * 4 + 0]);
+          dk_acc[c * 4 + 1] = fmaf(dsr, qq.y, dk_acc[c * 4 + 1]);
+          dk_acc[c * 4 + 2] = fmaf(dsr, qq.z, dk_acc[c * 4 + 2]);
+          dk_acc[c * 4 + 3] = fmaf(dsr, qq.w, dk_acc[c * 4 + 3]);
+        }
+      }
+    }
+  }
+
+  if (kj < s) {
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const long long at = rk * D + (c * TPR + t) * 4 + e;
+        dk[at] = from_f32<T>(dk_acc[c * 4 + e]);
+        dv[at] = from_f32<T>(dv_acc[c * 4 + e]);
+      }
+    }
+  }
+}
+
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  void *dq, *dk, *dv;
+  int b, s, h, kvh;
+  float scale;
+  int causal, window, q_offset;
+  cudaStream_t stream;
+};
+
+template <int D, typename T>
+int launch_dq(const Args& a) {
+  const dim3 grid((a.s + BQ - 1) / BQ, a.b * a.h);
+  flash_bwd_dq_kernel<D, T><<<grid, Geometry<D>::THREADS, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.s, a.h, a.kvh, a.scale,
+      a.causal, a.window, a.q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D, typename T>
+int launch_dkv(const Args& a) {
+  const dim3 grid((a.s + BQ - 1) / BQ, a.b * a.kvh);
+  flash_bwd_dkv_kernel<D, T><<<grid, Geometry<D>::THREADS, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
+      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.s,
+      a.h, a.kvh, a.scale, a.causal, a.window, a.q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, bool DKV>
+int dispatch_d(int d, const Args& a) {
+  switch (d) {
+    case 8: return DKV ? launch_dkv<8, T>(a) : launch_dq<8, T>(a);
+    case 16: return DKV ? launch_dkv<16, T>(a) : launch_dq<16, T>(a);
+    case 32: return DKV ? launch_dkv<32, T>(a) : launch_dq<32, T>(a);
+    case 64: return DKV ? launch_dkv<64, T>(a) : launch_dq<64, T>(a);
+    case 128: return DKV ? launch_dkv<128, T>(a) : launch_dq<128, T>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <bool DKV>
+int dispatch(int dtype, int d, const Args& a) {
+  if (dtype == 0) return dispatch_d<float, DKV>(d, a);
+  if (dtype == 1) return dispatch_d<__nv_bfloat16, DKV>(d, a);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// dtype 0 = float32, 1 = bfloat16.  q and do are contiguous (b, s, h, d),
+// k and v contiguous (b, s, kv_heads, d), lse and delta contiguous (b, s, h)
+// f32.  Launch on `stream`; return cudaGetLastError().
+extern "C" int tl_flash_bwd_dq(int dtype, int d, const void* q, const void* k, const void* v,
+                               const void* dout, const void* lse, const void* delta, void* dq,
+                               int b, int s, int h, int kvh, float scale, int causal, int window,
+                               int q_offset, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, b, s, h, kvh, scale,
+               causal, window, q_offset, static_cast<cudaStream_t>(stream)};
+  return dispatch<false>(dtype, d, a);
+}
+
+extern "C" int tl_flash_bwd_dkv(int dtype, int d, const void* q, const void* k, const void* v,
+                                const void* dout, const void* lse, const void* delta, void* dk,
+                                void* dv, int b, int s, int h, int kvh, float scale, int causal,
+                                int window, int q_offset, void* stream) {
+  const Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, b, s, h, kvh, scale,
+               causal, window, q_offset, static_cast<cudaStream_t>(stream)};
+  return dispatch<true>(dtype, d, a);
+}

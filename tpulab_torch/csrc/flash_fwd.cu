@@ -31,45 +31,13 @@
 // The build passes -fmad=false for B1-B3's byte equality; this kernel has
 // no byte-equality target and writes fmaf where it wants a fused multiply-add.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "flash_common.cuh"
 
 #include <math.h>
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per block
-
-template <typename T>
-__device__ __forceinline__ float to_f32(T x);
-template <>
-__device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-
-// x rounded to T's precision, kept as f32
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f32<T>(from_f32<T>(x)); }
-
-template <int D>
-struct Geometry {
-  static constexpr int TPR = D / 4 < 4 ? D / 4 : 4;  // threads per query row
-  static constexpr int DPT = D / TPR;                 // head dims per thread
-  static constexpr int CPT = DPT / 4;                 // float4 chunks per thread
-  static constexpr int BK = D <= 64 ? 64 : 32;        // keys per shared-memory tile
-  static constexpr int THREADS = BQ * TPR;
-};
+using namespace tl_flash;
 
 template <int D, typename T>
 __global__ void __launch_bounds__(Geometry<D>::THREADS)
@@ -101,7 +69,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int c = 0; c < CPT; ++c) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      qr[c * 4 + e] = round_to<T>(__fmul_rn(to_f32<T>(qrow[(c * TPR + t) * 4 + e]), scale));
+      qr[c * 4 + e] = prescaled<T>(qrow[(c * TPR + t) * 4 + e], scale);
     }
   }
   float acc[DPT];
@@ -156,10 +124,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
         part = fmaf(qr[c * 4 + 2], kk.z, part);
         part = fmaf(qr[c * 4 + 3], kk.w, part);
       }
-#pragma unroll
-      for (int off = TPR / 2; off > 0; off >>= 1) {
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      }
+      part = row_sum<TPR>(part);
       if (!full) {
         const long long kp = k0 + j;
         bool keep = kp < s;

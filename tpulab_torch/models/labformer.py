@@ -4,32 +4,41 @@
 :class:`Labformer` is an ``nn.Module`` with one :class:`Block` per layer in
 a ``ModuleList``.  Its weights come from the JAX package's parameter tree
 (:func:`init_params` makes the same tree from the same seed, bit for bit)
-through :meth:`Labformer.from_numpy`, and go back through
-:meth:`Labformer.to_numpy`.  Parameters are frozen (``requires_grad``
-False): the port serves, and training waits for the flash backward
-kernels (ROADMAP A8, B5, B6).
+through :meth:`Labformer.from_numpy`, and go back, with their gradients,
+through :meth:`Labformer.to_numpy`.  A model built with ``trainable=True``
+has parameters that require grad (with LoRA, the adapters only); serving
+builds it frozen and runs under ``torch.inference_mode``.
 
 Attention takes the dense path or kernel B4 (flash) as
 :func:`tpulab_torch.parallel.ring.use_flash` decides, exactly as
 ``tpulab`` does: the two round differently in bf16 (the dense path scales
 q and forms the scores in the model dtype; flash scales in f32 and keeps
 the scores in f32), so the port must take the path the reference takes.
+Flash's gradient is kernels B5 and B6 (``ops/cuda/attention.py``).
 
-What needs a mesh (sequence parallelism, the all_to_all MoE dispatch)
-waits for the multi-device tier, ROADMAP A12.
+Training (:func:`make_train_step`, :func:`init_train_state`) follows
+``tpulab``'s: the loss's gradient (averaged over ``accum`` microbatches),
+then the optimizer stack of :mod:`tpulab_torch.optim`, which reproduces
+optax.  The port updates the module's parameters and the optimizer state
+in place where ``tpulab`` returns new trees.
+
+What needs a mesh (sequence parallelism, the all_to_all MoE dispatch,
+ZeRO) waits for the multi-device tier, ROADMAP A12.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
+from tpulab_torch import optim
 from tpulab_torch.models.quant import QTensor, qmat
 from tpulab_torch.parallel.ring import attention_reference, use_flash
 from tpulab_torch.runtime.device import resolve_device
@@ -227,10 +236,12 @@ def _layer(blocks: Dict[str, Any], i: int):
 
 
 class _Weights(nn.Module):
-    """Named weights: tensors become frozen parameters, ``QTensor`` leaves
-    plain attributes (moved to the device with the rest)."""
+    """Named weights: tensors become parameters (requiring grad where
+    ``trainable(name)``), ``QTensor`` leaves plain attributes (moved to the
+    device with the rest)."""
 
-    def __init__(self, leaves: Dict[str, Any], device: torch.device):
+    def __init__(self, leaves: Dict[str, Any], device: torch.device,
+                 trainable: Callable[[str], bool] = lambda name: False):
         super().__init__()
         self.names = tuple(leaves)
         for name, leaf in leaves.items():
@@ -238,7 +249,7 @@ class _Weights(nn.Module):
                 setattr(self, name, QTensor(leaf.q.to(device), leaf.s.to(device)))
             else:
                 self.register_parameter(
-                    name, nn.Parameter(leaf.to(device), requires_grad=False))
+                    name, nn.Parameter(leaf.to(device), requires_grad=trainable(name)))
 
 
 class Block(_Weights):
@@ -252,10 +263,15 @@ class Block(_Weights):
 
 class Labformer(nn.Module):
     """The labformer on one device.  ``forward(tokens)`` gives next-token
-    logits for ``tokens`` (batch, seq) int."""
+    logits for ``tokens`` (batch, seq) int.
+
+    ``trainable`` makes the parameters require grad: every leaf, or with
+    ``cfg.lora_rank`` the adapter leaves only (``tpulab``'s LoRA step
+    differentiates the adapter subtree alone)."""
 
     def __init__(self, params: Dict[str, Any], cfg: LabformerConfig,
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None,
+                 trainable: bool = False):
         super().__init__()
         if cfg.n_experts and cfg.moe_impl == "dispatch":
             raise NotImplementedError(
@@ -266,21 +282,37 @@ class Labformer(nn.Module):
         self.cfg = cfg
         tree = {k: _to_torch(v) for k, v in params.items() if k != "blocks"}
         blocks = {k: _to_torch(v) for k, v in params["blocks"].items()}
-        self.top = _Weights(tree, device)
+        def learns(name: str) -> bool:
+            return trainable and (not cfg.lora_rank or "_lora_" in name)
+
+        self.top = _Weights(tree, device, learns)
         self.blocks = nn.ModuleList(
-            Block(_layer(blocks, i), device) for i in range(cfg.n_layers))
+            Block(_layer(blocks, i), device, learns) for i in range(cfg.n_layers))
 
     @classmethod
     def from_numpy(cls, params: Dict[str, Any], cfg: LabformerConfig,
-                   device: Optional[Union[str, torch.device]] = None) -> "Labformer":
+                   device: Optional[Union[str, torch.device]] = None,
+                   trainable: bool = False) -> "Labformer":
         """The module from ``tpulab``'s parameter tree (numpy leaves,
         per-layer leaves stacked on axis 0), on ``device`` (the card unless
         ``"cpu"``)."""
-        return cls(params, cfg, device)
+        return cls(params, cfg, device, trainable)
 
-    def to_numpy(self) -> Dict[str, Any]:
+    def trainable_leaves(self) -> List[Tuple[str, List[torch.Tensor]]]:
+        """``(name, tensors)`` of every leaf that requires grad, in the
+        order of ``tpulab``'s flattened tree (blocks by name, then the top
+        leaves); a per-layer leaf holds one tensor per layer."""
+        leaves = [(f"blocks/{name}", [getattr(blk, name) for blk in self.blocks])
+                  for name in sorted(self.blocks[0].names)]
+        leaves += [(name, [getattr(self.top, name)]) for name in sorted(self.top.names)]
+        return [(name, ts) for name, ts in leaves
+                if isinstance(ts[0], torch.Tensor) and ts[0].requires_grad]
+
+    def to_numpy(self, grads: bool = False) -> Dict[str, Any]:
         """The parameter tree back, with numpy leaves (inverse of
-        :meth:`from_numpy`)."""
+        :meth:`from_numpy`).  ``grads``: the tree of the trainable leaves'
+        ``.grad`` instead, the shape of ``tpulab``'s gradient tree (the
+        adapter subtree alone under LoRA)."""
         def conv(leaf):
             if isinstance(leaf, QTensor):
                 return QTensor(_to_numpy(leaf.q), _to_numpy(leaf.s))
@@ -292,11 +324,20 @@ class Labformer(nn.Module):
                                torch.stack([x.s for x in leaves]))
             return torch.stack(leaves)
 
-        out = {name: conv(getattr(self.top, name)) for name in self.top.names}
-        out["blocks"] = {
-            name: conv(stack([getattr(blk, name) for blk in self.blocks]))
-            for name in self.blocks[0].names
-        }
+        with torch.no_grad():
+            if grads:
+                out: Dict[str, Any] = {"blocks": {}}
+                for name, ts in self.trainable_leaves():
+                    if name.startswith("blocks/"):
+                        out["blocks"][name[7:]] = conv(stack([t.grad for t in ts]))
+                    else:
+                        out[name] = conv(ts[0].grad)
+                return out
+            out = {name: conv(getattr(self.top, name)) for name in self.top.names}
+            out["blocks"] = {
+                name: conv(stack([getattr(blk, name) for blk in self.blocks]))
+                for name in self.blocks[0].names
+            }
         return out
 
     @property
@@ -314,8 +355,12 @@ class Labformer(nn.Module):
         positions = torch.arange(tokens.shape[1], device=self.device)
         x = self.top.embed[tokens]
         auxes, loads = [], []
+        remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x, (aux, load) = blk(x, self.cfg, positions)
+            if remat:  # keep only the block's input; recompute the rest in the backward
+                x, (aux, load) = checkpoint(blk, x, self.cfg, positions, use_reentrant=False)
+            else:
+                x, (aux, load) = blk(x, self.cfg, positions)
             auxes.append(aux)
             loads.append(load)
         x = _rmsnorm(x, self.top.final_norm)
@@ -346,6 +391,89 @@ class Labformer(nn.Module):
         if self.cfg.n_experts and self.cfg.moe_aux_weight:
             loss = loss + np.float32(self.cfg.moe_aux_weight).item() * aux
         return loss
+
+
+# ------------------------------------------------------------ training
+
+
+def _refuse_mesh_options(cfg: LabformerConfig, mesh, zero1: bool, zero2: bool) -> None:
+    if mesh is not None or zero1 or zero2:
+        raise NotImplementedError(
+            "mesh training (sp, ZeRO-1/2, dispatch MoE) waits for the port's "
+            "multi-device tier (ROADMAP A12); train on one device with mesh=None")
+    if cfg.remat and cfg.remat_policy == "dots":
+        raise NotImplementedError(
+            "remat_policy='dots' (keep the matmul outputs, recompute the rest) is "
+            "queued in ROADMAP A8.7; the port rematerializes with policy 'none'")
+
+
+def _flat(model: Labformer) -> List[torch.Tensor]:
+    return [t for _, ts in model.trainable_leaves() for t in ts]
+
+
+def _accum_backward(model: Labformer, tokens: torch.Tensor, accum: int,
+                    leaves: List[torch.Tensor]) -> torch.Tensor:
+    """The loss, with the gradient left in each leaf's ``.grad``; ``accum``
+    > 1 averages microbatches as ``tpulab``'s ``_accum_value_and_grad``:
+    losses and gradients summed in order from zero, then times
+    ``float32(1 / accum)``."""
+    if accum <= 1:
+        loss = model.loss_fn(tokens)
+        loss.backward()
+        return loss.detach()
+    micro = tokens.reshape(accum, tokens.shape[0] // accum, tokens.shape[1])
+    total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    for mb in micro:
+        loss = model.loss_fn(mb)
+        loss.backward()
+        total = total + loss.detach()
+    inv = float(np.float32(1.0 / accum))
+    with torch.no_grad():
+        for p in leaves:
+            p.grad.mul_(optim._scalar(inv, p.grad))
+    return total * inv
+
+
+def make_train_step(cfg: LabformerConfig, mesh=None, optimizer: Optional[optim.Transform] = None,
+                    accum: int = 1, zero1: bool = False, zero2: bool = False):
+    """``(optimizer, step)``: ``step(model, opt_state, tokens) -> (model,
+    opt_state, loss)`` on a trainable :class:`Labformer`, the counterpart of
+    ``tpulab``'s ``make_train_step``.
+
+    The step takes the loss's gradient (``accum`` > 1: averaged over that
+    many microbatches of the batch), leaves it in each trainable leaf's
+    ``.grad`` (where the bridge reads it), and applies ``optimizer``
+    (default ``optim.adamw(3e-4)``, as ``tpulab``'s) to the parameters and
+    ``opt_state`` in place.  Under ``cfg.lora_rank`` only the adapter
+    leaves are trainable, so only they get gradients and optimizer state.
+    ``loss`` is a device scalar (reading it waits for the step)."""
+    _refuse_mesh_options(cfg, mesh, zero1, zero2)
+    optimizer = optimizer or optim.adamw(3e-4)
+
+    def train_step(model: Labformer, opt_state, tokens):
+        leaves = _flat(model)
+        for p in leaves:
+            p.grad = None
+        loss = _accum_backward(model, model.tokens(tokens), accum, leaves)
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+        with torch.no_grad():
+            optim.apply_updates(leaves, optimizer.update(grads, opt_state, leaves))
+        return model, opt_state, loss
+
+    return optimizer, train_step
+
+
+def init_train_state(cfg: LabformerConfig, mesh=None, seed: int = 0,
+                     optimizer: Optional[optim.Transform] = None, accum: int = 1,
+                     zero1: bool = False, zero2: bool = False,
+                     device: Optional[Union[str, torch.device]] = None):
+    """``(model, opt_state, step)``: the trainable model from
+    :func:`init_params` (``seed``) on ``device`` (the card unless
+    ``"cpu"``), the optimizer's state over its trainable leaves, and the
+    step of :func:`make_train_step`."""
+    optimizer, step = make_train_step(cfg, mesh, optimizer, accum, zero1, zero2)
+    model = Labformer.from_numpy(init_params(cfg, seed), cfg, device, trainable=True)
+    return model, optimizer.init(_flat(model)), step
 
 
 # ------------------------------------------------------------ layers

@@ -62,6 +62,11 @@ SIGNATURES: Dict[str, List] = {
     # (batch, seq, head; elements), scale, causal, window, q_offset, stream
     "tl_flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, *[_L] * 9,
                      ctypes.c_float, _I, _I, _I, _P],
+    # dtype, d, q, k, v, do, lse, delta, dq, b, s, h, kv_heads, scale,
+    # causal, window, q_offset, stream (contiguous operands)
+    "tl_flash_bwd_dq": [_I, _I, *[_P] * 7, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P],
+    # the same with dk, dv in place of dq
+    "tl_flash_bwd_dkv": [_I, _I, *[_P] * 8, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P],
 }
 
 

@@ -1,36 +1,51 @@
-"""Kernel B4: the flash-attention forward.
+"""Kernels B4, B5 and B6: the flash-attention forward and its gradient.
 
-Replaces ``tpulab/ops/pallas/attention.py::_flash_kernel``, reached
-through ``_flash_fwd_call`` and ``_flash_bshd``.  The public functions take
-that module's layout, ``(batch, seq, heads, head_dim)``, and its
-arguments ``causal``, ``window`` and ``q_offset``; they make the checks and
-refusals ``_flash_bshd`` makes with its default 1024-row blocks, and have
-no block knobs: the CUDA kernel (``csrc/flash_fwd.cu``) picks its own
-tiles and masks by position, so it needs no padding.
+B4 replaces ``tpulab/ops/pallas/attention.py::_flash_kernel``, reached
+through ``_flash_fwd_call`` and ``_flash_bshd``; B5 and B6 replace
+``_flash_bwd_dq_kernel`` and ``_flash_bwd_dkv_kernel``, reached through
+``_flash_bwd_call``.  The public functions take that module's layout,
+``(batch, seq, heads, head_dim)``, and its arguments ``causal``, ``window``
+and ``q_offset``; they make the checks and refusals ``_flash_bshd`` makes
+with its default 1024-row blocks, and have no block knobs: the CUDA kernels
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) pick their own tiles and
+mask by position, so they need no padding.
 
 K and V may be narrower than q (grouped-query attention): query head ``i``
 reads kv head ``i // (heads // kv_heads)``, the contiguous mapping of
 ``repeat_kv``, so a call with kv-width K/V equals the call with K/V
-repeated to full width.
+repeated to full width, and its dk, dv are the repeated call's summed
+over each group of query heads.
 
-Only the forward exists.  A tensor that requires grad is refused: the
-backward kernels (ROADMAP B5, B6) come with the training slice.
+Gradients: when q, k or v requires grad, :func:`flash_attention_with_lse`
+runs as a ``torch.autograd.Function`` (the counterpart of
+``_flash_bhsd_lse``'s ``jax.custom_vjp``) whose forward is B4 and saves q,
+k, v, o and lse, and whose backward computes ``delta = rowsum(do * o) -
+dlse`` with plain tensor ops (``_flash_bwd_call`` leaves it to XLA too),
+then B5 (dq) and B6 (dk, dv).  Both o and lse are differentiable.  The
+1/sqrt(d) prescale, which ``tpulab`` applies outside its custom_vjp, sits
+inside B4 here, so B5 ends with the chain autodiff gives it: dq' rounded
+to q's dtype, times the scale in f32, rounded again.
 
-:func:`flash_attention_plain` is the same function in plain PyTorch: q
-prescaled by 1/sqrt(d) in f32 and rounded back to q's dtype, scores in f32
-from the inputs' exact values, p rounded to v's dtype before P.V, rows
-with no visible key at ``o = 0``, ``lse = -inf``.  It takes the softmax in
-one pass where the kernel takes it tile by tile, so the two differ by f32
-rounding, and in bf16 by the rounding of p at another running maximum.
+Each kernel has a plain PyTorch version, the CPU path and the kernel's
+oracle: :func:`flash_attention_plain` (q prescaled by 1/sqrt(d) in f32 and
+rounded back to q's dtype, scores in f32 from the inputs' exact values, p
+rounded to v's dtype before P.V, rows with no visible key at ``o = 0``,
+``lse = -inf``), :func:`flash_attention_bwd_dq_plain` and
+:func:`flash_attention_bwd_dkv_plain` (p = exp(s - lse) with masked
+positions set to 0, ds and p rounded to the operand dtype before their
+products, f32 sums, dk and dv summed over the GQA group in f32 and rounded
+once).  They sum in another order than the kernels; the limits they are
+held to are :func:`o_tolerance` and :func:`grad_tolerance`.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.autograd.function import once_differentiable
 
 from tpulab_torch.ops.cuda import _build
 
@@ -94,10 +109,20 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, wind
         raise ValueError(f"unsupported head_dim {d}; the kernel is built for {HEAD_DIMS}")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v devices differ: {q.device}, {k.device}, {v.device}")
-    if q.requires_grad or k.requires_grad or v.requires_grad:
-        raise NotImplementedError(
-            "flash attention has no backward yet (ROADMAP B5/B6): call it on "
-            "tensors that do not require grad")
+
+
+def visible(s: int, causal: bool, window: int, q_offset: int,
+            device) -> Optional[torch.Tensor]:
+    """(s, s) bool: query row ``i`` sees key ``j``; None when not causal
+    (every pair is visible)."""
+    if not causal:
+        return None
+    q_pos = q_offset + torch.arange(s, device=device)[:, None]
+    k_pos = torch.arange(s, device=device)[None, :]
+    keep = k_pos <= q_pos
+    if window:
+        keep = keep & (k_pos > q_pos - window)
+    return keep
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -111,12 +136,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
     qs = (q.float() * softmax_scale(d)).to(q.dtype)
     scores = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
-    if causal:
-        q_pos = q_offset + torch.arange(s, device=q.device)[:, None]
-        k_pos = torch.arange(s, device=q.device)[None, :]
-        keep = k_pos <= q_pos
-        if window:
-            keep = keep & (k_pos > q_pos - window)
+    keep = visible(s, causal, window, q_offset, q.device)
+    if keep is not None:
         scores = scores.masked_fill(~keep, -math.inf)
     m = scores.amax(dim=-1, keepdim=True)
     live = m > -math.inf
@@ -162,22 +183,9 @@ def over_tolerance(o: torch.Tensor, want_o: torch.Tensor) -> float:
     return float(torch.where(err == 0, 0.0, err / o_tolerance(want_o)).max())
 
 
-def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                             causal: bool = True, window: int = 0,
-                             q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(o, lse)`` of exact attention over (batch, seq, heads, head_dim):
-    ``o`` in q's dtype, ``lse`` (batch, seq, heads) f32.
-
-    ``window`` > 0 (causal only) keeps each query's ``window`` most recent
-    keys, itself included.  ``q_offset`` > 0 (causal only) places query row
-    ``i`` at position ``q_offset + i`` while keys stay at ``0..seq-1``; a
-    row that then sees no key gets ``o = 0`` and ``lse = -inf``.
-
-    The kernel for a CUDA tensor, the plain version for a CPU tensor;
-    ``launches`` counts kernel launches.
-    """
-    window, q_offset = int(window), int(q_offset)
-    _check(q, k, v, causal, window, q_offset)
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
+             q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B4 for a CUDA tensor, the plain version for a CPU tensor (checked)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, window, q_offset)
     if q.device.type != "cuda":
@@ -202,6 +210,46 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     return o, lse
 
 
+class _Flash(torch.autograd.Function):
+    """B4 forward, B5 and B6 backward; both outputs differentiable."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset):
+        o, lse = _forward(q, k, v, causal, window, q_offset)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = dict(causal=causal, window=window, q_offset=q_offset)
+        return o, lse
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, do, dlse):  # an unused output's cotangent arrives as zeros
+        q, k, v, o, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, o, lse, do, dlse, **ctx.mask), None, None, None)
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                             causal: bool = True, window: int = 0,
+                             q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(o, lse)`` of exact attention over (batch, seq, heads, head_dim):
+    ``o`` in q's dtype, ``lse`` (batch, seq, heads) f32.
+
+    ``window`` > 0 (causal only) keeps each query's ``window`` most recent
+    keys, itself included.  ``q_offset`` > 0 (causal only) places query row
+    ``i`` at position ``q_offset + i`` while keys stay at ``0..seq-1``; a
+    row that then sees no key gets ``o = 0`` and ``lse = -inf``.
+
+    The kernel for a CUDA tensor, the plain version for a CPU tensor;
+    ``launches`` counts kernel launches.  Where grad is on and q, k or v
+    requires it, the call records B5 and B6 as its backward (second-order
+    gradients are refused).
+    """
+    window, q_offset = int(window), int(q_offset)
+    _check(q, k, v, causal, window, q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _Flash.apply(q, k, v, bool(causal), window, q_offset)
+    return _forward(q, k, v, causal, window, q_offset)
+
+
 flash_attention_with_lse.launches = 0
 
 
@@ -210,3 +258,182 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """:func:`flash_attention_with_lse` without the logsumexp."""
     return flash_attention_with_lse(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset)[0]
+
+
+# ------------------------------------------------------------ the backward
+
+
+def bwd_delta(o: torch.Tensor, do: torch.Tensor, dlse: Optional[torch.Tensor]) -> torch.Tensor:
+    """``delta = rowsum(do * o) - dlse``, (batch, seq, heads) f32: the lse
+    cotangent folds in here (d lse / d s = p), so B5 and B6 run unchanged."""
+    delta = (do.float() * o.float()).sum(dim=-1)
+    return delta if dlse is None else delta - dlse.float()
+
+
+def flash_bwd_plain_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor,
+                           keep: Optional[torch.Tensor], want_dq: bool = True,
+                           want_dkv: bool = True):
+    """``(dq, dk, dv)`` in plain PyTorch under the (s, s) visibility mask
+    ``keep`` (None: every pair visible); a part not wanted is None."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    scale = softmax_scale(d)
+    qs = (q.float() * scale).to(q.dtype).float()
+    kf, vf = (t.repeat_interleave(h // kvh, dim=2).float() for t in (k, v))
+    scores = torch.einsum("bqhd,bkhd->bhqk", qs, kf)
+    p = torch.exp(scores - lse.permute(0, 2, 1)[..., None])
+    if keep is not None:  # select, so a row with lse = -inf gives 0, not inf * 0
+        p = torch.where(keep, p, torch.zeros((), device=p.device))
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), vf)
+    ds = p * (dp - delta.permute(0, 2, 1)[..., None])
+    dq = dk = dv = None
+    if want_dq:
+        dq = torch.einsum("bhqk,bkhd->bqhd", ds.to(k.dtype).float(), kf).to(q.dtype)
+        dq = (dq.float() * scale).to(q.dtype)
+    if want_dkv:
+        dk = torch.einsum("bhqk,bqhd->bkhd", ds.to(q.dtype).float(), qs)
+        dv = torch.einsum("bhqk,bqhd->bkhd", p.to(do.dtype).float(), do.float())
+        dk, dv = (t.reshape(b, s, kvh, h // kvh, d).sum(dim=3).to(k.dtype) for t in (dk, dv))
+    return dq, dk, dv
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal: bool = True,
+                                 window: int = 0, q_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of B5: dq, in q's dtype."""
+    keep = visible(q.shape[1], causal, window, q_offset, q.device)
+    return flash_bwd_plain_masked(q, k, v, do, lse, delta, keep, want_dkv=False)[0]
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal: bool = True,
+                                  window: int = 0, q_offset: int = 0):
+    """Plain PyTorch version of B6: ``(dk, dv)`` at kv width, in k's dtype."""
+    keep = visible(q.shape[1], causal, window, q_offset, q.device)
+    return flash_bwd_plain_masked(q, k, v, do, lse, delta, keep, want_dq=False)[1:]
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, dlse=None, causal: bool = True,
+                              window: int = 0, q_offset: int = 0):
+    """Plain PyTorch version of :func:`flash_attention_bwd`: ``(dq, dk, dv)``."""
+    keep = visible(q.shape[1], causal, window, q_offset, q.device)
+    return flash_bwd_plain_masked(q, k, v, do, lse, bwd_delta(o, do, dlse), keep)
+
+
+def _check_bwd(q, k, v, do, lse, delta, causal, window, q_offset) -> None:
+    _check(q, k, v, causal, window, q_offset)
+    if do.shape != q.shape or do.dtype != q.dtype:
+        raise ValueError(f"do {tuple(do.shape)} {do.dtype} does not match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:3] or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be {tuple(q.shape[:3])} float32, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    if not all(t.device == q.device for t in (do, lse, delta)):
+        raise ValueError("the backward's operands lie on different devices")
+
+
+def _launch_bwd(name: str, q, k, v, do, lse, delta, outs, causal, window, q_offset) -> None:
+    b, s, h, d = q.shape
+    grid_rows = b * (h if name == "tl_flash_bwd_dq" else k.shape[2])
+    _build.check_geometry((-(-s // BLOCK_Q), grid_rows), (_threads(d),))
+    lib = _build.load_library()
+    rc = getattr(lib, name)(
+        DTYPES[q.dtype], d, *(t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)),
+        b, s, h, k.shape[2], softmax_scale(d), int(bool(causal)), window, q_offset,
+        _build.stream_handle(q.device),
+    )
+    _build.check_launch(rc, f"{name} kernel")
+
+
+def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+                           lse: torch.Tensor, delta: torch.Tensor, *, causal: bool = True,
+                           window: int = 0, q_offset: int = 0) -> torch.Tensor:
+    """dq of flash attention from the forward's lse and ``delta``
+    (:func:`bwd_delta`): kernel B5 for a CUDA tensor, the plain version for
+    a CPU tensor; ``launches`` counts kernel launches."""
+    window, q_offset = int(window), int(q_offset)
+    _check_bwd(q, k, v, do, lse, delta, causal, window, q_offset)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal, window, q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    q, k, v, do, lse, delta = (t.contiguous() for t in (q, k, v, do, lse, delta))
+    dq = torch.empty_like(q)
+    if dq.numel() == 0:
+        return dq
+    _launch_bwd("tl_flash_bwd_dq", q, k, v, do, lse, delta, (dq,), causal, window, q_offset)
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(dk, dv)`` at kv width: kernel B6 for a CUDA tensor, the plain
+    version for a CPU tensor; ``launches`` counts kernel launches."""
+    window, q_offset = int(window), int(q_offset)
+    _check_bwd(q, k, v, do, lse, delta, causal, window, q_offset)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal, window, q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    q, k, v, do, lse, delta = (t.contiguous() for t in (q, k, v, do, lse, delta))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if dk.numel() == 0:
+        return dk, dv
+    _launch_bwd("tl_flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), causal, window, q_offset)
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, dlse=None, *, causal: bool = True,
+                        window: int = 0, q_offset: int = 0):
+    """``(dq, dk, dv)`` of :func:`flash_attention_with_lse` for the
+    cotangents ``do`` and ``dlse`` (None: zero): delta in plain tensor ops,
+    then B5 and B6 (their plain versions on the CPU)."""
+    delta = bwd_delta(o, do, dlse)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    return (dq, *flash_attention_bwd_dkv(q, k, v, do, lse, delta, **kw))
+
+
+def grad_tolerance(want: torch.Tensor) -> torch.Tensor:
+    """Per-element limit on ``|g - want|`` for a gradient ``g`` (dq, dk or
+    dv, (batch, seq, heads, head_dim)) from B5 or B6 and ``want`` from the
+    plain backward on the same inputs, in f32.
+
+    float32: ``GRAD_F32 * (|want| + row + head)``, where ``row`` is the
+    largest ``|want|`` of its (batch, seq, head) row and ``head`` of its
+    (batch, head): the kernels sum key by key (query by query) where the
+    plain version sums in einsum's order, and a gradient's terms cancel
+    (``sum_k ds = 0`` when dlse is 0), so rounding scales with the
+    operands, not with the result; a row that sees one key has ``ds = dp
+    - delta``, zero but for rounding, and only ``head`` bounds it.
+    bfloat16: two bf16 ulps of the element and two of ``row`` (p and ds
+    round to bf16 from f32 values that differ by f32 rounding, and the
+    result rounds once more), plus ``GRAD_F32 * head``.
+    """
+    w = want.float()
+    row = w.abs().amax(dim=-1, keepdim=True)
+    head = w.abs().amax(dim=(1, 3), keepdim=True)
+    if want.dtype == torch.float32:
+        return GRAD_F32 * (w.abs() + row + head)
+    return 2 * bf16_ulp(w) + 2 * bf16_ulp(row) + GRAD_F32 * head
+
+
+#: float32 factor of :func:`grad_tolerance`
+GRAD_F32 = 2e-5
+
+
+def grad_over_tolerance(g: torch.Tensor, want: torch.Tensor) -> float:
+    """Largest ``|g - want|`` over its :func:`grad_tolerance` (<= 1 passes;
+    an element 0 in both passes)."""
+    err = (g.float() - want.float()).abs()
+    return float(torch.where(err == 0, 0.0, err / grad_tolerance(want)).max())
