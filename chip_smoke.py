@@ -75,7 +75,37 @@ failure:
       plain versions and the backward of ``scaled_dot_product_attention``
       (``torch.autograd.grad`` of its output alone; dq, dk and dv
       together), wherever that computes the same function.
-7. One ``{"model": {...}}`` line with phases 5 and 6's numbers, one
+7. The paged serving path (``tpulab_torch.models.paged.PagedEngine``).
+   Each run of it is made with every launch count set to 0 just before
+   and read just after, and must launch the paged-decode kernel (B7) once
+   per layer of each tick under ``attn="pallas"`` and never under
+   ``"gather"``, and no other kernel (its prompts are too short for B4):
+
+   a. ``tpulab``'s paged bench at full width (``tpulab/bench.py:290-341``):
+      d512, 8 heads, 2 kv heads, 8 layers, d_ff 2048, bfloat16, random
+      weights from seed 0; 8 slots, 256 blocks of 16, max_seq 256; 8
+      requests of (8, 17, 5, 33, 9, 21, 12, 7) prompt tokens and 64 new
+      tokens each.  With ``attn="pallas"``, ``"gather"`` and ``"pallas"``
+      over int8 KV: tokens/s (wall clock, the median of 3 waves after one
+      warm-up wave), ms per tick, and one profiled wave;
+   b. the same model in float32 with ``"pallas"`` on the card against the
+      port on the CPU, and ``"pallas"`` against ``"gather"`` on the card:
+      each request's greedy stream equal up to its first step whose CPU
+      top-2 margin is below 1e-2;
+   c. the daemon's engine settings (``tpulab/daemon.py:2656-2680``): 4
+      slots, 128 blocks of 16, max_seq 512, ``prefill_chunk`` 32,
+      interleaved; requests sharing a 128-token prefix with tails up to 300
+      tokens: prefix hits, prefill chunks, no stalled tick, host syncs and
+      no leaked block;
+   d. B7 against its plain version, element by element within
+      ``paged_over_tolerance``, at the bench's shape (8 slots, 8 heads, 2 kv
+      heads, head_dim 64, 16 blocks of 16, bfloat16, ragged lengths with 0
+      and block edges) and at 64 slots of 4096 positions (native, int8, a
+      256 window); at each of the latter the same limit must reject the
+      plain version with one live block skipped.  Its time stands beside
+      its bound, its plain version, the gather path and
+      ``scaled_dot_product_attention`` over K/V gathered beforehand.
+8. One ``{"model": {...}}`` line with phases 5 to 7's numbers, one
    ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -226,6 +256,8 @@ def make_inputs(sizes: dict, seed: int = 0) -> dict:
 LAB_KERNELS = ("roberts", "elementwise", "classify")
 MODEL_KERNELS = ("flash_fwd",)
 TRAIN_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+#: kernels whose launches every model-side run checks exactly
+COUNTED_KERNELS = TRAIN_KERNELS + ("paged_decode",)
 
 
 def counters() -> dict:
@@ -236,11 +268,12 @@ def counters() -> dict:
     )
     from tpulab_torch.ops.cuda.classify import classify_u32
     from tpulab_torch.ops.cuda.elementwise import binary
+    from tpulab_torch.ops.cuda.paged import paged_attend_kernel
     from tpulab_torch.ops.cuda.stencil import roberts_u32
 
     return {"roberts": roberts_u32, "elementwise": binary, "classify": classify_u32,
             "flash_fwd": flash_attention_with_lse, "flash_dq": flash_attention_bwd_dq,
-            "flash_dkv": flash_attention_bwd_dkv}
+            "flash_dkv": flash_attention_bwd_dkv, "paged_decode": paged_attend_kernel}
 
 
 def zero_counts() -> dict:
@@ -258,14 +291,16 @@ def check_launched(launches: dict, names, device, path: str) -> None:
 
 def counted(fn, device, want: dict, path: str) -> tuple:
     """``fn()`` with every launch count set to 0 just before and read just
-    after; (its result, launches per kernel).  On the card each flash kernel
-    must have launched as often as ``want`` says (absent: never), and no
-    lab kernel at all."""
+    after; (its result, launches per kernel).  On the card each model-side
+    kernel must have launched as often as ``want`` (or ``want(result)``)
+    says (absent: never), and no lab kernel at all."""
     wrappers = zero_counts()
     result = fn()
     launches = {name: w.launches for name, w in wrappers.items()}
+    if callable(want):
+        want = want(result)
     if device.type == "cuda":
-        for name in TRAIN_KERNELS:
+        for name in COUNTED_KERNELS:
             check(launches[name] == want.get(name, 0),
                   f"{name} launches {launches[name]} on the {path}, want {want.get(name, 0)}")
         check(all(launches[k] == 0 for k in LAB_KERNELS), f"lab kernels ran on the {path}: {launches}")
@@ -589,8 +624,9 @@ def event_ms(fn, device, reps: int = 3) -> float:
 
 def profile_window(fn, device) -> dict:
     """Device busy time of ``fn()`` from ``torch.profiler`` (CUPTI): the sum
-    of kernel times over the host's wall time, and the kernels that took
-    most.  On the CPU, or where the trace holds no kernel, "not measured"."""
+    of kernel times over the host's wall time, the kernels that took most,
+    and the host operators that took most of the host's own time.  On the
+    CPU, or where the trace holds no kernel, "not measured"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -609,9 +645,13 @@ def profile_window(fn, device) -> dict:
     if not busy_ms:
         return {"busy_share": "not measured", "wall_ms": wall_ms}
     top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    # the host's own time by operator (the profiler's overhead included)
+    host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
             "kernel_launches": sum(e.count for e in kernels),
-            "top": [[e.key[:80], dev_us(e) / 1e3, e.count] for e in top]}
+            "top": [[e.key[:80], dev_us(e) / 1e3, e.count] for e in top],
+            "host_top": [[e.key[:60], e.self_cpu_time_total / 1e3, e.count] for e in host]}
 
 
 def decode_samples(model, prompt, reps: int, n: int, device) -> list:
@@ -1078,6 +1118,316 @@ def run_train_path(sizes: dict, device, backend: str, card: str) -> tuple:
     return dq, dkv, launches, training
 
 
+# ---------------------------------------------------------------- paged path
+
+#: the model of tpulab's paged bench (tpulab/bench.py:290-341,
+#: bench_paged_engine): the serving width with 2 kv heads
+PAGED = dict(d_model=512, n_heads=8, n_kv_heads=2, n_layers=8, d_ff=2048, max_seq=1024)
+#: the engine variants phase 7a times: (attn, kv_dtype)
+PAGED_VARIANTS = (("pallas", "native"), ("gather", "native"), ("pallas", "int8"))
+
+
+def paged_jobs(sizes: dict) -> list:
+    """The bench's requests: seeded random prompts of the bench's lengths."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, 256, (p,)).astype(np.int32) for p in sizes["paged_prompts"]]
+
+
+def paged_wave(model, cfg, sizes: dict, attn: str, kv_dtype: str, device) -> dict:
+    """One wave of the bench's requests through a fresh engine: its outputs,
+    stats and wall seconds (the engine drains every tick before it returns)."""
+    import torch
+
+    from tpulab_torch.models.paged import PagedEngine
+
+    t0 = time.perf_counter()
+    eng = PagedEngine(model, cfg, slots=sizes["paged_slots"], n_blocks=sizes["paged_blocks"],
+                      block_size=sizes["paged_bs"], max_seq=sizes["paged_max_seq"], attn=attn,
+                      kv_dtype=kv_dtype)
+    rids = [eng.submit(p, max_new=sizes["paged_new"]) for p in paged_jobs(sizes)]
+    out = eng.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    streams = [out[r] for r in rids]
+    check(all(len(x) == sizes["paged_new"] for x in streams), f"paged {attn} {kv_dtype}: "
+          f"stream lengths {[len(x) for x in streams]}")
+    check_no_leak(eng, f"paged {attn} {kv_dtype}")
+    return {"streams": streams, "stats": eng.stats(), "wall_s": wall}
+
+
+def check_no_leak(eng, what: str) -> None:
+    cached = {b for blocks in eng.prefix_cache.values() for b in blocks}
+    check(len(eng.free) + len(cached) == eng.n_usable_blocks
+          and int(eng.block_refs.sum()) == sum(len(b) for b in eng.prefix_cache.values()),
+          f"{what}: blocks leaked ({len(eng.free)} free, {len(cached)} cached of "
+          f"{eng.n_usable_blocks})")
+
+
+def b7_want(cfg, attn: str):
+    """Launches a paged run must show: B7 once per layer per tick under
+    pallas, never under gather; nothing else."""
+    return lambda wave: {"paged_decode": wave["stats"]["ticks"] * cfg.n_layers
+                         if attn == "pallas" else 0}
+
+
+def time_paged_bench(sizes: dict, device, card: str) -> tuple:
+    """Phase 7a: (the bench's numbers per variant, B7's launches on the
+    first pallas wave)."""
+    import statistics
+
+    import torch
+
+    from tpulab_torch.models.labformer import Labformer, LabformerConfig, init_params
+
+    cfg = LabformerConfig(**sizes["paged"], dtype=torch.bfloat16)
+    model = Labformer.from_numpy(init_params(cfg, seed=0), cfg, device)
+    rows, b7_launches = {}, None
+    for attn, kv in PAGED_VARIANTS:
+        wave, launches = counted(lambda: paged_wave(model, cfg, sizes, attn, kv, device), device,
+                                 b7_want(cfg, attn), f"paged bench wave ({attn}, {kv})")
+        if b7_launches is None and attn == "pallas":
+            b7_launches = launches["paged_decode"]
+        walls, ticks = [], wave["stats"]["ticks"]
+        for _ in range(sizes["paged_reps"]):
+            w, _ = counted(lambda: paged_wave(model, cfg, sizes, attn, kv, device), device,
+                           b7_want(cfg, attn), f"paged bench wave ({attn}, {kv})")
+            walls.append(w["wall_s"])
+            check(w["stats"]["ticks"] == ticks, "paged bench waves differ in ticks")
+        tokens = sum(len(x) for x in wave["streams"])
+        wall = statistics.median(walls)
+        prof = profile_window(lambda: paged_wave(model, cfg, sizes, attn, kv, device), device)
+        if "kernel_launches" in prof:
+            prof["launches_per_tick"] = prof["kernel_launches"] / ticks
+        st = wave["stats"]
+        row = {"tokens_per_s": tokens / wall, "ms_per_tick": wall * 1e3 / ticks,
+               "wall_s_runs": walls, "tokens": tokens, "ticks": ticks,
+               "launches": launches, "profile": prof,
+               **{k: st[k] for k in ("prefill_chunks", "host_syncs", "h2d_ticks",
+                                     "stall_ticks", "kv_pool_bytes")}}
+        rows[f"{attn}_{kv}"] = row
+        print(f"paged bench ({attn}, {kv}) bf16: {row['tokens_per_s']:.1f} tokens/s, "
+              f"{row['ms_per_tick']:.3f} ms per tick, median of {len(walls)} waves "
+              f"({', '.join(f'{x:.4f}' for x in walls)} s), {ticks} ticks ({card}); "
+              f"launches {json.dumps(launches)}; profile {json.dumps(prof)}", flush=True)
+    return rows, b7_launches
+
+
+def check_paged_f32(sizes: dict, device) -> dict:
+    """Phase 7b: the bench's model in f32, B7 on the card against the port
+    on the CPU, and B7 against the gather path on the card."""
+    import torch
+
+    from tpulab_torch.models.labformer import Labformer, LabformerConfig, init_params
+
+    cfg = LabformerConfig(**sizes["paged"], dtype=torch.float32)
+    params = init_params(cfg, seed=0)
+    cpu_model = Labformer.from_numpy(params, cfg, "cpu")
+    card = Labformer.from_numpy(params, cfg, device)
+    t0 = time.perf_counter()
+    cpu = paged_wave(cpu_model, cfg, sizes, "pallas", "native", torch.device("cpu"))
+    margins = []
+    for prompt in paged_jobs(sizes):
+        _, logits = greedy_with_logits(cpu_model, torch.from_numpy(prompt)[None].long(),
+                                       sizes["paged_new"])
+        top2 = logits[0].topk(2, dim=-1).values
+        margins.append((top2[:, 0] - top2[:, 1]).numpy())
+    cpu_s = time.perf_counter() - t0
+    got = {attn: counted(lambda: paged_wave(card, cfg, sizes, attn, "native", device), device,
+                         b7_want(cfg, attn), f"paged f32 wave ({attn})")[0]
+           for attn in ("pallas", "gather")}
+    out = {"cpu_run_s": cpu_s}
+    for name, ref, test in (("card_pallas_vs_cpu", cpu, got["pallas"]),
+                            ("card_pallas_vs_card_gather", got["gather"], got["pallas"])):
+        equal = []
+        for i, (a, b, m) in enumerate(zip(ref["streams"], test["streams"], margins)):
+            n = 0
+            while n < len(m) and m[n] >= 1e-2:
+                check(int(a[n]) == int(b[n]), f"paged f32 {name}: request {i} token {n} "
+                      f"differs ({int(b[n])} vs {int(a[n])}; CPU margin {float(m[n])})")
+                n += 1
+            equal.append(n)
+        out[name] = {"tokens_equal_until_margin": equal, "of": sizes["paged_new"]}
+    print(f"paged f32: tokens equal up to the first CPU top-2 margin below 1e-2 "
+          f"(per request, of {sizes['paged_new']}): card pallas vs CPU "
+          f"{out['card_pallas_vs_cpu']['tokens_equal_until_margin']}, card pallas vs card "
+          f"gather {out['card_pallas_vs_card_gather']['tokens_equal_until_margin']}; CPU run "
+          f"{cpu_s:.1f} s", flush=True)
+    return out
+
+
+def check_paged_daemon(sizes: dict, device, card: str) -> dict:
+    """Phase 7c: the daemon's engine settings with a shared 128-token
+    prefix: the first request's prefill registers the prefix, the rest
+    hit it, and admission never stalls a decoding slot."""
+    import torch
+
+    from tpulab_torch.models.labformer import Labformer, LabformerConfig, init_params
+    from tpulab_torch.models.paged import PagedEngine
+
+    cfg = LabformerConfig(**sizes["paged"], dtype=torch.bfloat16)
+    model = Labformer.from_numpy(init_params(cfg, seed=0), cfg, device)
+    rng = np.random.default_rng(7)
+    prefix = rng.integers(0, 256, sizes["daemon_prefix"]).astype(np.int32)
+    tails = [5] + list(rng.integers(1, sizes["daemon_tail_max"] + 1,
+                                    sizes["daemon_requests"] - 1))
+    prompts = [np.concatenate([prefix, rng.integers(0, 256, t).astype(np.int32)])
+               for t in tails]
+
+    def serve():
+        t0 = time.perf_counter()
+        eng = PagedEngine(model, cfg, slots=sizes["daemon_slots"],
+                          n_blocks=sizes["daemon_blocks"], block_size=16,
+                          max_seq=sizes["daemon_max_seq"], prefill_chunk=sizes["daemon_chunk"],
+                          attn="pallas")
+        first = eng.submit(prompts[0], max_new=sizes["daemon_new"])
+        while not any(r is not None and r.phase == "decode" for r in eng.active):
+            eng.step()  # the first prompt's chunks, until its prefix registers
+        rids = [first] + [eng.submit(p, max_new=sizes["daemon_new"]) for p in prompts[1:]]
+        out = eng.run()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        check(all(len(out[r]) == sizes["daemon_new"] for r in rids), "daemon-size streams")
+        check_no_leak(eng, "daemon-size engine")
+        return {"stats": eng.stats(), "wall_s": wall}
+
+    res, launches = counted(serve, device, b7_want(cfg, "pallas"), "daemon-size engine")
+    st = res["stats"]
+    check(st["prefix_hits"] > 0, f"daemon-size engine: no prefix hit ({st})")
+    check(st["stall_ticks"] == 0, f"daemon-size engine: {st['stall_ticks']} stalled ticks")
+    row = {k: st[k] for k in ("prefix_hits", "prefix_misses", "prefill_chunks", "stall_ticks",
+                              "host_syncs", "h2d_ticks", "ticks", "tokens_out", "blocks_free",
+                              "cache_entries")}
+    row.update(tails=[int(t) for t in tails], wall_s=res["wall_s"],
+               tokens_per_s=st["tokens_out"] / res["wall_s"], launches=launches)
+    print(f"paged daemon-size engine: {json.dumps(row)} ({card})", flush=True)
+    return row
+
+
+def skip_block(tables, lengths, j: int, bs: int):
+    """Each slot's table and length with logical block ``j`` taken out:
+    what a kernel that skipped that block, where it is wholly live, would
+    attend (with a window, one block narrower)."""
+    import torch
+
+    cut = torch.cat([tables[:, :j], tables[:, j + 1:], torch.zeros_like(tables[:, :1])], 1)
+    return cut, lengths - torch.where(lengths >= (j + 1) * bs, bs, 0).to(lengths.dtype)
+
+
+def b7_row(shape, lengths, device, iters, plain_iters, *, int8=False, window=0, seed=0,
+           plant=False) -> dict:
+    """B7 against its plain version at one shape, with its times and bound;
+    with ``plant``, also check that the limit rejects a skipped block."""
+    import torch
+    import torch.nn.functional as F
+
+    from tpulab_torch.models.paged import _kv_quant, _paged_attend
+    from tpulab_torch.ops.cuda.paged import (
+        paged_attend_kernel,
+        paged_attend_plain,
+        paged_over_tolerance,
+        pool_gather,
+    )
+
+    S, h, kvh, d, bs, M = shape
+    rng = np.random.default_rng(seed)
+    P = S * M + 1
+    mk = lambda *sh: torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(device)
+    q = mk(S, 1, h, d).to(torch.bfloat16)
+    kf, vf = mk(P, bs, kvh, d), mk(P, bs, kvh, d)
+    kp, vp = (_kv_quant(kf), _kv_quant(vf)) if int8 else (kf.to(q.dtype), vf.to(q.dtype))
+    del kf, vf
+    tables = torch.from_numpy(1 + rng.permutation(S * M).reshape(S, M).astype(np.int32)).to(device)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=device)
+    args = (q, kp, vp, tables, lens, bs, window)
+    want = paged_attend_plain(*args)
+    got = paged_attend_kernel(*args)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    ratio = paged_over_tolerance(got, want)
+    check(ratio <= 1, f"paged decode {shape} int8={int8} window={window}: |o - plain| reaches "
+                      f"{ratio} of its limit")
+    live = ~torch.isnan(want.float()).any(-1)
+    row = {"shape": {"slots": S, "heads": h, "kv_heads": kvh, "head_dim": d, "block_size": bs,
+                     "max_blocks": M}, "dtype": "bfloat16", "kv": "int8" if int8 else "native",
+           "window": window, "lengths": lengths if len(lengths) <= 8 else
+           f"{len(lengths)} x {lengths[0]}", "max_abs_err": max_abs_err(got[live], want[live]),
+           "tolerance": "paged_over_tolerance (tpulab_torch/ops/cuda/paged.py)",
+           "err_over_tolerance": ratio}
+    if 0 in lengths:
+        row["length0_rows_nan"] = bool(torch.isnan(got[lens == 0]).all())
+    if plant:
+        j = (min(lengths) - 1) // bs - 2
+        cut, cut_lens = skip_block(tables, lens, j, bs)
+        fault = paged_over_tolerance(
+            paged_attend_plain(q, kp, vp, cut, cut_lens, bs, max(window - bs, 0) if window
+                               else 0), want)
+        check(fault > 1, f"paged decode {shape}: a skipped block {j} is only {fault} of its "
+                         f"limit")
+        row["skipped_block_over_tolerance"] = [j, fault]
+    del want
+    visible = [min(n, window) if window else n for n in lengths]
+    positions = sum(visible)
+    e = q.element_size()
+    kv_bytes = positions * kvh * d * (2 if int8 else 2 * e) + (8 * positions * kvh if int8 else 0)
+    nbytes = kv_bytes + 2 * S * h * d * e
+    row["bound_ms"], row["bound_by"] = bound(nbytes, 4.0 * h * d * positions, BF16_FLOPS)
+    row["bytes"] = nbytes
+    row["ms"] = time_ms(lambda: paged_attend_kernel(*args), (), device, iters)
+    row["plain_ms"] = time_ms(lambda: paged_attend_plain(*args), (), device, plain_iters)
+    row["gather_ms"] = time_ms(lambda: _paged_attend(*args), (), device, plain_iters)
+    # the yardstick: one PyTorch call over K/V gathered beforehand (the
+    # gather is left out of its time); the port never calls it
+    idx = tables.long()
+    kd = pool_gather(kp, idx, q.dtype).reshape(S, M * bs, kvh, d).transpose(1, 2)
+    vd = pool_gather(vp, idx, q.dtype).reshape(S, M * bs, kvh, d).transpose(1, 2)
+    pos = torch.arange(M * bs, device=device)[None, :]
+    keep = pos < lens[:, None].long()
+    if window:
+        keep = keep & (pos > lens[:, None].long() - 1 - window)
+    qt = q.transpose(1, 2)
+    library = lambda: F.scaled_dot_product_attention(qt, kd, vd, attn_mask=keep[:, None, None],
+                                                     enable_gqa=kvh != h)
+    lib_o = library().transpose(1, 2)
+    row["library_max_abs_err"] = max_abs_err(lib_o[live], got[live])
+    row["library_ms"] = time_ms(library, (), device, iters)
+    row["library_note"] = "scaled_dot_product_attention on K/V gathered beforehand (gather not timed)"
+    return row
+
+
+def paged_kernel_row(sizes: dict, device) -> dict:
+    """Phase 7d: the B7 row of the kernels line."""
+    S, h, kvh, d, bs, M = sizes["b7_bench"]
+    row = b7_row(sizes["b7_bench"], sizes["b7_bench_lengths"], device, 200, 20, seed=21)
+    big = sizes["b7_big"]
+    n = [big[5] * big[4]] * big[0]
+    row["at_scale"] = [
+        b7_row(big, n, device, 20, 3, seed=22, plant=True),
+        b7_row(big, n, device, 20, 3, int8=True, seed=23, plant=True),
+        b7_row(big, n, device, 20, 3, window=sizes["b7_window"], seed=24, plant=True),
+    ]
+    for r in [row, *row["at_scale"]]:
+        print(f"paged decode {r['shape']} {r['kv']} window {r['window']}: {r['ms']:.6f} ms, "
+              f"bound {r['bound_ms']:.6f} ({r['bound_by']}), plain {r['plain_ms']:.6f}, "
+              f"gather {r['gather_ms']:.6f}, sdpa {r['library_ms']:.6f}; "
+              f"{r['err_over_tolerance']:.4f} of the limit"
+              + (f", skipped block {r['skipped_block_over_tolerance']}" if "skipped_block_over_tolerance" in r else ""),
+              flush=True)
+    return row
+
+
+def run_paged_path(sizes: dict, device, card: str) -> tuple:
+    """Phase 7: (the B7 row, its main-path launches, the paged numbers)."""
+    t0 = time.perf_counter()
+    bench, b7_launches = time_paged_bench(sizes, device, card)
+    paged = {"bench_bf16": bench, "f32": check_paged_f32(sizes, device),
+             "daemon_size": check_paged_daemon(sizes, device, card)}
+    row = paged_kernel_row(sizes, device)
+    print(f"phase 7 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return row, b7_launches, paged
+
+
 KERNEL_META = {
     "roberts": ("tpulab_torch/csrc/stencil.cu", "tpulab/ops/pallas/stencil.py:82"),
     "elementwise": ("tpulab_torch/csrc/elementwise.cu", "tpulab/ops/pallas/elementwise.py:57"),
@@ -1085,6 +1435,7 @@ KERNEL_META = {
     "flash_fwd": ("tpulab_torch/csrc/flash_fwd.cu", "tpulab/ops/pallas/attention.py:215"),
     "flash_dq": ("tpulab_torch/csrc/flash_bwd.cu", "tpulab/ops/pallas/attention.py:435"),
     "flash_dkv": ("tpulab_torch/csrc/flash_bwd.cu", "tpulab/ops/pallas/attention.py:458"),
+    "paged_decode": ("tpulab_torch/csrc/paged_decode.cu", "tpulab/ops/pallas/paged.py:193"),
 }
 
 FULL_SIZES = {
@@ -1097,11 +1448,19 @@ FULL_SIZES = {
     "train_f32_batch": 1, "train_f32_seq": 1024, "train_f32_steps": 3,
     "train_batch": 8, "train_seq": 2048, "train_steps": 5,
     "b5_main": (8, 8, 2048, 64), "b5_big": (8, 8, 4096, 64),
+    "paged": PAGED, "paged_slots": 8, "paged_blocks": 256, "paged_bs": 16,
+    "paged_max_seq": 256, "paged_prompts": (8, 17, 5, 33, 9, 21, 12, 7), "paged_new": 64,
+    "paged_reps": 3, "daemon_slots": 4, "daemon_blocks": 128, "daemon_max_seq": 512,
+    "daemon_chunk": 32, "daemon_prefix": 128, "daemon_tail_max": 300, "daemon_new": 32,
+    "daemon_requests": 8,
+    # B7 alone: (slots, heads, kv heads, head_dim, block size, table blocks)
+    "b7_bench": (8, 8, 2, 64, 16, 16), "b7_bench_lengths": [0, 1, 15, 16, 17, 100, 255, 256],
+    "b7_big": (64, 8, 2, 64, 16, 256), "b7_window": 256,
 }
 
 
 def run(device, sizes: dict, backend: str, card: str = "cpu") -> dict:
-    """Phases 2 to 6 on ``device``; the ``kernels`` and ``model`` payloads."""
+    """Phases 2 to 7 on ``device``; the ``kernels`` and ``model`` payloads."""
     t0 = time.perf_counter()
     inp = make_inputs(sizes)
     outs, launches = drive_main_path(inp, backend)
@@ -1120,6 +1479,8 @@ def run(device, sizes: dict, backend: str, card: str = "cpu") -> dict:
         sizes, device, backend, card)
     launches["flash_dq"] = train_launches["flash_dq"]
     launches["flash_dkv"] = train_launches["flash_dkv"]
+    rows["paged_decode"], launches["paged_decode"], model["paged"] = run_paged_path(
+        sizes, device, card)
     kernels = []
     for name, row in rows.items():
         source, replaces = KERNEL_META[name]

@@ -292,3 +292,143 @@ def test_train_step_launches_per_layer(cuda_device, remat):
     before = [f.launches for f in kernels]
     generate(model, tokens[:, :8], steps=2, temperature=0.0)
     assert [f.launches - b for f, b in zip(kernels[1:], before[1:])] == [0, 0]
+
+
+# ------------------------------------------------------------ B7, paged decode
+
+
+def _paged_inputs(S, M, bs, h, kvh, d, dtype, int8, seed, device):
+    """q, pools (int8: quantized by the engine's recipe) and each slot's
+    table over distinct pool blocks (block 0 stays TRASH)."""
+    from tpulab_torch.models.paged import _kv_quant
+
+    rng = np.random.default_rng(seed)
+    P = S * M + 1
+    mk = lambda *sh: torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(device)
+    q = mk(S, 1, h, d).to(dtype)
+    kf, vf = mk(P, bs, kvh, d), mk(P, bs, kvh, d)
+    kp, vp = (_kv_quant(kf), _kv_quant(vf)) if int8 else (kf.to(dtype), vf.to(dtype))
+    tables = torch.from_numpy(1 + rng.permutation(S * M).reshape(S, M).astype(np.int32))
+    return q, kp, vp, tables.to(device)
+
+
+#: ragged lengths: 0, 1, block edges, the full table (M = 8 blocks of 16)
+PAGED_LENGTHS = [0, 1, 15, 16, 17, 64, 100, 128]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True], ids=["native", "int8"])
+@pytest.mark.parametrize("h,kvh", [(8, 2), (24, 2), (8, 8), (4, 1)])
+@pytest.mark.parametrize("window", [0, 5, 40])
+def test_paged_kernel_matches_plain(cuda_device, dtype, int8, h, kvh, window):
+    """B7 against its plain version, element by element within
+    ``paged_over_tolerance`` (f32 ``2e-5 + 2e-5 |want|``; bf16
+    ``attention.o_tolerance``); a length-0 slot is NaN in both.  GQA groups
+    of 4, 12, 1 and 4 query heads."""
+    from tpulab_torch.ops.cuda.paged import (
+        paged_attend_kernel,
+        paged_attend_plain,
+        paged_over_tolerance,
+    )
+
+    q, kp, vp, tables = _paged_inputs(8, 8, 16, h, kvh, 64, dtype, int8, h + window,
+                                      cuda_device)
+    lengths = torch.tensor(PAGED_LENGTHS, dtype=torch.int32, device=cuda_device)
+    before = paged_attend_kernel.launches
+    got = paged_attend_kernel(q, kp, vp, tables, lengths, 16, window)
+    torch.cuda.synchronize()
+    assert paged_attend_kernel.launches == before + 1
+    want = paged_attend_plain(q, kp, vp, tables, lengths, 16, window)
+    assert got.dtype == dtype and got.shape == q.shape
+    assert bool(torch.isnan(got[0]).all()) and not bool(torch.isnan(got[1:]).any())
+    assert paged_over_tolerance(got, want) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("bs", [8, 16, 32])
+def test_paged_kernel_head_dims_and_block_sizes(cuda_device, d, bs):
+    from tpulab_torch.ops.cuda.paged import (
+        paged_attend_kernel,
+        paged_attend_plain,
+        paged_over_tolerance,
+    )
+
+    q, kp, vp, tables = _paged_inputs(4, 6, bs, 8, 2, d, torch.bfloat16, False, d, cuda_device)
+    lengths = torch.tensor([1, bs, 3 * bs + 1, 6 * bs], dtype=torch.int32, device=cuda_device)
+    got = paged_attend_kernel(q, kp, vp, tables, lengths, bs, 0)
+    torch.cuda.synchronize()
+    assert paged_over_tolerance(got, paged_attend_plain(q, kp, vp, tables, lengths, bs)) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["native", "int8"])
+def test_paged_tolerance_rejects_a_skipped_block(cuda_device, int8):
+    """The limit B7 is held to rejects the plain version over each slot's
+    table with one live block left out."""
+    from tpulab_torch.ops.cuda.paged import (
+        paged_attend_kernel,
+        paged_attend_plain,
+        paged_over_tolerance,
+    )
+
+    q, kp, vp, tables = _paged_inputs(8, 64, 16, 8, 2, 64, torch.bfloat16, int8, 3, cuda_device)
+    lengths = torch.full((8,), 1024, dtype=torch.int32, device=cuda_device)
+    got = paged_attend_kernel(q, kp, vp, tables, lengths, 16, 0)
+    want = paged_attend_plain(q, kp, vp, tables, lengths, 16, 0)
+    assert paged_over_tolerance(got, want) <= 1
+    j = 30
+    cut = torch.cat([tables[:, :j], tables[:, j + 1:], torch.zeros_like(tables[:, :1])], 1)
+    skipped = paged_attend_plain(q, kp, vp, cut, lengths - 16, 16, 0)
+    assert paged_over_tolerance(skipped, want) > 1
+
+
+@pytest.mark.cuda
+def test_paged_kernel_refuses_before_launch(cuda_device):
+    from tpulab_torch.ops.cuda.paged import paged_attend_kernel
+
+    q, kp, vp, tables = _paged_inputs(2, 4, 16, 8, 2, 64, torch.float32, False, 0, cuda_device)
+    lengths = torch.tensor([3, 9], dtype=torch.int32, device=cuda_device)
+    narrow = [t[..., :48].contiguous() for t in (q, kp, vp)]
+    before = paged_attend_kernel.launches
+    for args in ((*narrow, tables, lengths, 16),               # head_dim 48
+                 (q.to(torch.float16), kp, vp, tables, lengths, 16),
+                 (q, kp, vp, tables, lengths.cpu(), 16),
+                 (q, kp, vp, tables, lengths, 8)):              # block size
+        with pytest.raises(ValueError):
+            paged_attend_kernel(*args)
+    assert paged_attend_kernel.launches == before
+
+
+@pytest.mark.cuda
+def test_paged_engine_pallas_streams_equal_gather(cuda_device):
+    """A small f32 labformer, sharpened by 60 steps of the port's trainer on
+    the card, serves the same greedy streams through B7 as through the
+    gather path, with B7 launched once per layer per tick."""
+    from tpulab_torch.models.labformer import LabformerConfig, init_train_state
+    from tpulab_torch.models.paged import PagedEngine
+    from tpulab_torch.ops.cuda.paged import paged_attend_kernel
+
+    cfg = LabformerConfig(d_model=64, n_heads=8, n_kv_heads=2, n_layers=2, d_ff=128,
+                          max_seq=128)
+    model, state, step = init_train_state(cfg, None, seed=0, device=cuda_device)
+    tok = np.tile(np.arange(33, dtype=np.int32) % 7, (8, 1))
+    for _ in range(60):
+        step(model, state, tok)
+    prompts = [(np.arange(p) % 7).astype(np.int32) for p in (3, 9, 17, 30, 5)]
+    outs = {}
+    for attn, kv in (("gather", "native"), ("pallas", "native"), ("gather", "int8"),
+                     ("pallas", "int8")):
+        eng = PagedEngine(model, cfg, slots=3, n_blocks=32, block_size=8, max_seq=64,
+                          attn=attn, kv_dtype=kv, prefill_chunk=8)
+        before = paged_attend_kernel.launches
+        rids = [eng.submit(p, max_new=12) for p in prompts]
+        got = eng.run()
+        launched = paged_attend_kernel.launches - before
+        assert launched == (eng.counters["ticks"] * cfg.n_layers if attn == "pallas" else 0)
+        outs[attn, kv] = [got[r] for r in rids]
+        assert len(eng.free) + len({b for bl in eng.prefix_cache.values() for b in bl}) == 31
+    for kv in ("native", "int8"):
+        for a, b in zip(outs["gather", kv], outs["pallas", kv]):
+            assert np.array_equal(a, b), (kv, a, b)

@@ -67,6 +67,10 @@ SIGNATURES: Dict[str, List] = {
     "tl_flash_bwd_dq": [_I, _I, *[_P] * 7, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P],
     # the same with dk, dv in place of dq
     "tl_flash_bwd_dkv": [_I, _I, *[_P] * 8, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P],
+    # dtype, d, quantized, q, kpool, vpool, kscale, vscale, tables, lengths,
+    # out, slots, h, kv_heads, block_size, max_blocks, window, q divisor,
+    # shared-memory bytes, stream
+    "tl_paged_decode": [_I, _I, _I, *[_P] * 8, *[_I] * 6, ctypes.c_float, _I, _P],
 }
 
 
