@@ -10,7 +10,10 @@ it runs in a directory without the package.  Phases, each fatal on
 failure:
 
 1. Print the card's name and power limit (``nvidia-smi``), then build the
-   kernels from ``tpulab_torch/csrc/`` (``nvcc``, sm_90a).
+   kernels from ``tpulab_torch/csrc/`` (``nvcc``, sm_90a), and read the
+   built library's SASS (``cuobjdump -sass``): every bfloat16 instance of
+   B4 and B6 must hold ``wgmma`` (``HGMMA``), and the float32 instances of
+   B4-B6 and the bfloat16 instances of B5 no tensor-core instruction.
 2. The main path: lab1 (float64, n=1000), lab2 (1024x1024) and lab3
    (1024x1024, 8 classes, float64 and float32) through the CLI's own entry
    point, with every kernel's launch count set to 0 just before and read
@@ -1438,6 +1441,47 @@ KERNEL_META = {
     "paged_decode": ("tpulab_torch/csrc/paged_decode.cu", "tpulab/ops/pallas/paged.py:193"),
 }
 
+#: each flash kernel's design per dtype: ``wgmma`` on the tensor cores or
+#: ``fma`` on the f32 FMA pipes
+FLASH_DESIGN = {"flash_fwd": {"float32": "fma", "bfloat16": "wgmma"},
+                "flash_dq": {"float32": "fma", "bfloat16": "fma"},
+                "flash_dkv": {"float32": "fma", "bfloat16": "wgmma"}}
+#: (row, dtype) of a flash kernel's instance, by a part of its mangled name
+FLASH_TEMPLATES = (("flash_fwd_wgmma_kernel", "flash_fwd", "bfloat16"),
+                   ("flash_fwd_kernel", "flash_fwd", "float32"),
+                   ("flash_dkv_wgmma_kernel", "flash_dkv", "bfloat16"),
+                   ("flash_bwd_dkv_kernel", "flash_dkv", "float32"),
+                   ("flash_bwd_dq_kernel", "flash_dq", None))
+
+
+def sass_check(library: Path) -> dict:
+    """Each flash row's tensor-core opcodes per dtype in the library's SASS,
+    held to ``FLASH_DESIGN``: a ``wgmma`` design holds HGMMA in every
+    instance, an ``fma`` design no tensor-core opcode in any."""
+    from tpulab_torch.ops.cuda import _build
+    from tpulab_torch.ops.cuda.attention import HEAD_DIMS
+
+    found = {}
+    for name, text in _build.kernel_sass(library).items():
+        for part, row, dtype in FLASH_TEMPLATES:
+            if part in name:
+                dtype = dtype or ("bfloat16" if "bfloat16" in name else "float32")
+                found.setdefault(row, {}).setdefault(dtype, []).append(
+                    _build.tensor_core_opcodes(text))
+                break
+    out = {}
+    for row, designs in FLASH_DESIGN.items():
+        out[row] = {}
+        for dtype, design in designs.items():
+            ops = found.get(row, {}).get(dtype, [])
+            check(len(ops) == len(HEAD_DIMS), f"{row} {dtype}: {len(ops)} instances in the SASS")
+            want = ["HGMMA"] if design == "wgmma" else []
+            check(all(o == want for o in ops),
+                  f"{row} {dtype} ({design}): tensor-core opcodes {ops} in the SASS")
+            out[row][dtype] = sorted({op for o in ops for op in o})
+    return out
+
+
 FULL_SIZES = {
     "lab1_n": 1000, "lab2_side": 1024, "lab3_side": 1024, "lab3_nc": 8,
     "b1_side": 8192, "b2_n": 2**26, "b3_side": 4096,
@@ -1484,8 +1528,9 @@ def run(device, sizes: dict, backend: str, card: str = "cpu") -> dict:
     kernels = []
     for name, row in rows.items():
         source, replaces = KERNEL_META[name]
+        design = {"design": FLASH_DESIGN[name]} if name in FLASH_DESIGN else {}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                        "launches": launches[name], **row})
+                        "launches": launches[name], **design, **row})
     return {"kernels": kernels, "model": model}
 
 
@@ -1507,13 +1552,18 @@ def main() -> int:
     _build.load_library()
     print(f"built {library.relative_to(ROOT)} in {time.perf_counter() - t0:.1f} s", flush=True)
     for line in (library.parent / "build.log").read_text().splitlines():
-        if "Used" in line or "Compiling entry" in line:
+        if "Used" in line or "Compiling entry" in line or "spill" in line:
             print("  " + line.strip())
+    sass = sass_check(library)
+    print(f"SASS tensor-core opcodes per flash kernel and dtype: {json.dumps(sass)}", flush=True)
 
     # f32 products stay f32 on the card (no TF32), in the port and in its plain versions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     payload = run(torch.device("cuda", 0), FULL_SIZES, "cuda", card)
+    for kernel in payload["kernels"]:
+        if kernel["name"] in sass:
+            kernel["sass_tensor_core_opcodes"] = sass[kernel["name"]]
     print(json.dumps({"model": payload["model"]}), flush=True)
     print(json.dumps({"kernels": payload["kernels"]}), flush=True)
     print(card, flush=True)

@@ -130,6 +130,10 @@ FLASH_CASES = [
     (2, 200, 8, 2, True, 0, 0),     # GQA
     (1, 1030, 2, 1, True, 0, 0),
     (1, 2048, 2, 2, True, 300, 1024),
+    (1, 33, 4, 1, True, 0, 0),      # under one tile, GQA group of 4
+    (1, 65, 2, 2, True, 0, 0),      # one past a 64-key tile
+    (2, 129, 8, 2, True, 0, 0),     # one past two tiles, GQA group of 4
+    (1, 129, 4, 4, True, 40, 100),  # ragged, a window, rows past its reach (o = 0)
 ]
 
 
@@ -178,6 +182,50 @@ def test_flash_kernel_reads_strided_inputs(cuda_device):
     got = flash_attention_with_lse(q, k, v, window=24)
     want = flash_attention_with_lse(q.contiguous(), k.contiguous(), v.contiguous(), window=24)
     _assert_flash_close(got, want, torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["strided", "misaligned"])
+def test_flash_bf16_kernels_read_strided_and_misaligned_inputs(cuda_device, layout):
+    """The tensor-core kernels copy 16-byte chunks: a strided view whose
+    rows stay 16-byte aligned is read in place, a view that starts 2 bytes
+    off is copied first; both give the bits of the contiguous call."""
+    rng = np.random.default_rng(1)
+    b, s, h, d = 2, 96, 4, 32
+    if layout == "strided":
+        qkv = torch.from_numpy(rng.standard_normal((b, s, 4, h, d)).astype(np.float32))
+        qkv = qkv.to(cuda_device, torch.bfloat16)
+        q, k, v, do = (qkv[:, :, i] for i in range(4))
+    else:
+        flat = torch.from_numpy(rng.standard_normal(4 * b * s * h * d + 1).astype(np.float32))
+        flat = flat.to(cuda_device, torch.bfloat16)[1:]
+        q, k, v, do = (flat[i * b * s * h * d:(i + 1) * b * s * h * d].view(b, s, h, d)
+                       for i in range(4))
+        assert q.data_ptr() % 16
+    assert not q.is_contiguous() or q.data_ptr() % 16
+    dense = [t.clone(memory_format=torch.contiguous_format) for t in (q, k, v, do)]
+    got = flash_attention_with_lse(q, k, v, window=24)
+    want = flash_attention_with_lse(*dense[:3], window=24)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    delta = bwd_delta(want[0], dense[3], None)
+    got_kv = flash_attention_bwd_dkv(q, k, v, do, want[1], delta, window=24)
+    want_kv = flash_attention_bwd_dkv(*dense, want[1], delta, window=24)
+    assert all(torch.equal(g, w) for g, w in zip(got_kv, want_kv))
+
+
+@pytest.mark.cuda
+def test_flash_bf16_kernels_run_on_tensor_cores(cuda_device):
+    """The built library's SASS (cuobjdump): every bfloat16 B4 and B6
+    instance holds wgmma (HGMMA); the float32 B4, B5 and B6 instances and
+    the bfloat16 B5 instances use no tensor-core instruction."""
+    sass = _build.kernel_sass(_build.build())
+    tc = {name: _build.tensor_core_opcodes(text) for name, text in sass.items()}
+    wgmma = [n for n in tc if "flash_fwd_wgmma_kernel" in n or "flash_dkv_wgmma_kernel" in n]
+    fma = [n for n in tc if any(k in n for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
+                                                 "flash_bwd_dkv_kernel"))]
+    assert len(wgmma) == 2 * len(HEAD_DIMS) and len(fma) == 4 * len(HEAD_DIMS)
+    assert all(tc[n] == ["HGMMA"] for n in wgmma)
+    assert not any(tc[n] for n in fma)
 
 
 @pytest.mark.cuda

@@ -180,13 +180,12 @@ def test_flash_plain_is_the_cpu_path():
     assert torch.equal(o, po) and torch.equal(lse, plse)
 
 
-def _tiled_recurrence(q, k, v, causal=True, window=0, q_offset=0, skip_tile=None):
-    """Kernel B4's recurrence in PyTorch: key tiles of 64 (32 at head_dim
-    128) in order, a running max, p rounded to v's dtype at that max, f32
-    accumulator and denominator rescaled at each tile.  ``skip_tile`` plants
-    a fault: rows past that tile do not see its keys."""
+def _tiled_recurrence(q, k, v, causal=True, window=0, q_offset=0, skip_tile=None, bk=64):
+    """Kernel B4's recurrence in PyTorch: key tiles of ``bk`` in order, a
+    running max, p rounded to v's dtype at that max, f32 accumulator and
+    denominator rescaled at each tile.  ``skip_tile`` plants a fault: rows
+    past that tile do not see its keys."""
     b, s, h, d = q.shape
-    bk = 64 if d <= 64 else 32
     qs = (q.float() * softmax_scale(d)).to(q.dtype).float().transpose(1, 2)
     kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)
     q_pos = q_offset + torch.arange(s)[:, None]
@@ -214,15 +213,19 @@ def _tiled_recurrence(q, k, v, causal=True, window=0, q_offset=0, skip_tile=None
     return o.transpose(1, 2).to(q.dtype)
 
 
-# (b, s, h, d, dtype, window, q_offset): the serving and demo prefills (one
-# batch row of each), a window and a query offset at 4096, head_dim 128
+# (b, s, h, d, dtype, window, q_offset, key tile): the serving and demo
+# prefills (one batch row of each), a window and a query offset at 4096,
+# head_dim 128.  The key tile is the kernel's: float32 runs on the FMA
+# kernel (64 keys, 32 at head_dim 128), bfloat16 on the tensor-core kernel
+# (64 keys at every head dim)
 TILED_CASES = [
-    (1, 1024, 8, 64, torch.bfloat16, 0, 0),
-    (1, 1024, 8, 16, torch.float32, 0, 0),
-    (1, 1024, 8, 16, torch.bfloat16, 0, 0),
-    (1, 4096, 2, 64, torch.bfloat16, 256, 0),
-    (1, 4096, 2, 64, torch.bfloat16, 1024, 4096),
-    (1, 1024, 4, 128, torch.bfloat16, 0, 0),
+    (1, 1024, 8, 64, torch.bfloat16, 0, 0, 64),
+    (1, 1024, 8, 16, torch.float32, 0, 0, 64),
+    (1, 1024, 8, 16, torch.bfloat16, 0, 0, 64),
+    (1, 4096, 2, 64, torch.bfloat16, 256, 0, 64),
+    (1, 4096, 2, 64, torch.bfloat16, 1024, 4096, 64),
+    (1, 1024, 4, 128, torch.float32, 0, 0, 32),
+    (1, 1024, 4, 128, torch.bfloat16, 0, 0, 64),
 ]
 
 
@@ -236,16 +239,18 @@ def _seeded(case):
 @pytest.mark.parametrize("case", TILED_CASES)
 def test_o_tolerance_admits_the_kernels_recurrence(case):
     q, k, v = _seeded(case)
-    window, q_offset = case[5:]
+    window, q_offset, bk = case[5:]
     want = flash_attention_plain(q, k, v, True, window, q_offset)[0]
-    assert over_tolerance(_tiled_recurrence(q, k, v, True, window, q_offset), want) <= 1
+    assert over_tolerance(_tiled_recurrence(q, k, v, True, window, q_offset, bk=bk), want) <= 1
 
 
 @pytest.mark.parametrize("case,tile", [(TILED_CASES[0], 8), (TILED_CASES[0], 14),
                                        (TILED_CASES[1], 14), (TILED_CASES[2], 14),
-                                       (TILED_CASES[3], 62), (TILED_CASES[4], 62)])
+                                       (TILED_CASES[3], 62), (TILED_CASES[4], 62),
+                                       (TILED_CASES[5], 28), (TILED_CASES[6], 14)])
 def test_o_tolerance_rejects_a_skipped_key_tile(case, tile):
     q, k, v = _seeded(case)
-    window, q_offset = case[5:]
+    window, q_offset, bk = case[5:]
     want = flash_attention_plain(q, k, v, True, window, q_offset)[0]
-    assert over_tolerance(_tiled_recurrence(q, k, v, True, window, q_offset, tile), want) > 10
+    got = _tiled_recurrence(q, k, v, True, window, q_offset, tile, bk)
+    assert over_tolerance(got, want) > 10

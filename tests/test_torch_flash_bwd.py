@@ -155,11 +155,12 @@ def test_flash_grads_bf16_match_tpulab(window):
     _assert_grads_close(got, want)
 
 
-def _kernel_order(q, k, v, do, lse, delta, keep, skip_tile=None, bk=64):
+def _kernel_order(q, k, v, do, lse, delta, keep, skip_tile=None, bk=64, bq=1):
     """The kernels' sums in PyTorch: B5 accumulates dq key by key, B6 dk and
-    dv query by query over each head of the GQA group, p and ds rounded as
-    the kernels round them.  ``skip_tile`` plants a fault: rows past that key
-    tile do not see its keys."""
+    dv over each head of the GQA group one tile of ``bq`` queries at a time
+    (1 on the FMA pipes, a tensor-core product's tile in bfloat16), p and ds
+    rounded as the kernels round them.  ``skip_tile`` plants a fault: rows
+    past that key tile do not see its keys."""
     b, s, h, d = q.shape
     g = h // k.shape[2]
     if skip_tile is not None:
@@ -179,26 +180,32 @@ def _kernel_order(q, k, v, do, lse, delta, keep, skip_tile=None, bk=64):
     dk = torch.zeros(b, s, k.shape[2], d)
     dv = torch.zeros_like(dk)
     for hh in range(h):
-        for i in range(s):
-            dk[:, :, hh // g] += dsr[:, hh, i, :, None] * qs[:, i, hh, None, :]
-            dv[:, :, hh // g] += pr[:, hh, i, :, None] * do.float()[:, i, hh, None, :]
+        for i in range(0, s, bq):
+            t = slice(i, i + bq)
+            dk[:, :, hh // g] += torch.einsum("bik,bid->bkd", dsr[:, hh, t], qs[:, t, hh])
+            dv[:, :, hh // g] += torch.einsum("bik,bid->bkd", pr[:, hh, t], do.float()[:, t, hh])
     return dq, dk.to(k.dtype), dv.to(k.dtype)
 
 
-# (s, h, kv_heads, d, dtype, window, q_offset): one batch row of the
-# training step's shapes (head_dim 64 and the demo's 16), a window, GQA and
-# a query offset with an lse cotangent
+# (s, h, kv_heads, d, dtype, window, q_offset, B6's query tile): one batch
+# row of the training step's shapes (head_dim 64 and the demo's 16), a
+# window, GQA and a query offset with an lse cotangent.  B6's query tile is
+# 1 on the FMA pipes (float32) and the tensor-core product's tile in
+# bfloat16: 64 queries, 32 at head_dim 128
 ORDER_CASES = [
-    (1024, 2, 2, 64, torch.bfloat16, 0, 0),
-    (1024, 2, 2, 64, torch.float32, 0, 0),
-    (1024, 4, 2, 16, torch.float32, 0, 0),
-    (1024, 2, 2, 64, torch.bfloat16, 256, 0),
-    (512, 2, 1, 64, torch.float32, 128, 512),
+    (1024, 2, 2, 64, torch.bfloat16, 0, 0, 64),
+    (1024, 2, 2, 64, torch.float32, 0, 0, 1),
+    (1024, 4, 2, 16, torch.float32, 0, 0, 1),
+    (1024, 2, 2, 64, torch.bfloat16, 256, 0, 64),
+    (512, 2, 1, 64, torch.float32, 128, 512, 1),
+    (512, 2, 2, 128, torch.bfloat16, 0, 0, 32),
+    (512, 8, 2, 64, torch.bfloat16, 0, 0, 64),
+    (512, 2, 1, 16, torch.bfloat16, 128, 512, 64),
 ]
 
 
 def _order_inputs(case):
-    s, h, kvh, d, dtype, window, q_offset = case
+    s, h, kvh, d, dtype, window, q_offset = case[:7]
     rng = np.random.default_rng(s + d + h)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(dtype)
                    for sh in ((1, s, h, d), (1, s, kvh, d), (1, s, kvh, d), (1, s, h, d)))
@@ -214,15 +221,16 @@ def _order_inputs(case):
 @pytest.mark.parametrize("case", ORDER_CASES)
 def test_grad_tolerance_admits_the_kernels_sums(case):
     args, want = _order_inputs(case)
-    for g, w in zip(_kernel_order(*args), want):
+    for g, w in zip(_kernel_order(*args, bq=case[7]), want):
         assert grad_over_tolerance(g, w) <= 1
 
 
 @pytest.mark.parametrize("case,tile", [(ORDER_CASES[0], 8), (ORDER_CASES[0], 14),
-                                       (ORDER_CASES[1], 14), (ORDER_CASES[2], 8)])
+                                       (ORDER_CASES[1], 14), (ORDER_CASES[2], 8),
+                                       (ORDER_CASES[5], 6), (ORDER_CASES[6], 6)])
 def test_grad_tolerance_rejects_a_skipped_key_tile(case, tile):
     args, want = _order_inputs(case)
-    for g, w in zip(_kernel_order(*args, skip_tile=tile), want):
+    for g, w in zip(_kernel_order(*args, skip_tile=tile, bq=case[7]), want):
         assert grad_over_tolerance(g, w) > 10
 
 

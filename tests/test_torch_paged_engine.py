@@ -313,6 +313,18 @@ def test_kv_quant_and_pool_write_bit_equal(shape):
     assert torch.equal(tpool[1], _to_torch(np.asarray(jsc)))
 
 
+def test_init_pools_default_device_is_the_card(models, monkeypatch):
+    """Like every entry point, init_pools puts its pools on the card unless
+    asked for the CPU, and raises where no card is visible."""
+    cfg = models["small"][2].cfg
+    kp, vp = tpaged.init_pools(cfg, 4, 8, device="cpu")
+    assert kp.device.type == vp.device.type == "cpu"
+    assert kp.shape == (cfg.n_layers, 4, 8, cfg.kv_heads, cfg.head_dim)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tpaged.init_pools(cfg, 4, 8)
+
+
 @pytest.mark.parametrize("kv_dtype", ["native", "int8"])
 def test_scatter_prefill_bit_equal(models, kv_dtype):
     _, jcfg, model = models["small"]
@@ -324,7 +336,7 @@ def test_scatter_prefill_bit_equal(models, kv_dtype):
     jk, jv = jpaged.init_pools(jcfg, 12, bs, kv_dtype)
     jk, jv = jpaged._scatter_prefill(jk, jv, jnp.asarray(k), jnp.asarray(v), jnp.asarray(row),
                                      8, 27, bucket, bs)
-    tk, tv = tpaged.init_pools(model.cfg, 12, bs, kv_dtype)
+    tk, tv = tpaged.init_pools(model.cfg, 12, bs, kv_dtype, device="cpu")
     tpaged._scatter_prefill(tk, tv, torch.from_numpy(k), torch.from_numpy(v),
                             torch.from_numpy(row), 8, 27, bucket, bs)
     for jp, tp in ((jk, tk), (jv, tv)):
@@ -343,7 +355,7 @@ def test_paged_extend_pools_match(models, case):
     row = np.array([5, 2, 8, 6, 0, 0, 0, 0], np.int32)
     start, n, bucket = (16, 13, 16) if case == "prefix_hit" else (8, 8, 16)
     jk, jv = jpaged.init_pools(jcfg, 12, bs)
-    tk, tv = tpaged.init_pools(model.cfg, 12, bs)
+    tk, tv = tpaged.init_pools(model.cfg, 12, bs, device="cpu")
     # the earlier positions first, as admission leaves them
     jk, jv = jpaged.paged_extend(params, jnp.asarray(prompt[None, :16]), jk, jv,
                                  jnp.asarray(row), 0, start, jcfg, bs, 16)
@@ -371,7 +383,7 @@ def test_decode_step_logits_match(models, kv_dtype, attn):
     lengths = np.array([5, 11], np.int32)
     toks = np.array([3, 4], np.int32)
     jk, jv = jpaged.init_pools(jcfg, 16, 8, kv_dtype)
-    tk, tv = tpaged.init_pools(model.cfg, 16, 8, kv_dtype)
+    tk, tv = tpaged.init_pools(model.cfg, 16, 8, kv_dtype, device="cpu")
     for i in range(3):
         jl, jk, jv = jpaged.paged_decode_step(params, jnp.asarray(toks + i), jk, jv,
                                               jnp.asarray(tables), jnp.asarray(lengths + i),

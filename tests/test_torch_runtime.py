@@ -216,3 +216,23 @@ def test_refused_geometry_raises(grid, block):
                                         ((16, 65535), (32, 32))])
 def test_accepted_geometry(grid, block):
     _build.check_geometry(grid, block)
+
+
+@pytest.mark.parametrize("smem,ok", [(0, True), (48 * 1024, True), (_build.MAX_SHARED, True),
+                                     (_build.MAX_SHARED + 1, False), (256 * 1024, False)])
+def test_shared_memory_over_the_block_limit_is_refused(smem, ok):
+    if ok:
+        _build.check_geometry((1,), (128,), smem)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            _build.check_geometry((1,), (128,), smem)
+
+
+def test_tensor_core_flash_blocks_fit_in_shared_memory():
+    from tpulab_torch.ops.cuda.attention import HEAD_DIMS, tc_shared_bytes
+
+    for d in HEAD_DIMS:
+        for backward in (False, True):
+            _build.check_geometry((1,), (128,), tc_shared_bytes(d, backward))
+    assert tc_shared_bytes(64, False) == 1024 + 5 * 64 * 128
+    assert tc_shared_bytes(128, True) == 1024 + 2 * 64 * 256 + 4 * 32 * 256 + 4 * 32 * 4

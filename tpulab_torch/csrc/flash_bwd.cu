@@ -20,18 +20,35 @@
 // walks the key tiles; B6 has one block per (64-key tile, batch*kv_head)
 // and walks the query tiles of every query head of its GQA group, so dk
 // and dv come out at kv width, summed over the group in f32, with no
-// atomics.  Each row lives in registers of TPR threads (flash_common.cuh);
-// the tile that every row of the block reads is staged in shared memory as
-// f32.  Tiles no row can see are never loaded (the Pallas kernels'
+// atomics.  Tiles no row can see are never loaded (the Pallas kernels'
 // _block_edges, at this kernel's tile size), and tiles that every row sees
 // whole skip the positional mask.  No padding: positions past the sequence
 // end are masked.
 //
 // Bound: operations at the model path's shapes (B5 6*d and B6 8*d flops per
-// visible (query, key) pair, against ~4 reads of (s, d) per head).  Like B4
-// these first kernels run on the f32 FMA pipes, not the tensor cores.
+// visible (query, key) pair, against ~4 reads of (s, d) per head).
+//
+// B5 (both dtypes) and B6 in float32 run on the f32 FMA pipes: each row
+// lives in registers of TPR threads (flash_common.cuh), and the tile that
+// every row of the block reads is staged in shared memory as f32.
+//
+// B6 in bfloat16 (flash_dkv_wgmma_kernel) runs on the tensor cores: one
+// warpgroup holds the block's 64 keys, K and V in 128-byte-swizzled shared
+// memory (flash_tc.cuh), and dK, dV in f32 registers across every query
+// tile of the group.  Query tiles of 64 rows (32 at head dim 128, so the
+// registers fit) are staged bf16 with their lse and delta, two stages
+// filled by cp.async; q' is prescaled in shared memory after its copy.
+// Per tile, four wgmma products: S^T = K q'^T and dP^T = V do^T from shared
+// memory; P^T = exp(S^T - lse) (0 where masked) and dS^T = P^T (dP^T -
+// delta) in f32 registers; then dV += bf16(P^T) do and dK += bf16(dS^T) q',
+// each A operand straight from the accumulator's registers.  exp is the
+// MUFU's, as in B4.  B6 recomputes the scores in the tensor cores' order,
+// as B4 computed them; B5 recomputes them on the FMA pipes, in row_sum's
+// order, so in bf16 its p is exp of a score that differs from the one
+// behind the forward's lse by f32 rounding.
 
 #include "flash_common.cuh"
+#include "flash_tc.cuh"
 
 #include <math.h>
 
@@ -329,55 +346,294 @@ int launch_dq(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, typename T>
+template <int D>
 int launch_dkv(const Args& a) {
   const dim3 grid((a.s + BQ - 1) / BQ, a.b * a.kvh);
-  flash_bwd_dkv_kernel<D, T><<<grid, Geometry<D>::THREADS, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.s,
-      a.h, a.kvh, a.scale, a.causal, a.window, a.q_offset);
+  flash_bwd_dkv_kernel<D, float><<<grid, Geometry<D>::THREADS, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(a.dk), static_cast<float*>(a.dv), a.s, a.h, a.kvh, a.scale, a.causal,
+      a.window, a.q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, bool DKV>
-int dispatch_d(int d, const Args& a) {
+// ------------------------------------------ B6 in bf16 on the tensor cores
+
+template <int D>
+struct DkvTC {
+  static constexpr int NP = D > 64 ? 2 : 1;               // 64-column panels of a row
+  static constexpr int KSTEPS = (D < 16 ? 16 : D) / 16;  // k-steps of the score products
+  static constexpr int BT = D > 64 ? 32 : 64;             // query rows per tile
+  static constexpr int KTILE = BQ * NP * 128;             // bytes of the K or V tile
+  static constexpr int QTILE = BT * NP * 128;             // bytes of a q' or do tile
+  // alignment; K and V; two stages of q', do, lse and delta
+  static constexpr int SMEM = 1024 + 2 * KTILE + 4 * QTILE + 4 * BT * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(tl_tc::THREADS)
+flash_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int s,
+                       int h, int kvh, float scale, int causal, int window, int q_offset) {
+  using namespace tl_tc;
+  using C = DkvTC<D>;
+  constexpr int BT = C::BT, KTILE = C::KTILE, QTILE = C::QTILE;
+  constexpr int NS = BT / 2;      // accumulator floats of the (key, query) products
+  constexpr int NA = C::NP * 32;  // accumulator floats of dk and dv
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sbase = (raw + 1023) & ~1023u;
+  uint8_t* base = smem_raw + (sbase - raw);
+  // K, V, then per stage q', do; then per stage lse and delta
+  const uint32_t sk = sbase, sv = sbase + KTILE;
+  auto sq = [&](int st) { return sbase + 2 * KTILE + st * 2 * QTILE; };
+  auto sdo = [&](int st) { return sbase + 2 * KTILE + st * 2 * QTILE + QTILE; };
+  const uint32_t srow = sbase + 2 * KTILE + 4 * QTILE;  // lse[st][BT], delta[st][BT]
+  const float* rows = reinterpret_cast<const float*>(base + 2 * KTILE + 4 * QTILE);
+
+  const int tid = threadIdx.x;
+  const int r0 = (tid / 32) * 16 + (tid % 32) / 4;  // this thread's keys: r0, r0 + 8
+  const int cq = (tid % 4) * 2;                      // its query columns: 8 j + cq, + 1
+  const int kt = blockIdx.x;  // the first key tiles see the most causal query tiles
+  const int bi = blockIdx.y / kvh;
+  const int kh = blockIdx.y % kvh;
+  const int group = h / kvh;
+
+  // the query rows that see some key of this tile
+  const long long k_lo = static_cast<long long>(kt) * BQ;
+  const long long k_hi = k_lo + BQ - 1;
+  long long i_begin = 0, i_end = s - 1;  // inclusive, query row indices
+  if (causal) {
+    i_begin = max(0LL, k_lo - q_offset);
+    if (window > 0) i_end = min(i_end, min(k_hi, s - 1LL) + window - 1 - q_offset);
+  }
+  const int qt_begin = static_cast<int>(i_begin / BT);
+  const int nq = i_end >= i_begin ? static_cast<int>(i_end / BT) + 1 - qt_begin : 0;
+  const int n_tiles = nq * group;  // (query head, query tile) pairs, head-major
+
+  const long long kv_row = static_cast<long long>(kvh) * D;  // elements between keys
+  const long long q_row = static_cast<long long>(h) * D;     // elements between queries
+  if (D == 8) {
+    zero_pad8<BQ>(base, tid);
+    zero_pad8<BQ>(base + KTILE, tid);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) zero_pad8<BT>(base + 2 * KTILE + i * QTILE, tid);
+  }
+  const long long kv_at = (static_cast<long long>(bi) * s + k_lo) * kv_row + kh * D;
+  load_tile<BQ, D>(sk, k + kv_at, kv_row, s - kt * BQ, tid);
+  load_tile<BQ, D>(sv, v + kv_at, kv_row, s - kt * BQ, tid);
+  auto load_q = [&](int it, int st) {
+    const int hi = kh * group + it / nq;
+    const int q0 = (qt_begin + it % nq) * BT;
+    const long long at = (static_cast<long long>(bi) * s + q0) * h + hi;  // row of (b, s, h)
+    load_tile<BT, D>(sq(st), q + at * D, q_row, s - q0, tid);
+    load_tile<BT, D>(sdo(st), dout + at * D, q_row, s - q0, tid);
+    for (int i = tid; i < BT; i += THREADS) {
+      const bool ok = q0 + i < s;
+      const long long r = ok ? at + static_cast<long long>(i) * h : at;
+      cp4(srow + (2 * st) * BT * 4 + i * 4, lse + r, ok);
+      cp4(srow + (2 * st + 1) * BT * 4 + i * 4, delta + r, ok);
+    }
+  };
+  if (n_tiles > 0) load_q(0, 0);
+  cp_commit();
+
+  float dk_acc[NA], dv_acc[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int st = it & 1;
+    if (it + 1 < n_tiles) load_q(it + 1, st ^ 1);  // in flight while this tile computes
+    cp_commit();
+    cp_wait<1>();
+    prescale_tile<BT, D>(base + (sq(st) - sbase), scale, tid);
+    fence_async_shared();
+    __syncthreads();
+
+    // S^T = K q'^T and dP^T = V do^T
+    float sc[NS], dp[NS];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::KSTEPS; ++kk) {
+      if constexpr (BT == 64) {
+        wgmma_ss_n64(sc, desc_k<BQ>(sk, kk), desc_k<BT>(sq(st), kk), kk > 0);
+      } else {
+        wgmma_ss_n32(sc, desc_k<BQ>(sk, kk), desc_k<BT>(sq(st), kk), kk > 0);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < C::KSTEPS; ++kk) {
+      if constexpr (BT == 64) {
+        wgmma_ss_n64(dp, desc_k<BQ>(sv, kk), desc_k<BT>(sdo(st), kk), kk > 0);
+      } else {
+        wgmma_ss_n32(dp, desc_k<BQ>(sv, kk), desc_k<BT>(sdo(st), kk), kk > 0);
+      }
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // P^T = exp(S^T - lse), 0 where masked; dS^T = P^T (dP^T - delta)
+    const int q0 = (qt_begin + it % nq) * BT;
+    const long long q_lo = static_cast<long long>(q_offset) + q0;
+    const long long q_hi = q_lo + BT - 1;
+    const bool full = q0 + BT <= s &&
+                      (!causal || (k_hi <= q_lo && (window == 0 || k_lo > q_hi - window)));
+    const float* lse_s = rows + 2 * st * BT;
+    const float* delta_s = rows + (2 * st + 1) * BT;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int col = 8 * (i / 4) + cq + (i % 2);
+      bool keep = true;
+      if (!full) {
+        const long long kj = k_lo + r0 + 8 * ((i / 2) % 2);
+        const long long qpos = q_lo + col;
+        keep = q0 + col < s;
+        if (causal) {
+          keep = keep && kj <= qpos;
+          if (window > 0) keep = keep && kj > qpos - window;
+        }
+      }
+      const float p = keep ? exp_mufu(sc[i] - lse_s[col]) : 0.0f;
+      sc[i] = p;
+      dp[i] = p * (dp[i] - delta_s[col]);
+    }
+
+    // dV += bf16(P^T) do and dK += bf16(dS^T) q', both from registers
+    uint32_t pa[BT / 16][4], da[BT / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      to_a_frag(sc, kk, pa[kk]);
+      to_a_frag(dp, kk, da[kk]);
+    }
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      if constexpr (C::NP == 1) {
+        wgmma_rs_n64(dv_acc, pa[kk], desc_mn<BT>(sdo(st), kk), 1);
+      } else {
+        wgmma_rs_n128(dv_acc, pa[kk], desc_mn<BT>(sdo(st), kk), 1);
+      }
+    }
+#pragma unroll
+    for (int kk = 0; kk < BT / 16; ++kk) {
+      if constexpr (C::NP == 1) {
+        wgmma_rs_n64(dk_acc, da[kk], desc_mn<BT>(sq(st), kk), 1);
+      } else {
+        wgmma_rs_n128(dk_acc, da[kk], desc_mn<BT>(sq(st), kk), 1);
+      }
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(dv_acc);
+    fence_regs(dk_acc);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int kj = kt * BQ + r0 + 8 * rr;
+    if (kj < s) {
+      const long long at = ((static_cast<long long>(bi) * s + kj) * kvh + kh) * D;
+#pragma unroll
+      for (int j = 0; j < NA / 4; ++j) {
+        const int col = 8 * j + cq;
+        if (col < D) {
+          *reinterpret_cast<__nv_bfloat162*>(dk + at + col) =
+              __floats2bfloat162_rn(dk_acc[4 * j + 2 * rr], dk_acc[4 * j + 2 * rr + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(dv + at + col) =
+              __floats2bfloat162_rn(dv_acc[4 * j + 2 * rr], dv_acc[4 * j + 2 * rr + 1]);
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_dkv_wgmma(const Args& a, int smem) {
+  if (smem != DkvTC<D>::SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_dkv_wgmma_kernel<D>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.s + BQ - 1) / BQ, a.b * a.kvh);
+  kernel<<<grid, tl_tc::THREADS, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv), a.s, a.h, a.kvh,
+      a.scale, a.causal, a.window, a.q_offset);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int dispatch_dq(int d, const Args& a) {
   switch (d) {
-    case 8: return DKV ? launch_dkv<8, T>(a) : launch_dq<8, T>(a);
-    case 16: return DKV ? launch_dkv<16, T>(a) : launch_dq<16, T>(a);
-    case 32: return DKV ? launch_dkv<32, T>(a) : launch_dq<32, T>(a);
-    case 64: return DKV ? launch_dkv<64, T>(a) : launch_dq<64, T>(a);
-    case 128: return DKV ? launch_dkv<128, T>(a) : launch_dq<128, T>(a);
+    case 8: return launch_dq<8, T>(a);
+    case 16: return launch_dq<16, T>(a);
+    case 32: return launch_dq<32, T>(a);
+    case 64: return launch_dq<64, T>(a);
+    case 128: return launch_dq<128, T>(a);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-template <bool DKV>
-int dispatch(int dtype, int d, const Args& a) {
-  if (dtype == 0) return dispatch_d<float, DKV>(d, a);
-  if (dtype == 1) return dispatch_d<__nv_bfloat16, DKV>(d, a);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
 }  // namespace
 
-// dtype 0 = float32, 1 = bfloat16.  q and do are contiguous (b, s, h, d),
-// k and v contiguous (b, s, kv_heads, d), lse and delta contiguous (b, s, h)
-// f32.  Launch on `stream`; return cudaGetLastError().
+// q and do are contiguous (b, s, h, d), k and v contiguous (b, s, kv_heads,
+// d), lse and delta contiguous (b, s, h) f32.  Launch on `stream`; return
+// cudaGetLastError().
+
+// B5: dtype 0 = float32, 1 = bfloat16, both on the FMA pipes
 extern "C" int tl_flash_bwd_dq(int dtype, int d, const void* q, const void* k, const void* v,
                                const void* dout, const void* lse, const void* delta, void* dq,
                                int b, int s, int h, int kvh, float scale, int causal, int window,
                                int q_offset, void* stream) {
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, b, s, h, kvh, scale,
                causal, window, q_offset, static_cast<cudaStream_t>(stream)};
-  return dispatch<false>(dtype, d, a);
+  if (dtype == 0) return dispatch_dq<float>(d, a);
+  if (dtype == 1) return dispatch_dq<__nv_bfloat16>(d, a);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int tl_flash_bwd_dkv(int dtype, int d, const void* q, const void* k, const void* v,
+// B6 in float32, on the FMA pipes
+extern "C" int tl_flash_bwd_dkv(int d, const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* delta, void* dk,
                                 void* dv, int b, int s, int h, int kvh, float scale, int causal,
                                 int window, int q_offset, void* stream) {
   const Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, b, s, h, kvh, scale,
                causal, window, q_offset, static_cast<cudaStream_t>(stream)};
-  return dispatch<true>(dtype, d, a);
+  switch (d) {
+    case 8: return launch_dkv<8>(a);
+    case 16: return launch_dkv<16>(a);
+    case 32: return launch_dkv<32>(a);
+    case 64: return launch_dkv<64>(a);
+    case 128: return launch_dkv<128>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// B6 in bfloat16, on the tensor cores; besides, the base pointers are
+// 16-byte aligned and smem is the block's dynamic shared memory in bytes
+// (the wrapper's tc_shared_bytes; any other value is refused)
+extern "C" int tl_flash_bwd_dkv_bf16(int d, const void* q, const void* k, const void* v,
+                                     const void* dout, const void* lse, const void* delta,
+                                     void* dk, void* dv, int b, int s, int h, int kvh,
+                                     float scale, int causal, int window, int q_offset, int smem,
+                                     void* stream) {
+  const Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, b, s, h, kvh, scale,
+               causal, window, q_offset, static_cast<cudaStream_t>(stream)};
+  switch (d) {
+    case 8: return launch_dkv_wgmma<8>(a, smem);
+    case 16: return launch_dkv_wgmma<16>(a, smem);
+    case 32: return launch_dkv_wgmma<32>(a, smem);
+    case 64: return launch_dkv_wgmma<64>(a, smem);
+    case 128: return launch_dkv_wgmma<128>(a, smem);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -1,12 +1,17 @@
 // What the flash-attention kernels share: dtype conversions, the rounding
-// of an f32 value to the model dtype, and the per-row thread geometry.
+// of an f32 value to the model dtype, and the per-row thread geometry of
+// the kernels on the FMA pipes (what the tensor-core kernels share is in
+// flash_tc.cuh).
 //
 // A query (or key) row of head_dim D lives in the registers of TPR
 // neighbouring threads of one warp: thread t holds dims (c * TPR + t) * 4 + e
 // for c < CPT, e < 4, and a dot product over the row is each thread's
-// partial sum reduced with __shfl_xor_sync over the TPR lanes.  B4, B5 and
-// B6 sum a score in this same order, so the backward recomputes exactly the
-// scores the forward's logsumexp came from.
+// partial sum reduced with __shfl_xor_sync over the TPR lanes.  In float32,
+// B4, B5 and B6 sum a score in this same order, so the backward recomputes
+// exactly the scores the forward's logsumexp came from.  In bfloat16, B4
+// and B6 sum scores in the tensor cores' order and B5 in this one, so B5's
+// scores differ from those behind the forward's lse by f32 rounding (a few
+// ulps of the score, far inside grad_tolerance).
 
 #pragma once
 

@@ -88,6 +88,7 @@ from tpulab_torch.models.quant import embed_lookup, qmat, unembed
 from tpulab_torch.ops.cuda.paged import Pool, paged_attend_kernel
 from tpulab_torch.ops.cuda.paged import pool_gather as _pool_gather
 from tpulab_torch.parallel.ring import NEG_INF
+from tpulab_torch.runtime.device import resolve_device
 
 TRASH = 0  # physical block 0 swallows must-not-land writes
 
@@ -116,8 +117,13 @@ def init_pools(cfg: LabformerConfig, n_blocks: int, block_size: int,
                kv_dtype: str = "native", device=None) -> Tuple[Pool, Pool]:
     """K/V pools (L, P, BS, kv, d) on ``device``; block 0 is TRASH.
 
-    ``kv_dtype="int8"`` makes each pool an ``(int8 data, f32 scale)`` pair,
-    quantized at write time by symmetric amax along the head dim."""
+    ``device`` is a ``torch.device`` or a backend name, resolved as every
+    entry point resolves it: None is the card (an error where none is
+    visible), ``"cpu"`` the host.  ``kv_dtype="int8"`` makes each pool an
+    ``(int8 data, f32 scale)`` pair, quantized at write time by symmetric
+    amax along the head dim."""
+    device = resolve_device(device) if device is None or isinstance(device, str) \
+        else torch.device(device)
     shape = (cfg.n_layers, n_blocks, block_size, cfg.kv_heads, cfg.head_dim)
     if kv_dtype == "int8":
         def one():

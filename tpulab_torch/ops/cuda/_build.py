@@ -26,6 +26,7 @@ import fcntl
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -58,15 +59,21 @@ SIGNATURES: Dict[str, List] = {
     "tl_binary": [_I, _I, _P, _P, _P, _L, _I, _I, _P],
     # dtype, in, out, stats, nc, n, blocks, threads, stream
     "tl_classify": [_I, _P, _P, _P, _I, _L, _I, _I, _P],
-    # dtype, d, q, k, v, o, lse, b, s, h, kv_heads, strides of q, k, v
-    # (batch, seq, head; elements), scale, causal, window, q_offset, stream
-    "tl_flash_fwd": [_I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, *[_L] * 9,
+    # d, q, k, v, o, lse, b, s, h, kv_heads, strides of q, k, v (batch,
+    # seq, head; elements), scale, causal, window, q_offset, stream (float32)
+    "tl_flash_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, *[_L] * 9,
                      ctypes.c_float, _I, _I, _I, _P],
+    # the same with the shared-memory bytes before the stream (bfloat16)
+    "tl_flash_fwd_bf16": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, *[_L] * 9,
+                          ctypes.c_float, _I, _I, _I, _I, _P],
     # dtype, d, q, k, v, do, lse, delta, dq, b, s, h, kv_heads, scale,
     # causal, window, q_offset, stream (contiguous operands)
     "tl_flash_bwd_dq": [_I, _I, *[_P] * 7, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P],
-    # the same with dk, dv in place of dq
-    "tl_flash_bwd_dkv": [_I, _I, *[_P] * 8, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P],
+    # d, then as tl_flash_bwd_dq with dk, dv in place of dq (float32)
+    "tl_flash_bwd_dkv": [_I, *[_P] * 8, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P],
+    # the same with the shared-memory bytes before the stream (bfloat16)
+    "tl_flash_bwd_dkv_bf16": [_I, *[_P] * 8, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I,
+                              _P],
     # dtype, d, quantized, q, kpool, vpool, kscale, vscale, tables, lengths,
     # out, slots, h, kv_heads, block_size, max_blocks, window, q divisor,
     # shared-memory bytes, stream
@@ -178,8 +185,17 @@ def check_launch(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} ({msg})")
 
 
-def check_geometry(grid: Sequence[int], block: Sequence[int]) -> None:
-    """Raise ``ValueError`` for a launch geometry the card would refuse."""
+#: dynamic shared memory a block may take on Hopper, in bytes (227 KB,
+#: after the opt-in attribute)
+MAX_SHARED = 232_448
+
+
+def check_geometry(grid: Sequence[int], block: Sequence[int], smem: int = 0) -> None:
+    """Raise ``ValueError`` for a launch geometry the card would refuse,
+    ``smem`` bytes of dynamic shared memory included."""
+    if smem > MAX_SHARED:
+        raise ValueError(f"a block asks for {smem} bytes of shared memory; the card allows "
+                         f"{MAX_SHARED}")
     grid, block = tuple(int(v) for v in grid), tuple(int(v) for v in block)
     if any(v < 1 for v in grid + block):
         raise ValueError(f"launch dimensions must be >= 1, got grid {grid} block {block}")
@@ -203,3 +219,23 @@ def check_geometry(grid: Sequence[int], block: Sequence[int]) -> None:
 def stream_handle(device: torch.device) -> int:
     """The current stream of ``device``, as the int ``ctypes`` passes."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+#: the opcodes of the tensor cores in SASS: ``HGMMA`` (``wgmma``) and
+#: ``HMMA`` (``mma.sync``)
+TENSOR_CORE_OPCODES = ("HGMMA", "HMMA")
+
+
+def kernel_sass(library: Path) -> Dict[str, str]:
+    """Each kernel's SASS in the built library, by mangled name, as
+    ``cuobjdump -sass`` (beside ``nvcc``) prints it."""
+    cuobjdump = Path(find_nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(cuobjdump), "-sass", str(library)], check=True,
+                          capture_output=True, text=True).stdout
+    parts = re.split(r"^\s*Function : (\S+)\s*$", text, flags=re.M)
+    return dict(zip(parts[1::2], parts[2::2]))
+
+
+def tensor_core_opcodes(sass: str) -> List[str]:
+    """The tensor-core opcodes that occur in one kernel's SASS."""
+    return [op for op in TENSOR_CORE_OPCODES if re.search(rf"\b{op}\b", sass)]

@@ -8,7 +8,11 @@ through ``_flash_fwd_call`` and ``_flash_bshd``; B5 and B6 replace
 and ``q_offset``; they make the checks and refusals ``_flash_bshd`` makes
 with its default 1024-row blocks, and have no block knobs: the CUDA kernels
 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) pick their own tiles and
-mask by position, so they need no padding.
+mask by position, so they need no padding.  The dtype picks the kernel:
+float32 runs on the FMA pipes, as the Pallas kernel's ``Precision.HIGHEST``
+asks; bfloat16 runs B4 and B6 on the tensor cores (``wgmma``), whose
+16-byte copies need 16-byte-aligned rows, so a bfloat16 operand that is
+not aligned is copied first.  B5 runs on the FMA pipes in both dtypes.
 
 K and V may be narrower than q (grouped-query attention): query head ``i``
 reads kv head ``i // (heads // kv_heads)``, the contiguous mapping of
@@ -54,14 +58,41 @@ HEAD_DIMS = (8, 16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: query rows per block (``BQ`` in csrc/flash_fwd.cu)
 BLOCK_Q = 64
+#: threads of a tensor-core (bfloat16) block of B4 or B6: one warpgroup
+TC_THREADS = 128
 #: the JAX wrapper's default block; a sequence it would have to pad is
 #: refused where padding is refused there
 _JAX_BLOCK = 1024
 
 
 def _threads(d: int) -> int:
-    """Threads per block of the kernel for head dim ``d`` (``Geometry``)."""
+    """Threads per block of an FMA kernel for head dim ``d`` (``Geometry``)."""
     return BLOCK_Q * min(d // 4, 4)
+
+
+def tc_shared_bytes(d: int, backward: bool) -> int:
+    """Dynamic shared memory of one block of the bfloat16 B4
+    (``backward=False``) or B6, in bytes (``FwdTC`` and ``DkvTC`` in
+    csrc/): 1024 bytes of alignment, then bf16 tiles of 128-byte rows per
+    64 head dims.  B4: the q' tile and two stages of K and V, 64 rows each.
+    B6: the block's K and V (64 rows each) and two stages of q', do (64
+    query rows, 32 at head_dim 128), lse and delta."""
+    row = 128 * (2 if d > 64 else 1)
+    if not backward:
+        return 1024 + 5 * BLOCK_Q * row
+    bt = 32 if d > 64 else 64
+    return 1024 + 2 * BLOCK_Q * row + 4 * bt * row + 4 * bt * 4
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` itself where its base and its batch, seq and head strides are
+    16-byte aligned and its head dimension contiguous (what the tensor
+    cores' 16-byte copies need), else a contiguous copy."""
+    e = t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(st * e % 16 == 0 for st in t.stride()[:-1])):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def softmax_scale(d: int) -> float:
@@ -191,20 +222,21 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, wi
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, s, h, d = q.shape
-    q, k, v = (t if t.stride(-1) == 1 else t.contiguous() for t in (q, k, v))
+    tc = q.dtype == torch.bfloat16  # the tensor-core kernel; float32 runs on the FMA pipes
+    q, k, v = (_aligned(t) if tc else t if t.stride(-1) == 1 else t.contiguous()
+               for t in (q, k, v))
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, s, h), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    _build.check_geometry((-(-s // BLOCK_Q), b * h), (_threads(d),))
+    smem = tc_shared_bytes(d, backward=False) if tc else 0
+    _build.check_geometry((-(-s // BLOCK_Q), b * h), (TC_THREADS if tc else _threads(d),), smem)
     lib = _build.load_library()
-    rc = lib.tl_flash_fwd(
-        DTYPES[q.dtype], d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), b, s, h, k.shape[2],
-        *(t.stride(i) for t in (q, k, v) for i in range(3)),
-        softmax_scale(d), int(bool(causal)), window, q_offset,
-        _build.stream_handle(q.device),
-    )
+    args = (d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            b, s, h, k.shape[2], *(t.stride(i) for t in (q, k, v) for i in range(3)),
+            softmax_scale(d), int(bool(causal)), window, q_offset)
+    stream = _build.stream_handle(q.device)
+    rc = lib.tl_flash_fwd_bf16(*args, smem, stream) if tc else lib.tl_flash_fwd(*args, stream)
     flash_attention_with_lse.launches += 1
     _build.check_launch(rc, "flash forward kernel")
     return o, lse
@@ -333,14 +365,21 @@ def _check_bwd(q, k, v, do, lse, delta, causal, window, q_offset) -> None:
 
 
 def _launch_bwd(name: str, q, k, v, do, lse, delta, outs, causal, window, q_offset) -> None:
+    """B5 (``tl_flash_bwd_dq``, either dtype) or B6: ``tl_flash_bwd_dkv``
+    in float32 on the FMA pipes, ``tl_flash_bwd_dkv_bf16`` on the tensor
+    cores."""
     b, s, h, d = q.shape
-    grid_rows = b * (h if name == "tl_flash_bwd_dq" else k.shape[2])
-    _build.check_geometry((-(-s // BLOCK_Q), grid_rows), (_threads(d),))
+    dq = name == "tl_flash_bwd_dq"
+    tc = name == "tl_flash_bwd_dkv_bf16"
+    smem = tc_shared_bytes(d, backward=True) if tc else 0
+    _build.check_geometry((-(-s // BLOCK_Q), b * (h if dq else k.shape[2])),
+                          (TC_THREADS if tc else _threads(d),), smem)
     lib = _build.load_library()
     rc = getattr(lib, name)(
-        DTYPES[q.dtype], d, *(t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)),
+        *((DTYPES[q.dtype],) if dq else ()), d,
+        *(t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)),
         b, s, h, k.shape[2], softmax_scale(d), int(bool(causal)), window, q_offset,
-        _build.stream_handle(q.device),
+        *((smem,) if tc else ()), _build.stream_handle(q.device),
     )
     _build.check_launch(rc, f"{name} kernel")
 
@@ -381,11 +420,15 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal, window, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
+    tc = q.dtype == torch.bfloat16  # the tensor-core kernel; float32 runs on the FMA pipes
     q, k, v, do, lse, delta = (t.contiguous() for t in (q, k, v, do, lse, delta))
+    if tc:
+        q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
-    _launch_bwd("tl_flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv), causal, window, q_offset)
+    _launch_bwd("tl_flash_bwd_dkv_bf16" if tc else "tl_flash_bwd_dkv", q, k, v, do, lse, delta,
+                (dk, dv), causal, window, q_offset)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 

@@ -150,10 +150,6 @@ def shared_bytes(g: int, d: int) -> int:
     return 4 * (2 * ck * (d + 1) + 2 * g * d + g * (ck + 1) + 3 * g)
 
 
-#: shared memory a block may take on Hopper (after the opt-in attribute)
-MAX_SHARED = 232_448
-
-
 def paged_attend_kernel(q: torch.Tensor, kpool_l: Pool, vpool_l: Pool, tables: torch.Tensor,
                         lengths: torch.Tensor, block_size: int, window: int = 0) -> torch.Tensor:
     """Single-token decode attention over the paged pools: kernel B7 for a
@@ -172,9 +168,9 @@ def paged_attend_kernel(q: torch.Tensor, kpool_l: Pool, vpool_l: Pool, tables: t
     if d not in HEAD_DIMS:
         raise ValueError(f"unsupported head_dim {d}; the kernel is built for {HEAD_DIMS}")
     smem = shared_bytes(g, d)
-    if smem > MAX_SHARED:
+    if smem > _build.MAX_SHARED:
         raise ValueError(f"{g} query heads per kv head at head_dim {d} need {smem} bytes of "
-                         f"shared memory; a block has {MAX_SHARED}")
+                         f"shared memory; a block has {_build.MAX_SHARED}")
     parts = (kpool_l + vpool_l) if quantized else (kpool_l, vpool_l)
     if not all(t.is_contiguous() for t in parts):
         raise ValueError("the pools must be contiguous")
