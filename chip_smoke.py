@@ -4,6 +4,7 @@
 Run from the root of a checkout, with one CUDA card visible::
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --parent DIR   # phase 6c also times DIR's step in turns
 
 It exits non-zero, and prints no result, when no card is visible or when
 it runs in a directory without the package.  Phases, each fatal on
@@ -12,8 +13,8 @@ failure:
 1. Print the card's name and power limit (``nvidia-smi``), then build the
    kernels from ``tpulab_torch/csrc/`` (``nvcc``, sm_90a), and read the
    built library's SASS (``cuobjdump -sass``): every bfloat16 instance of
-   B4 and B6 must hold ``wgmma`` (``HGMMA``), and the float32 instances of
-   B4-B6 and the bfloat16 instances of B5 no tensor-core instruction.
+   B4, B5 and B6 must hold ``wgmma`` (``HGMMA``), and the float32
+   instances of B4-B6 no tensor-core instruction.
 2. The main path: lab1 (float64, n=1000), lab2 (1024x1024) and lab3
    (1024x1024, 8 classes, float64 and float32) through the CLI's own entry
    point, with every kernel's launch count set to 0 just before and read
@@ -68,16 +69,21 @@ failure:
       leaf's largest magnitude;
    c. the same config in bfloat16 at batch 8, 2048 tokens: step ms (CUDA
       events around each of 5 steps: the median and every step), tokens/s,
-      peak device memory, and one profiled step;
-   d. B5 and B6 against the plain backward, element by element within
-      ``grad_tolerance``, at (8, 8, 2048, 64) bfloat16 (the training step's
-      shape), at (8, 8, 4096, 64) in bfloat16 and float32, and with a
-      window, GQA and a query offset with an lse cotangent; at the
-      training shape the same limit must reject the plain backward with
-      one key tile skipped.  Their times stand beside their bounds, their
-      plain versions and the backward of ``scaled_dot_product_attention``
-      (``torch.autograd.grad`` of its output alone; dq, dk and dv
-      together), wherever that computes the same function.
+      peak device memory, and one profiled step.  With ``--parent DIR``
+      (another checkout, such as the parent commit unpacked with ``git
+      archive``), the same step and B5 at the training shape from DIR and
+      from this checkout in turns, parent, change, change, parent, each in
+      a process of its own;
+   d. B5 and B6, fed B4's lse, against the plain backward on the same
+      lse, element by element within ``grad_tolerance``, at (8, 8, 2048,
+      64) bfloat16 (the training step's shape), at (8, 8, 4096, 64) in
+      bfloat16 and float32, and with a window, GQA and a query offset
+      with an lse cotangent; at the training shape the same limit must
+      reject the plain backward with one key tile skipped.  Their times
+      stand beside their bounds, their plain versions and the backward of
+      ``scaled_dot_product_attention`` (``torch.autograd.grad`` of its
+      output alone; dq, dk and dv together), wherever that computes the
+      same function.
 7. The paged serving path (``tpulab_torch.models.paged.PagedEngine``).
    Each run of it is made with every launch count set to 0 just before
    and read just after, and must launch the paged-decode kernel (B7) once
@@ -628,8 +634,9 @@ def event_ms(fn, device, reps: int = 3) -> float:
 def profile_window(fn, device) -> dict:
     """Device busy time of ``fn()`` from ``torch.profiler`` (CUPTI): the sum
     of kernel times over the host's wall time, the kernels that took most,
-    and the host operators that took most of the host's own time.  On the
-    CPU, or where the trace holds no kernel, "not measured"."""
+    the port's flash kernels (B4-B6), and the host operators that took most
+    of the host's own time.  On the CPU, or where the trace holds no
+    kernel, "not measured"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -648,12 +655,14 @@ def profile_window(fn, device) -> dict:
     if not busy_ms:
         return {"busy_share": "not measured", "wall_ms": wall_ms}
     top = sorted(kernels, key=dev_us, reverse=True)[:5]
+    flash = [e for e in kernels if "(anonymous namespace)::flash_" in e.key]
     # the host's own time by operator (the profiler's overhead included)
     host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
     return {"wall_ms": wall_ms, "busy_ms": busy_ms, "busy_share": busy_ms / wall_ms,
             "kernel_launches": sum(e.count for e in kernels),
             "top": [[e.key[:80], dev_us(e) / 1e3, e.count] for e in top],
+            "flash_kernels": [[e.key[:60], dev_us(e) / 1e3, e.count] for e in flash],
             "host_top": [[e.key[:60], e.self_cpu_time_total / 1e3, e.count] for e in host]}
 
 
@@ -1107,8 +1116,52 @@ def bwd_kernel_rows(sizes: dict, device) -> tuple:
     return dq, dkv
 
 
-def run_train_path(sizes: dict, device, backend: str, card: str) -> tuple:
-    """Phase 6: (the B5 row, the B6 row, their launches, the training numbers)."""
+#: one side of :func:`in_turns`, run as ``python -c`` from the root of a
+#: checkout (argv[1]) with that checkout's package and ``chip_smoke.py``:
+#: phase 6c's step and B5 in bfloat16 at the training shape
+IN_TURNS_SIDE = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as c
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", 0)
+t = c.time_train_bf16(c.FULL_SIZES, dev, c.card_line())
+dq = c.bwd_rows(c.FULL_SIZES["b5_main"], torch.bfloat16, dev, 10, 1, seed=11)[0]
+print("IN_TURNS " + json.dumps({"step_ms": t["step_ms"], "step_ms_runs": t["step_ms_runs"],
+                                "tokens_per_s": t["tokens_per_s"],
+                                "busy_ms": t["profile"].get("busy_ms"),
+                                "wall_ms": t["profile"].get("wall_ms"),
+                                "b5_ms": dq["ms"], "b5_plain_ms": dq["plain_ms"]}), flush=True)
+"""
+
+
+def in_turns(parent: Path, card: str) -> list:
+    """Phase 6c against the checkout at ``parent``: the flagship bf16 step
+    and B5 at the training shape, parent, this checkout, this checkout,
+    parent, each in a process of its own on this card (host speed differs
+    between machines, so two versions are compared only within one run)."""
+    import torch
+
+    torch.cuda.empty_cache()  # the card's memory for the sides' own processes
+    runs = []
+    for side, root in (("parent", parent), ("change", ROOT), ("change", ROOT),
+                       ("parent", parent)):
+        res = subprocess.run([sys.executable, "-c", IN_TURNS_SIDE, str(root)], cwd=root,
+                             capture_output=True, text=True, timeout=900)
+        lines = [x for x in res.stdout.splitlines() if x.startswith("IN_TURNS ")]
+        check(res.returncode == 0 and len(lines) == 1,
+              f"in-turn run of {side} ({root}) exited with {res.returncode}: "
+              f"{res.stderr[-2000:]}")
+        runs.append({"side": side, **json.loads(lines[0].split(" ", 1)[1])})
+        print(f"training bf16 in turns, {side}: {json.dumps(runs[-1])} ({card})", flush=True)
+    return runs
+
+
+def run_train_path(sizes: dict, device, backend: str, card: str,
+                   parent: Path | None = None) -> tuple:
+    """Phase 6: (the B5 row, the B6 row, their launches, the training
+    numbers); with ``parent``, phase 6c also runs :func:`in_turns`."""
     t0 = time.perf_counter()
     losses, launches = drive_train_path(sizes, backend)
     print(f"training path: {json.dumps(launches)} launches; CLI losses {losses}", flush=True)
@@ -1116,6 +1169,8 @@ def run_train_path(sizes: dict, device, backend: str, card: str) -> tuple:
     training = {"cli_train": {"launches": launches, "losses": losses},
                 "train_f32": check_train_f32(sizes, device),
                 "train_bf16": time_train_bf16(sizes, device, card)}
+    training["train_bf16"]["in_turns"] = (in_turns(parent, card) if parent else
+                                          "not run: no --parent checkout given")
     dq, dkv = bwd_kernel_rows(sizes, device)
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
     return dq, dkv, launches, training
@@ -1444,14 +1499,15 @@ KERNEL_META = {
 #: each flash kernel's design per dtype: ``wgmma`` on the tensor cores or
 #: ``fma`` on the f32 FMA pipes
 FLASH_DESIGN = {"flash_fwd": {"float32": "fma", "bfloat16": "wgmma"},
-                "flash_dq": {"float32": "fma", "bfloat16": "fma"},
+                "flash_dq": {"float32": "fma", "bfloat16": "wgmma"},
                 "flash_dkv": {"float32": "fma", "bfloat16": "wgmma"}}
 #: (row, dtype) of a flash kernel's instance, by a part of its mangled name
 FLASH_TEMPLATES = (("flash_fwd_wgmma_kernel", "flash_fwd", "bfloat16"),
                    ("flash_fwd_kernel", "flash_fwd", "float32"),
                    ("flash_dkv_wgmma_kernel", "flash_dkv", "bfloat16"),
                    ("flash_bwd_dkv_kernel", "flash_dkv", "float32"),
-                   ("flash_bwd_dq_kernel", "flash_dq", None))
+                   ("flash_dq_wgmma_kernel", "flash_dq", "bfloat16"),
+                   ("flash_bwd_dq_kernel", "flash_dq", "float32"))
 
 
 def sass_check(library: Path) -> dict:
@@ -1465,7 +1521,6 @@ def sass_check(library: Path) -> dict:
     for name, text in _build.kernel_sass(library).items():
         for part, row, dtype in FLASH_TEMPLATES:
             if part in name:
-                dtype = dtype or ("bfloat16" if "bfloat16" in name else "float32")
                 found.setdefault(row, {}).setdefault(dtype, []).append(
                     _build.tensor_core_opcodes(text))
                 break
@@ -1503,8 +1558,10 @@ FULL_SIZES = {
 }
 
 
-def run(device, sizes: dict, backend: str, card: str = "cpu") -> dict:
-    """Phases 2 to 7 on ``device``; the ``kernels`` and ``model`` payloads."""
+def run(device, sizes: dict, backend: str, card: str = "cpu",
+        parent: Path | None = None) -> dict:
+    """Phases 2 to 7 on ``device``; the ``kernels`` and ``model`` payloads.
+    ``parent``: a checkout to time phase 6c against (:func:`in_turns`)."""
     t0 = time.perf_counter()
     inp = make_inputs(sizes)
     outs, launches = drive_main_path(inp, backend)
@@ -1520,7 +1577,7 @@ def run(device, sizes: dict, backend: str, card: str = "cpu") -> dict:
     rows["flash_fwd"], model_launches, model = run_model_path(sizes, device, backend, card)
     launches["flash_fwd"] = model_launches["flash_fwd"]
     rows["flash_dq"], rows["flash_dkv"], train_launches, model["training"] = run_train_path(
-        sizes, device, backend, card)
+        sizes, device, backend, card, parent)
     launches["flash_dq"] = train_launches["flash_dq"]
     launches["flash_dkv"] = train_launches["flash_dkv"]
     rows["paged_decode"], launches["paged_decode"], model["paged"] = run_paged_path(
@@ -1535,8 +1592,19 @@ def run(device, sizes: dict, backend: str, card: str = "cpu") -> dict:
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
+    ap = argparse.ArgumentParser(description="Drive tpulab_torch on one CUDA card.")
+    ap.add_argument("--parent", type=Path, default=None,
+                    help="the root of another checkout (e.g. the parent commit's, unpacked "
+                         "with git archive): phase 6c times its training step and B5 in "
+                         "turns with this checkout's")
+    args = ap.parse_args()
+    parent = args.parent.resolve() if args.parent else None
+    if parent is not None and not (parent / "chip_smoke.py").is_file():
+        fail(f"--parent {parent}: no chip_smoke.py there")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs a CUDA card")
     import tpulab_torch  # noqa: F401  (fails where the package is absent)
@@ -1560,7 +1628,7 @@ def main() -> int:
     # f32 products stay f32 on the card (no TF32), in the port and in its plain versions
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    payload = run(torch.device("cuda", 0), FULL_SIZES, "cuda", card)
+    payload = run(torch.device("cuda", 0), FULL_SIZES, "cuda", card, parent)
     for kernel in payload["kernels"]:
         if kernel["name"] in sass:
             kernel["sass_tensor_core_opcodes"] = sass[kernel["name"]]

@@ -16,6 +16,7 @@ from tpulab_torch.ops.cuda.attention import (
     bwd_delta,
     flash_attention_bwd_dkv,
     flash_attention_bwd_dq,
+    flash_attention_bwd_dq_plain,
     flash_attention_bwd_plain,
     flash_attention_plain,
     flash_attention_with_lse,
@@ -208,6 +209,9 @@ def test_flash_bf16_kernels_read_strided_and_misaligned_inputs(cuda_device, layo
     want = flash_attention_with_lse(*dense[:3], window=24)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
     delta = bwd_delta(want[0], dense[3], None)
+    got_dq = flash_attention_bwd_dq(q, k, v, do, want[1], delta, window=24)
+    want_dq = flash_attention_bwd_dq(*dense, want[1], delta, window=24)
+    assert torch.equal(got_dq, want_dq)
     got_kv = flash_attention_bwd_dkv(q, k, v, do, want[1], delta, window=24)
     want_kv = flash_attention_bwd_dkv(*dense, want[1], delta, window=24)
     assert all(torch.equal(g, w) for g, w in zip(got_kv, want_kv))
@@ -215,15 +219,17 @@ def test_flash_bf16_kernels_read_strided_and_misaligned_inputs(cuda_device, layo
 
 @pytest.mark.cuda
 def test_flash_bf16_kernels_run_on_tensor_cores(cuda_device):
-    """The built library's SASS (cuobjdump): every bfloat16 B4 and B6
-    instance holds wgmma (HGMMA); the float32 B4, B5 and B6 instances and
-    the bfloat16 B5 instances use no tensor-core instruction."""
+    """The built library's SASS (cuobjdump): every bfloat16 B4, B5 and B6
+    instance holds wgmma (HGMMA); the float32 B4, B5 and B6 instances use
+    no tensor-core instruction."""
     sass = _build.kernel_sass(_build.build())
     tc = {name: _build.tensor_core_opcodes(text) for name, text in sass.items()}
-    wgmma = [n for n in tc if "flash_fwd_wgmma_kernel" in n or "flash_dkv_wgmma_kernel" in n]
+    wgmma = [n for n in tc if any(k in n for k in ("flash_fwd_wgmma_kernel",
+                                                   "flash_dq_wgmma_kernel",
+                                                   "flash_dkv_wgmma_kernel"))]
     fma = [n for n in tc if any(k in n for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
                                                  "flash_bwd_dkv_kernel"))]
-    assert len(wgmma) == 2 * len(HEAD_DIMS) and len(fma) == 4 * len(HEAD_DIMS)
+    assert len(wgmma) == 3 * len(HEAD_DIMS) and len(fma) == 3 * len(HEAD_DIMS)
     assert all(tc[n] == ["HGMMA"] for n in wgmma)
     assert not any(tc[n] for n in fma)
 
@@ -292,6 +298,35 @@ def test_flash_bwd_kernels_match_plain(cuda_device, dtype, d, case):
         assert got.dtype == dtype and got.shape == w.shape, name
         assert torch.isfinite(got.float()).all(), name
         assert grad_over_tolerance(got, w) <= 1, name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_flash_bwd_dq_bf16_takes_b4_lse(cuda_device, d):
+    """bfloat16 B5 fed the lse that B4 computed on the card (the training
+    path's lse), with GQA, a window and a query offset whose last rows see
+    no key, and an lse cotangent: within grad_tolerance of the plain dq on
+    the same lse, and 0 on the rows that see no key.  B5 forms its scores
+    with B4's own product, the scores that lse came from."""
+    case = (2, 192, 8, 2, True, 96, 128)
+    q, k, v = _flash_inputs(case, d, torch.bfloat16, cuda_device)
+    kw = dict(zip(("causal", "window", "q_offset"), case[4:]))
+    o, lse = flash_attention_with_lse(q, k, v, **kw)
+    rng = np.random.default_rng(d + 2)
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).to(cuda_device,
+                                                                            torch.bfloat16)
+    dlse = torch.from_numpy(rng.standard_normal(lse.shape).astype(np.float32)).to(cuda_device)
+    dead = torch.isneginf(lse)
+    assert dead.any() and not dead.all()
+    delta = bwd_delta(o, do, torch.where(dead, 0.0, dlse))
+    before = flash_attention_bwd_dq.launches
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_dq.launches == before + 1
+    want = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    assert dq.dtype == torch.bfloat16 and torch.isfinite(dq.float()).all()
+    assert torch.all(dq.float()[dead] == 0)
+    assert grad_over_tolerance(dq, want) <= 1
 
 
 @pytest.mark.cuda

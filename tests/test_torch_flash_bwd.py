@@ -14,8 +14,9 @@ gradients after.  bfloat16: two bf16 ulps of the element and of its row
 (both round p and ds to bf16 before their products, from f32 values that
 differ by f32 rounding, and round the result once more), plus the same
 ``2e-5 * head``.  The last tests show that the same limit admits the
-kernels' key-by-key (query-by-query) sums and rejects a backward that
-skips one key tile.
+kernels' orders of summation (key by key and query by query on the FMA
+pipes, one tensor-core product's tile at a time in bfloat16) and rejects
+a backward that skips one key tile.
 """
 
 import math
@@ -69,19 +70,27 @@ def _jax_grads(q, k, v, do, dlse, dtype=jnp.float32, use_lse=False, **kw):
 
 def _torch_grads(q, k, v, do, dlse, dtype=torch.float32, use_lse=False, **kw):
     """The port's gradient through the autograd Function; also checks it
-    is exactly the plain backward (the CPU path)."""
-    q, k, v = (torch.from_numpy(a).to(dtype).requires_grad_(True) for a in (q, k, v))
-    o, lse = flash_attention_with_lse(q, k, v, **kw)
-    tdo = torch.from_numpy(do).to(dtype)
-    tdlse = torch.from_numpy(dlse) if use_lse else None
-    outs, cots = [o], [tdo]
-    if use_lse:
-        outs.append(torch.where(torch.isfinite(lse), lse, torch.zeros(())))
-        cots.append(tdlse)
-    got = torch.autograd.grad(outs, (q, k, v), cots)
-    plain = flash_attention_bwd_plain(
-        q.detach(), k.detach(), v.detach(), o.detach(), lse.detach(), tdo,
-        torch.where(torch.isfinite(lse), tdlse, torch.zeros(())) if use_lse else None, **kw)
+    is exactly the plain backward (the CPU path).  It runs on the calling
+    thread alone: under pytest-xdist with many workers, a worker thread of
+    torch's intra-op pool has been found computing in round-toward-zero,
+    which moves an f32 gradient past the limit it is held to."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        q, k, v = (torch.from_numpy(a).to(dtype).requires_grad_(True) for a in (q, k, v))
+        o, lse = flash_attention_with_lse(q, k, v, **kw)
+        tdo = torch.from_numpy(do).to(dtype)
+        tdlse = torch.from_numpy(dlse) if use_lse else None
+        outs, cots = [o], [tdo]
+        if use_lse:
+            outs.append(torch.where(torch.isfinite(lse), lse, torch.zeros(())))
+            cots.append(tdlse)
+        got = torch.autograd.grad(outs, (q, k, v), cots)
+        plain = flash_attention_bwd_plain(
+            q.detach(), k.detach(), v.detach(), o.detach(), lse.detach(), tdo,
+            torch.where(torch.isfinite(lse), tdlse, torch.zeros(())) if use_lse else None, **kw)
+    finally:
+        torch.set_num_threads(threads)
     for a, b in zip(got, plain):
         assert torch.equal(a, b)
     return got
@@ -155,12 +164,23 @@ def test_flash_grads_bf16_match_tpulab(window):
     _assert_grads_close(got, want)
 
 
-def _kernel_order(q, k, v, do, lse, delta, keep, skip_tile=None, bk=64, bq=1):
-    """The kernels' sums in PyTorch: B5 accumulates dq key by key, B6 dk and
-    dv over each head of the GQA group one tile of ``bq`` queries at a time
-    (1 on the FMA pipes, a tensor-core product's tile in bfloat16), p and ds
-    rounded as the kernels round them.  ``skip_tile`` plants a fault: rows
-    past that key tile do not see its keys."""
+@pytest.mark.parametrize("d,window", [(8, 0), (32, 0), (128, 40)])
+def test_flash_grads_bf16_head_dims_match_tpulab(d, window):
+    """bfloat16 at the other head dims of the bf16 ``ORDER_CASES``: the
+    plain backward they are held against is jax.grad of tpulab's flash."""
+    arrays = _arrays(7, s=128, d=d)
+    got = _torch_grads(*arrays, dtype=torch.bfloat16, window=window)
+    want = _jax_grads(*arrays, dtype=jnp.bfloat16, window=window)
+    _assert_grads_close(got, want)
+
+
+def _kernel_order(q, k, v, do, lse, delta, keep, skip_tile=None, bk=64, bq=1, bk_dq=1):
+    """The kernels' sums in PyTorch: B5 accumulates dq one tile of ``bk_dq``
+    keys at a time, B6 dk and dv over each head of the GQA group one tile
+    of ``bq`` queries at a time (1 on the FMA pipes, a tensor-core
+    product's tile in bfloat16), p and ds rounded as the kernels round
+    them.  ``skip_tile`` plants a fault: rows past that key tile (of ``bk``
+    keys) do not see its keys."""
     b, s, h, d = q.shape
     g = h // k.shape[2]
     if skip_tile is not None:
@@ -174,8 +194,9 @@ def _kernel_order(q, k, v, do, lse, delta, keep, skip_tile=None, bk=64, bq=1):
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", do.float(), vf) - delta.permute(0, 2, 1)[..., None])
     dsr, pr = ds.to(q.dtype).float(), p.to(q.dtype).float()
     acc = torch.zeros(b, h, s, d)
-    for j in range(s):
-        acc = acc + dsr[..., j, None] * kf[:, j, :, None, :]
+    for j in range(0, s, bk_dq):
+        t = slice(j, j + bk_dq)
+        acc = acc + torch.einsum("bhqk,bkhd->bhqd", dsr[..., t], kf[:, t])
     dq = (acc.to(q.dtype).float() * scale).to(q.dtype).transpose(1, 2)
     dk = torch.zeros(b, s, k.shape[2], d)
     dv = torch.zeros_like(dk)
@@ -187,20 +208,26 @@ def _kernel_order(q, k, v, do, lse, delta, keep, skip_tile=None, bk=64, bq=1):
     return dq, dk.to(k.dtype), dv.to(k.dtype)
 
 
-# (s, h, kv_heads, d, dtype, window, q_offset, B6's query tile): one batch
-# row of the training step's shapes (head_dim 64 and the demo's 16), a
-# window, GQA and a query offset with an lse cotangent.  B6's query tile is
-# 1 on the FMA pipes (float32) and the tensor-core product's tile in
-# bfloat16: 64 queries, 32 at head_dim 128
+# (s, h, kv_heads, d, dtype, window, q_offset, B6's query tile, B5's key
+# tile): one batch row of the training step's shapes (head_dim 64 and the
+# demo's 16), a window, GQA, a query offset with an lse cotangent, a
+# sequence that ends inside a tile, and every head dim in bfloat16.  The
+# tiles are 1 on the FMA pipes (float32) and a tensor-core product's in
+# bfloat16: B6 64 queries (32 at head_dim 128), B5 64 keys
 ORDER_CASES = [
-    (1024, 2, 2, 64, torch.bfloat16, 0, 0, 64),
-    (1024, 2, 2, 64, torch.float32, 0, 0, 1),
-    (1024, 4, 2, 16, torch.float32, 0, 0, 1),
-    (1024, 2, 2, 64, torch.bfloat16, 256, 0, 64),
-    (512, 2, 1, 64, torch.float32, 128, 512, 1),
-    (512, 2, 2, 128, torch.bfloat16, 0, 0, 32),
-    (512, 8, 2, 64, torch.bfloat16, 0, 0, 64),
-    (512, 2, 1, 16, torch.bfloat16, 128, 512, 64),
+    (1024, 2, 2, 64, torch.bfloat16, 0, 0, 64, 64),
+    (1024, 2, 2, 64, torch.float32, 0, 0, 1, 1),
+    (1024, 4, 2, 16, torch.float32, 0, 0, 1, 1),
+    (1024, 2, 2, 64, torch.bfloat16, 256, 0, 64, 64),
+    (512, 2, 1, 64, torch.float32, 128, 512, 1, 1),
+    (512, 2, 2, 128, torch.bfloat16, 0, 0, 32, 64),
+    (512, 8, 2, 64, torch.bfloat16, 0, 0, 64, 64),
+    (512, 2, 1, 16, torch.bfloat16, 128, 512, 64, 64),
+    (1000, 2, 2, 64, torch.bfloat16, 0, 0, 64, 64),
+    (512, 4, 2, 32, torch.bfloat16, 0, 0, 64, 64),
+    (512, 4, 1, 128, torch.bfloat16, 200, 0, 32, 64),
+    (512, 2, 2, 64, torch.bfloat16, 128, 512, 64, 64),
+    (512, 2, 2, 8, torch.bfloat16, 0, 0, 64, 64),
 ]
 
 
@@ -221,16 +248,18 @@ def _order_inputs(case):
 @pytest.mark.parametrize("case", ORDER_CASES)
 def test_grad_tolerance_admits_the_kernels_sums(case):
     args, want = _order_inputs(case)
-    for g, w in zip(_kernel_order(*args, bq=case[7]), want):
+    for g, w in zip(_kernel_order(*args, bq=case[7], bk_dq=case[8]), want):
         assert grad_over_tolerance(g, w) <= 1
 
 
 @pytest.mark.parametrize("case,tile", [(ORDER_CASES[0], 8), (ORDER_CASES[0], 14),
                                        (ORDER_CASES[1], 14), (ORDER_CASES[2], 8),
-                                       (ORDER_CASES[5], 6), (ORDER_CASES[6], 6)])
+                                       (ORDER_CASES[5], 6), (ORDER_CASES[6], 6),
+                                       (ORDER_CASES[8], 9), (ORDER_CASES[9], 5),
+                                       (ORDER_CASES[10], 5), (ORDER_CASES[12], 5)])
 def test_grad_tolerance_rejects_a_skipped_key_tile(case, tile):
     args, want = _order_inputs(case)
-    for g, w in zip(_kernel_order(*args, skip_tile=tile, bq=case[7]), want):
+    for g, w in zip(_kernel_order(*args, skip_tile=tile, bq=case[7], bk_dq=case[8]), want):
         assert grad_over_tolerance(g, w) > 10
 
 

@@ -229,10 +229,14 @@ def test_shared_memory_over_the_block_limit_is_refused(smem, ok):
 
 
 def test_tensor_core_flash_blocks_fit_in_shared_memory():
-    from tpulab_torch.ops.cuda.attention import HEAD_DIMS, tc_shared_bytes
+    from tpulab_torch.ops.cuda.attention import HEAD_DIMS, TC_KERNELS, tc_shared_bytes
 
     for d in HEAD_DIMS:
-        for backward in (False, True):
-            _build.check_geometry((1,), (128,), tc_shared_bytes(d, backward))
-    assert tc_shared_bytes(64, False) == 1024 + 5 * 64 * 128
-    assert tc_shared_bytes(128, True) == 1024 + 2 * 64 * 256 + 4 * 32 * 256 + 4 * 32 * 4
+        for kernel in TC_KERNELS:
+            _build.check_geometry((1,), (128,), tc_shared_bytes(d, kernel))
+    assert tc_shared_bytes(64, "flash_fwd") == 1024 + 5 * 64 * 128
+    assert tc_shared_bytes(64, "flash_dq") == 1024 + 6 * 64 * 128
+    assert tc_shared_bytes(128, "flash_dq") == 1024 + 6 * 64 * 256
+    assert tc_shared_bytes(128, "flash_dkv") == 1024 + 2 * 64 * 256 + 4 * 32 * 256 + 4 * 32 * 4
+    with pytest.raises(ValueError):
+        tc_shared_bytes(64, "paged_decode")

@@ -28,24 +28,34 @@
 // Bound: operations at the model path's shapes (B5 6*d and B6 8*d flops per
 // visible (query, key) pair, against ~4 reads of (s, d) per head).
 //
-// B5 (both dtypes) and B6 in float32 run on the f32 FMA pipes: each row
-// lives in registers of TPR threads (flash_common.cuh), and the tile that
-// every row of the block reads is staged in shared memory as f32.
+// In float32 both run on the f32 FMA pipes (Precision.HIGHEST, no TF32):
+// each row lives in registers of TPR threads (flash_common.cuh), and the
+// tile that every row of the block reads is staged in shared memory as f32.
 //
-// B6 in bfloat16 (flash_dkv_wgmma_kernel) runs on the tensor cores: one
-// warpgroup holds the block's 64 keys, K and V in 128-byte-swizzled shared
-// memory (flash_tc.cuh), and dK, dV in f32 registers across every query
+// In bfloat16 both run on the tensor cores (wgmma over flash_tc.cuh's
+// 128-byte-swizzled bf16 panels, A operands of the d-wide products straight
+// from the score accumulators' registers, exp the MUFU's as in B4):
+//
+// B5 (flash_dq_wgmma_kernel): one warpgroup holds the block's 64 queries,
+// q' (prescaled in shared memory after its copy) and do resident in shared
+// memory, each thread's two rows' lse and delta in registers, and dQ in f32
+// registers across every key tile.  K and V tiles of 64 keys come in two
+// stages filled by cp.async, the next in flight while this one computes.
+// Per tile, three products: S = Q'K^T, with the instruction, operand
+// layouts and k-steps of B4's, so p = exp(S - lse) comes from the very
+// scores behind the forward's lse; dP = dO V^T; then, in f32 registers, p
+// (0 where masked) and dS = p (dP - delta); and dQ += bf16(dS) K, K read
+// MN-major.
+//
+// B6 (flash_dkv_wgmma_kernel): one warpgroup holds the block's 64 keys, K
+// and V in shared memory, and dK, dV in f32 registers across every query
 // tile of the group.  Query tiles of 64 rows (32 at head dim 128, so the
 // registers fit) are staged bf16 with their lse and delta, two stages
 // filled by cp.async; q' is prescaled in shared memory after its copy.
-// Per tile, four wgmma products: S^T = K q'^T and dP^T = V do^T from shared
-// memory; P^T = exp(S^T - lse) (0 where masked) and dS^T = P^T (dP^T -
-// delta) in f32 registers; then dV += bf16(P^T) do and dK += bf16(dS^T) q',
-// each A operand straight from the accumulator's registers.  exp is the
-// MUFU's, as in B4.  B6 recomputes the scores in the tensor cores' order,
-// as B4 computed them; B5 recomputes them on the FMA pipes, in row_sum's
-// order, so in bf16 its p is exp of a score that differs from the one
-// behind the forward's lse by f32 rounding.
+// Per tile, four products: S^T = K q'^T and dP^T = V do^T; P^T = exp(S^T -
+// lse) (0 where masked) and dS^T = P^T (dP^T - delta) in f32 registers;
+// then dV += bf16(P^T) do and dK += bf16(dS^T) q'.  It recomputes the
+// scores in the tensor cores' order, as B4 computed them.
 
 #include "flash_common.cuh"
 #include "flash_tc.cuh"
@@ -335,14 +345,14 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int D, typename T>
+template <int D>
 int launch_dq(const Args& a) {
   const dim3 grid((a.s + BQ - 1) / BQ, a.b * a.h);
-  flash_bwd_dq_kernel<D, T><<<grid, Geometry<D>::THREADS, 0, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(a.dq), a.s, a.h, a.kvh, a.scale,
-      a.causal, a.window, a.q_offset);
+  flash_bwd_dq_kernel<D, float><<<grid, Geometry<D>::THREADS, 0, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(a.dq), a.s, a.h, a.kvh, a.scale, a.causal, a.window, a.q_offset);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -571,16 +581,197 @@ int launch_dkv_wgmma(const Args& a, int smem) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int dispatch_dq(int d, const Args& a) {
-  switch (d) {
-    case 8: return launch_dq<8, T>(a);
-    case 16: return launch_dq<16, T>(a);
-    case 32: return launch_dq<32, T>(a);
-    case 64: return launch_dq<64, T>(a);
-    case 128: return launch_dq<128, T>(a);
-    default: return static_cast<int>(cudaErrorInvalidValue);
+// ------------------------------------------ B5 in bf16 on the tensor cores
+
+template <int D>
+struct DqTC {
+  static constexpr int NP = D > 64 ? 2 : 1;               // 64-column panels of a row
+  static constexpr int KSTEPS = (D < 16 ? 16 : D) / 16;  // k-steps of the score products
+  static constexpr int BK = 64;                           // keys per tile
+  static constexpr int QTILE = BQ * NP * 128;             // bytes of the q' or do tile
+  static constexpr int TILE = BK * NP * 128;              // bytes of a K or V tile
+  // alignment; q' and do; two stages of K and V
+  static constexpr int SMEM = 1024 + 2 * QTILE + 4 * TILE;
+};
+
+template <int D>
+__global__ void __launch_bounds__(tl_tc::THREADS)
+flash_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dq, int s, int h, int kvh, float scale,
+                      int causal, int window, int q_offset) {
+  using namespace tl_tc;
+  using C = DqTC<D>;
+  constexpr int BK = C::BK, QTILE = C::QTILE, TILE = C::TILE;
+  constexpr int NS = BK / 2, NA = C::NP * 32;  // accumulator floats of S or dP, and of dQ
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sbase = (raw + 1023) & ~1023u;
+  uint8_t* base = smem_raw + (sbase - raw);
+  // q', do, then K stages 0 and 1, then V stages 0 and 1
+  const uint32_t sq = sbase, sdo = sbase + QTILE;
+  auto sk = [&](int st) { return sbase + 2 * QTILE + st * TILE; };
+  auto sv = [&](int st) { return sbase + 2 * QTILE + (2 + st) * TILE; };
+
+  const int tid = threadIdx.x;
+  const int r0 = (tid / 32) * 16 + (tid % 32) / 4;  // this thread's rows: r0, r0 + 8
+  const int cq = (tid % 4) * 2;                      // its columns: 8 j + cq, + 1
+  const int qt = gridDim.x - 1 - blockIdx.x;         // heaviest causal tiles first
+  const int bi = blockIdx.y / h;
+  const int hi = blockIdx.y % h;
+  const int kh = hi / (h / kvh);
+
+  // the keys this query tile can see (the forward's range)
+  const long long q_lo = static_cast<long long>(q_offset) + qt * BQ;
+  const long long q_hi = static_cast<long long>(q_offset) + min(qt * BQ + BQ, s) - 1;
+  long long k_begin = 0, k_end = s - 1;  // inclusive
+  if (causal) {
+    k_end = min(k_end, q_hi);
+    if (window > 0) k_begin = max(0LL, q_lo - window + 1);
   }
+  const int kt_begin = static_cast<int>(k_begin / BK);
+  const int kt_end = k_end >= k_begin ? static_cast<int>(k_end / BK) + 1 : kt_begin;
+
+  const long long q_row = static_cast<long long>(h) * D;     // elements between queries
+  const long long kv_row = static_cast<long long>(kvh) * D;  // elements between keys
+  const long long q_at = (static_cast<long long>(bi) * s + qt * BQ) * h + hi;  // row of (b, s, h)
+  const __nv_bfloat16* kbase = k + static_cast<long long>(bi) * s * kv_row + kh * D;
+  const __nv_bfloat16* vbase = v + static_cast<long long>(bi) * s * kv_row + kh * D;
+  auto load_kv = [&](int kt, int st) {
+    const long long k0 = static_cast<long long>(kt) * BK;
+    load_tile<BK, D>(sk(st), kbase + k0 * kv_row, kv_row, s - kt * BK, tid);
+    load_tile<BK, D>(sv(st), vbase + k0 * kv_row, kv_row, s - kt * BK, tid);
+  };
+  if (D == 8) {
+    zero_pad8<BQ>(base, tid);
+    zero_pad8<BQ>(base + QTILE, tid);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) zero_pad8<BK>(base + 2 * QTILE + i * TILE, tid);
+  }
+  load_tile<BQ, D>(sq, q + q_at * D, q_row, s - qt * BQ, tid);
+  load_tile<BQ, D>(sdo, dout + q_at * D, q_row, s - qt * BQ, tid);
+  cp_commit();
+  if (kt_begin < kt_end) load_kv(kt_begin, 0);
+  cp_commit();
+
+  // this thread's rows' lse and delta; rows past s take 0, so their p is
+  // finite and their dS (from zero-filled do) is 0
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int i = r0 + 8 * rr;
+    const bool ok = qt * BQ + i < s;
+    row_lse[rr] = ok ? lse[q_at + static_cast<long long>(i) * h] : 0.0f;
+    row_delta[rr] = ok ? delta[q_at + static_cast<long long>(i) * h] : 0.0f;
+  }
+  cp_wait<1>();  // the q' and do tiles
+  prescale_tile<BQ, D>(base, scale, tid);
+
+  float acc[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    const int st = (kt - kt_begin) & 1;
+    if (kt + 1 < kt_end) load_kv(kt + 1, st ^ 1);  // in flight while this tile computes
+    cp_commit();
+    cp_wait<1>();
+    fence_async_shared();
+    __syncthreads();
+
+    // S = Q'K^T (B4's product) and dP = dO V^T
+    float sc[NS], dp[NS];
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < C::KSTEPS; ++kk) {
+      wgmma_ss_n64(sc, desc_k<BQ>(sq, kk), desc_k<BK>(sk(st), kk), kk > 0);
+    }
+#pragma unroll
+    for (int kk = 0; kk < C::KSTEPS; ++kk) {
+      wgmma_ss_n64(dp, desc_k<BQ>(sdo, kk), desc_k<BK>(sv(st), kk), kk > 0);
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // p = exp(S - lse), 0 where masked; dS = p (dP - delta)
+    const int k0 = kt * BK;
+    const bool full = k0 + BK <= s &&
+                      (!causal || (k0 + BK - 1 <= q_lo && (window == 0 || k0 > q_hi - window)));
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int rr = (i / 2) % 2;
+      bool keep = true;
+      if (!full) {
+        const long long kp = k0 + 8 * (i / 4) + cq + (i % 2);
+        const long long qpos = q_lo + r0 + 8 * rr;
+        keep = kp < s;
+        if (causal) {
+          keep = keep && kp <= qpos;
+          if (window > 0) keep = keep && kp > qpos - window;
+        }
+      }
+      const float p = keep ? exp_mufu(sc[i] - row_lse[rr]) : 0.0f;
+      dp[i] = p * (dp[i] - row_delta[rr]);
+    }
+
+    // dQ += bf16(dS) K, dS from registers, K read MN-major
+    uint32_t da[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) to_a_frag(dp, kk, da[kk]);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t bk = desc_mn<BK>(sk(st), kk);
+      if constexpr (C::NP == 1) {
+        wgmma_rs_n64(acc, da[kk], bk, 1);
+      } else {
+        wgmma_rs_n128(acc, da[kk], bk, 1);
+      }
+    }
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // every warp is done with this stage before it is refilled
+  }
+
+  // dq = bf16(bf16(dq') * scale): the prescale's gradient, as autodiff gives it
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int i = r0 + 8 * rr;
+    if (qt * BQ + i < s) {
+      __nv_bfloat16* row = dq + (q_at + static_cast<long long>(i) * h) * D;
+#pragma unroll
+      for (int j = 0; j < NA / 4; ++j) {
+        const int col = 8 * j + cq;
+        if (col < D) {
+          const float a0 = round_to<__nv_bfloat16>(acc[4 * j + 2 * rr]);
+          const float a1 = round_to<__nv_bfloat16>(acc[4 * j + 2 * rr + 1]);
+          *reinterpret_cast<__nv_bfloat162*>(row + col) =
+              __floats2bfloat162_rn(__fmul_rn(a0, scale), __fmul_rn(a1, scale));
+        }
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_dq_wgmma(const Args& a, int smem) {
+  if (smem != DqTC<D>::SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_dq_wgmma_kernel<D>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((a.s + BQ - 1) / BQ, a.b * a.h);
+  kernel<<<grid, tl_tc::THREADS, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<__nv_bfloat16*>(a.dq), a.s, a.h, a.kvh, a.scale, a.causal, a.window,
+      a.q_offset);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -589,16 +780,41 @@ int dispatch_dq(int d, const Args& a) {
 // d), lse and delta contiguous (b, s, h) f32.  Launch on `stream`; return
 // cudaGetLastError().
 
-// B5: dtype 0 = float32, 1 = bfloat16, both on the FMA pipes
-extern "C" int tl_flash_bwd_dq(int dtype, int d, const void* q, const void* k, const void* v,
+// B5 in float32, on the FMA pipes
+extern "C" int tl_flash_bwd_dq(int d, const void* q, const void* k, const void* v,
                                const void* dout, const void* lse, const void* delta, void* dq,
                                int b, int s, int h, int kvh, float scale, int causal, int window,
                                int q_offset, void* stream) {
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, b, s, h, kvh, scale,
                causal, window, q_offset, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return dispatch_dq<float>(d, a);
-  if (dtype == 1) return dispatch_dq<__nv_bfloat16>(d, a);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (d) {
+    case 8: return launch_dq<8>(a);
+    case 16: return launch_dq<16>(a);
+    case 32: return launch_dq<32>(a);
+    case 64: return launch_dq<64>(a);
+    case 128: return launch_dq<128>(a);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// B5 in bfloat16, on the tensor cores; besides, the base pointers are
+// 16-byte aligned and smem is the block's dynamic shared memory in bytes
+// (the wrapper's tc_shared_bytes; any other value is refused)
+extern "C" int tl_flash_bwd_dq_bf16(int d, const void* q, const void* k, const void* v,
+                                    const void* dout, const void* lse, const void* delta,
+                                    void* dq, int b, int s, int h, int kvh, float scale,
+                                    int causal, int window, int q_offset, int smem,
+                                    void* stream) {
+  const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, b, s, h, kvh, scale,
+               causal, window, q_offset, static_cast<cudaStream_t>(stream)};
+  switch (d) {
+    case 8: return launch_dq_wgmma<8>(a, smem);
+    case 16: return launch_dq_wgmma<16>(a, smem);
+    case 32: return launch_dq_wgmma<32>(a, smem);
+    case 64: return launch_dq_wgmma<64>(a, smem);
+    case 128: return launch_dq_wgmma<128>(a, smem);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // B6 in float32, on the FMA pipes

@@ -8,10 +8,8 @@
 // for c < CPT, e < 4, and a dot product over the row is each thread's
 // partial sum reduced with __shfl_xor_sync over the TPR lanes.  In float32,
 // B4, B5 and B6 sum a score in this same order, so the backward recomputes
-// exactly the scores the forward's logsumexp came from.  In bfloat16, B4
-// and B6 sum scores in the tensor cores' order and B5 in this one, so B5's
-// scores differ from those behind the forward's lse by f32 rounding (a few
-// ulps of the score, far inside grad_tolerance).
+// exactly the scores the forward's logsumexp came from.  In bfloat16 they
+// run on the tensor cores (flash_tc.cuh) and sum scores in its order.
 
 #pragma once
 

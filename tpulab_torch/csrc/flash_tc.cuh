@@ -1,7 +1,8 @@
 // What the bf16 flash kernels on Hopper's tensor cores share (B4 in
-// flash_fwd.cu, B6 in flash_bwd.cu): bf16 tiles staged in shared memory by
-// 16-byte cp.async copies into 128-byte-swizzled panels, wgmma descriptors
-// over those panels, and the warpgroup's products in raw PTX (sm_90a).
+// flash_fwd.cu, B5 and B6 in flash_bwd.cu): bf16 tiles staged in shared
+// memory by 16-byte cp.async copies into 128-byte-swizzled panels, wgmma
+// descriptors over those panels, and the warpgroup's products in raw PTX
+// (sm_90a).
 //
 // Layout.  A tile of R rows and D bf16 columns lives as D / 64 panels (one
 // for D <= 64) of R rows x 128 bytes: column c of row r sits in 16-byte

@@ -66,9 +66,11 @@ SIGNATURES: Dict[str, List] = {
     # the same with the shared-memory bytes before the stream (bfloat16)
     "tl_flash_fwd_bf16": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, *[_L] * 9,
                           ctypes.c_float, _I, _I, _I, _I, _P],
-    # dtype, d, q, k, v, do, lse, delta, dq, b, s, h, kv_heads, scale,
-    # causal, window, q_offset, stream (contiguous operands)
-    "tl_flash_bwd_dq": [_I, _I, *[_P] * 7, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P],
+    # d, q, k, v, do, lse, delta, dq, b, s, h, kv_heads, scale, causal,
+    # window, q_offset, stream (contiguous operands; float32)
+    "tl_flash_bwd_dq": [_I, *[_P] * 7, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P],
+    # the same with the shared-memory bytes before the stream (bfloat16)
+    "tl_flash_bwd_dq_bf16": [_I, *[_P] * 7, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _P],
     # d, then as tl_flash_bwd_dq with dk, dv in place of dq (float32)
     "tl_flash_bwd_dkv": [_I, *[_P] * 8, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P],
     # the same with the shared-memory bytes before the stream (bfloat16)

@@ -10,9 +10,11 @@ with its default 1024-row blocks, and have no block knobs: the CUDA kernels
 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) pick their own tiles and
 mask by position, so they need no padding.  The dtype picks the kernel:
 float32 runs on the FMA pipes, as the Pallas kernel's ``Precision.HIGHEST``
-asks; bfloat16 runs B4 and B6 on the tensor cores (``wgmma``), whose
+asks; bfloat16 runs B4, B5 and B6 on the tensor cores (``wgmma``), whose
 16-byte copies need 16-byte-aligned rows, so a bfloat16 operand that is
-not aligned is copied first.  B5 runs on the FMA pipes in both dtypes.
+not aligned is copied first.  In bfloat16, B5 recomputes the scores with
+B4's own product, so its ``p = exp(s - lse)`` comes from the scores
+behind the forward's lse.
 
 K and V may be narrower than q (grouped-query attention): query head ``i``
 reads kv head ``i // (heads // kv_heads)``, the contiguous mapping of
@@ -58,7 +60,7 @@ HEAD_DIMS = (8, 16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: query rows per block (``BQ`` in csrc/flash_fwd.cu)
 BLOCK_Q = 64
-#: threads of a tensor-core (bfloat16) block of B4 or B6: one warpgroup
+#: threads of a tensor-core (bfloat16) block of B4, B5 or B6: one warpgroup
 TC_THREADS = 128
 #: the JAX wrapper's default block; a sequence it would have to pad is
 #: refused where padding is refused there
@@ -70,18 +72,27 @@ def _threads(d: int) -> int:
     return BLOCK_Q * min(d // 4, 4)
 
 
-def tc_shared_bytes(d: int, backward: bool) -> int:
-    """Dynamic shared memory of one block of the bfloat16 B4
-    (``backward=False``) or B6, in bytes (``FwdTC`` and ``DkvTC`` in
-    csrc/): 1024 bytes of alignment, then bf16 tiles of 128-byte rows per
-    64 head dims.  B4: the q' tile and two stages of K and V, 64 rows each.
-    B6: the block's K and V (64 rows each) and two stages of q', do (64
-    query rows, 32 at head_dim 128), lse and delta."""
+#: the bfloat16 kernels, by their rows in ``chip_smoke.py``
+TC_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def tc_shared_bytes(d: int, kernel: str) -> int:
+    """Dynamic shared memory of one block of the bfloat16 ``kernel`` (one
+    of :data:`TC_KERNELS`: B4, B5 or B6), in bytes (``FwdTC``, ``DqTC``
+    and ``DkvTC`` in csrc/): 1024 bytes of alignment, then bf16 tiles of
+    128-byte rows per 64 head dims.  B4: the q' tile and two stages of K
+    and V, 64 rows each.  B5: the q' and do tiles and two stages of K and
+    V, 64 rows each.  B6: the block's K and V (64 rows each) and two
+    stages of q', do (64 query rows, 32 at head_dim 128), lse and delta."""
     row = 128 * (2 if d > 64 else 1)
-    if not backward:
+    if kernel == "flash_fwd":
         return 1024 + 5 * BLOCK_Q * row
-    bt = 32 if d > 64 else 64
-    return 1024 + 2 * BLOCK_Q * row + 4 * bt * row + 4 * bt * 4
+    if kernel == "flash_dq":
+        return 1024 + 6 * BLOCK_Q * row
+    if kernel == "flash_dkv":
+        bt = 32 if d > 64 else 64
+        return 1024 + 2 * BLOCK_Q * row + 4 * bt * row + 4 * bt * 4
+    raise ValueError(f"no tensor-core kernel {kernel!r}; have {TC_KERNELS}")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -229,7 +240,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, wi
     lse = torch.empty((b, s, h), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    smem = tc_shared_bytes(d, backward=False) if tc else 0
+    smem = tc_shared_bytes(d, "flash_fwd") if tc else 0
     _build.check_geometry((-(-s // BLOCK_Q), b * h), (TC_THREADS if tc else _threads(d),), smem)
     lib = _build.load_library()
     args = (d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
@@ -364,20 +375,30 @@ def _check_bwd(q, k, v, do, lse, delta, causal, window, q_offset) -> None:
         raise ValueError("the backward's operands lie on different devices")
 
 
-def _launch_bwd(name: str, q, k, v, do, lse, delta, outs, causal, window, q_offset) -> None:
-    """B5 (``tl_flash_bwd_dq``, either dtype) or B6: ``tl_flash_bwd_dkv``
-    in float32 on the FMA pipes, ``tl_flash_bwd_dkv_bf16`` on the tensor
-    cores."""
+def _bwd_operands(q, k, v, do, lse, delta):
+    """The backward's operands as its kernels read them: contiguous, and
+    in bfloat16 (the tensor-core kernels) q, k, v and do 16-byte aligned."""
+    q, k, v, do, lse, delta = (t.contiguous() for t in (q, k, v, do, lse, delta))
+    if q.dtype == torch.bfloat16:
+        q, k, v, do = (_aligned(t) for t in (q, k, v, do))
+    return q, k, v, do, lse, delta
+
+
+def _launch_bwd(kernel: str, q, k, v, do, lse, delta, outs, causal, window, q_offset) -> None:
+    """B5 (``kernel="flash_dq"``) or B6 (``"flash_dkv"``) on contiguous
+    operands: ``tl_flash_bwd_dq`` or ``tl_flash_bwd_dkv`` in float32 on the
+    FMA pipes, their ``_bf16`` entry points on the tensor cores (operands
+    16-byte aligned)."""
     b, s, h, d = q.shape
-    dq = name == "tl_flash_bwd_dq"
-    tc = name == "tl_flash_bwd_dkv_bf16"
-    smem = tc_shared_bytes(d, backward=True) if tc else 0
-    _build.check_geometry((-(-s // BLOCK_Q), b * (h if dq else k.shape[2])),
+    tc = q.dtype == torch.bfloat16
+    name = {"flash_dq": "tl_flash_bwd_dq", "flash_dkv": "tl_flash_bwd_dkv"}[kernel]
+    name += "_bf16" if tc else ""
+    smem = tc_shared_bytes(d, kernel) if tc else 0
+    _build.check_geometry((-(-s // BLOCK_Q), b * (h if kernel == "flash_dq" else k.shape[2])),
                           (TC_THREADS if tc else _threads(d),), smem)
     lib = _build.load_library()
     rc = getattr(lib, name)(
-        *((DTYPES[q.dtype],) if dq else ()), d,
-        *(t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)),
+        d, *(t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)),
         b, s, h, k.shape[2], softmax_scale(d), int(bool(causal)), window, q_offset,
         *((smem,) if tc else ()), _build.stream_handle(q.device),
     )
@@ -396,11 +417,11 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal, window, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    q, k, v, do, lse, delta = (t.contiguous() for t in (q, k, v, do, lse, delta))
+    q, k, v, do, lse, delta = _bwd_operands(q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
     if dq.numel() == 0:
         return dq
-    _launch_bwd("tl_flash_bwd_dq", q, k, v, do, lse, delta, (dq,), causal, window, q_offset)
+    _launch_bwd("flash_dq", q, k, v, do, lse, delta, (dq,), causal, window, q_offset)
     flash_attention_bwd_dq.launches += 1
     return dq
 
@@ -420,15 +441,11 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal, window, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    tc = q.dtype == torch.bfloat16  # the tensor-core kernel; float32 runs on the FMA pipes
-    q, k, v, do, lse, delta = (t.contiguous() for t in (q, k, v, do, lse, delta))
-    if tc:
-        q, k, v, do = (_aligned(t) for t in (q, k, v, do))
+    q, k, v, do, lse, delta = _bwd_operands(q, k, v, do, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if dk.numel() == 0:
         return dk, dv
-    _launch_bwd("tl_flash_bwd_dkv_bf16" if tc else "tl_flash_bwd_dkv", q, k, v, do, lse, delta,
-                (dk, dv), causal, window, q_offset)
+    _launch_bwd("flash_dkv", q, k, v, do, lse, delta, (dk, dv), causal, window, q_offset)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
