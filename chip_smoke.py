@@ -4,7 +4,7 @@
 Run from the root of a checkout, with one CUDA card visible::
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent DIR   # phase 6c also times DIR's step in turns
+    python3 chip_smoke.py --parent DIR   # phases 6c and 7d also time DIR in turns
 
 It exits non-zero, and prints no result, when no card is visible or when
 it runs in a directory without the package.  Phases, each fatal on
@@ -111,9 +111,14 @@ failure:
       heads, head_dim 64, 16 blocks of 16, bfloat16, ragged lengths with 0
       and block edges) and at 64 slots of 4096 positions (native, int8, a
       256 window); at each of the latter the same limit must reject the
-      plain version with one live block skipped.  Its time stands beside
-      its bound, its plain version, the gather path and
-      ``scaled_dot_product_attention`` over K/V gathered beforehand.
+      plain version with one live block skipped.  Each row names B7's
+      design (``split``: flash-decoding), its splits, span and blocks.
+      Its time stands beside its bound, its plain version, the gather path
+      and ``scaled_dot_product_attention`` over K/V gathered beforehand.
+      With ``--parent DIR``, B7 at 64 slots x 4096 in bfloat16 and one
+      ``"pallas"`` wave of the bench (after a warm-up, three timed) from
+      DIR and from this checkout in turns, parent, change, change, parent,
+      each in a process of its own.
 8. One ``{"model": {...}}`` line with phases 5 to 7's numbers, one
    ``{"kernels": [...]}`` line, the card line again, and last
    ``{"ok": true, "device": {...}}``.
@@ -634,9 +639,9 @@ def event_ms(fn, device, reps: int = 3) -> float:
 def profile_window(fn, device) -> dict:
     """Device busy time of ``fn()`` from ``torch.profiler`` (CUPTI): the sum
     of kernel times over the host's wall time, the kernels that took most,
-    the port's flash kernels (B4-B6), and the host operators that took most
-    of the host's own time.  On the CPU, or where the trace holds no
-    kernel, "not measured"."""
+    the port's flash kernels (B4-B6) and paged kernel (B7), and the host
+    operators that took most of the host's own time.  On the CPU, or where
+    the trace holds no kernel, "not measured"."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -656,6 +661,7 @@ def profile_window(fn, device) -> dict:
         return {"busy_share": "not measured", "wall_ms": wall_ms}
     top = sorted(kernels, key=dev_us, reverse=True)[:5]
     flash = [e for e in kernels if "(anonymous namespace)::flash_" in e.key]
+    paged = [e for e in kernels if "(anonymous namespace)::paged_" in e.key]
     # the host's own time by operator (the profiler's overhead included)
     host = sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CPU),
                   key=lambda e: e.self_cpu_time_total, reverse=True)[:5]
@@ -663,6 +669,7 @@ def profile_window(fn, device) -> dict:
             "kernel_launches": sum(e.count for e in kernels),
             "top": [[e.key[:80], dev_us(e) / 1e3, e.count] for e in top],
             "flash_kernels": [[e.key[:60], dev_us(e) / 1e3, e.count] for e in flash],
+            "paged_kernels": [[e.key[:60], dev_us(e) / 1e3, e.count] for e in paged],
             "host_top": [[e.key[:60], e.self_cpu_time_total / 1e3, e.count] for e in host]}
 
 
@@ -1119,7 +1126,7 @@ def bwd_kernel_rows(sizes: dict, device) -> tuple:
 #: one side of :func:`in_turns`, run as ``python -c`` from the root of a
 #: checkout (argv[1]) with that checkout's package and ``chip_smoke.py``:
 #: phase 6c's step and B5 in bfloat16 at the training shape
-IN_TURNS_SIDE = """
+IN_TURNS_TRAIN = """
 import json, sys
 sys.path.insert(0, sys.argv[1])
 import torch
@@ -1135,33 +1142,60 @@ print("IN_TURNS " + json.dumps({"step_ms": t["step_ms"], "step_ms_runs": t["step
                                 "b5_ms": dq["ms"], "b5_plain_ms": dq["plain_ms"]}), flush=True)
 """
 
+#: the side of :func:`in_turns` for phase 7d, run as ``IN_TURNS_TRAIN`` is:
+#: B7 in bfloat16 at 64 slots x 4096 positions, then the paged bench's
+#: ``"pallas"`` wave (one warm-up, then three, each timed on the host's clock)
+IN_TURNS_PAGED = """
+import json, statistics, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+import chip_smoke as c
+from tpulab_torch.models.labformer import Labformer, LabformerConfig, init_params
+dev = torch.device("cuda", 0)
+sizes, big = c.FULL_SIZES, c.FULL_SIZES["b7_big"]
+b7 = c.b7_row(big, [big[5] * big[4]] * big[0], dev, 20, 1, seed=22)
+cfg = LabformerConfig(**sizes["paged"], dtype=torch.bfloat16)
+model = Labformer.from_numpy(init_params(cfg, seed=0), cfg, dev)
+c.paged_wave(model, cfg, sizes, "pallas", "native", dev)
+waves = [c.paged_wave(model, cfg, sizes, "pallas", "native", dev) for _ in range(3)]
+walls = [w["wall_s"] for w in waves]
+tokens = sum(len(x) for x in waves[0]["streams"])
+ticks = waves[0]["stats"]["ticks"]
+print("IN_TURNS " + json.dumps({"b7_ms": b7["ms"], "b7_bound_ms": b7["bound_ms"],
+                                "wave_s_runs": walls,
+                                "tokens_per_s": tokens / statistics.median(walls),
+                                "ms_per_tick": statistics.median(walls) * 1e3 / ticks}),
+      flush=True)
+"""
 
-def in_turns(parent: Path, card: str) -> list:
-    """Phase 6c against the checkout at ``parent``: the flagship bf16 step
-    and B5 at the training shape, parent, this checkout, this checkout,
-    parent, each in a process of its own on this card (host speed differs
-    between machines, so two versions are compared only within one run)."""
+
+def in_turns(parent: Path, card: str, side: str, what: str) -> list:
+    """``side`` run from the checkout at ``parent`` and from this one in
+    turns, parent, change, change, parent, each in a process of its own on
+    this card (host speed differs between machines, so two versions are
+    compared only within one run); each run's ``IN_TURNS`` line."""
     import torch
 
     torch.cuda.empty_cache()  # the card's memory for the sides' own processes
     runs = []
-    for side, root in (("parent", parent), ("change", ROOT), ("change", ROOT),
+    for name, root in (("parent", parent), ("change", ROOT), ("change", ROOT),
                        ("parent", parent)):
-        res = subprocess.run([sys.executable, "-c", IN_TURNS_SIDE, str(root)], cwd=root,
+        res = subprocess.run([sys.executable, "-c", side, str(root)], cwd=root,
                              capture_output=True, text=True, timeout=900)
         lines = [x for x in res.stdout.splitlines() if x.startswith("IN_TURNS ")]
         check(res.returncode == 0 and len(lines) == 1,
-              f"in-turn run of {side} ({root}) exited with {res.returncode}: "
+              f"in-turn run of {name} ({root}) exited with {res.returncode}: "
               f"{res.stderr[-2000:]}")
-        runs.append({"side": side, **json.loads(lines[0].split(" ", 1)[1])})
-        print(f"training bf16 in turns, {side}: {json.dumps(runs[-1])} ({card})", flush=True)
+        runs.append({"side": name, **json.loads(lines[0].split(" ", 1)[1])})
+        print(f"{what} in turns, {name}: {json.dumps(runs[-1])} ({card})", flush=True)
     return runs
 
 
 def run_train_path(sizes: dict, device, backend: str, card: str,
                    parent: Path | None = None) -> tuple:
     """Phase 6: (the B5 row, the B6 row, their launches, the training
-    numbers); with ``parent``, phase 6c also runs :func:`in_turns`."""
+    numbers); with ``parent``, phase 6c also runs ``IN_TURNS_TRAIN`` in
+    turns (:func:`in_turns`)."""
     t0 = time.perf_counter()
     losses, launches = drive_train_path(sizes, backend)
     print(f"training path: {json.dumps(launches)} launches; CLI losses {losses}", flush=True)
@@ -1169,8 +1203,9 @@ def run_train_path(sizes: dict, device, backend: str, card: str,
     training = {"cli_train": {"launches": launches, "losses": losses},
                 "train_f32": check_train_f32(sizes, device),
                 "train_bf16": time_train_bf16(sizes, device, card)}
-    training["train_bf16"]["in_turns"] = (in_turns(parent, card) if parent else
-                                          "not run: no --parent checkout given")
+    training["train_bf16"]["in_turns"] = (
+        in_turns(parent, card, IN_TURNS_TRAIN, "training bf16") if parent
+        else "not run: no --parent checkout given")
     dq, dkv = bwd_kernel_rows(sizes, device)
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
     return dq, dkv, launches, training
@@ -1382,10 +1417,13 @@ def b7_row(shape, lengths, device, iters, plain_iters, *, int8=False, window=0, 
 
     from tpulab_torch.models.paged import _kv_quant, _paged_attend
     from tpulab_torch.ops.cuda.paged import (
+        SMS,
         paged_attend_kernel,
         paged_attend_plain,
         paged_over_tolerance,
         pool_gather,
+        row_blocks,
+        split_plan,
     )
 
     S, h, kvh, d, bs, M = shape
@@ -1407,8 +1445,13 @@ def b7_row(shape, lengths, device, iters, plain_iters, *, int8=False, window=0, 
     check(ratio <= 1, f"paged decode {shape} int8={int8} window={window}: |o - plain| reaches "
                       f"{ratio} of its limit")
     live = ~torch.isnan(want.float()).any(-1)
+    nrb = row_blocks(h // kvh)
+    splits, span = split_plan(S, kvh, M * bs, d, nrb, torch.cuda.get_device_properties(
+        device).multi_processor_count if device.type == "cuda" else SMS)
     row = {"shape": {"slots": S, "heads": h, "kv_heads": kvh, "head_dim": d, "block_size": bs,
-                     "max_blocks": M}, "dtype": "bfloat16", "kv": "int8" if int8 else "native",
+                     "max_blocks": M}, "design": "split", "splits": splits, "span": span,
+           "blocks": S * kvh * nrb * splits, "dtype": "bfloat16",
+           "kv": "int8" if int8 else "native",
            "window": window, "lengths": lengths if len(lengths) <= 8 else
            f"{len(lengths)} x {lengths[0]}", "max_abs_err": max_abs_err(got[live], want[live]),
            "tolerance": "paged_over_tolerance (tpulab_torch/ops/cuda/paged.py)",
@@ -1466,7 +1509,8 @@ def paged_kernel_row(sizes: dict, device) -> dict:
         b7_row(big, n, device, 20, 3, window=sizes["b7_window"], seed=24, plant=True),
     ]
     for r in [row, *row["at_scale"]]:
-        print(f"paged decode {r['shape']} {r['kv']} window {r['window']}: {r['ms']:.6f} ms, "
+        print(f"paged decode {r['shape']} {r['kv']} window {r['window']}, {r['splits']} splits "
+              f"of {r['span']} ({r['blocks']} blocks): {r['ms']:.6f} ms, "
               f"bound {r['bound_ms']:.6f} ({r['bound_by']}), plain {r['plain_ms']:.6f}, "
               f"gather {r['gather_ms']:.6f}, sdpa {r['library_ms']:.6f}; "
               f"{r['err_over_tolerance']:.4f} of the limit"
@@ -1475,13 +1519,17 @@ def paged_kernel_row(sizes: dict, device) -> dict:
     return row
 
 
-def run_paged_path(sizes: dict, device, card: str) -> tuple:
-    """Phase 7: (the B7 row, its main-path launches, the paged numbers)."""
+def run_paged_path(sizes: dict, device, card: str, parent: Path | None = None) -> tuple:
+    """Phase 7: (the B7 row, its main-path launches, the paged numbers);
+    with ``parent``, phase 7d also runs ``IN_TURNS_PAGED`` in turns
+    (:func:`in_turns`)."""
     t0 = time.perf_counter()
     bench, b7_launches = time_paged_bench(sizes, device, card)
     paged = {"bench_bf16": bench, "f32": check_paged_f32(sizes, device),
              "daemon_size": check_paged_daemon(sizes, device, card)}
     row = paged_kernel_row(sizes, device)
+    paged["in_turns"] = (in_turns(parent, card, IN_TURNS_PAGED, "paged B7 and wave") if parent
+                         else "not run: no --parent checkout given")
     print(f"phase 7 took {time.perf_counter() - t0:.1f} s", flush=True)
     return row, b7_launches, paged
 
@@ -1561,7 +1609,7 @@ FULL_SIZES = {
 def run(device, sizes: dict, backend: str, card: str = "cpu",
         parent: Path | None = None) -> dict:
     """Phases 2 to 7 on ``device``; the ``kernels`` and ``model`` payloads.
-    ``parent``: a checkout to time phase 6c against (:func:`in_turns`)."""
+    ``parent``: a checkout to time phases 6c and 7d against (:func:`in_turns`)."""
     t0 = time.perf_counter()
     inp = make_inputs(sizes)
     outs, launches = drive_main_path(inp, backend)
@@ -1581,7 +1629,7 @@ def run(device, sizes: dict, backend: str, card: str = "cpu",
     launches["flash_dq"] = train_launches["flash_dq"]
     launches["flash_dkv"] = train_launches["flash_dkv"]
     rows["paged_decode"], launches["paged_decode"], model["paged"] = run_paged_path(
-        sizes, device, card)
+        sizes, device, card, parent)
     kernels = []
     for name, row in rows.items():
         source, replaces = KERNEL_META[name]
@@ -1599,8 +1647,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Drive tpulab_torch on one CUDA card.")
     ap.add_argument("--parent", type=Path, default=None,
                     help="the root of another checkout (e.g. the parent commit's, unpacked "
-                         "with git archive): phase 6c times its training step and B5 in "
-                         "turns with this checkout's")
+                         "with git archive): phase 6c times its training step and B5, phase "
+                         "7d its B7 at 64 slots x 4096 and a paged bench wave, in turns "
+                         "with this checkout's")
     args = ap.parse_args()
     parent = args.parent.resolve() if args.parent else None
     if parent is not None and not (parent / "chip_smoke.py").is_file():

@@ -468,6 +468,97 @@ def test_paged_tolerance_rejects_a_skipped_block(cuda_device, int8):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("int8", [False, True], ids=["native", "int8"])
+@pytest.mark.parametrize("window", [0, 100, 256, 600])
+def test_paged_kernel_split_edges_match_plain(cuda_device, dtype, int8, window):
+    """32 slots of 2048 positions: 8 splits of 256 (4 chunks each).
+    Lengths one short of, at and one past each of the first split edges;
+    windows shorter than a span, of one span, and across two split edges."""
+    from tpulab_torch.ops.cuda.paged import (
+        paged_attend_kernel,
+        paged_attend_plain,
+        paged_over_tolerance,
+        split_plan,
+    )
+
+    splits, span = split_plan(32, 2, 2048, 64)
+    assert (splits, span) == (8, 256)
+    q, kp, vp, tables = _paged_inputs(32, 128, 16, 8, 2, 64, dtype, int8, window, cuda_device)
+    edges = [e * span + o for e in (1, 2, 3) for o in (-1, 0, 1)]
+    lengths = torch.tensor((edges + [0, 1, 2047, 2048, 17, 449, 600]) * 2, dtype=torch.int32,
+                           device=cuda_device)
+    before = paged_attend_kernel.launches
+    got = paged_attend_kernel(q, kp, vp, tables, lengths, 16, window)
+    torch.cuda.synchronize()
+    assert paged_attend_kernel.launches == before + 1
+    want = paged_attend_plain(q, kp, vp, tables, lengths, 16, window)
+    dead = lengths == 0
+    assert bool(torch.isnan(got[dead]).all()) and not bool(torch.isnan(got[~dead]).any())
+    assert paged_over_tolerance(got, want) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,M,d", [(2, 4, 64), (8, 16, 64), (32, 128, 64), (4, 64, 128),
+                                   (4, 96, 8)])
+def test_paged_kernel_split_plans_match_plain(cuda_device, S, M, d):
+    """One split; splits of one chunk (the paged bench's shape); splits of
+    several chunks (32 x 2048); head dims 128 and 8."""
+    from tpulab_torch.ops.cuda.paged import (
+        paged_attend_kernel,
+        paged_attend_plain,
+        paged_over_tolerance,
+    )
+
+    q, kp, vp, tables = _paged_inputs(S, M, 16, 8, 2, d, torch.bfloat16, False, S + d,
+                                      cuda_device)
+    rng = np.random.default_rng(S)
+    lengths = torch.from_numpy(rng.integers(1, M * 16 + 1, S).astype(np.int32)).to(cuda_device)
+    got = paged_attend_kernel(q, kp, vp, tables, lengths, 16, 0)
+    torch.cuda.synchronize()
+    assert paged_over_tolerance(got, paged_attend_plain(q, kp, vp, tables, lengths, 16)) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["native", "int8"])
+def test_paged_kernel_repeats_its_bits(cuda_device, int8):
+    """Three calls give the same bits, and so does a fourth after a call at
+    another shape: the merge runs in split order, the tickets reset
+    themselves, and the cached workspace is not disturbed."""
+    from tpulab_torch.ops.cuda.paged import paged_attend_kernel
+
+    args = (*_paged_inputs(32, 128, 16, 8, 2, 64, torch.bfloat16, int8, 9, cuda_device),
+            torch.full((32,), 2000, dtype=torch.int32, device=cuda_device), 16, 0)
+    other = (*_paged_inputs(8, 16, 16, 8, 2, 64, torch.bfloat16, int8, 10, cuda_device),
+             torch.full((8,), 200, dtype=torch.int32, device=cuda_device), 16, 0)
+    runs = [paged_attend_kernel(*args) for _ in range(3)]
+    paged_attend_kernel(*other)
+    runs.append(paged_attend_kernel(*args))
+    torch.cuda.synchronize()
+    assert all(torch.equal(_bits(r), _bits(runs[0])) for r in runs[1:])
+
+
+@pytest.mark.cuda
+def test_paged_kernel_call_does_not_sync(cuda_device):
+    """A call, its first at this shape included, reads nothing back to the
+    host (the lengths stay on the card) and launches one kernel."""
+    from tpulab_torch.ops.cuda.paged import paged_attend_kernel
+
+    q, kp, vp, tables = _paged_inputs(16, 40, 16, 8, 2, 64, torch.bfloat16, False, 11,
+                                      cuda_device)
+    lengths = torch.arange(16, dtype=torch.int32, device=cuda_device) * 40
+    torch.cuda.synchronize()
+    before = paged_attend_kernel.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        paged_attend_kernel(q, kp, vp, tables, lengths, 16, 0)
+        paged_attend_kernel(q, kp, vp, tables, lengths, 16, 0)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert paged_attend_kernel.launches == before + 2
+
+
+@pytest.mark.cuda
 def test_paged_kernel_refuses_before_launch(cuda_device):
     from tpulab_torch.ops.cuda.paged import paged_attend_kernel
 

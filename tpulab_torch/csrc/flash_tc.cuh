@@ -56,6 +56,13 @@ __device__ __forceinline__ void cp16(uint32_t dst, const void* src, bool valid) 
                : "memory");
 }
 
+// 8 bytes from global to shared memory; zero-filled when !valid
+__device__ __forceinline__ void cp8(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 8 : 0)
+               : "memory");
+}
+
 // 4 bytes from global to shared memory; zero-filled when !valid
 __device__ __forceinline__ void cp4(uint32_t dst, const void* src, bool valid) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),

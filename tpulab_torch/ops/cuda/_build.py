@@ -77,9 +77,9 @@ SIGNATURES: Dict[str, List] = {
     "tl_flash_bwd_dkv_bf16": [_I, *[_P] * 8, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I,
                               _P],
     # dtype, d, quantized, q, kpool, vpool, kscale, vscale, tables, lengths,
-    # out, slots, h, kv_heads, block_size, max_blocks, window, q divisor,
-    # shared-memory bytes, stream
-    "tl_paged_decode": [_I, _I, _I, *[_P] * 8, *[_I] * 6, ctypes.c_float, _I, _P],
+    # out, workspace, tickets, slots, h, kv_heads, block_size, max_blocks,
+    # window, q divisor, splits, span, shared-memory bytes, stream
+    "tl_paged_decode": [_I, _I, _I, *[_P] * 10, *[_I] * 6, ctypes.c_float, _I, _I, _I, _P],
 }
 
 

@@ -30,12 +30,24 @@ engine's gather path (``models/paged.py::_paged_attend``):
 the table, then a masked f32 softmax) and is the CPU path and the
 kernel's oracle; the two sum in other orders and are held to
 :func:`paged_over_tolerance`.
+
+The kernel splits each slot's key range across blocks (flash-decoding,
+``csrc/paged_decode.cu``): :func:`split_plan` picks the splits and each
+one's span from the shapes and the SM count alone, so a call reads no
+length back to the host and its grid depends on shapes only.  Each split
+writes its partial (max, denominator, accumulator) to a workspace; the
+block that draws a (slot, kv head) counter's last ticket merges the
+partials in split order within the same launch and resets the counter.
+The workspace and the counters are made once per shape and device
+(:func:`_workspace`), so a call allocates nothing in the steady state and
+repeated calls give the same bits.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Tuple, Union
+from typing import Dict, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,12 +57,64 @@ from tpulab_torch.ops.cuda.attention import DTYPES, HEAD_DIMS, o_tolerance
 
 NEG_INF = float(np.finfo(np.float32).min)
 #: threads per block of csrc/paged_decode.cu
-THREADS = 256
+THREADS = 128
+#: query rows of a kv head's group that one block holds (zero-padded)
+ROWS = 4
+#: shared-memory stages of the kernel's K/V stream
+STAGES = 3
+#: streaming multiprocessors of an H100 SXM
+SMS = 132
+#: blocks resident on an SM (the kernel's launch bounds cap a thread at
+#: 128 registers for 4 blocks of 128 threads; a bf16 block's 48 KB stages
+#: allow 4 too): the split fills one wave of them
+BLOCKS_PER_SM = 4
+#: the most chunks one split covers, which bounds its table entries
+MAX_SPAN_CHUNKS = 64
 
 
 def chunk_positions(d: int) -> int:
-    """Key positions the kernel stages per step at head dim ``d`` (``CK``)."""
-    return 64 if d <= 64 else 32
+    """Key positions the kernel streams per step at head dim ``d`` (``CK``:
+    4 warps, 32 / (d / 8) keys a warp reads at once, 4 keys a lane group)."""
+    return 4096 // d
+
+
+def row_blocks(g: int) -> int:
+    """Blocks that share one kv head's group of ``g`` query rows."""
+    return -(-g // ROWS)
+
+
+def split_plan(slots: int, kv_heads: int, positions: int, d: int, row_blocks: int = 1,
+               sms: int = SMS) -> Tuple[int, int]:
+    """``(splits, span)``: how many blocks share each slot's key range, and
+    the positions each covers (a multiple of the chunk).  A function of the
+    shapes and the SM count alone, never of the lengths: as many splits as
+    one wave of ``BLOCKS_PER_SM`` blocks on each SM holds (so no second,
+    part-empty wave trails), at most one per chunk, and at least enough
+    that no span exceeds ``MAX_SPAN_CHUNKS`` chunks."""
+    ck = chunk_positions(d)
+    chunks = max(1, -(-positions // ck))
+    groups = max(1, slots * kv_heads * row_blocks)
+    splits = min(chunks, max(1, BLOCKS_PER_SM * sms // groups))
+    splits = max(splits, -(-chunks // MAX_SPAN_CHUNKS))
+    span = -(-chunks // splits) * ck
+    return max(1, -(-positions // span)), span
+
+
+def table_entries(span: int, block_size: int, max_blocks: int) -> int:
+    """Table entries a block stages: its span's, one more where the span
+    straddles a block."""
+    return min(max_blocks, -(-span // block_size) + 1)
+
+
+def shared_bytes(d: int, itemsize: int, quantized: bool, entries: int) -> int:
+    """Dynamic shared memory of one block of the kernel, in bytes: the K/V
+    stages (rows of ``d`` stored elements of ``itemsize`` bytes, and for
+    int8 pools each row's two scales), which the merge of the 4 warps'
+    partials reuses, then the staged table entries."""
+    ck = chunk_positions(d)
+    stage = 2 * ck * d * itemsize + (2 * ck * 4 if quantized else 0)
+    merge = (THREADS // 32) * ROWS * (d + 2) * 4
+    return max(STAGES * stage, merge) + 4 * entries
 
 
 #: a pool as the engine holds one layer of it: dense, or (int8 data, f32 scale)
@@ -142,19 +206,34 @@ def paged_attend_plain(q: torch.Tensor, kpool_l: Pool, vpool_l: Pool, tables: to
     return (acc / p.sum(dim=-1, keepdim=True)).reshape(S, 1, h, d).to(q.dtype)
 
 
-def shared_bytes(g: int, d: int) -> int:
-    """Dynamic shared memory of one block of the kernel, in bytes: staged K
-    and V (rows padded to d + 1), q and the accumulator, the scores, and
-    three floats per query row."""
-    ck = chunk_positions(d)
-    return 4 * (2 * ck * (d + 1) + 2 * g * d + g * (ck + 1) + 3 * g)
+_WORKSPACES: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(device: torch.device, heads: int, splits: int, d: int):
+    """The partials' workspace and the zeroed tickets for ``heads`` (slot,
+    kv head, row block) triples, made once per shape and device: the kernel
+    leaves every ticket at zero, so a call allocates nothing and reads
+    nothing back.  Calls on one device share them, so they run in stream
+    order (the engines use one stream)."""
+    key = (device, heads, splits, d)
+    if key not in _WORKSPACES:
+        _WORKSPACES[key] = (
+            torch.empty(heads * splits * ROWS * (d + 2), dtype=torch.float32, device=device),
+            torch.zeros(heads, dtype=torch.int32, device=device),
+        )
+    return _WORKSPACES[key]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def paged_attend_kernel(q: torch.Tensor, kpool_l: Pool, vpool_l: Pool, tables: torch.Tensor,
                         lengths: torch.Tensor, block_size: int, window: int = 0) -> torch.Tensor:
     """Single-token decode attention over the paged pools: kernel B7 for a
     CUDA tensor, the plain version for a CPU tensor; ``launches`` counts
-    kernel launches."""
+    kernel launches (one a call)."""
     window = int(window)
     quantized = _check(q, kpool_l, vpool_l, tables, lengths, block_size, window)
     if q.device.type == "cpu":
@@ -164,30 +243,37 @@ def paged_attend_kernel(q: torch.Tensor, kpool_l: Pool, vpool_l: Pool, tables: t
     S, _, h, d = q.shape
     data = kpool_l[0] if quantized else kpool_l
     kvh = data.shape[2]
-    g = h // kvh
+    M = tables.shape[1]
     if d not in HEAD_DIMS:
         raise ValueError(f"unsupported head_dim {d}; the kernel is built for {HEAD_DIMS}")
-    smem = shared_bytes(g, d)
+    nrb = row_blocks(h // kvh)
+    splits, span = split_plan(S, kvh, M * block_size, d, nrb, _sm_count(q.device))
+    smem = shared_bytes(d, data.element_size(), quantized, table_entries(span, block_size, M))
     if smem > _build.MAX_SHARED:
-        raise ValueError(f"{g} query heads per kv head at head_dim {d} need {smem} bytes of "
-                         f"shared memory; a block has {_build.MAX_SHARED}")
+        raise ValueError(f"a block of the paged decode kernel needs {smem} bytes of shared "
+                         f"memory at head_dim {d}, block size {block_size}; a block has "
+                         f"{_build.MAX_SHARED}")
     parts = (kpool_l + vpool_l) if quantized else (kpool_l, vpool_l)
     if not all(t.is_contiguous() for t in parts):
         raise ValueError("the pools must be contiguous")
+    kdata, kscale = kpool_l if quantized else (kpool_l, None)
+    vdata, vscale = vpool_l if quantized else (vpool_l, None)
+    align = min(d * data.element_size(), 16)  # bytes of the kernel's row copies
+    if kdata.data_ptr() % align or vdata.data_ptr() % align:
+        raise ValueError(f"the pools must be {align}-byte aligned")
     q, tables, lengths = q.contiguous(), tables.contiguous(), lengths.contiguous()
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    _build.check_geometry((S, kvh), (THREADS,))
-    kdata, kscale = kpool_l if quantized else (kpool_l, None)
-    vdata, vscale = vpool_l if quantized else (vpool_l, None)
+    _build.check_geometry((kvh * nrb, splits, S), (THREADS,))
+    work, tickets = _workspace(q.device, S * kvh * nrb, splits, d)
     lib = _build.load_library()
     rc = lib.tl_paged_decode(
         DTYPES[q.dtype], d, int(quantized), q.data_ptr(), kdata.data_ptr(), vdata.data_ptr(),
         kscale.data_ptr() if quantized else None, vscale.data_ptr() if quantized else None,
-        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), S, h, kvh, block_size,
-        tables.shape[1], window, float(prescale_divisor(d, q.dtype)), smem,
-        _build.stream_handle(q.device),
+        tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), work.data_ptr(),
+        tickets.data_ptr(), S, h, kvh, block_size, M, window,
+        float(prescale_divisor(d, q.dtype)), splits, span, smem, _build.stream_handle(q.device),
     )
     paged_attend_kernel.launches += 1
     _build.check_launch(rc, "paged decode kernel")
