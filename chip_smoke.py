@@ -4,7 +4,7 @@
 Run from the root of a checkout, with one CUDA card visible::
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent DIR   # phases 6c and 7d also time DIR in turns
+    python3 chip_smoke.py --parent DIR   # phases 4, 6c and 7d also time DIR in turns
 
 It exits non-zero, and prints no result, when no card is visible or when
 it runs in a directory without the package.  Phases, each fatal on
@@ -14,7 +14,10 @@ failure:
    kernels from ``tpulab_torch/csrc/`` (``nvcc``, sm_90a), and read the
    built library's SASS (``cuobjdump -sass``): every bfloat16 instance of
    B4, B5 and B6 must hold ``wgmma`` (``HGMMA``), and the float32
-   instances of B4-B6 no tensor-core instruction.
+   instances of B4-B6 no tensor-core instruction; the instructions, the
+   ``ULDC`` and the integer<->float conversions (``I2F``/``F2I``) of B1
+   and B3 are counted: B1 converts no pixel (at most one of each, its
+   work index's division).
 2. The main path: lab1 (float64, n=1000), lab2 (1024x1024) and lab3
    (1024x1024, 8 classes, float64 and float32) through the CLI's own entry
    point, with every kernel's launch count set to 0 just before and read
@@ -28,6 +31,15 @@ failure:
    float32), under two launch geometries, byte-equal; with the times of
    the kernel (CUDA events), of the plain version and, for the
    elementwise kernel, of ``torch.sub``, beside each kernel's bound.
+   B1 also at widths 4k + 1, 2, 3, 1xN, Nx1 and 1x1 under three
+   geometries.  B3 in float64 also on a 4096x4096 image that holds each
+   of the 2^24 colours once, against 32 random classes and each set of
+   :func:`b3_class_sets`, under three geometries, and with the near-tie
+   set's margins and flags zeroed (a planted fault that must differ); each
+   float64 row reports the screen's candidates.  With ``--parent DIR``,
+   B1 at 1024^2 and 8192^2 and B3 float64 at 1024^2/nc=8 and
+   4096^2/nc=32 from DIR and from this checkout in turns
+   (``IN_TURNS_LAB``).
 5. The model path.  Each run of it is made with every launch count set to
    0 just before and read just after, and must launch the flash kernel
    (B4) once per layer of each 1024-token prefill and no lab kernel:
@@ -125,7 +137,11 @@ failure:
 
 Bounds use the H100 SXM's published rates (NVIDIA data sheet): 3.35 TB/s
 of device memory, 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the
-tensor cores, 989 TFLOP/s bfloat16 on the tensor cores.
+tensor cores, 989 TFLOP/s bfloat16 on the tensor cores.  B3 counts issues
+at half the flop rate (an FMA is two flops, one issue): its float32
+screen's ``SCREEN_ISSUES`` per pixel and class, plus in float64
+``CLASSIFY_F64_ISSUES`` per double fold this run's candidates need; its
+float64 rows also give ``unfused_bound_ms``, the fold for every class.
 """
 
 from __future__ import annotations
@@ -134,6 +150,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -148,8 +165,14 @@ BF16_FLOPS = 989e12
 #: flops per pixel of the Roberts function: luminance (1 mul, 2 fma),
 #: two differences, magnitude (1 mul, 1 fma, sqrt), clamp
 ROBERTS_FLOPS_PER_PIXEL = 14
-#: flops per pixel and class of the classify function (3 sub, 12 mul, 9 add)
-CLASSIFY_FLOPS = 24
+#: issues per pixel and class of the reference's double fold: its 24
+#: operations (3 sub, 12 mul, 9 add), each a DADD or DMUL of its own
+#: (unfused, one flop an issue), and the argmin's compare
+CLASSIFY_F64_ISSUES = 25
+#: float32 issues per pixel and class of B3's screen: 15 of arithmetic (3
+#: sub, 3 mul, 9 fma), the argmin's compare and two selects, and in float64
+#: the candidate's bound, compare and bit
+SCREEN_ISSUES = {"float32": 18, "float64": 21}
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "chip_smoke"
@@ -444,6 +467,61 @@ def held(kernel, plain, args, launches, device, iters, plain_iters, library=None
     return row
 
 
+def _spd_inverse(rng, spread: float) -> np.ndarray:
+    """A random inverse covariance of a class whose spread is ``spread``."""
+    a = rng.normal(size=(3, 3))
+    return np.linalg.inv((a @ a.T + np.eye(3) / 4) * spread**2)
+
+
+#: the plane every pair of ``b3_class_sets()["symmetric"]`` bisects: b = r + g
+TIE_PLANE = np.array([-1.0, -1.0, 1.0])
+
+
+def faulted_screen(screen, margin_scale: float):
+    """``screen`` with every margin times ``margin_scale`` and no class
+    flagged: a planted fault, to show that B3's recheck is what keeps its
+    labels."""
+    from dataclasses import replace
+
+    return replace(screen, margin=(screen.margin * np.float32(margin_scale)).astype(np.float32),
+                   recheck=np.zeros_like(screen.recheck))
+
+
+def b3_class_sets(seed: int = 0) -> dict:
+    """The classes that attack B3's float64 screen: name -> (means
+    ``(nc, 3)``, inverse covariances ``(nc, 3, 3)``), float64.
+
+    ``symmetric`` is the near-tie set: three pairs of classes, each pair
+    two means symmetric about a lattice pixel of the plane b = r + g with
+    one inverse covariance, whose bisector is that plane, so every colour
+    on it ties in real arithmetic and rounding decides.
+    """
+    rng = np.random.default_rng(seed)
+    ic = [_spd_inverse(rng, 30.0) for _ in range(5)]
+    mu = rng.uniform(30, 220, (5, 3))
+    nan_ic = np.full((3, 3), np.nan)
+    means, ics = [], []
+    for q, length in (((40, 50, 90), 4.0), ((100, 20, 120), 9.0), ((10, 130, 140), 17.0)):
+        k = _spd_inverse(rng, 30.0)
+        w = np.linalg.solve(k, TIE_PLANE)  # the pair's offset: IC^-1 n, so IC offset ~ n
+        delta = length * w / np.linalg.norm(w)
+        means += [np.asarray(q, float) - delta, np.asarray(q, float) + delta]
+        ics += [k, k]
+    q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+    sets = {
+        "identical": ([mu[0], mu[0], mu[1]], [ic[0], ic[0], ic[1]]),  # exact ties: first wins
+        "symmetric": (means, ics),
+        "twin_1e-9": ([mu[2], mu[2] + 1e-9, mu[3]], [ic[2], ic[2], ic[3]]),  # float32 equal
+        "nan": ([mu[0], mu[1], mu[2]], [ic[0], nan_ic, ic[2]]),
+        "all_nan": ([mu[0], mu[1], mu[2]], [nan_ic] * 3),
+        "extreme_ic": ([mu[0], mu[1], mu[2], mu[3]],
+                       [ic[0] * 1e30, ic[1] * 1e-30, q @ np.diag([1e-7, 1e-1, 1e5]) @ q.T, ic[3]]),
+        "outside": ([[-300.0, 128, 128], [128, 700, 40], [1e4, -1e4, 500], mu[4]],
+                    [ic[0], ic[1], ic[2] * 1e-4, ic[4]]),
+    }
+    return {k: (np.asarray(m, float), np.asarray(c, float)) for k, (m, c) in sets.items()}
+
+
 def kernel_rows(inp: dict, sizes: dict, device) -> dict:
     import torch
 
@@ -469,6 +547,17 @@ def kernel_rows(inp: dict, sizes: dict, device) -> dict:
     rows["roberts"] = b1(inp["lab2_img"], [None, (32, 32, 16, 16)], 200, 20)
     rows["roberts"]["at_scale"] = b1(rng.integers(0, 256, (big, big, 4), np.uint8),
                                      [None, (16, 16, 64, 64)], 20, 3)
+    # the quads' and strips' edges: w % 4 in {1, 2, 3}, 1 x N, N x 1, 1 x 1
+    edges = [(1023, 1021), (517, 1026), (1000, 1027), (1, 4099), (4099, 1), (1, 1)]
+    edge_rng = np.random.default_rng(4)
+    for shape in edges:
+        u = pack_rgba(edge_rng.integers(0, 256, shape + (4,), np.uint8)).to(device)
+        want = k1.roberts_u32_plain(u)
+        for geom in (None, (32, 32, 16, 16), (33, 3, 5, 7)):
+            check(bitwise_equal(k1.roberts_u32(u, geom), want),
+                  f"roberts at {shape} under {geom} differs from plain")
+    rows["roberts"]["edges"] = {"shapes": [list(e) for e in edges],
+                                "geometries": ["default", [32, 32, 16, 16], [33, 3, 5, 7]]}
 
     # B2 elementwise: lab1's float64 subtract, then n = 2**26 in every dtype
     def b2(n, dtype, op, geoms, iters, plain_iters):
@@ -494,31 +583,111 @@ def kernel_rows(inp: dict, sizes: dict, device) -> dict:
     ]
 
     # B3 classify: lab3's image and classes, then 32 classes on the large image
-    def b3(img, classes, dtype, geoms, iters, plain_iters):
-        stats = class_statistics(img, classes)
+    def b3(img, mean, inv_cov, dtype, geoms, iters, plain_iters):
         u = pack_rgba(img).to(device)
-        s = k3.pack_stats(stats.mean, stats.inv_cov, dtype, device)
-        r = held(k3.classify_u32, k3.classify_u32_plain, (u, s), geoms, device,
-                 iters, plain_iters)
-        nc = len(classes)
-        r["bound_ms"], r["bound_by"] = bound(
-            8.0 * u.numel() + s.numel() * s.element_size(), CLASSIFY_FLOPS * u.numel() * nc,
-            FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS)
-        r["shape"], r["nc"], r["dtype"] = list(img.shape[:2]), nc, str(dtype).split(".")[1]
+        s = k3.pack_stats(mean, inv_cov, dtype, device)
+        screen = k3.stage_screen(mean, inv_cov, dtype)
+        r = held(lambda x, st, g: k3.classify_u32(x, st, g, screen), k3.classify_u32_plain,
+                 (u, s), geoms, device, iters, plain_iters)
+        nc, n, name = len(mean), u.numel(), str(dtype).split(".")[1]
+        issues = {"float32": SCREEN_ISSUES[name] * n * nc, "float64": 0.0}
+        if dtype == torch.float64:
+            r["candidates"] = b3_candidates(u, screen)
+            issues["float64"] = CLASSIFY_F64_ISSUES * r["candidates"]["folds_per_pixel"] * n
+            r["unfused_bound_ms"] = CLASSIFY_F64_ISSUES * n * nc / (FP64_FLOPS / 2) * 1e3
+        bytes_moved = 8.0 * n + len(screen.param)
+        t_ops = (issues["float32"] / (FP32_FLOPS / 2) + issues["float64"] / (FP64_FLOPS / 2)) * 1e3
+        t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+        r["bound_ms"], r["bound_by"] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                                        else (t_ops, "operations"))
+        r["shape"], r["nc"], r["dtype"] = list(u.shape), nc, name
         return r
 
     side = sizes["b3_side"]
     img = rng.integers(0, 256, (side, side, 4), np.uint8)
-    classes = [np.stack([rng.integers(0, side, 16), rng.integers(0, side, 16)], axis=1)
-               for _ in range(32)]
-    rows["classify"] = b3(inp["lab3_img"], inp["lab3_classes"], torch.float64,
+    lab3 = class_statistics(inp["lab3_img"], inp["lab3_classes"])
+    st = class_statistics(img, [np.stack([rng.integers(0, side, 16), rng.integers(0, side, 16)],
+                                         1) for _ in range(32)])
+    big = st.mean, st.inv_cov
+    rows["classify"] = b3(inp["lab3_img"], lab3.mean, lab3.inv_cov, torch.float64,
                           [None, (256, 256)], 50, 3)
-    rows["classify"]["at_scale"] = b3(img, classes, torch.float64, [None, (256, 256)], 5, 2)
-    rows["classify"]["float32"] = b3(inp["lab3_img"], inp["lab3_classes"], torch.float32,
+    rows["classify"]["at_scale"] = b3(img, *big, torch.float64, [None, (256, 256)], 5, 2)
+    rows["classify"]["float32"] = b3(inp["lab3_img"], lab3.mean, lab3.inv_cov, torch.float32,
                                      [None, (256, 256)], 50, 3)
-    rows["classify"]["float32"]["at_scale"] = b3(img, classes, torch.float32,
+    rows["classify"]["float32"]["at_scale"] = b3(img, *big, torch.float32,
                                                  [None, (256, 256)], 5, 2)
+    rows["classify"]["every_colour"] = b3_every_colour(sizes["b3_side"], device, rng)
     return rows
+
+
+def b3_candidates(u, screen) -> dict:
+    """The float64 screen's candidates on ``u`` (``screen_plain``, which
+    forms the kernel's float32 distances and bounds): their mean and most
+    per pixel, the double folds per pixel (a pixel whose one candidate is
+    unflagged needs none), and the folds a warp of 32 pixels pays, its
+    lane with the most, averaged over warps."""
+    import torch
+
+    from tpulab_torch.ops.cuda.classify import screen_plain
+
+    flat = u.reshape(-1)
+    count = torch.zeros(flat.shape, dtype=torch.int64, device=u.device)
+    folds = torch.zeros_like(count)
+    flagged = int(sum(1 << c for c in np.flatnonzero(screen.recheck)))
+    for start in range(0, flat.numel(), 1 << 22):  # the plain screen's temporaries, in parts
+        cand, _ = screen_plain(flat[start:start + (1 << 22)], screen)
+        n = sum((cand >> c) & 1 for c in range(screen.nc))
+        alone = (n == 1) & ((cand & ~flagged) != 0)
+        count[start:start + n.numel()] = n
+        folds[start:start + n.numel()] = torch.where(alone, 0, n)
+    pad = (-folds.numel()) % 32
+    warp = torch.nn.functional.pad(folds, (0, pad)).reshape(-1, 32).amax(1)
+    return {"mean": float(count.double().mean()), "max": int(count.max()),
+            "folds_per_pixel": float(folds.double().mean()),
+            "warp_folds_mean": float(warp.double().mean()), "warp_folds_max": int(warp.max())}
+
+
+def b3_every_colour(side: int, device, rng) -> dict:
+    """B3 in float64 on a ``side`` x ``side`` image that holds each of the
+    2^24 RGB colours once (side 4096), against 32 random classes and each
+    set of ``b3_class_sets``, under three geometries: byte-equal to the
+    plain version; then the near-tie set with every margin and flag zeroed
+    (a planted fault), which must differ."""
+    import torch
+
+    from tpulab_torch.ops.cuda import classify as k3
+    from tpulab_torch.ops.mahalanobis import class_statistics
+    from tpulab_torch.ops.roberts import pack_rgba, unpack_rgba
+
+    colours = torch.arange(side * side, dtype=torch.int64, device=device) % (1 << 24)
+    alpha = torch.from_numpy(rng.integers(0, 256, side * side)).to(device)
+    u = (colours | (alpha << 24)).to(torch.int32).reshape(side, side)
+    img = unpack_rgba(u)
+    sets = dict(b3_class_sets())
+    st = class_statistics(img, [np.stack([rng.integers(0, side, 16), rng.integers(0, side, 16)], 1)
+                                for _ in range(32)])
+    sets["random32"] = (st.mean, st.inv_cov)
+    out = {"shape": [side, side], "sets": {}}
+    for name, (mean, inv_cov) in sets.items():
+        s = k3.pack_stats(mean, inv_cov, torch.float64, device)
+        screen = k3.stage_screen(mean, inv_cov, torch.float64)
+        want = k3.classify_u32_plain(u, s)
+        for geom in (None, (256, 256), (7, 999)):
+            check(bitwise_equal(k3.classify_u32(u, s, geom, screen), want),
+                  f"classify float64 on every colour, set {name}, under {geom} differs from plain")
+        out["sets"][name] = {"flagged": int(screen.recheck.sum()),
+                             "candidates": b3_candidates(u, screen)}
+        if name == "symmetric":
+            faulted = faulted_screen(screen, 0.0)
+            got = k3.classify_u32(u, s, None, faulted)
+            wrong = int((got != want).sum())
+            check(wrong > 0 or device.type == "cpu",  # the CPU path takes no screen
+                  "classify with zeroed margins equals the plain version on the near-tie set: "
+                  "the recheck is not what keeps the labels")
+            out["planted_zero_margins"] = {"pixels_differ": wrong,
+                                           "candidates": b3_candidates(u, faulted)}
+    return out
+
 
 # ---------------------------------------------------------------- model path
 
@@ -1142,6 +1311,35 @@ print("IN_TURNS " + json.dumps({"step_ms": t["step_ms"], "step_ms_runs": t["step
                                 "b5_ms": dq["ms"], "b5_plain_ms": dq["plain_ms"]}), flush=True)
 """
 
+#: the side of :func:`in_turns` for phase 4, run as ``IN_TURNS_TRAIN`` is: B1
+#: at 1024^2 and 8192^2, and B3 in float64 at 1024^2 with 8 classes and at
+#: 4096^2 with 32, each checkout under its own default geometry (a parent
+#: without ``stage_screen`` takes no screen)
+IN_TURNS_LAB = """
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import numpy as np, torch
+import chip_smoke as c
+from tpulab_torch.ops.cuda import classify as k3, stencil as k1
+from tpulab_torch.ops.mahalanobis import class_statistics
+from tpulab_torch.ops.roberts import pack_rgba
+dev, rng, out = torch.device("cuda", 0), np.random.default_rng(3), {}
+for side, iters in ((1024, 200), (8192, 20)):
+    u = pack_rgba(rng.integers(0, 256, (side, side, 4), np.uint8)).to(dev)
+    out[f"b1_{side}_ms"] = c.time_ms(k1.roberts_u32, (u,), dev, iters)
+for side, nc, iters in ((1024, 8, 50), (4096, 32, 5)):
+    img = rng.integers(0, 256, (side, side, 4), np.uint8)
+    st = class_statistics(img, [np.stack([rng.integers(0, side, 16), rng.integers(0, side, 16)],
+                                         1) for _ in range(nc)])
+    s, u = k3.pack_stats(st.mean, st.inv_cov, torch.float64, dev), pack_rgba(img).to(dev)
+    fn = k3.classify_u32
+    if hasattr(k3, "stage_screen"):
+        sc = k3.stage_screen(st.mean, st.inv_cov, torch.float64)
+        fn = lambda x, t: k3.classify_u32(x, t, None, sc)
+    out[f"b3_f64_{side}_nc{nc}_ms"] = c.time_ms(fn, (u, s), dev, iters)
+print("IN_TURNS " + json.dumps(out), flush=True)
+"""
+
 #: the side of :func:`in_turns` for phase 7d, run as ``IN_TURNS_TRAIN`` is:
 #: B7 in bfloat16 at 64 slots x 4096 positions, then the paged bench's
 #: ``"pallas"`` wave (one warm-up, then three, each timed on the host's clock)
@@ -1585,6 +1783,33 @@ def sass_check(library: Path) -> dict:
     return out
 
 
+#: the conversion opcodes between integer and float (``I2FP``/``F2IP``
+#: are Hopper's forms on the integer pipe)
+CONVERSION_OPCODES = ("I2F", "F2I", "I2FP", "F2IP")
+
+
+def lab_sass_counts(library: Path) -> dict:
+    """Per instance of B1 and of B3 at 8 and 32 classes: its SASS
+    instructions, its uniform constant loads (``ULDC``, how ptxas reads
+    B3's statistics) and its integer<->float conversions by opcode.  B1
+    converts no pixel: its one ``I2F`` and one ``F2I`` at most are the
+    division of its work index by the quads of a row, once per item."""
+    from tpulab_torch.ops.cuda import _build
+
+    out = {}
+    for name, text in _build.kernel_sass(library).items():
+        if "roberts_kernel" in name or re.search(r"classify_kernel.*Li(8|32)E", name):
+            ops = re.findall(r"^\s+/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", text,
+                             flags=re.M)
+            out[name] = {"instructions": len(ops), "ULDC": ops.count("ULDC"),
+                         **{op: ops.count(op) for op in CONVERSION_OPCODES if op in ops}}
+    check(sum("roberts_kernel" in n for n in out) == 2, f"roberts instances in the SASS: {out}")
+    check(all(max(v.get(op, 0) for op in CONVERSION_OPCODES) <= 1
+              for n, v in out.items() if "roberts_kernel" in n),
+          f"roberts converts its pixels: {out}")
+    return out
+
+
 FULL_SIZES = {
     "lab1_n": 1000, "lab2_side": 1024, "lab3_side": 1024, "lab3_nc": 8,
     "b1_side": 8192, "b2_n": 2**26, "b3_side": 4096,
@@ -1609,7 +1834,7 @@ FULL_SIZES = {
 def run(device, sizes: dict, backend: str, card: str = "cpu",
         parent: Path | None = None) -> dict:
     """Phases 2 to 7 on ``device``; the ``kernels`` and ``model`` payloads.
-    ``parent``: a checkout to time phases 6c and 7d against (:func:`in_turns`)."""
+    ``parent``: a checkout to time phases 4, 6c and 7d against (:func:`in_turns`)."""
     t0 = time.perf_counter()
     inp = make_inputs(sizes)
     outs, launches = drive_main_path(inp, backend)
@@ -1621,6 +1846,11 @@ def run(device, sizes: dict, backend: str, card: str = "cpu",
         check_sweep_subprocess(inp)
     print(f"goldens: {check_goldens(backend)} byte-equal", flush=True)
     rows = kernel_rows(inp, sizes, device)
+    lab = (in_turns(parent, card, IN_TURNS_LAB, "lab B1 and B3") if parent
+           else "not run: no --parent checkout given")
+    for name, prefix in (("roberts", "b1_"), ("classify", "b3_")):
+        rows[name]["in_turns"] = lab if isinstance(lab, str) else [
+            {k: v for k, v in r.items() if k == "side" or k.startswith(prefix)} for r in lab]
     print(f"phases 2-4 took {time.perf_counter() - t0:.1f} s", flush=True)
     rows["flash_fwd"], model_launches, model = run_model_path(sizes, device, backend, card)
     launches["flash_fwd"] = model_launches["flash_fwd"]
@@ -1647,9 +1877,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description="Drive tpulab_torch on one CUDA card.")
     ap.add_argument("--parent", type=Path, default=None,
                     help="the root of another checkout (e.g. the parent commit's, unpacked "
-                         "with git archive): phase 6c times its training step and B5, phase "
-                         "7d its B7 at 64 slots x 4096 and a paged bench wave, in turns "
-                         "with this checkout's")
+                         "with git archive): phase 4 times its B1 and B3, phase 6c its "
+                         "training step and B5, phase 7d its B7 at 64 slots x 4096 and a "
+                         "paged bench wave, in turns with this checkout's")
     args = ap.parse_args()
     parent = args.parent.resolve() if args.parent else None
     if parent is not None and not (parent / "chip_smoke.py").is_file():
@@ -1673,6 +1903,8 @@ def main() -> int:
             print("  " + line.strip())
     sass = sass_check(library)
     print(f"SASS tensor-core opcodes per flash kernel and dtype: {json.dumps(sass)}", flush=True)
+    print(f"SASS of B1 and B3 (instructions, ULDC, conversions): "
+          f"{json.dumps(lab_sass_counts(library))}", flush=True)
 
     # f32 products stay f32 on the card (no TF32), in the port and in its plain versions
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from tpulab_torch.ops.cuda import _build
 from tpulab_torch.ops.cuda.attention import (
     HEAD_DIMS,
@@ -23,7 +24,13 @@ from tpulab_torch.ops.cuda.attention import (
     grad_over_tolerance,
     over_tolerance,
 )
-from tpulab_torch.ops.cuda.classify import classify_u32, classify_u32_plain, pack_stats
+from tpulab_torch.ops.cuda.classify import (
+    classify_u32,
+    classify_u32_plain,
+    pack_stats,
+    screen_plain,
+    stage_screen,
+)
 from tpulab_torch.ops.cuda.elementwise import OPS, binary, binary_plain
 from tpulab_torch.ops.cuda.stencil import roberts_u32, roberts_u32_plain
 from tpulab_torch.ops.mahalanobis import class_statistics
@@ -101,10 +108,101 @@ def test_classify_kernel_matches_plain(cuda_device, dtype, nc, launch):
     u = pack_rgba(img).to(cuda_device)
     s = pack_stats(stats.mean, stats.inv_cov, dtype, cuda_device)
     before = classify_u32.launches
-    out = classify_u32(u, s, launch)
+    out = classify_u32(u, s, launch, stage_screen(stats.mean, stats.inv_cov, dtype))
     torch.cuda.synchronize()
     assert classify_u32.launches == before + 1
     assert torch.equal(out, classify_u32_plain(u, s))
+
+
+def _colours(cuda_device):
+    """2^16 colours (r, g, (r + g) mod 256), half on the plane the near-tie
+    pairs of ``chip_smoke.b3_class_sets`` bisect; alpha from a seed."""
+    r, g = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    alpha = np.random.default_rng(0).integers(0, 256, r.shape)
+    px = np.stack([r, g, (r + g) & 255, alpha], -1).astype(np.uint8)
+    return pack_rgba(px).to(cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(chip_smoke.b3_class_sets()))
+@pytest.mark.parametrize("launch", [None, (1, 32), (7, 999)])
+def test_classify_float64_screen_keeps_the_fold_labels(cuda_device, name, launch):
+    mean, inv_cov = chip_smoke.b3_class_sets()[name]
+    u = _colours(cuda_device)
+    s = pack_stats(mean, inv_cov, torch.float64, cuda_device)
+    screen = stage_screen(mean, inv_cov, torch.float64)
+    out = classify_u32(u, s, launch, screen)
+    torch.cuda.synchronize()
+    assert torch.equal(out, classify_u32_plain(u, s))
+    assert torch.equal(out, screen_plain(u, screen)[1])
+
+
+@pytest.mark.cuda
+def test_classify_zeroed_margins_lose_near_ties(cuda_device):
+    # planted fault: with every margin and flag zeroed the screen alone
+    # decides most near ties, and the labels must differ from the fold's
+    mean, inv_cov = chip_smoke.b3_class_sets()["symmetric"]
+    u = _colours(cuda_device)
+    s = pack_stats(mean, inv_cov, torch.float64, cuda_device)
+    faulted = chip_smoke.faulted_screen(stage_screen(mean, inv_cov, torch.float64), 0.0)
+    out = classify_u32(u, s, None, faulted)
+    torch.cuda.synchronize()
+    assert not torch.equal(out, classify_u32_plain(u, s))
+    assert torch.equal(out, screen_plain(u, faulted)[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["symmetric", "twin_1e-9", "nan", "extreme_ic"])
+def test_classify_float32_labels_unchanged(cuda_device, name):
+    mean, inv_cov = chip_smoke.b3_class_sets()[name]
+    u = _colours(cuda_device)
+    s = pack_stats(mean, inv_cov, torch.float32, cuda_device)
+    out = classify_u32(u, s, None, stage_screen(mean, inv_cov, torch.float32))
+    torch.cuda.synchronize()
+    assert torch.equal(out, classify_u32_plain(u, s))
+
+
+@pytest.mark.cuda
+def test_classify_refuses_a_missing_or_foreign_screen(cuda_device):
+    mean, inv_cov = chip_smoke.b3_class_sets()["nan"]
+    u = _colours(cuda_device)
+    s = pack_stats(mean, inv_cov, torch.float64, cuda_device)
+    before = classify_u32.launches
+    with pytest.raises(ValueError):
+        classify_u32(u, s)
+    with pytest.raises(ValueError):
+        classify_u32(u, s, None, stage_screen(mean, inv_cov, torch.float32))
+    with pytest.raises(ValueError):
+        classify_u32(u, s, None, stage_screen(mean[:2], inv_cov[:2], torch.float64))
+    assert classify_u32.launches == before
+
+
+# B1's quads of 4 pixels and strips of 4 rows: widths 4k + 1, 2, 3 take the
+# scalar path; heights straddle the strip; 1 x N, N x 1 and 1 x 1 are edges
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1), (1, 4), (1, 130), (130, 1), (3, 5), (4, 6), (5, 7),
+                                   (8, 129), (9, 128), (33, 258), (65, 1027), (257, 4096)])
+@pytest.mark.parametrize("launch", [None, (33, 3, 5, 7), (1, 1, 1, 1), (64, 1, 3, 2),
+                                    (32, 32, 16, 16)])
+def test_roberts_quads_and_strips_match_plain(cuda_device, shape, launch):
+    img = np.random.default_rng(shape[0] * 7 + shape[1]).integers(0, 256, shape + (4,), np.uint8)
+    u = pack_rgba(img).to(cuda_device)
+    out = roberts_u32(u, launch)
+    torch.cuda.synchronize()
+    assert torch.equal(out, roberts_u32_plain(u))
+
+
+@pytest.mark.cuda
+def test_roberts_reads_a_misaligned_plane(cuda_device):
+    # a contiguous view one pixel into its storage: w % 4 == 0 but the rows
+    # are not 16-byte aligned, so the kernel must take the scalar path
+    img = np.random.default_rng(11).integers(0, 256, (41, 64, 4), np.uint8)
+    flat = pack_rgba(img).to(cuda_device).flatten()
+    u = flat[1:].narrow(0, 0, 40 * 64).view(40, 64)
+    assert u.is_contiguous() and u.data_ptr() % 16 != 0
+    out = roberts_u32(u)
+    torch.cuda.synchronize()
+    assert torch.equal(out, roberts_u32_plain(u))
 
 
 @pytest.mark.cuda

@@ -123,3 +123,10 @@ def test_wrapper_checks_its_input():
         roberts_u32(torch.zeros(4, 4, dtype=torch.int64))
     with pytest.raises(ValueError):
         roberts_u32(torch.zeros(4, 4, 2, dtype=torch.int32))
+
+
+def test_refuses_planes_past_32_bit_indices():
+    # the kernel indexes pixels in 32 bits; the wrapper refuses before any launch
+    u = torch.empty((2**16, 2**15), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="fewer than"):
+        roberts_u32(u)

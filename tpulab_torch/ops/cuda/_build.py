@@ -218,6 +218,12 @@ def check_geometry(grid: Sequence[int], block: Sequence[int], smem: int = 0) -> 
                 raise ValueError(f"{what} dimension {axis} is {v}; the card allows {limit}")
 
 
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The streaming multiprocessors of a CUDA ``device``."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def stream_handle(device: torch.device) -> int:
     """The current stream of ``device``, as the int ``ctypes`` passes."""
     return torch.cuda.current_stream(device).cuda_stream

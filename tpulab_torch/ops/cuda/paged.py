@@ -45,7 +45,6 @@ repeated calls give the same bits.
 
 from __future__ import annotations
 
-import functools
 import math
 from typing import Dict, Tuple, Union
 
@@ -224,11 +223,6 @@ def _workspace(device: torch.device, heads: int, splits: int, d: int):
     return _WORKSPACES[key]
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
-
-
 def paged_attend_kernel(q: torch.Tensor, kpool_l: Pool, vpool_l: Pool, tables: torch.Tensor,
                         lengths: torch.Tensor, block_size: int, window: int = 0) -> torch.Tensor:
     """Single-token decode attention over the paged pools: kernel B7 for a
@@ -247,7 +241,7 @@ def paged_attend_kernel(q: torch.Tensor, kpool_l: Pool, vpool_l: Pool, tables: t
     if d not in HEAD_DIMS:
         raise ValueError(f"unsupported head_dim {d}; the kernel is built for {HEAD_DIMS}")
     nrb = row_blocks(h // kvh)
-    splits, span = split_plan(S, kvh, M * block_size, d, nrb, _sm_count(q.device))
+    splits, span = split_plan(S, kvh, M * block_size, d, nrb, _build.sm_count(q.device))
     smem = shared_bytes(d, data.element_size(), quantized, table_entries(span, block_size, M))
     if smem > _build.MAX_SHARED:
         raise ValueError(f"a block of the paged decode kernel needs {smem} bytes of shared "

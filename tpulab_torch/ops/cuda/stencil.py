@@ -5,6 +5,9 @@ through ``roberts_pallas``).  The CUDA kernel (``csrc/stencil.cu``) does
 the whole function in one launch: luminance, the clamp-addressed 2x2
 stencil, the magnitude, clamp and truncation, gray packing with the input
 alpha.  It is bound by bytes: one u32 read and one u32 written per pixel.
+Each thread walks quads of 4 pixels over strips of 4 rows, computes each
+luminance once and issues no conversion instruction; any launch geometry
+gives the same bytes, and the default is one resident wave of the card.
 
 The image travels as a ``(h, w)`` int32 tensor holding the little-endian
 RGBA bytes of each pixel (R in the low byte), the port's stand-in for a
@@ -26,7 +29,16 @@ import torch
 from tpulab_torch.ops.cuda import _build
 
 #: default block when the caller gives no sweep geometry
-DEFAULT_BLOCK = (32, 8)
+DEFAULT_BLOCK = (256, 1)
+#: default blocks on each SM: the kernel's launch bounds cap a thread at 64
+#: registers, so 4 blocks of 256 threads are resident at once
+BLOCKS_PER_SM = 4
+#: streaming multiprocessors of an H100 SXM (the CPU path's default launch)
+SMS = 132
+#: rows of the strip a kernel thread walks (``kRows`` in ``csrc/stencil.cu``)
+STRIP_ROWS = 4
+#: the kernel's indices are 32-bit: h * w must stay below this
+MAX_PIXELS = 2**31
 
 # the float32 values of the reference's luminance weights, as Python floats
 _LUMA_R, _LUMA_G, _LUMA_B = torch.tensor([0.299, 0.587, 0.114], dtype=torch.float32).tolist()
@@ -63,10 +75,13 @@ def roberts_u32_plain(u: torch.Tensor) -> torch.Tensor:
     return g8 | (g8 << 8) | (g8 << 16) | (u & -0x1000000)
 
 
-def default_launch(h: int, w: int) -> Tuple[int, int, int, int]:
-    """``(bx, by, gx, gy)`` covering the image with one thread per pixel."""
+def default_launch(h: int, w: int, sms: int = SMS) -> Tuple[int, int, int, int]:
+    """``(bx, by, gx, gy)``: at most one resident wave on ``sms`` SMs, and
+    no more blocks than the image has quads x strips of work; the kernel's
+    grid-stride loop covers any image with it."""
     bx, by = DEFAULT_BLOCK
-    return bx, by, max(1, min(-(-w // bx), 2**31 - 1)), max(1, min(-(-h // by), 65535))
+    work = -(-w // 4) * -(-h // STRIP_ROWS)
+    return bx, by, max(1, min(BLOCKS_PER_SM * sms, -(-work // (bx * by)))), 1
 
 
 def roberts_u32(
@@ -83,7 +98,12 @@ def roberts_u32(
             f"expected a contiguous (h, w) int32 plane, got {u.dtype} {tuple(u.shape)}"
         )
     h, w = u.shape
-    bx, by, gx, gy = launch if launch is not None else default_launch(h, w)
+    if h * w >= MAX_PIXELS:
+        raise ValueError(f"a {h} x {w} plane has {h * w} pixels; the kernel takes fewer than "
+                         f"{MAX_PIXELS}")
+    if launch is None:
+        launch = default_launch(h, w, _build.sm_count(u.device) if u.device.type == "cuda" else SMS)
+    bx, by, gx, gy = launch
     _build.check_geometry((gx, gy), (bx, by))
     if u.device.type == "cpu":
         return roberts_u32_plain(u)

@@ -25,7 +25,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from tpulab_torch.ops.cuda.classify import MAX_CLASSES, classify_u32, pack_stats
+from tpulab_torch.ops.cuda.classify import MAX_CLASSES, classify_u32, pack_stats, stage_screen
 from tpulab_torch.ops.roberts import pack_rgba, unpack_rgba
 from tpulab_torch.runtime.device import resolve_device
 
@@ -82,8 +82,9 @@ def classify_staged(
     device: torch.device,
     compute_dtype: str = "float64",
 ) -> Tuple[Callable, tuple]:
-    """(fn, staged_args): image and statistics on ``device`` once, ``fn``
-    the single launch — what the lab times (kernel-only contract).
+    """(fn, staged_args): image and statistics on ``device`` once, and the
+    kernel's parameter (:func:`stage_screen`) on the host once; ``fn`` the
+    single launch — what the lab times (kernel-only contract).
 
     ``compute_dtype`` is ``"float64"`` (the reference's ``double``, the
     default on every device) or ``"float32"`` (what the TPU kernel
@@ -94,8 +95,10 @@ def classify_staged(
             f"unsupported compute_dtype {compute_dtype!r}; have {sorted(COMPUTE_DTYPES)}"
         )
     x = pack_rgba(pixels).to(device)
-    s = pack_stats(stats.mean, stats.inv_cov, COMPUTE_DTYPES[compute_dtype], device)
-    return (lambda img, st: classify_u32(img, st, launch)), (x, s)
+    dtype = COMPUTE_DTYPES[compute_dtype]
+    s = pack_stats(stats.mean, stats.inv_cov, dtype, device)
+    screen = stage_screen(stats.mean, stats.inv_cov, dtype)
+    return (lambda img, st, sc: classify_u32(img, st, launch, sc)), (x, s, screen)
 
 
 def classify(
