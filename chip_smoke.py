@@ -131,9 +131,35 @@ failure:
       ``"pallas"`` wave of the bench (after a warm-up, three timed) from
       DIR and from this checkout in turns, parent, change, change, parent,
       each in a process of its own.
-8. One ``{"model": {...}}`` line with phases 5 to 7's numbers, one
-   ``{"kernels": [...]}`` line, the card line again, and last
-   ``{"ok": true, "device": {...}}``.
+8. The rest of the lab suite, with every launch count set to 0 just
+   before and read just after (the lab kernels must launch):
+
+   a. lab5 through the CLI over seeded binfmt files: sum, min and max of
+      2^24 int32, uint8 and float32 elements (``tpulab/bench.py:1679``),
+      prod of the integers and of 2^24 float32 values near 1, and min and
+      max of a file of +-0, NaNs of distinct payloads and infinities and
+      of two files of signed zeros (-0.0 is the min of {0.0, -0.0}, +0.0
+      the max, as in ``tpulab``).
+      Integer results equal the port's CPU run; float32 sums lie within
+      ``2 * gamma_h * sum|x|`` of it (``SUM_DEPTH``), and each float32
+      product within :func:`prod_tolerance` of the float64 product;
+   b. lab5's sort of 2^20 float32 (holding the special values), int32
+      and uint8 elements (``tpulab/bench.py:1653``) and of the special
+      file: each output file byte-equal to the CPU run's; each row says
+      whether ``torch.sort`` alone, without canonical keys, keeps
+      ``jnp.sort``'s order on the card;
+   c. hw1's branch cases (string-equal, timing word ``CPU``) and hw2 over
+      2^20 floats with ``--timing``, byte-equal to the CPU run;
+   d. ``python -m tpulab_torch.harness.run``: the lab2 golden sweep with
+      ``--cpu-ref`` as its own process, the lab3 one in this process, and
+      lab2 over a seeded 1024x1024 image under ``[[32,32],[16,16]]`` with
+      the plain version's output as its golden: every row verified, the
+      stats CSVs written;
+   e. ``tpulab_torch bench`` (every row on ``cuda`` with the card's name
+      and power limit) and ``tpulab_torch selftest`` (exit 0).
+9. One ``{"model": {...}}`` line with phases 5 to 7's numbers, one
+   ``{"lab_suite": {...}}`` line with phase 8's, one ``{"kernels": [...]}``
+   line, the card line again, and last ``{"ok": true, "device": {...}}``.
 
 Bounds use the H100 SXM's published rates (NVIDIA data sheet): 3.35 TB/s
 of device memory, 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the
@@ -1732,6 +1758,271 @@ def run_paged_path(sizes: dict, device, card: str, parent: Path | None = None) -
     return row, b7_launches, paged
 
 
+# ------------------------------------------------------------ lab suite path
+
+U32 = 2.0 ** -24
+#: float32 sums of the card and of the CPU are held within 2 * gamma_h *
+#: sum|x| of each other (gamma_h = h u / (1 - h u), u = 2^-24; Higham,
+#: (4.4)): each is a tree of partial sums whose longest chain of dependent
+#: additions is far below h = 2^12 (ATen's CUDA reduction: per-thread runs
+#: of n / (threads * 4), then a tree; its CPU cascade sum: levels of short
+#: blocks).  Both also lie within gamma_h * sum|x| of the float64 sum.
+SUM_DEPTH = 2 ** 12
+HW1_CASES = ("0 0 0", "0 0 5", "0 2 -4", "1 -3 2", "1 2 1", "1 0 1")
+
+
+def sum_tolerance(values: np.ndarray) -> float:
+    gamma = SUM_DEPTH * U32 / (1 - SUM_DEPTH * U32)
+    return gamma * float(np.abs(values.astype(np.float64)).sum())
+
+
+def prod_tolerance(n: int) -> float:
+    """Relative error of a float32 product of n values in any order: each
+    of its n - 1 multiplications rounds once, whatever the tree, so
+    (1 + u)^(n - 1) - 1 and no less.  At n = 2^24 that is e - 1: the check
+    holds the sign and the scale only (a tree and a sequential product of
+    2^24 values near 1 differ by 5e-3 relative on the card)."""
+    return (1 + U32) ** (n - 1) - 1
+
+
+def special_floats() -> np.ndarray:
+    """+-0 in both orders, NaNs of distinct payloads and both signs,
+    infinities: what ``jnp.sort`` orders by its own rule."""
+    bits = np.array([0x40400000, 0x80000000, 0x00000000, 0x7FC00001, 0x80000000,
+                     0xFFC00002, 0x3F800000, 0x7F800003, 0xFF800000, 0x00000000,
+                     0x7F800000, 0x7FC00004, 0xBF800000, 0x80000000, 0xFFFFFFFF],
+                    np.uint32)
+    return bits.view(np.float32)
+
+
+def lab5_files(sizes: dict, work: Path, seed: int = 0) -> dict:
+    """Seeded lab5 inputs in the binfmt format: name -> (path, values)."""
+    from tpulab_torch.io import save_typed_array
+
+    rng = np.random.default_rng(seed)
+    n, ns = sizes["lab5_n"], sizes["lab5_sort_n"]
+    arrays = {
+        "int32": rng.integers(-10000, 10000, n).astype(np.int32),
+        "uint8": rng.integers(0, 256, n).astype(np.uint8),
+        "float32": rng.normal(scale=100.0, size=n).astype(np.float32),
+        "float32_prod": (1 + rng.normal(scale=1e-3, size=n)).astype(np.float32),
+        "sort_float32": rng.normal(scale=100.0, size=ns).astype(np.float32),
+        "sort_int32": rng.integers(-2**31, 2**31 - 1, ns).astype(np.int32),
+        "sort_uint8": rng.integers(0, 256, ns).astype(np.uint8),
+        "specials": special_floats(),
+        "zeros_min": np.array([0.0, 3.0, -0.0, 0.0], np.float32),
+        "zeros_max": np.array([-0.0, -3.0, 0.0, -0.0], np.float32),
+    }
+    # the large float sort holds the special values too, at scattered places
+    sf = arrays["sort_float32"]
+    spots = rng.choice(ns, size=64 * special_floats().size, replace=False)
+    sf[spots] = np.tile(special_floats(), 64)
+    work.mkdir(parents=True, exist_ok=True)
+    files = {}
+    prefix = {np.dtype(np.int32): "int", np.dtype(np.uint8): "uchar", np.dtype(np.float32): "float"}
+    for name, values in arrays.items():
+        # the element type comes from the file name's prefix, as in the reference's data
+        path = str(work / f"{prefix[values.dtype]}_{name}_{values.size}")
+        save_typed_array(path, values)
+        files[name] = (path, values)
+    return files
+
+
+def check_lab5(files: dict, backend: str) -> list:
+    """Phase 8a: lab5's reductions through the CLI on the card against the
+    port's CPU run."""
+    rows = []
+    for name in ("int32", "uint8", "float32", "float32_prod", "specials", "zeros_min",
+                 "zeros_max"):
+        path, values = files[name]
+        tasks = {"float32_prod": ("prod",), "specials": ("min", "max"), "zeros_min": ("min", "max"),
+                 "zeros_max": ("min", "max")}.get(
+            name, ("sum", "min", "max") + (("prod",) if values.dtype != np.float32 else ()))
+        for task in tasks:
+            argv = ["run", "lab5", "--task", task]
+            dev = cli(argv + ["--backend", backend], path + "\n").splitlines()
+            ref = cli(argv + ["--backend", "cpu"], path + "\n").splitlines()
+            check(timing_word(dev[0]) == ("CUDA" if backend == "cuda" else "CPU"),
+                  f"lab5 {name} {task} timing line says {dev[0]}")
+            row = {"file": name, "n": int(values.size), "task": task, "value": dev[1],
+                   "cpu_value": ref[1], "timing": dev[0]}
+            if values.dtype == np.float32 and task == "sum":
+                row["gap"] = abs(float(dev[1]) - float(ref[1]))
+                row["limit"] = 2 * sum_tolerance(values)
+                exact = float(values.astype(np.float64).sum())
+                check(row["gap"] <= row["limit"]
+                      and abs(float(dev[1]) - exact) <= sum_tolerance(values),
+                      f"lab5 float32 sum {dev[1]} vs CPU {ref[1]} and exact {exact}")
+            elif task == "prod" and values.dtype == np.float32:
+                exact = float(np.prod(values.astype(np.float64)))
+                row["gap"] = abs(float(dev[1]) - float(ref[1]))
+                row["rel_to_exact"] = [abs(float(v) / exact - 1) for v in (dev[1], ref[1])]
+                row["limit"] = prod_tolerance(values.size)
+                check(max(row["rel_to_exact"]) <= row["limit"],
+                      f"lab5 float32 prod {dev[1]} and CPU {ref[1]} vs exact {exact}")
+            else:
+                check(dev[1] == ref[1],
+                      f"lab5 {name} {task}: {dev[1]} on the card, {ref[1]} on the CPU")
+            print(f"lab5 {name} n={values.size} {task}: {dev[0]} -> {dev[1]} (CPU {ref[1]})",
+                  flush=True)
+            rows.append(row)
+    return rows
+
+
+def check_sorts(files: dict, backend: str, device) -> list:
+    """Phase 8b: lab5's sort through the CLI on the card, its files byte-equal
+    to the port's CPU run; and whether ``torch.sort`` alone, with no
+    canonical keys, keeps ``jnp.sort``'s order on the card."""
+    import torch
+
+    from tpulab_torch.ops.sortops import sort_ascending
+
+    rows = []
+    for name in ("sort_float32", "sort_int32", "sort_uint8", "specials"):
+        path, values = files[name]
+        outs = {}
+        for side in (backend, "cpu"):
+            out = f"{path}_sorted_{side}"
+            stdout = cli(["run", "lab5", "--task", "sort", "--backend", side], f"{path}\n{out}\n")
+            outs[side] = (Path(out).read_bytes(), stdout.splitlines()[0])
+        check(outs[backend][0] == outs["cpu"][0], f"lab5 sort of {name} differs from the CPU run")
+        x = torch.from_numpy(values).to(device)
+        raw = torch.sort(x, stable=True).values
+        row = {"file": name, "n": int(values.size), "timing": outs[backend][1],
+               "raw_torch_sort_equal": bitwise_equal(raw.cpu(), sort_ascending(x).cpu())}
+        print(f"lab5 sort {name} n={values.size}: {row['timing']}; byte-equal to the CPU; "
+              f"torch.sort alone keeps the order: {row['raw_torch_sort_equal']}", flush=True)
+        rows.append(row)
+    return rows
+
+
+def check_hw(sizes: dict, backend: str, seed: int = 0) -> dict:
+    """Phase 8c: hw1's cases and hw2 at ``hw2_n`` floats through the CLI,
+    byte-equal to the port's CPU run."""
+    from tpulab_torch.io import protocol
+
+    for case in HW1_CASES:
+        dev = cli(["run", "hw1", "--backend", backend], case + "\n")
+        check(dev == cli(["run", "hw1", "--backend", "cpu"], case + "\n"), f"hw1 {case!r}: {dev!r}")
+    timed = cli(["run", "hw1", "--backend", backend, "--timing"], HW1_CASES[3] + "\n")
+    check(timing_word(timed) == "CPU", f"hw1 solves on the host: {timed!r}")
+    rng = np.random.default_rng(seed)
+    vals = rng.normal(scale=1e3, size=sizes["hw2_n"]).astype(np.float32)
+    vals[::1000] = -0.0
+    text = protocol.format_hw2_input(vals)
+    dev = cli(["run", "hw2", "--backend", backend, "--timing"], text)
+    ref = cli(["run", "hw2", "--backend", "cpu"], text)
+    line, payload = dev.split("\n", 1)
+    check(timing_word(line) == ("CUDA" if backend == "cuda" else "CPU"), f"hw2 timing: {line}")
+    check(payload == ref, "hw2's sorted output differs from the CPU run")
+    print(f"hw1: {len(HW1_CASES)} cases byte-equal; hw2 n={vals.size}: {line}", flush=True)
+    return {"hw1_cases": len(HW1_CASES), "hw1_timing": timed.splitlines()[0],
+            "hw2_n": int(vals.size), "hw2_timing": line}
+
+
+def harness_runs(work: Path, stats: str) -> list:
+    """Rows of a harness run's runs CSV, and its stats CSV must exist."""
+    import csv
+
+    check((work / f"stats_{stats}.csv").is_file(), f"no stats CSV in {work}")
+    with open(work / f"runs_{stats}.csv") as f:
+        return list(csv.DictReader(f))
+
+
+def check_harness(sizes: dict, backend: str, work: Path, seed: int = 0) -> dict:
+    """Phase 8d: ``python -m tpulab_torch.harness.run`` on the card: the lab2
+    and lab3 golden sweeps with the CPU reference, and a lab2 sweep over a
+    seeded image under the launch geometry ``[[32,32],[16,16]]`` with the
+    plain version's output as its golden."""
+    from tpulab_torch.harness.run import main as harness_main
+    from tpulab_torch.io import save_image
+    from tpulab_torch.ops.cuda.stencil import roberts_u32_plain
+    from tpulab_torch.ops.roberts import pack_rgba, unpack_rgba
+
+    dev = ["--backend", backend] if backend == "cpu" else []
+    out = {}
+    for lab in ("lab2", "lab3"):
+        art = work / f"harness_{lab}"
+        argv = ["--lab", lab, "--cpu-ref", "--k-times", str(sizes["harness_k"]),
+                "--artifact-dir", str(art), "--dir_to_data", str(ROOT / f"data/{lab}/data"),
+                "--dir_to_data_out", str(work / f"harness_{lab}_out"),
+                "--dir_to_data_out_gt", str(ROOT / f"data/{lab}/data_out_gt"), *dev]
+        if lab == "lab2":  # once as its own process, as a user runs it
+            env = dict(os.environ, PYTHONPATH=str(ROOT))
+            res = subprocess.run([sys.executable, "-m", "tpulab_torch.harness.run", *argv],
+                                 capture_output=True, text=True, cwd=ROOT, env=env, timeout=600)
+            check(res.returncode == 0, f"harness {lab}: {res.stdout[-1500:]} {res.stderr[-1500:]}")
+        else:
+            with contextlib.redirect_stdout(io.StringIO()):
+                check(harness_main(argv) == 0, f"harness {lab} failed")
+        runs = harness_runs(art, f"tpulab_torch_{lab}")
+        check(all(r["verified"] == "True" for r in runs), f"harness {lab}: unverified rows")
+        word = "CUDA" if backend == "cuda" else "CPU"
+        check({r["device_reported"] for r in runs if r["device"] != "CPU" or backend == "cpu"}
+              == {word}, f"harness {lab}: device words {[r['device_reported'] for r in runs]}")
+        out[lab] = {"runs_verified": len(runs)}
+    side = sizes["harness_side"]
+    img = np.random.default_rng(seed).integers(0, 256, (side, side, 4), np.uint8)
+    data, gt = work / "harness_big" / "data", work / "harness_big" / "data_out_gt"
+    data.mkdir(parents=True, exist_ok=True)
+    gt.mkdir(parents=True, exist_ok=True)
+    save_image(str(data / f"seeded_{side}.data"), img)
+    plain = roberts_u32_plain(pack_rgba(img).to("cuda" if backend == "cuda" else "cpu"))
+    save_image(str(gt / f"seeded_{side}.data"), unpack_rgba(plain))
+    art = work / "harness_big_art"
+    argv = ["--lab", "lab2", "--k-times", str(sizes["harness_k"]),
+            "--kernel-sizes", "[[[32, 32], [16, 16]]]", "--artifact-dir", str(art),
+            "--dir_to_data", str(data), "--dir_to_data_out", str(work / "harness_big" / "out"),
+            "--dir_to_data_out_gt", str(gt), *dev]
+    with contextlib.redirect_stdout(io.StringIO()):
+        check(harness_main(argv) == 0, "harness lab2 sweep over the seeded image failed")
+    runs = harness_runs(art, "tpulab_torch_lab2")
+    check(all(r["verified"] == "True" for r in runs), "harness seeded lab2: unverified rows")
+    times = [float(r["time_kernel_ms"]) for r in runs]
+    out["lab2_seeded"] = {"side": side, "geometry": [[32, 32], [16, 16]], "runs": len(runs),
+                          "median_ms": float(np.median(times))}
+    print(f"harness: lab2 and lab3 goldens verified with the CPU reference "
+          f"({out['lab2']['runs_verified']} and {out['lab3']['runs_verified']} runs); "
+          f"lab2 {side}^2 under [[32,32],[16,16]] verified, median "
+          f"{out['lab2_seeded']['median_ms']:.6f} ms", flush=True)
+    return out
+
+
+def check_bench_and_selftest(sizes: dict, backend: str) -> dict:
+    """Phase 8e: ``tpulab_torch bench`` (every row on the device) and
+    ``tpulab_torch selftest`` (exit 0), through the CLI's entry point."""
+    extra = ["--backend", backend] if backend == "cpu" else []
+    for key, value in sizes["bench"].items():
+        extra += [f"--{key}", str(value)]
+    rows = [json.loads(line) for line in cli(["bench", *extra], "").splitlines()]
+    for row in rows:
+        print(json.dumps(row), flush=True)
+        check(row["device"] == ("cuda" if backend == "cuda" else "cpu"), f"bench row {row}")
+        check(backend == "cpu" or ("card" in row and "power_limit" in row), f"bench row {row}")
+    skip = [a for s in sizes["selftest_skip"] for a in ("--skip", s)]
+    stdout = cli(["selftest", *(["--backend", backend] if backend == "cpu" else []), *skip], "")
+    print(stdout.strip(), flush=True)
+    check("[selftest] OK" in stdout, "selftest did not pass")
+    return {"bench": rows, "selftest": stdout.strip().splitlines()[-1]}
+
+
+def run_lab_suite_path(sizes: dict, device, backend: str, work: Path = WORK) -> tuple:
+    """Phase 8: lab5, hw1, hw2, the harness, ``bench`` and ``selftest`` on
+    ``device``; (its numbers, launches per kernel over the whole phase)."""
+    t0 = time.perf_counter()
+    wrappers = zero_counts()
+    files = lab5_files(sizes, work)
+    suite = {"lab5": check_lab5(files, backend), "sort": check_sorts(files, backend, device),
+             "hw": check_hw(sizes, backend), "harness": check_harness(sizes, backend, work),
+             **check_bench_and_selftest(sizes, backend)}
+    launches = {name: w.launches for name, w in wrappers.items()}
+    check_launched(launches, LAB_KERNELS, device, "lab suite path")
+    suite["launches"] = launches
+    print(f"phase 8 took {time.perf_counter() - t0:.1f} s; launches {json.dumps(launches)}",
+          flush=True)
+    return suite, launches
+
+
 KERNEL_META = {
     "roberts": ("tpulab_torch/csrc/stencil.cu", "tpulab/ops/pallas/stencil.py:82"),
     "elementwise": ("tpulab_torch/csrc/elementwise.cu", "tpulab/ops/pallas/elementwise.py:57"),
@@ -1828,12 +2119,15 @@ FULL_SIZES = {
     # B7 alone: (slots, heads, kv heads, head_dim, block size, table blocks)
     "b7_bench": (8, 8, 2, 64, 16, 16), "b7_bench_lengths": [0, 1, 15, 16, 17, 100, 255, 256],
     "b7_big": (64, 8, 2, 64, 16, 256), "b7_window": 256,
+    # phase 8: lab5 at tpulab/bench.py:1679's 2^24 and its sort at :1653's 2^20
+    "lab5_n": 2**24, "lab5_sort_n": 2**20, "hw2_n": 2**20, "harness_side": 1024,
+    "harness_k": 3, "bench": {}, "selftest_skip": [],
 }
 
 
 def run(device, sizes: dict, backend: str, card: str = "cpu",
         parent: Path | None = None) -> dict:
-    """Phases 2 to 7 on ``device``; the ``kernels`` and ``model`` payloads.
+    """Phases 2 to 8 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
     ``parent``: a checkout to time phases 4, 6c and 7d against (:func:`in_turns`)."""
     t0 = time.perf_counter()
     inp = make_inputs(sizes)
@@ -1860,13 +2154,14 @@ def run(device, sizes: dict, backend: str, card: str = "cpu",
     launches["flash_dkv"] = train_launches["flash_dkv"]
     rows["paged_decode"], launches["paged_decode"], model["paged"] = run_paged_path(
         sizes, device, card, parent)
+    suite, _ = run_lab_suite_path(sizes, device, backend)
     kernels = []
     for name, row in rows.items():
         source, replaces = KERNEL_META[name]
         design = {"design": FLASH_DESIGN[name]} if name in FLASH_DESIGN else {}
         kernels.append({"name": name, "route": "cuda", "source": source, "replaces": replaces,
                         "launches": launches[name], **design, **row})
-    return {"kernels": kernels, "model": model}
+    return {"kernels": kernels, "model": model, "lab_suite": suite}
 
 
 def main() -> int:
@@ -1914,6 +2209,7 @@ def main() -> int:
         if kernel["name"] in sass:
             kernel["sass_tensor_core_opcodes"] = sass[kernel["name"]]
     print(json.dumps({"model": payload["model"]}), flush=True)
+    print(json.dumps({"lab_suite": payload["lab_suite"]}), flush=True)
     print(json.dumps({"kernels": payload["kernels"]}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -704,3 +704,118 @@ def test_paged_engine_pallas_streams_equal_gather(cuda_device):
     for kv in ("native", "int8"):
         for a, b in zip(outs["gather", kv], outs["pallas", kv]):
             assert np.array_equal(a, b), (kv, a, b)
+
+
+# ------------------------------------------------- lab5, hw2 and the harness
+
+
+def _lab5_file(tmp_path, name, values):
+    from tpulab_torch.io import save_typed_array
+
+    path = str(tmp_path / name)
+    save_typed_array(path, values)
+    return path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("elem", ["int", "uchar", "float"])
+@pytest.mark.parametrize("task", ["sum", "min", "max", "prod"])
+def test_lab5_reductions_on_card_match_cpu(cuda_device, tmp_path, elem, task):
+    from tpulab_torch.labs import lab5
+
+    rng = np.random.default_rng(len(elem) * 10 + len(task))
+    n = 1 << 20
+    values = {"int": rng.integers(-10000, 10000, n).astype(np.int32),
+              "uchar": rng.integers(0, 256, n).astype(np.uint8),
+              "float": (1 + rng.normal(scale=1e-3, size=n)).astype(np.float32) if task == "prod"
+              else rng.normal(scale=100.0, size=n).astype(np.float32)}[elem]
+    text = _lab5_file(tmp_path, f"{elem}{n}", values) + "\n"
+    card = lab5.run(text, backend="cuda", task=task, warmup=0, reps=1).splitlines()
+    cpu = lab5.run(text, backend="cpu", task=task, warmup=0, reps=1).splitlines()
+    assert card[0].startswith("CUDA execution time:")
+    if elem == "float" and task == "sum":
+        assert abs(float(card[1]) - float(cpu[1])) <= 2 * chip_smoke.sum_tolerance(values)
+    elif elem == "float" and task == "prod":
+        exact = float(np.prod(values.astype(np.float64)))
+        for got in (card[1], cpu[1]):
+            assert abs(float(got) / exact - 1) <= chip_smoke.prod_tolerance(n)
+    else:
+        assert card[1] == cpu[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,want", [("specials", ("nan", "nan")),
+                                       ("zeros_min", ("-0.000000e+00", "3.000000e+00")),
+                                       ("zeros_max", ("-3.000000e+00", "0.000000e+00"))])
+def test_lab5_min_max_of_signed_zeros_and_nans_on_card(cuda_device, tmp_path, name, want):
+    """-0.0 is the min of {0.0, -0.0} and +0.0 the max, as in tpulab."""
+    from tpulab_torch.labs import lab5
+
+    values = {"specials": chip_smoke.special_floats(),
+              "zeros_min": np.array([0.0, 3.0, -0.0, 0.0], np.float32),
+              "zeros_max": np.array([-0.0, -3.0, 0.0, -0.0], np.float32)}[name]
+    text = _lab5_file(tmp_path, f"float_{name}", values) + "\n"
+    for task, value in zip(("min", "max"), want):
+        card = lab5.run(text, backend="cuda", task=task, warmup=0, reps=1).splitlines()[1]
+        assert card == value
+        assert card == lab5.run(text, backend="cpu", task=task, warmup=0, reps=1).splitlines()[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("elem,n", [("float", 1 << 20), ("int", 1 << 20), ("uchar", 1 << 20),
+                                    ("float", 15), ("float", 3000)])
+def test_lab5_sort_on_card_is_byte_equal_to_cpu(cuda_device, tmp_path, elem, n):
+    from pathlib import Path
+
+    from tpulab_torch.labs import lab5
+
+    rng = np.random.default_rng(n)
+    if elem == "float":
+        values = rng.normal(scale=100.0, size=n).astype(np.float32)
+        specials = chip_smoke.special_floats()
+        k = min(n // specials.size, 64) * specials.size
+        values[rng.choice(n, size=k, replace=False)] = np.tile(specials, k // specials.size)
+    else:
+        values = rng.integers(0, 256, n).astype(np.uint8) if elem == "uchar" else \
+            rng.integers(-2**31, 2**31 - 1, n).astype(np.int32)
+    path = _lab5_file(tmp_path, f"{elem}{n}", values)
+    for side in ("cuda", "cpu"):
+        lab5.run(f"{path}\n{path}_{side}\n", backend=side, task="sort", warmup=0, reps=1)
+    assert Path(path + "_cuda").read_bytes() == Path(path + "_cpu").read_bytes()
+
+
+@pytest.mark.cuda
+def test_hw2_on_card_is_byte_equal_to_cpu(cuda_device):
+    from tpulab_torch.io import protocol
+    from tpulab_torch.labs import hw2
+
+    vals = np.random.default_rng(2).normal(scale=1e3, size=1 << 18).astype(np.float32)
+    vals[::1000] = -0.0
+    text = protocol.format_hw2_input(vals)
+    card = hw2.run(text, backend="cuda", timing=True, warmup=0, reps=5)
+    first, payload = card.split("\n", 1)
+    assert first.startswith("CUDA execution time:")
+    assert payload == hw2.run(text, backend="cpu")
+
+
+@pytest.mark.cuda
+def test_harness_golden_sweep_on_card_with_cpu_ref(cuda_device, tmp_path):
+    import csv
+    import os
+
+    from tpulab_torch.harness.run import main as harness_main
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rc = harness_main(["--lab", "lab2", "--cpu-ref", "--k-times", "4",
+                       "--kernel-sizes", "[[[32, 32], [16, 16]], [[8, 8], [4, 4]]]",
+                       "--artifact-dir", str(tmp_path),
+                       "--dir_to_data", os.path.join(root, "data/lab2/data"),
+                       "--dir_to_data_out", str(tmp_path / "out"),
+                       "--dir_to_data_out_gt", os.path.join(root, "data/lab2/data_out_gt")])
+    assert rc == 0
+    with open(tmp_path / "runs_tpulab_torch_lab2.csv") as f:
+        runs = list(csv.DictReader(f))
+    assert len(runs) == 4 * 2 + 4 and all(r["verified"] == "True" for r in runs)
+    assert {r["device_reported"] for r in runs if r["device"] == "CUDA"} == {"CUDA"}
+    assert {r["device_reported"] for r in runs if r["device"] == "CPU"} == {"CPU"}
+    assert (tmp_path / "stats_tpulab_torch_lab2.csv").is_file()

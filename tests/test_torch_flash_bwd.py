@@ -39,6 +39,7 @@ from tpulab_torch.ops.cuda.attention import (
     softmax_scale,
     visible,
 )
+from tpulab_torch.runtime import fpenv
 
 torch.set_num_threads(2)
 
@@ -69,28 +70,21 @@ def _jax_grads(q, k, v, do, dlse, dtype=jnp.float32, use_lse=False, **kw):
 
 
 def _torch_grads(q, k, v, do, dlse, dtype=torch.float32, use_lse=False, **kw):
-    """The port's gradient through the autograd Function; also checks it
-    is exactly the plain backward (the CPU path).  It runs on the calling
-    thread alone: under pytest-xdist with many workers, a worker thread of
-    torch's intra-op pool has been found computing in round-toward-zero,
-    which moves an f32 gradient past the limit it is held to."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        q, k, v = (torch.from_numpy(a).to(dtype).requires_grad_(True) for a in (q, k, v))
-        o, lse = flash_attention_with_lse(q, k, v, **kw)
-        tdo = torch.from_numpy(do).to(dtype)
-        tdlse = torch.from_numpy(dlse) if use_lse else None
-        outs, cots = [o], [tdo]
-        if use_lse:
-            outs.append(torch.where(torch.isfinite(lse), lse, torch.zeros(())))
-            cots.append(tdlse)
-        got = torch.autograd.grad(outs, (q, k, v), cots)
-        plain = flash_attention_bwd_plain(
-            q.detach(), k.detach(), v.detach(), o.detach(), lse.detach(), tdo,
-            torch.where(torch.isfinite(lse), tdlse, torch.zeros(())) if use_lse else None, **kw)
-    finally:
-        torch.set_num_threads(threads)
+    """The port's gradient through the autograd Function, on torch's two
+    intra-op threads; also checks it is exactly the plain backward (the
+    CPU path)."""
+    q, k, v = (torch.from_numpy(a).to(dtype).requires_grad_(True) for a in (q, k, v))
+    o, lse = flash_attention_with_lse(q, k, v, **kw)
+    tdo = torch.from_numpy(do).to(dtype)
+    tdlse = torch.from_numpy(dlse) if use_lse else None
+    outs, cots = [o], [tdo]
+    if use_lse:
+        outs.append(torch.where(torch.isfinite(lse), lse, torch.zeros(())))
+        cots.append(tdlse)
+    got = torch.autograd.grad(outs, (q, k, v), cots)
+    plain = flash_attention_bwd_plain(
+        q.detach(), k.detach(), v.detach(), o.detach(), lse.detach(), tdo,
+        torch.where(torch.isfinite(lse), tdlse, torch.zeros(())) if use_lse else None, **kw)
     for a, b in zip(got, plain):
         assert torch.equal(a, b)
     return got
@@ -110,6 +104,31 @@ def test_flash_grads_match_tpulab(d, causal):
     arrays = _arrays(d, d=d)
     _assert_grads_close(_torch_grads(*arrays, causal=causal),
                         _jax_grads(*arrays, causal=causal))
+
+
+def test_torch_pool_rounds_to_nearest():
+    """ROADMAP C7: both of torch's intra-op threads round to nearest here
+    (the arithmetic probe of ``tpulab_torch.runtime.fpenv``)."""
+    assert torch.get_num_threads() == 2
+    assert fpenv.probe_modes() == {fpenv.FE_TONEAREST}
+
+
+@pytest.mark.parametrize("mode", [fpenv.FE_TOWARDZERO, fpenv.FE_UPWARD])
+def test_port_is_immune_to_a_pool_thread_off_nearest(mode):
+    """C7's fault, planted: every thread of torch's pool set to round toward
+    zero (or upward) before the port's backward.  The probe sees it, and
+    the port's CPU entry resets the pool, so the gradient is bit-equal to
+    the one computed at nearest."""
+    arrays = _arrays(16, d=16)
+    clean = _torch_grads(*arrays, causal=True)
+    try:
+        fpenv.set_pool_rounding(mode)
+        assert fpenv.probe_modes() == {mode if mode == fpenv.FE_UPWARD else fpenv.FE_TOWARDZERO}
+        got = _torch_grads(*arrays, causal=True)
+    finally:
+        fpenv.set_pool_rounding(fpenv.FE_TONEAREST)
+    for a, b in zip(got, clean):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("window", [40, 17])

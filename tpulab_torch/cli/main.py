@@ -5,6 +5,8 @@ Subcommands:
     tpulab_torch run <workload>    run a workload over the stdin/stdout protocol
     tpulab_torch generate          byte-level sampling from the labformer demo model
     tpulab_torch train             train the labformer (flash backward: kernels B5, B6)
+    tpulab_torch bench             the lab benchmark rows, one JSON line each
+    tpulab_torch selftest          one-minute end-to-end sanity check
 
 ``python -m tpulab_torch`` routes here as well.  Work runs on the CUDA
 card unless ``--backend cpu`` asks for the host.
@@ -27,7 +29,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     info_p.add_argument("--backend", default=None, choices=BACKENDS)
 
     run_p = sub.add_parser("run", help="run a workload (stdin/stdout protocol)")
-    run_p.add_argument("workload", help="lab1|lab2|lab3|gpu_info")
+    run_p.add_argument("workload", help="lab1|lab2|lab3|lab5|hw1|hw2|gpu_info")
     run_p.add_argument("--to-plot", action="store_true",
                        help="sweep mode: read the launch geometry from a stdin prefix")
     run_p.add_argument("--backend", default=None, choices=BACKENDS,
@@ -36,6 +38,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     sub.add_parser("generate", help="sample bytes from the labformer demo model",
                    add_help=False)
     sub.add_parser("train", help="train the labformer", add_help=False)
+    sub.add_parser("bench", help="run the lab benchmarks", add_help=False)
+    sub.add_parser("selftest", help="one-minute end-to-end sanity check", add_help=False)
 
     args, extra = parser.parse_known_args(argv)
 
@@ -61,6 +65,16 @@ def main(argv: Optional[List[str]] = None) -> int:
         from tpulab_torch.train import main as train_main
 
         return train_main(extra)
+
+    if args.command == "bench":
+        from tpulab_torch.cli.bench import run_bench_cli
+
+        return run_bench_cli(extra)
+
+    if args.command == "selftest":
+        from tpulab_torch.selftest import main as selftest_main
+
+        return selftest_main(extra)
 
     parser.print_help()
     return 2

@@ -20,9 +20,54 @@ from __future__ import annotations
 import binascii
 import os
 import struct
+from dataclasses import dataclass
+
 import numpy as np
 
 HEX_GROUP = 8  # hex chars per group == one little-endian 32-bit word
+
+
+def get_size(blob: bytes) -> float:
+    """Size of a byte stream in KB (reference converter.py:11-13 parity)."""
+    return len(blob) / 1024.0
+
+
+@dataclass(eq=False)
+class Image4:
+    """An RGBA image: numpy ``uint8`` pixels of shape ``(h, w, 4)``."""
+
+    pixels: np.ndarray
+
+    def __post_init__(self) -> None:
+        pix = np.asarray(self.pixels, dtype=np.uint8)
+        if pix.ndim != 3 or pix.shape[2] != 4:
+            raise ValueError(f"expected (h, w, 4) uint8 array, got {pix.shape}")
+        self.pixels = pix
+
+    @property
+    def width(self) -> int:
+        return self.pixels.shape[1]
+
+    @property
+    def height(self) -> int:
+        return self.pixels.shape[0]
+
+    def tobytes(self) -> bytes:
+        return pack_image(self.pixels)
+
+    def tohex(self) -> str:
+        return bytes_to_hex(self.tobytes())
+
+    def size_kb(self) -> float:
+        return get_size(self.tobytes())
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, Image4):
+            return np.array_equal(self.pixels, other.pixels)
+        return NotImplemented
+
+    def __hash__(self):
+        return hash(self.tobytes())
 
 
 def pack_image(pixels: np.ndarray) -> bytes:

@@ -12,14 +12,10 @@ import importlib
 import sys
 from typing import List, Optional
 
-WORKLOADS = ("lab1", "lab2", "lab3", "gpu_info")
-#: workloads of the JAX package that the port does not run yet
-NOT_PORTED = ("lab5", "hw1", "hw2")
+WORKLOADS = ("lab1", "lab2", "lab3", "lab5", "hw1", "hw2", "gpu_info")
 
 
 def get_workload(name: str):
-    if name in NOT_PORTED:
-        raise NotImplementedError(f"workload {name!r} is not ported yet")
     if name not in WORKLOADS:
         raise KeyError(f"unknown workload {name!r}; have {WORKLOADS}")
     return importlib.import_module(f"tpulab_torch.labs.{name}")

@@ -54,6 +54,7 @@ import torch
 from torch.autograd.function import once_differentiable
 
 from tpulab_torch.ops.cuda import _build
+from tpulab_torch.runtime.fpenv import ensure_nearest
 
 #: head dims the kernel is built for (a template parameter of csrc/flash_fwd.cu)
 HEAD_DIMS = (8, 16, 32, 64, 128)
@@ -229,6 +230,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, wi
              q_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """B4 for a CUDA tensor, the plain version for a CPU tensor (checked)."""
     if q.device.type == "cpu":
+        ensure_nearest()
         return flash_attention_plain(q, k, v, causal, window, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -414,6 +416,7 @@ def flash_attention_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do
     window, q_offset = int(window), int(q_offset)
     _check_bwd(q, k, v, do, lse, delta, causal, window, q_offset)
     if q.device.type == "cpu":
+        ensure_nearest()
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal, window, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
@@ -438,6 +441,7 @@ def flash_attention_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     window, q_offset = int(window), int(q_offset)
     _check_bwd(q, k, v, do, lse, delta, causal, window, q_offset)
     if q.device.type == "cpu":
+        ensure_nearest()
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal, window, q_offset)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")

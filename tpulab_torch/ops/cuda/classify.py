@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from tpulab_torch.ops.cuda import _build
+from tpulab_torch.runtime.fpenv import ensure_nearest
 
 MAX_CLASSES = 32  # reference lab3/src/main.cu:35
 STATS_PER_CLASS = 12
@@ -267,6 +268,7 @@ def classify_u32(
     blocks, threads = launch if launch is not None else default_launch(u.numel())
     _build.check_geometry((blocks,), (threads,))
     if u.device.type == "cpu":
+        ensure_nearest()
         return classify_u32_plain(u, stats)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")

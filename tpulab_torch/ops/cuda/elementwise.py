@@ -21,6 +21,7 @@ from typing import Optional, Tuple
 import torch
 
 from tpulab_torch.ops.cuda import _build
+from tpulab_torch.runtime.fpenv import ensure_nearest
 
 OPS = ("subtract", "add", "multiply", "minimum", "maximum")
 DTYPES = {torch.float64: 0, torch.float32: 1, torch.bfloat16: 2}
@@ -86,6 +87,7 @@ def binary(
     grid, block = launch if launch is not None else default_launch(a.numel())
     _build.check_geometry((grid,), (block,))
     if a.device.type == "cpu":
+        ensure_nearest()
         return binary_plain(op, a, b)
     if a.device.type != "cuda":
         raise ValueError(f"unsupported device {a.device}")

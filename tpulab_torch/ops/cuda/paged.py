@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from tpulab_torch.ops.cuda import _build
+from tpulab_torch.runtime.fpenv import ensure_nearest
 from tpulab_torch.ops.cuda.attention import DTYPES, HEAD_DIMS, o_tolerance
 
 NEG_INF = float(np.finfo(np.float32).min)
@@ -231,6 +232,7 @@ def paged_attend_kernel(q: torch.Tensor, kpool_l: Pool, vpool_l: Pool, tables: t
     window = int(window)
     quantized = _check(q, kpool_l, vpool_l, tables, lengths, block_size, window)
     if q.device.type == "cpu":
+        ensure_nearest()
         return paged_attend_plain(q, kpool_l, vpool_l, tables, lengths, block_size, window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")

@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from tpulab_torch.ops.cuda import _build
+from tpulab_torch.runtime.fpenv import ensure_nearest
 
 #: default block when the caller gives no sweep geometry
 DEFAULT_BLOCK = (256, 1)
@@ -106,6 +107,7 @@ def roberts_u32(
     bx, by, gx, gy = launch
     _build.check_geometry((gx, gy), (bx, by))
     if u.device.type == "cpu":
+        ensure_nearest()
         return roberts_u32_plain(u)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")

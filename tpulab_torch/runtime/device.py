@@ -36,6 +36,9 @@ def resolve_device(backend: Optional[str] = None) -> torch.device:
     """
     name = "cuda" if backend is None else str(backend).lower()
     if name == "cpu":
+        from tpulab_torch.runtime.fpenv import ensure_nearest
+
+        ensure_nearest()  # ROADMAP C7: the CPU path's bits assume round-to-nearest
         return torch.device("cpu")
     if name != "cuda":
         raise ValueError(f"unknown backend {backend!r}; have {BACKENDS}")
@@ -45,6 +48,11 @@ def resolve_device(backend: Optional[str] = None) -> torch.device:
             "to run on the CPU"
         )
     return torch.device("cuda", torch.cuda.current_device())
+
+
+def device_count(device: torch.device) -> int:
+    """Devices of ``device``'s type that a multi-device run could use."""
+    return torch.cuda.device_count() if device.type == "cuda" else 1
 
 
 def device_label(device: torch.device) -> str:

@@ -14,6 +14,12 @@ clock, so the host round-trip calibration of the JAX package's timer (its
 ``_rtt_stats``/``_force``, which subtracted a measured dispatch-and-fetch
 latency from wall-clock batches) has nothing left to correct and is gone.
 On the CPU the bracket is ``time.perf_counter``.
+
+Every call of ``fn`` takes the same input, never the previous call's
+output, so :func:`measure_kernel_ms` also serves where the JAX package
+needs its queue-amortised ``measure_ms`` (``tpulab/runtime/timing.py:149``):
+hw2, lab5 and the sort and reduction bench rows, where a chained timer
+would time sorts of sorted data (``tpulab/labs/hw2.py:37-44``).
 """
 
 from __future__ import annotations
@@ -85,12 +91,14 @@ def measure_kernel_ms(
     iters: int = 100,
     warmup: int = 2,
     outer: int = 3,
+    collect: Optional[list] = None,
 ) -> Tuple[float, Any]:
     """Per-call time of ``fn(*args)`` on ``device``; ``(ms, last output)``.
 
     ``warmup`` untimed calls come first, then ``outer`` trials of
     ``iters`` calls each; a trial's time over ``iters`` is one sample, and
-    the median of the samples is the result.
+    the median of the samples is the result.  ``collect``, if given,
+    receives the samples.
     """
     out = None
     for _ in range(max(warmup, 1)):
@@ -119,4 +127,7 @@ def measure_kernel_ms(
             for _ in range(iters):
                 out = fn(*args)
             samples.append((time.perf_counter() - t0) * 1e3 / iters)
+    if collect is not None:
+        collect.extend(samples)
     return statistics.median(samples), out
+
