@@ -155,9 +155,38 @@ failure:
       lab2 over a seeded 1024x1024 image under ``[[32,32],[16,16]]`` with
       the plain version's output as its golden: every row verified, the
       stats CSVs written;
-   e. ``tpulab_torch bench`` (every row on ``cuda`` with the card's name
-      and power limit) and ``tpulab_torch selftest`` (exit 0).
-9. One ``{"model": {...}}`` line with phases 5 to 7's numbers, one
+   e. ``tpulab_torch bench``'s lab rows (each on ``cuda`` with the card's
+      name and power limit) and ``tpulab_torch selftest`` (exit 0).
+9. Speculative decoding and the model rows of ``bench``, each run with
+   every launch count set to 0 just before and read just after:
+
+   a. ``speculative_generate`` (the int8 draft, k=4, 128 steps) and
+      ``prompt_lookup_generate`` at the bench's width (d512, 8 heads, 8
+      layers, d_ff 2048, bf16, seed-0 weights) over a 1024-token prompt
+      (B4 once per layer of each prefill): tokens equal to plain greedy
+      decode on the card up to the first position whose top-2 margin falls
+      below 1e-2 or four bf16 ulps of the row's largest logit; tokens/s of
+      plain, speculative and lookup decode at the bench's 8-token prompt.
+      Then the small labformer of the serving tests (d32, 2 layers),
+      trained on the card as ``trained_small`` is: both streams bit-equal
+      to greedy decode;
+   b. the ``PagedEngine`` at the daemon's settings
+      (``tpulab/daemon.py:2656-2680``) with ``spec_k=4``, ``attn="pallas"``
+      and the int8 draft, under lookup, draft, plain, sampled and
+      penalized requests: on the small labformer every stream equal to the
+      engines without speculation (pallas and gather), one host wait per
+      verify tick and no other host sync (``torch.cuda`` sync debug
+      mode), B7 once per layer of each plain tick, no leaked block; at the
+      paged bench's width in float32, greedy streams equal to the engine
+      without speculation up to the first near-tie, and both tokens/s;
+   c. every model row of ``tpulab_torch bench`` through the CLI (one
+      ``--only`` group at a time, ``BENCH_GROUPS``), each printed with the
+      card's name, power limit and, where it counts flops, MFU against the
+      H100's bf16 peak; ``labformer_train`` must launch B4, B5 and B6, the
+      flash rows B4.  Then B4 at (1, s, 8, 64) bf16 against its plain
+      version within ``o_tolerance``: at s=32768 on the last 256 query rows
+      (every key; the whole score matrix would take 34 GB), at 8192 whole.
+10. One ``{"model": {...}}`` line with phases 5 to 7's and 9's numbers, one
    ``{"lab_suite": {...}}`` line with phase 8's, one ``{"kernels": [...]}``
    line, the card line again, and last ``{"ok": true, "device": {...}}``.
 
@@ -810,25 +839,9 @@ def check_serving_f32(sizes: dict, device) -> dict:
 
 def event_ms(fn, device, reps: int = 3) -> float:
     """Median wall time of ``fn()`` between CUDA events (host clock on the CPU)."""
-    import statistics
+    from tpulab_torch.runtime.timing import measure_call_ms
 
-    import torch
-
-    samples = []
-    for _ in range(reps):
-        if device.type == "cuda":
-            torch.cuda.synchronize()
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
-            fn()
-            end.record()
-            end.synchronize()
-            samples.append(start.elapsed_time(end))
-        else:
-            t0 = time.perf_counter()
-            fn()
-            samples.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(samples)
+    return measure_call_ms(fn, device=device, reps=reps, warmup=0)[0]
 
 
 def profile_window(fn, device) -> dict:
@@ -986,9 +999,12 @@ def skipped_tile(q, k, v, tile: int, bk: int = 64):
 
 
 def flash_row(shape, dtype, device, iters, plain_iters, *, kvh=None, window=0, q_offset=0,
-              seed=0, plant=False) -> dict:
+              seed=0, plant=False, first_row=0) -> dict:
     """B4 against its plain version at one shape, with its times and bound;
-    with ``plant``, also check that the tolerance rejects a skipped key tile."""
+    with ``plant``, also check that the tolerance rejects a skipped key tile.
+    ``first_row`` > 0 holds only the output's rows from that one on (every
+    key), where the plain version's whole score matrix would not fit; its
+    ``plain_ms`` is then the time of those rows."""
     import torch
     import torch.nn.functional as F
 
@@ -1004,8 +1020,9 @@ def flash_row(shape, dtype, device, iters, plain_iters, *, kvh=None, window=0, q
     q, k, v = (torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)).to(device, dtype)
                for sh in ((b, s, h, d), (b, s, kvh, d), (b, s, kvh, d)))
     kw = dict(causal=True, window=window, q_offset=q_offset)
-    want_o, want_lse = flash_attention_plain(q, k, v, **kw)
+    want_o, want_lse = flash_attention_plain(q, k, v, **kw, first_row=first_row)
     got_o, got_lse = flash_attention_with_lse(q, k, v, **kw)
+    got_o, got_lse = got_o[:, first_row:], got_lse[:, first_row:]
     if device.type == "cuda":
         torch.cuda.synchronize()
     dead = torch.isneginf(want_lse)
@@ -1020,7 +1037,8 @@ def flash_row(shape, dtype, device, iters, plain_iters, *, kvh=None, window=0, q
     row = {"shape": [b, h, s, d], "kv_heads": kvh, "dtype": str(dtype).split(".")[1],
            "window": window, "q_offset": q_offset, "max_abs_err": err,
            "tolerance": "o_tolerance (tpulab_torch/ops/cuda/attention.py)",
-           "err_over_tolerance": ratio, "lse_max_abs_err": lse_err}
+           "err_over_tolerance": ratio, "lse_max_abs_err": lse_err,
+           "rows_held": [first_row, s]}
     if plant:  # the same limit must reject a kernel that skips one key tile
         for tile in (s // 128, s // 64 - 2):
             fault = over_tolerance(skipped_tile(q, k, v, tile), want_o)
@@ -1031,8 +1049,8 @@ def flash_row(shape, dtype, device, iters, plain_iters, *, kvh=None, window=0, q
     nbytes = (2 * b * s * h * d + 2 * b * s * kvh * d) * e + b * s * h * 4
     flops = 4.0 * b * h * d * visible_pairs(s, True, window, q_offset)
     row["ms"] = time_ms(lambda: flash_attention_with_lse(q, k, v, **kw), (), device, iters)
-    row["plain_ms"] = time_ms(lambda: flash_attention_plain(q, k, v, **kw), (), device,
-                              plain_iters)
+    row["plain_ms"] = time_ms(lambda: flash_attention_plain(q, k, v, **kw, first_row=first_row),
+                              (), device, plain_iters)
     row["library_ms"] = None
     if not q_offset:  # one PyTorch call computes the same function
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
@@ -1041,7 +1059,8 @@ def flash_row(shape, dtype, device, iters, plain_iters, *, kvh=None, window=0, q
         band = dict(is_causal=True) if not window else dict(
             attn_mask=(pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window))
         library = lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=kvh != h, **band)
-        row["library_max_abs_err"] = max_abs_err(library().transpose(1, 2), want_o)
+        row["library_max_abs_err"] = max_abs_err(library().transpose(1, 2)[:, first_row:],
+                                                 want_o)
         row["library_ms"] = time_ms(library, (), device, iters)
     row["bound_ms"], row["bound_by"] = bound(
         nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
@@ -1991,10 +2010,13 @@ def check_harness(sizes: dict, backend: str, work: Path, seed: int = 0) -> dict:
 def check_bench_and_selftest(sizes: dict, backend: str) -> dict:
     """Phase 8e: ``tpulab_torch bench`` (every row on the device) and
     ``tpulab_torch selftest`` (exit 0), through the CLI's entry point."""
+    from tpulab_torch.bench import LAB_ROWS
+
     extra = ["--backend", backend] if backend == "cpu" else []
     for key, value in sizes["bench"].items():
         extra += [f"--{key}", str(value)]
-    rows = [json.loads(line) for line in cli(["bench", *extra], "").splitlines()]
+    rows = [json.loads(line) for name in LAB_ROWS
+            for line in cli(["bench", "--only", name, *extra], "").splitlines()]
     for row in rows:
         print(json.dumps(row), flush=True)
         check(row["device"] == ("cuda" if backend == "cuda" else "cpu"), f"bench row {row}")
@@ -2021,6 +2043,339 @@ def run_lab_suite_path(sizes: dict, device, backend: str, work: Path = WORK) -> 
     print(f"phase 8 took {time.perf_counter() - t0:.1f} s; launches {json.dumps(launches)}",
           flush=True)
     return suite, launches
+
+
+# ------------------------------------------------- speculative decoding, bench
+
+#: the small labformer the serving tests share (``tests/conftest.py``'s
+#: ``trained_small``): d32, 4 heads, 2 layers, d_ff 64, trained on the card
+#: on a period-7 byte cycle until its greedy margins are wide
+SMALL = dict(d_model=32, n_heads=4, n_layers=2, d_ff=64, max_seq=128)
+#: bench groups of phase 9c: each a ``--only`` substring (``labformer_decode``
+#: runs its int8 and gqa2 rows, ``flash_attention`` its 8k row too)
+BENCH_GROUPS = ("labformer_fwd", "labformer_train", "labformer_decode", "speculative_decode",
+                "paged_engine", "paged_tick_overhead", "prefill_interleave", "prefix_lookup",
+                "flash_attention")
+
+
+def cycle(n: int, offset: int = 0) -> np.ndarray:
+    return ((np.arange(n) + offset) % 7).astype(np.int32)
+
+
+def train_small(sizes: dict, device):
+    """The shared small labformer, trained on ``device`` as ``trained_small``
+    is (adamw, 8 rows of a period-7 cycle); frozen for serving."""
+    import torch
+
+    from tpulab_torch.models.labformer import Labformer, LabformerConfig, init_train_state
+
+    cfg = LabformerConfig(**SMALL)
+    model, opt, step = init_train_state(cfg, seed=0, device=device)
+    tok = torch.from_numpy(np.tile(np.arange(33, dtype=np.int64) % 7, (8, 1))).to(device)
+    for _ in range(sizes["small_train_steps"]):
+        model, opt, loss = step(model, opt, tok)
+    check(bool(torch.isfinite(loss)), f"small labformer: loss {float(loss)}")
+    return Labformer.from_numpy(model.to_numpy(), cfg, device), cfg, float(loss)
+
+
+def int8_draft(params: dict, cfg, device):
+    """The int8-quantized labformer of a parameter tree (the speculative
+    draft), on ``device``."""
+    from tpulab_torch.models.labformer import Labformer
+    from tpulab_torch.models.quant import quantize_decode_params
+
+    return Labformer.from_numpy(quantize_decode_params(params, cfg), cfg, device)
+
+
+def equal_until_near_tie(ref, got, logits, bf16: bool, what: str) -> int:
+    """Tokens of ``got`` equal ``ref`` up to the first position whose top-2
+    margin in ``logits`` (the plain stream's) falls below :func:`near_tie`;
+    the count of positions held."""
+    from tpulab_torch.ops.cuda.attention import bf16_ulp
+
+    top2 = logits.topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).numpy()
+    tol = np.full(len(margin), 1e-2)
+    if bf16:
+        tol = np.maximum(tol, 4 * bf16_ulp(logits.abs().amax(-1)).numpy())
+    n = 0
+    while n < len(margin) and margin[n] >= tol[n]:
+        check(int(ref[n]) == int(got[n]), f"{what}: token {n} differs ({int(got[n])} vs "
+              f"{int(ref[n])}; margin {float(margin[n])})")
+        n += 1
+    return n
+
+
+def run_speculative(sizes: dict, device, card: str) -> dict:
+    """Phase 9a: ``speculative_generate`` (the int8 draft) and
+    ``prompt_lookup_generate`` at the bench's width in bf16 against plain
+    greedy decode on the card, then on the small labformer trained on the
+    card, bit for bit; tokens/s of the three at the bench's prompt."""
+    import torch
+
+    from tpulab_torch.models.generate import generate
+    from tpulab_torch.models.labformer import Labformer, LabformerConfig, init_params
+    from tpulab_torch.models.speculative import prompt_lookup_generate, speculative_generate
+    from tpulab_torch.runtime.timing import measure_call_ms
+
+    k, steps = sizes["spec_k"], sizes["spec_steps"]
+    cfg = LabformerConfig(**sizes["serving"], dtype=torch.bfloat16)
+    params = init_params(cfg, seed=0)
+    model = Labformer.from_numpy(params, cfg, device)
+    draft = int8_draft(params, cfg, device)
+    rng = np.random.default_rng(9)
+    prompt = torch.from_numpy(rng.integers(0, 256, (1, sizes["spec_prompt"]))).to(device)
+    flash = cfg.n_layers if sizes["spec_prompt"] >= 1024 else 0
+    ref, logits = greedy_with_logits(model, prompt, steps)
+    (spec, acc), spec_launches = counted(
+        lambda: speculative_generate(draft, model, prompt, steps=steps, k=k), device,
+        {"flash_fwd": 2 * flash}, "speculative decode")
+    (look, look_acc), look_launches = counted(
+        lambda: prompt_lookup_generate(model, prompt, steps=steps, k=k), device,
+        {"flash_fwd": flash}, "prompt-lookup decode")
+    out = {"width": {
+        "prompt": sizes["spec_prompt"], "steps": steps, "k": k,
+        "speculative_equal_until_near_tie": equal_until_near_tie(
+            ref[0], spec[0], logits[0], True, "speculative bf16"),
+        "lookup_equal_until_near_tie": equal_until_near_tie(
+            ref[0], look[0], logits[0], True, "prompt lookup bf16"),
+        "speculative_mean_accepted": acc, "lookup_mean_accepted": look_acc,
+        "launches": {"speculative": spec_launches, "lookup": look_launches}}}
+    # tokens/s at the bench row's prompt (tpulab/bench.py:222-289: 8 tokens)
+    short = np.random.default_rng(0).integers(0, 256, (1, 8)).astype(np.int32)
+    reps = sizes["spec_reps"]
+    timed = {}
+    for name, fn in (("plain", lambda: generate(model, short, steps, temperature=0.0)),
+                     ("speculative", lambda: speculative_generate(draft, model, short,
+                                                                  steps=steps, k=k)),
+                     ("lookup", lambda: prompt_lookup_generate(model, short, steps=steps,
+                                                               k=k))):
+        runs: list = []
+        ms, res = measure_call_ms(fn, device=device, reps=reps, warmup=1, collect=runs)
+        timed[name] = {"tokens_per_s": steps / (ms / 1e3), "ms_runs": runs}
+        if name != "plain":
+            timed[name]["mean_accepted"] = res[1]
+    for name in ("speculative", "lookup"):
+        timed[name]["speedup_vs_plain"] = (timed[name]["tokens_per_s"]
+                                          / timed["plain"]["tokens_per_s"])
+    out["width"]["timed_bench_prompt"] = timed
+    # the small labformer trained here: every stream bit-equal to plain greedy
+    small, scfg, loss = train_small(sizes, device)
+    sdraft = int8_draft(small.to_numpy(), scfg, device)  # float32: no bfloat16 leaf
+    prompts = {"cycle5": np.tile(cycle(5), (2, 1)), "rep21": cycle(21)[None, :]}
+    held = {}
+    for name, pr in prompts.items():
+        want = generate(small, pr, 24, temperature=0.0)
+        got_s, acc_s = speculative_generate(sdraft, small, pr, steps=24, k=k)
+        got_l, acc_l = prompt_lookup_generate(small, pr, steps=24, k=k)
+        check(np.array_equal(got_s, want) and np.array_equal(got_l, want),
+              f"small labformer {name}: speculative {got_s.tolist()} or lookup "
+              f"{got_l.tolist()} is not greedy's {want.tolist()}")
+        held[name] = {"speculative_mean_accepted": acc_s, "lookup_mean_accepted": acc_l}
+    out["small_trained"] = {"loss": loss, "bit_equal": held}
+    print(f"speculative (9a): {json.dumps(out)} ({card})", flush=True)
+    return out, (small, scfg, sdraft)
+
+
+def spec_jobs(prefix_len: int) -> list:
+    """Mixed traffic: lookup and draft speculation, plain, sampled (one of
+    them asking to speculate, which a sampled slot never does), penalized,
+    a shared prefix and a prompt long enough for several chunks."""
+    prefix = cycle(prefix_len)
+    return [
+        dict(prompt=cycle(40), max_new=48, spec="lookup"),
+        dict(prompt=np.concatenate([prefix, [1, 2]]).astype(np.int32), max_new=40, spec="draft"),
+        dict(prompt=np.concatenate([prefix, [3]]).astype(np.int32), max_new=32),
+        dict(prompt=cycle(9, 2), max_new=40, temperature=1.2, seed=5, spec="lookup"),
+        dict(prompt=cycle(200, 3), max_new=24, spec="lookup"),
+        dict(prompt=cycle(6), max_new=24, repetition_penalty=2.0, spec="lookup"),
+        dict(prompt=cycle(12, 4), max_new=32, spec="draft"),
+        dict(prompt=np.concatenate([prefix, [5]]).astype(np.int32), max_new=56,
+             temperature=0.8, seed=9),
+    ]
+
+
+def spec_engine_wave(model, cfg, draft, sizes: dict, jobs: list, spec_k: int, attn: str,
+                     device, sync_debug: bool = False) -> dict:
+    """One wave of ``jobs`` through an engine at the daemon's settings; its
+    streams, stats, fetches per verify tick, wall seconds and (with
+    ``sync_debug``, on the card) the host syncs the CUDA runtime saw."""
+    import traceback
+    import warnings
+
+    import torch
+
+    from tpulab_torch.models.paged import PagedEngine
+
+    eng = PagedEngine(model, cfg, slots=sizes["daemon_slots"], n_blocks=sizes["daemon_blocks"],
+                      block_size=16, max_seq=sizes["daemon_max_seq"],
+                      prefill_chunk=sizes["daemon_chunk"], attn=attn, spec_k=spec_k,
+                      draft_params=draft if spec_k else None)
+    rids = [eng.submit(j["prompt"], max_new=j["max_new"], temperature=j.get("temperature", 0.0),
+                       seed=j.get("seed", 0), repetition_penalty=j.get("repetition_penalty", 1.0),
+                       spec=j.get("spec", "off") if spec_k else "off") for j in jobs]
+    debug = sync_debug and device.type == "cuda"
+    t0 = time.perf_counter()
+    syncs = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):  # where: the frames above the call
+            syncs.append("".join(traceback.format_stack(limit=6)[:-1]))
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        if debug:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = eng.run()
+        finally:
+            if debug:
+                torch.cuda.set_sync_debug_mode("default")
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check_no_leak(eng, f"speculative engine ({attn}, spec_k={spec_k})")
+    return {"streams": [out[r] for r in rids], "stats": eng.stats(), "wall_s": wall,
+            "spec_fetches": eng.spec_fetches, "sync_warnings": syncs}
+
+
+def check_spec_engine(sizes: dict, device, card: str, small) -> dict:
+    """Phase 9b: the engine at the daemon's settings with spec_k=4 and
+    ``attn="pallas"`` under mixed traffic.  On the small labformer trained
+    on the card: every stream (the sampled ones too) equal to the engines
+    without speculation, one host wait per verify tick and no other sync,
+    B7 once per layer of each plain tick.  At the paged bench's width in
+    float32: greedy streams equal to the engine without speculation up to
+    the first near-tie, and the tokens/s of both."""
+    import torch
+
+    from tpulab_torch.models.labformer import Labformer, LabformerConfig, init_params
+
+    model, cfg, draft = small
+    jobs = spec_jobs(sizes["daemon_prefix"])
+    k = sizes["spec_k"]
+
+    def b7_spec(wave):
+        st = wave["stats"]
+        return {"paged_decode": (st["ticks"] - st["verify_passes"]) * cfg.n_layers}
+
+    spec, launches = counted(lambda: spec_engine_wave(model, cfg, draft, sizes, jobs, k,
+                                                      "pallas", device, sync_debug=True),
+                             device, b7_spec, "speculative engine (pallas)")
+    st = spec["stats"]
+    check(st["verify_passes"] > 0 and st["spec_rounds"] > 0 and st["ticks"] > st["verify_passes"],
+          f"speculative engine: no mix of verify and plain ticks ({st})")
+    check(spec["spec_fetches"] == st["verify_passes"],
+          f"speculative engine: {spec['spec_fetches']} host waits in {st['verify_passes']} "
+          f"verify ticks")
+    check(not spec["sync_warnings"], f"speculative engine synced: {spec['sync_warnings'][:3]}")
+    check(device.type == "cpu" or launches["paged_decode"] > 0, "B7 ran on no plain tick")
+    refs = {attn: counted(lambda: spec_engine_wave(model, cfg, None, sizes, jobs, 0, attn,
+                                                   device), device, b7_want(cfg, attn),
+                          f"engine without speculation ({attn})")[0]
+            for attn in ("pallas", "gather")}
+    for attn, ref in refs.items():
+        for i, (a, b) in enumerate(zip(spec["streams"], ref["streams"])):
+            check(np.array_equal(a, b), f"speculative engine request {i}: {a.tolist()} vs the "
+                                        f"{attn} engine without speculation {b.tolist()}")
+    out = {"small_trained": {
+        **{key: st[key] for key in ("ticks", "verify_passes", "spec_rounds", "spec_accepted",
+                                    "spec_tokens", "tokens_out", "prefix_hits",
+                                    "prefill_chunks", "stall_ticks", "host_syncs")},
+        "spec_fetches": spec["spec_fetches"], "sync_warnings": len(spec["sync_warnings"]),
+        "plain_ticks_without_spec": refs["pallas"]["stats"]["ticks"], "launches": launches,
+        "streams_equal": "every request, sampled included, vs pallas and gather"}}
+    # the paged bench's width in float32
+    wcfg = LabformerConfig(**sizes["paged"], dtype=torch.float32)
+    wparams = init_params(wcfg, seed=0)
+    wmodel = Labformer.from_numpy(wparams, wcfg, device)
+    wdraft = int8_draft(wparams, wcfg, device)
+    wspec, wl = counted(lambda: spec_engine_wave(wmodel, wcfg, wdraft, sizes, jobs, k, "pallas",
+                                                 device), device,
+                        lambda w: {"paged_decode": (w["stats"]["ticks"]
+                                                    - w["stats"]["verify_passes"])
+                                   * wcfg.n_layers}, "speculative engine at width")
+    wref, _ = counted(lambda: spec_engine_wave(wmodel, wcfg, None, sizes, jobs, 0, "pallas",
+                                               device), device, b7_want(wcfg, "pallas"),
+                      "engine without speculation at width")
+    held = []
+    for i, job in enumerate(jobs):
+        if job.get("temperature", 0.0) or job.get("repetition_penalty", 1.0) != 1.0:
+            continue  # sampled and penalized streams are not plain greedy's
+        _, logits = greedy_with_logits(wmodel, torch.from_numpy(job["prompt"])[None].to(device),
+                                       job["max_new"])
+        ref_toks = wref["streams"][i]
+        held.append(equal_until_near_tie(ref_toks, wspec["streams"][i], logits[0], False,
+                                         f"speculative engine at width, request {i}"))
+    tokens = sum(len(x) for x in wspec["streams"])
+    ws = wspec["stats"]
+    out["width_f32"] = {
+        "greedy_equal_until_near_tie": held, "tokens": tokens,
+        "tokens_per_s": tokens / wspec["wall_s"], "tokens_per_s_without_spec":
+            sum(len(x) for x in wref["streams"]) / wref["wall_s"],
+        "ticks": ws["ticks"], "ticks_without_spec": wref["stats"]["ticks"],
+        "verify_passes": ws["verify_passes"], "spec_rounds": ws["spec_rounds"],
+        "spec_accepted": ws["spec_accepted"], "spec_fetches": wspec["spec_fetches"],
+        "launches": wl}
+    check(wspec["spec_fetches"] == ws["verify_passes"], "speculative engine at width: fetches")
+    print(f"speculative engine (9b): {json.dumps(out)} ({card})", flush=True)
+    return out
+
+
+def run_bench_rows(sizes: dict, device, backend: str, card: str) -> dict:
+    """Phase 9c: every model row of ``tpulab_torch bench`` through the CLI,
+    one ``--only`` group at a time with every launch count set to 0 just
+    before and read just after; each row printed."""
+    extra = ["--backend", backend] if backend == "cpu" else []
+    for key, value in sizes["bench_model"].items():
+        extra += [f"--{key}", str(value)]
+    rows, launches = [], {}
+    h100 = "H100" in card and "HBM3" in card
+    for group in sizes["bench_groups"]:
+        wrappers = zero_counts()
+        got = [json.loads(line) for line in cli(["bench", "--only", group, *extra],
+                                                "").splitlines()]
+        launches[group] = {name: w.launches for name, w in wrappers.items()}
+        for row in got:
+            print(json.dumps(row), flush=True)
+            check(row["device"] == ("cuda" if backend == "cuda" else "cpu"), f"bench row {row}")
+            check(backend == "cpu" or ("card" in row and "power_limit" in row), f"row {row}")
+            flops = group in ("labformer_fwd", "labformer_train", "flash_attention")
+            check(not (flops and h100) or "mfu_pct_of_bf16_peak" in row, f"no MFU in {row}")
+        rows.extend(got)
+        check(all(launches[group][k] == 0 for k in LAB_KERNELS), f"lab kernels in {group}")
+    if device.type == "cuda":
+        check(all(launches["labformer_train"][k] > 0 for k in TRAIN_KERNELS),
+              f"labformer_train launched {launches['labformer_train']}")
+        if "flash_attention" in launches:
+            check(launches["flash_attention"]["flash_fwd"] > 0, "flash rows launched no B4")
+    return {"rows": rows, "launches": launches}
+
+
+def flash_long_rows(sizes: dict, device) -> list:
+    """Phase 9c: B4 at the flash rows' long contexts, (1, s, 8, 64) bf16,
+    against its plain version: each ``(s, rows)`` of ``b4_long`` on its last
+    ``rows`` query rows (every key), or whole where ``rows`` is 0."""
+    import torch
+
+    rows = []
+    for s, tail in sizes["b4_long"]:
+        rows.append(flash_row((1, 8, s, 64), torch.bfloat16, device, 5, 1, seed=13,
+                              first_row=s - tail if tail else 0))
+        print(f"B4 long context: {json.dumps(rows[-1])}", flush=True)
+    return rows
+
+
+def run_spec_and_bench_path(sizes: dict, device, backend: str, card: str) -> tuple:
+    """Phase 9: (B4's long-context rows, the phase's numbers)."""
+    t0 = time.perf_counter()
+    spec, small = run_speculative(sizes, device, card)
+    engine = check_spec_engine(sizes, device, card, small)
+    bench_rows = run_bench_rows(sizes, device, backend, card)
+    long_rows = flash_long_rows(sizes, device)
+    print(f"phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return long_rows, {"speculative": spec, "engine": engine, "bench": bench_rows}
 
 
 KERNEL_META = {
@@ -2122,12 +2477,18 @@ FULL_SIZES = {
     # phase 8: lab5 at tpulab/bench.py:1679's 2^24 and its sort at :1653's 2^20
     "lab5_n": 2**24, "lab5_sort_n": 2**20, "hw2_n": 2**20, "harness_side": 1024,
     "harness_k": 3, "bench": {}, "selftest_skip": [],
+    # phase 9: the bench's speculative row (tpulab/bench.py:222-289), a
+    # 1024-token prompt to run B4 in both prefills, the small labformer's
+    # training steps (tests/conftest.py), bench rows at tpulab's defaults
+    "spec_k": 4, "spec_steps": 128, "spec_prompt": 1024, "spec_reps": 3,
+    "small_train_steps": 80, "bench_model": {}, "bench_groups": BENCH_GROUPS,
+    "b4_long": ((32768, 256), (8192, 0)),
 }
 
 
 def run(device, sizes: dict, backend: str, card: str = "cpu",
         parent: Path | None = None) -> dict:
-    """Phases 2 to 8 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
+    """Phases 2 to 9 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
     ``parent``: a checkout to time phases 4, 6c and 7d against (:func:`in_turns`)."""
     t0 = time.perf_counter()
     inp = make_inputs(sizes)
@@ -2155,6 +2516,8 @@ def run(device, sizes: dict, backend: str, card: str = "cpu",
     rows["paged_decode"], launches["paged_decode"], model["paged"] = run_paged_path(
         sizes, device, card, parent)
     suite, _ = run_lab_suite_path(sizes, device, backend)
+    rows["flash_fwd"]["long_context"], model["phase9"] = run_spec_and_bench_path(
+        sizes, device, backend, card)
     kernels = []
     for name, row in rows.items():
         source, replaces = KERNEL_META[name]

@@ -819,3 +819,64 @@ def test_harness_golden_sweep_on_card_with_cpu_ref(cuda_device, tmp_path):
     assert {r["device_reported"] for r in runs if r["device"] == "CUDA"} == {"CUDA"}
     assert {r["device_reported"] for r in runs if r["device"] == "CPU"} == {"CPU"}
     assert (tmp_path / "stats_tpulab_torch_lab2.csv").is_file()
+
+
+# ------------------------------------------------- speculative decoding
+
+
+@pytest.fixture(scope="module")
+def small_on_card():
+    """The shared small labformer trained on the card (chip_smoke's phase 9
+    model) with its int8 draft."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    dev = torch.device("cuda")
+    model, cfg, _ = chip_smoke.train_small(dict(small_train_steps=80), dev)
+    return model, cfg, chip_smoke.int8_draft(model.to_numpy(), cfg, dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("attn", ["pallas", "gather"])
+def test_speculative_engine_streams_on_card(cuda_device, small_on_card, attn):
+    """Slots mixing "lookup", "draft", off and sampled requests: every
+    stream equal to the engine without speculation, one host wait per
+    verify tick, no other host sync, B7 on every plain tick under pallas."""
+    from tpulab_torch.ops.cuda.paged import paged_attend_kernel
+
+    model, cfg, draft = small_on_card
+    sizes = dict(daemon_slots=4, daemon_blocks=128, daemon_max_seq=512, daemon_chunk=32)
+    jobs = chip_smoke.spec_jobs(128)
+    paged_attend_kernel.launches = 0
+    spec = chip_smoke.spec_engine_wave(model, cfg, draft, sizes, jobs, 4, attn, cuda_device,
+                                       sync_debug=True)
+    st = spec["stats"]
+    plain_ticks = st["ticks"] - st["verify_passes"]
+    assert paged_attend_kernel.launches == (plain_ticks * cfg.n_layers if attn == "pallas" else 0)
+    assert st["verify_passes"] > 0 and plain_ticks > 0
+    assert spec["spec_fetches"] == st["verify_passes"] and not spec["sync_warnings"]
+    ref = chip_smoke.spec_engine_wave(model, cfg, None, sizes, jobs, 0, attn, cuda_device)
+    for a, b in zip(spec["streams"], ref["streams"]):
+        assert np.array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_speculative_generate_on_card(cuda_device, small_on_card):
+    from tpulab_torch.models.generate import generate
+    from tpulab_torch.models.speculative import prompt_lookup_generate, speculative_generate
+
+    model, _, draft = small_on_card
+    prompt = np.tile(chip_smoke.cycle(5), (2, 1))
+    want = generate(model, prompt, 24, temperature=0.0)
+    got, acc = speculative_generate(draft, model, prompt, steps=24, k=4)
+    assert np.array_equal(got, want) and acc > 2.0
+    got, _ = prompt_lookup_generate(model, prompt, steps=24, k=4)
+    assert np.array_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_long_context_tail(cuda_device):
+    """B4 at (1, 32768, 8, 64) bf16, the bench's flash row, on its last 256
+    query rows (every key) against its plain version."""
+    row = chip_smoke.flash_row((1, 8, 32768, 64), torch.bfloat16, cuda_device, 1, 1, seed=13,
+                               first_row=32768 - 256)
+    assert row["err_over_tolerance"] <= 1 and row["rows_held"] == [32512, 32768]

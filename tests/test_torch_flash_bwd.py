@@ -113,6 +113,26 @@ def test_torch_pool_rounds_to_nearest():
     assert fpenv.probe_modes() == {fpenv.FE_TONEAREST}
 
 
+def test_port_chooses_mkl_vml_on_one_thread_first(monkeypatch):
+    """ROADMAP C9: the port's CPU entry calls each VML-backed function once
+    on the calling thread, at 8 elements (one thread), before any parallel
+    call can race on MKL's lazy choice of code; once per process."""
+    calls = []
+    monkeypatch.setattr(fpenv, "_VML_FUNCTIONS", tuple(
+        (lambda fn: lambda x: calls.append((fn.__name__, x.numel(), x.dtype)) or fn(x))(fn)
+        for fn in fpenv._VML_FUNCTIONS))
+    fpenv.init_vml.cache_clear()
+    try:
+        fpenv.ensure_nearest()
+        fpenv.ensure_nearest()
+        made = list(calls)
+    finally:
+        fpenv.init_vml.cache_clear()
+    assert {"exp", "log", "tanh", "sin", "cos"} <= {c[0] for c in made}
+    assert len(made) == 2 * len(fpenv._VML_FUNCTIONS)  # float32 and float64, once
+    assert all(n == 8 for _, n, _ in made)
+
+
 @pytest.mark.parametrize("mode", [fpenv.FE_TOWARDZERO, fpenv.FE_UPWARD])
 def test_port_is_immune_to_a_pool_thread_off_nearest(mode):
     """C7's fault, planted: every thread of torch's pool set to round toward

@@ -204,10 +204,16 @@ def test_plot_is_best_effort(tmp_path, monkeypatch):
     assert (tmp_path / "stats_hw1_cpu.csv").exists()
 
 
-def test_extra_links_wait_for_download(tmp_path):
-    with pytest.raises(NotImplementedError, match="A6"):
-        ImageDataset(os.path.join(REPO, "data/lab2/data"), str(tmp_path / "o"),
-                     extra_links_to_png=["http://localhost:1/x.png"])
+def test_extra_links_wait_for_download(tmp_path, capsys):
+    """An extra link is fetched through ``utils/download``; one that cannot
+    be fetched (nothing listens on localhost:1) is skipped with a log
+    line, and the data dir's own images stay the dataset, as in tpulab."""
+    data = os.path.join(REPO, "data/lab2/data")
+    ds = ImageDataset(data, str(tmp_path / "o"), extra_links_to_png=["http://localhost:1/x.png"])
+    want = jax_processors.imageset.ImageDataset(
+        data, str(tmp_path / "j"), extra_links_to_png=["http://localhost:1/x.png"])
+    assert ds.paths == want.paths and ds.paths
+    assert capsys.readouterr().out.count("[download_file] skipped http://localhost:1/x.png") == 2
 
 
 def test_protected_dirs_are_read_on_every_call(tmp_path, monkeypatch):
@@ -280,7 +286,9 @@ def test_harness_cli_lab5_mesh_raises_where_it_would_engage(tmp_path, monkeypatc
 
 
 def test_bench_rows_at_a_tiny_size():
-    rows = list(bench.run_benchmarks(backend="cpu", size=16, nc=2, iters=2, n=4096, reps=2))
+    rows = [row for name in bench.LAB_ROWS
+            for row in bench.run_benchmarks(only=name, backend="cpu", size=16, nc=2, iters=2,
+                                            n=4096, reps=2)]
     names = [r["metric"] for r in rows]
     assert names == ["lab1_subtract_n1000_float64_median_ms",
                      "lab1_subtract_n1048576_float32_median_ms",

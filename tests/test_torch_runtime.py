@@ -52,6 +52,8 @@ def test_port_imports_neither_jax_nor_tpulab():
         "bad = [n for n in sys.modules if n == 'jax' or n.startswith('jax.')\n"
         "       or n == 'tpulab' or n.startswith('tpulab.')]\n"
         "assert not bad, bad\n"
+        "assert {'tpulab_torch.obs.roofline', 'tpulab_torch.utils.download',\n"
+        "        'tpulab_torch.models.speculative'} <= set(sys.modules)\n"
         "print('ok', len([n for n in sys.modules if n.startswith('tpulab_torch')]))\n"
     )
     env = dict(os.environ, PYTHONPATH=str(REPO))

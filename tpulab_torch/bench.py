@@ -1,8 +1,8 @@
-"""Benchmark rows of the lab suite on the card: ``tpulab_torch bench``.
+"""Benchmark rows on the card: ``tpulab_torch bench``.
 
-The JAX package's lab rows (``tpulab/bench.py:18-82,1653-1703``,
-``tpulab/bench_image.py``) with the same metric names, sizes and spread
-fields, each measured on the resolved device:
+The JAX package's rows (``tpulab/bench.py``, ``tpulab/bench_image.py``)
+with the same registry names, metric names, default sizes and fields,
+each measured on the resolved device.  The lab rows:
 
 * ``lab1_subtract_n1000_float64_median_ms`` and the float32 n=2^20 row;
 * ``lab2_roberts_1024x1024_median_ms`` (the repo's headline, ``bench.py:38``);
@@ -10,14 +10,35 @@ fields, each measured on the resolved device:
 * ``hw2_sort_n1048576_f32_median_ms``;
 * ``lab5_reduce_sum_n16777216_i32_median_ms``.
 
+The lab kernels are timed by
+:func:`~tpulab_torch.runtime.timing.measure_kernel_ms`, every call on the
+same staged input (the JAX package's sort and reduction rows take its
+queue-amortised ``measure_ms`` for that reason).  ``vs_baseline`` divides
+the reference suite's RTX A6000 median (``BASELINE.md``) by this row's.
+
+The model rows: ``labformer_fwd``, ``labformer_train``,
+``labformer_decode`` (and its ``_int8`` and ``_gqa2`` variants),
+``speculative_decode``, ``paged_engine``, ``paged_tick_overhead``,
+``prefill_interleave``, ``prefix_lookup``, ``flash_attention`` and
+``flash_attention_8k``.  Their MFU fields come from
+:mod:`tpulab_torch.obs.roofline` (H100 peaks; none on the CPU).
+``tpulab`` times a jitted program by enqueueing many calls; the port's
+model loops are eager, so each row's docstring says how it is timed: CUDA
+events around each call (:func:`~tpulab_torch.runtime.timing.measure_call_ms`),
+the wall clock of a host-driven run after a synchronize, or, for the
+flash kernel alone, :func:`~tpulab_torch.runtime.timing.measure_kernel_ms`.
+
 Every row says ``"device": "cuda"`` (or ``"cpu"`` where ``backend="cpu"``
 asks for the host) and, on the card, the card's name and power limit as
-``nvidia-smi --query-gpu=name,power.limit`` gives them.  The lab kernels
-are timed by :func:`~tpulab_torch.runtime.timing.measure_kernel_ms`, every
-call on the same staged input (the JAX package's sort and reduction rows
-take its queue-amortised ``measure_ms`` for that reason).  ``vs_baseline`` divides
-the reference suite's RTX A6000 median (``BASELINE.md``) by this row's.
-The model rows of the JAX package's bench are not here yet (ROADMAP A6).
+``nvidia-smi --query-gpu=name,power.limit`` gives them.
+
+Rows of ``tpulab``'s registry that wait for a module of their own are not
+registered (``run_benchmarks`` raises rather than turning an error into a
+row): ``mesh_tick_overhead`` (ROADMAP A12); ``obs_overhead``,
+``journey_overhead``, ``obs_history_overhead``, ``fault_overhead``,
+``journal_overhead`` and ``autoscale_overhead`` (A11); ``spill_overhead``
+(A10.2); ``handoff_overhead`` (A10.4); ``decode_recompiles`` and
+``train_step_overhead`` (A13, A8.6); ``labvision_train`` (A8.8).
 """
 
 from __future__ import annotations
@@ -25,13 +46,15 @@ from __future__ import annotations
 import functools
 import inspect
 import subprocess
+import time
 from typing import Any, Dict, Iterator, Optional
 
 import numpy as np
 import torch
 
+from tpulab_torch.obs.roofline import labformer_fwd_flops, mfu_fields
 from tpulab_torch.runtime.device import resolve_device
-from tpulab_torch.runtime.timing import measure_kernel_ms, summarize_samples
+from tpulab_torch.runtime.timing import measure_call_ms, measure_kernel_ms, summarize_samples
 
 # Best-config CUDA medians of the reference suite on an RTX A6000
 # (BASELINE.md); keys with no published number are absent.
@@ -149,14 +172,372 @@ def bench_reduce(n: int = 1 << 24, reps: int = 50,
     return _row(f"lab5_reduce_sum_n{n}_i32_median_ms", ms, device, samples)
 
 
+# ------------------------------------------------------------ model rows
+
+
+def _serving_cfg(max_seq: int, dtype: str, kv_heads: int = 0):
+    """The labformer of ``tpulab``'s model rows: d512, 8 heads, 8 layers,
+    d_ff 2048."""
+    from tpulab_torch.models.labformer import LabformerConfig
+
+    return LabformerConfig(d_model=512, n_heads=8, n_layers=8, d_ff=2048, max_seq=max_seq,
+                           n_kv_heads=kv_heads,
+                           dtype={"bfloat16": torch.bfloat16, "float32": torch.float32}[dtype])
+
+
+def _small_cfg(max_seq: int):
+    """The engine-overhead rows' labformer: d64, 4 heads, 2 layers, f32."""
+    from tpulab_torch.models.labformer import LabformerConfig
+
+    return LabformerConfig(d_model=64, n_heads=4, n_layers=2, d_ff=128, max_seq=max_seq,
+                           dtype=torch.float32)
+
+
+def _model(cfg, device: torch.device, seed: int = 0):
+    from tpulab_torch.models.labformer import Labformer, init_params
+
+    return Labformer.from_numpy(init_params(cfg, seed=seed), cfg, device)
+
+
+def _tokens(cfg, shape, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(
+        np.random.default_rng(0).integers(0, cfg.vocab, shape).astype(np.int64)).to(device)
+
+
+def _wall_s(fn, device: torch.device):
+    """Wall seconds of ``fn()`` after a synchronize, and its result."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter() - t0, out
+
+
+def _model_row(metric: str, value: float, unit: str, device: torch.device, samples,
+               **fields) -> Dict[str, Any]:
+    return {"metric": metric, "value": value, "unit": unit, "vs_baseline": None, **fields,
+            **card_fields(device.type), **variance_fields(samples)}
+
+
+def bench_labformer(b: int = 8, s: int = 512, reps: int = 20, dtype: str = "bfloat16",
+                    backend: Optional[str] = None) -> Dict[str, Any]:
+    """The flagship forward (d512, L8): tokens/s and MFU.  CUDA events
+    around each forward call (3 warm-up calls), the median."""
+    device = resolve_device(backend)
+    cfg = _serving_cfg(s, dtype)
+    model = _model(cfg, device)
+    tokens = _tokens(cfg, (b, s), device)
+    samples: list = []
+    with torch.inference_mode():
+        ms, _ = measure_call_ms(lambda: model(tokens), device=device, reps=reps, warmup=3,
+                                collect=samples)
+    return _model_row(f"labformer_fwd_b{b}_s{s}_{dtype}_tokens_per_s",
+                      round(b * s / (ms / 1e3), 1), "tokens/s", device, samples,
+                      **mfu_fields(labformer_fwd_flops(cfg, b, s), ms, device))
+
+
+def bench_labformer_train(b: int = 8, s: int = 2048, reps: int = 10, dtype: str = "bfloat16",
+                          backend: Optional[str] = None) -> Dict[str, Any]:
+    """The flagship training step (adamw; ``s`` past the flash threshold,
+    so the step runs kernels B4, B5 and B6): tokens/s and MFU at 3x the
+    forward's flops.  CUDA events around each step (3 warm-up steps), the
+    median; the step updates the weights in place."""
+    from tpulab_torch.models.labformer import init_train_state
+
+    device = resolve_device(backend)
+    cfg = _serving_cfg(s, dtype)
+    model, opt_state, step = init_train_state(cfg, seed=0, device=device)
+    tokens = _tokens(cfg, (b, s + 1), device)
+    samples: list = []
+    ms, _ = measure_call_ms(lambda: step(model, opt_state, tokens)[2], device=device,
+                            reps=reps, warmup=3, collect=samples)
+    return _model_row(f"labformer_train_b{b}_s{s}_{dtype}_tokens_per_s",
+                      round(b * s / (ms / 1e3), 1), "tokens/s", device, samples,
+                      **mfu_fields(3 * labformer_fwd_flops(cfg, b, s), ms, device))
+
+
+def bench_labformer_decode(b: int = 8, steps: int = 128, reps: int = 3, dtype: str = "bfloat16",
+                           int8: bool = False, kv_heads: int = 0,
+                           backend: Optional[str] = None) -> Dict[str, Any]:
+    """KV-cache decode of ``steps`` sampled tokens after an 8-token
+    prompt: tokens/s.  ``int8`` runs the weight-only quantized tree,
+    ``kv_heads`` grouped-query attention.  CUDA events around each
+    ``generate`` call (2 warm-up calls), the median."""
+    from tpulab_torch.models.generate import generate
+    from tpulab_torch.models.labformer import Labformer, init_params
+    from tpulab_torch.models.quant import quantize_decode_params
+
+    device = resolve_device(backend)
+    cfg = _serving_cfg(1024, dtype, kv_heads)
+    params = init_params(cfg, seed=0)
+    if int8:
+        params = quantize_decode_params(params, cfg)
+    model = Labformer.from_numpy(params, cfg, device)
+    prompt = _tokens(cfg, (b, 8), device)
+    samples: list = []
+    ms, _ = measure_call_ms(lambda: generate(model, prompt, steps, temperature=1.0),
+                            device=device, reps=reps, warmup=2, collect=samples)
+    tag = ("_int8" if int8 else "") + (f"_gqa{kv_heads}" if kv_heads else "")
+    return _model_row(f"labformer_decode_b{b}_{steps}steps_{dtype}{tag}_tokens_per_s",
+                      round(b * steps / (ms / 1e3), 1), "tokens/s", device, samples)
+
+
+def bench_speculative_decode(steps: int = 128, k: int = 4, reps: int = 3,
+                             backend: Optional[str] = None) -> Dict[str, Any]:
+    """Speculative decode (the int8 draft verifying into the bf16 target)
+    against plain greedy decode of the same model at batch 1: the
+    speculative tokens/s, with ``speedup_vs_plain`` and ``mean_accepted``.
+    The weights are random, so acceptance is int8-vs-bf16 agreement on an
+    untrained distribution.  CUDA events around each call of either (the
+    speculative loop's host work is part of it), the median of at least 3
+    after a warm-up."""
+    from tpulab_torch.models.generate import generate
+    from tpulab_torch.models.labformer import Labformer, init_params
+    from tpulab_torch.models.quant import quantize_decode_params
+    from tpulab_torch.models.speculative import speculative_generate
+
+    device = resolve_device(backend)
+    cfg = _serving_cfg(1024, "bfloat16")
+    params = init_params(cfg, seed=0)
+    model = Labformer.from_numpy(params, cfg, device)
+    draft = Labformer.from_numpy(quantize_decode_params(params, cfg), cfg, device)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, (1, 8)).astype(np.int32)
+    reps = max(reps, 3)
+    plain_ms, _ = measure_call_ms(lambda: generate(model, prompt, steps, temperature=0.0),
+                                  device=device, reps=reps, warmup=2)
+    samples: list = []
+    spec_ms, (_, acc) = measure_call_ms(
+        lambda: speculative_generate(draft, model, prompt, steps=steps, k=k), device=device,
+        reps=reps, warmup=1, collect=samples)
+    return _model_row(f"speculative_decode_b1_{steps}steps_k{k}_int8draft_tokens_per_s",
+                      round(steps / (spec_ms / 1e3), 1), "tokens/s", device, samples,
+                      plain_tokens_per_s=round(steps / (plain_ms / 1e3), 1),
+                      speedup_vs_plain=round(plain_ms / spec_ms, 3),
+                      mean_accepted=round(acc, 2))
+
+
+def bench_paged_engine(slots: int = 8, steps: int = 64, reps: int = 3,
+                       backend: Optional[str] = None) -> Dict[str, Any]:
+    """Continuous-batching paged decode (d512, L8, 2 kv heads, bf16):
+    aggregate tokens/s over 8 requests of mixed prompt lengths.  The wall
+    clock of each wave (engine built, requests submitted, ``run()``) after
+    a synchronize, the median of at least 3 after a warm-up wave."""
+    from tpulab_torch.models.paged import PagedEngine
+
+    device = resolve_device(backend)
+    cfg = _serving_cfg(1024, "bfloat16", kv_heads=2)
+    model = _model(cfg, device)
+    rng = np.random.default_rng(0)
+    jobs = [(rng.integers(0, cfg.vocab, (p,)).astype(np.int32), steps)
+            for p in (8, 17, 5, 33, 9, 21, 12, 7)]
+
+    def run_once():
+        eng = PagedEngine(model, cfg, slots=slots, n_blocks=256, block_size=16, max_seq=256)
+        for prompt, n in jobs:
+            eng.submit(prompt, max_new=n)
+        return eng.run()
+
+    run_once()
+    times, out = [], {}
+    for _ in range(max(reps, 3)):
+        t, out = _wall_s(run_once, device)
+        times.append(t)
+    total = sum(len(v) for v in out.values())
+    t = float(np.median(times))
+    return _model_row(f"paged_engine_{slots}slots_{len(jobs)}reqs_tokens_per_s",
+                      round(total / t, 1), "tokens/s", device, [x * 1e3 for x in times],
+                      total_tokens=total)
+
+
+def bench_paged_tick(slots: int = 4, steps: int = 64, reps: int = 5,
+                     backend: Optional[str] = None) -> Dict[str, Any]:
+    """Steady-state engine ticks/s (d64, L2, f32): ``steps`` mid-generation
+    ``step()`` calls after admission and 6 warm-up steps, no request ending
+    inside the window, which must upload nothing.  The value is the
+    default ``overlap=1``; ``sync_ticks_per_s`` is ``overlap=0``.  The wall
+    clock of the window between two synchronizes, the median of at least
+    3 windows each."""
+    from tpulab_torch.models.paged import PagedEngine
+
+    device = resolve_device(backend)
+    cfg = _small_cfg(256)
+    model = _model(cfg, device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (8,)).astype(np.int32) for _ in range(slots)]
+    warm = 6
+
+    def window(overlap):
+        eng = PagedEngine(model, cfg, slots=slots, n_blocks=64, block_size=16, max_seq=256,
+                          overlap=overlap)
+        for p in prompts:
+            eng.submit(p, max_new=warm + steps + 4)
+        for _ in range(warm):
+            eng.step()
+        h2d0 = eng.counters["h2d_ticks"]
+        dt, _ = _wall_s(lambda: [eng.step() for _ in range(steps)], device)
+        if eng.counters["h2d_ticks"] != h2d0:
+            raise RuntimeError("a steady-state tick uploaded host state")
+        return dt, eng.stats()
+
+    for ov in (0, 1):
+        window(ov)
+    times: Dict[int, list] = {0: [], 1: []}
+    stats: Dict[int, dict] = {}
+    for _ in range(max(reps, 3)):
+        for ov in (0, 1):
+            dt, stats[ov] = window(ov)
+            times[ov].append(dt)
+    t_on, t_off = float(np.median(times[1])), float(np.median(times[0]))
+    return _model_row(f"paged_tick_{slots}slots_ticks_per_s", round(steps / t_on, 1),
+                      "ticks/s", device, [x * 1e3 for x in times[1]],
+                      sync_ticks_per_s=round(steps / t_off, 1),
+                      speedup_vs_sync=round(t_off / t_on, 3),
+                      inflight_depth=stats[1]["inflight_depth"])
+
+
+def bench_prefill_interleave(slots: int = 4, reps: int = 5,
+                             backend: Optional[str] = None) -> Dict[str, Any]:
+    """Long prompts admitted while other slots decode (d64, L2, f32): the
+    value is interleaved admission with 16-token chunks;
+    ``sync_tokens_per_s`` the synchronous dense prefill,
+    ``sync_chunked_tokens_per_s`` the same chunks inline at admission.
+    The wall clock of each run (submits and ``run()``) after a
+    synchronize, the median of at least 3 per mode after a warm-up."""
+    from tpulab_torch.models.paged import PagedEngine
+
+    device = resolve_device(backend)
+    cfg = _small_cfg(512)
+    model = _model(cfg, device)
+    rng = np.random.default_rng(0)
+    shorts = [rng.integers(0, cfg.vocab, (8,)).astype(np.int32) for _ in range(3)]
+    longs = [rng.integers(0, cfg.vocab, (p,)).astype(np.int32) for p in (144, 160, 136, 152)]
+
+    def window(interleave, chunk):
+        def run():
+            eng = PagedEngine(model, cfg, slots=slots, n_blocks=128, block_size=16,
+                              max_seq=256, prefill_chunk=chunk, interleave=interleave)
+            for p in shorts:
+                eng.submit(p, max_new=24)
+            for p in longs:
+                eng.submit(p, max_new=8)
+            return eng.run(), eng.stats()
+
+        dt, (out, st) = _wall_s(run, device)
+        return dt, sum(len(v) for v in out.values()), st
+
+    modes = {"interleave": (True, 16), "sync_dense": (False, 0), "sync_chunked": (False, 16)}
+    for m in modes.values():
+        window(*m)
+    times: Dict[str, list] = {k: [] for k in modes}
+    stats: Dict[str, dict] = {}
+    toks: Dict[str, int] = {}
+    for _ in range(max(reps, 3)):
+        for name, m in modes.items():
+            dt, toks[name], stats[name] = window(*m)
+            times[name].append(dt)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    return _model_row(
+        f"prefill_interleave_{slots}slots_tokens_per_s",
+        round(toks["interleave"] / med["interleave"], 1), "tokens/s", device,
+        [x * 1e3 for x in times["interleave"]],
+        sync_tokens_per_s=round(toks["sync_dense"] / med["sync_dense"], 1),
+        speedup_vs_sync=round(med["sync_dense"] / med["interleave"], 3),
+        sync_chunked_tokens_per_s=round(toks["sync_chunked"] / med["sync_chunked"], 1),
+        speedup_vs_sync_chunked=round(med["sync_chunked"] / med["interleave"], 3),
+        stall_ticks=stats["interleave"]["stall_ticks"],
+        stall_ticks_sync=stats["sync_chunked"]["stall_ticks"],
+        prefill_chunks=stats["interleave"]["prefill_chunks"],
+        host_syncs=stats["interleave"]["host_syncs"])
+
+
+def bench_prefix_lookup(short: int = 4096, factor: int = 4, reps: int = 7,
+                        backend: Optional[str] = None) -> Dict[str, Any]:
+    """The admission path's prefix lookup scales linearly in prompt length:
+    ``_lookup_prefix`` on a miss at ``short`` and ``short * factor``
+    tokens, best of ``reps`` each (host work alone, ``time.perf_counter``);
+    the ratio must stay under ``factor**2 / 2``, where a quadratic scan
+    would land."""
+    from tpulab_torch.models.paged import PagedEngine
+
+    device = resolve_device(backend)
+    cfg = _small_cfg(256)
+    eng = PagedEngine(_model(cfg, device), cfg, slots=2, n_blocks=16, block_size=16,
+                      max_seq=256)
+    rng = np.random.default_rng(0)
+    long = short * factor
+    p_short = rng.integers(0, cfg.vocab, (short,)).astype(np.int32)
+    p_long = rng.integers(0, cfg.vocab, (long,)).astype(np.int32)
+
+    def timed(prompt):
+        t0 = time.perf_counter()
+        blocks, pos = eng._lookup_prefix(prompt)
+        dt = time.perf_counter() - t0
+        if blocks or pos:
+            raise RuntimeError("a random prompt hit the empty prefix cache")
+        return dt
+
+    timed(p_short), timed(p_long)
+    t_s = min(timed(p_short) for _ in range(max(reps, 3)))
+    t_l = min(timed(p_long) for _ in range(max(reps, 3)))
+    ratio, bound = t_l / t_s, factor ** 2 / 2.0
+    if ratio >= bound:
+        raise RuntimeError(f"prefix lookup scaled {ratio:.1f}x over a {factor}x longer prompt "
+                           f"(>= {bound:.0f}x): the admission path has gone quadratic")
+    return {"metric": "prefix_lookup_tokens_per_s", "value": round(long / t_l, 1),
+            "unit": "tokens/s", "vs_baseline": None, "short_tokens": short,
+            "long_tokens": long, "scaling_ratio": round(ratio, 2),
+            "linear_bound": round(bound, 1), **card_fields(device.type)}
+
+
+def bench_flash_attention(s: int = 32768, reps: int = 5,
+                          backend: Optional[str] = None) -> Dict[str, Any]:
+    """Causal flash attention (kernel B4) at (1, s, 8, 64) bf16, where the
+    dense scores would not fit (s=32768: 34 GB in f32).  CUDA events around
+    ``reps`` launches after a spin kernel (``measure_kernel_ms``), the
+    median of 5 trials."""
+    from tpulab_torch.ops.cuda.attention import flash_attention
+
+    device = resolve_device(backend)
+    rng = np.random.default_rng(0)
+    q, k, v = (torch.from_numpy(rng.standard_normal((1, s, 8, 64)).astype(np.float32))
+               .to(device, torch.bfloat16) for _ in range(3))
+    samples: list = []
+    ms, _ = measure_kernel_ms(flash_attention, (q, k, v), device=device, iters=max(reps, 5),
+                              warmup=2, outer=5, collect=samples)
+    flops = 8 * (4 * s * s * 64) // 2  # QK^T and PV over 8 heads, causal half
+    return {"metric": f"flash_attention_s{s}_h8_d64_bf16_median_ms", "value": round(ms, 4),
+            "unit": "ms", "vs_baseline": None, **card_fields(device.type),
+            **mfu_fields(flops, ms, device), **variance_fields(samples)}
+
+
 REGISTRY = {
     "lab1_n1000": functools.partial(bench_lab1, 1000),
     "lab1_f32_1m": functools.partial(bench_lab1, 1 << 20, dtype="float32"),
+    "labformer_fwd": bench_labformer,
+    "labformer_train": bench_labformer_train,
+    "labformer_decode": bench_labformer_decode,
+    "labformer_decode_int8": functools.partial(bench_labformer_decode, int8=True),
+    "labformer_decode_gqa2": functools.partial(bench_labformer_decode, kv_heads=2),
+    "speculative_decode": bench_speculative_decode,
+    "paged_engine": bench_paged_engine,
+    "paged_tick_overhead": bench_paged_tick,
+    "prefill_interleave": bench_prefill_interleave,
+    "prefix_lookup": bench_prefix_lookup,
     "lab2_roberts_1024": bench_lab2,
     "lab3_classify_1024": bench_lab3,
     "hw2_sort": bench_sort,
     "lab5_reduce": bench_reduce,
+    "flash_attention": bench_flash_attention,
+    "flash_attention_8k": functools.partial(bench_flash_attention, s=8192),
 }
+
+
+#: the lab suite's rows (each a substring of no other row's name, so
+#: ``only=name`` runs that row alone)
+LAB_ROWS = ("lab1_n1000", "lab1_f32_1m", "lab2_roberts_1024", "lab3_classify_1024",
+            "hw2_sort", "lab5_reduce")
 
 
 def run_benchmarks(only: Optional[str] = None, **kw) -> Iterator[Dict[str, Any]]:

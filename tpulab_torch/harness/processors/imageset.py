@@ -13,9 +13,11 @@ from __future__ import annotations
 import os
 import re
 import shutil
+import uuid
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from tpulab_torch.io.imagefile import save_image
+from tpulab_torch.utils.download import download_file
 from tpulab_torch.utils.imgdata import ImgData, _is_protected
 
 IMAGE_EXTS = (".txt", ".data", ".png")  # golden lookup priority
@@ -84,14 +86,24 @@ class ImageDataset:
         self._load_cache: Dict[str, Tuple[str, ImgData]] = {}
 
     def _download_extras(self, links: Sequence[str]) -> List[str]:
-        """Downloaded PNGs extend the JAX package's dataset (reference
-        lab2_processor.py:68-73); the port has no ``utils/download`` yet
-        (ROADMAP A6), so a link is refused."""
-        if links:
-            raise NotImplementedError(
-                "extra_links_to_png needs utils/download, which is not ported yet "
-                "(ROADMAP A6)")
-        return []
+        """Downloaded PNGs extend the dataset (reference
+        lab2_processor.py:68-73: each extra link lands in the data dir
+        under a uuid name).  A protected or read-only data dir redirects
+        the download next to the outputs; a failed download is skipped
+        with a log line, not fatal."""
+        if isinstance(links, str):  # a bare --extra_links_to_png URL
+            links = [links]
+        if not links:
+            return []
+        save_dir = self.dir_to_data
+        if _is_protected(save_dir) or not os.access(save_dir, os.W_OK):
+            save_dir = os.path.join(self.dir_to_data_out, "_downloads")
+        got = []
+        for url in links:
+            path = download_file(url, save_dir, filename=f"{uuid.uuid4()}.png")
+            if path:
+                got.append(path)
+        return got
 
     def next_item(self) -> Tuple[str, Optional[str]]:
         """(input path, golden path or None), round-robin.

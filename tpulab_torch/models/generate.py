@@ -46,25 +46,36 @@ def init_kv_cache(cfg: LabformerConfig, batch: int, max_seq: int,
             torch.zeros(shape, dtype=cfg.dtype, device=device))
 
 
+def _positions(pos, w: int, device: torch.device) -> torch.Tensor:
+    """Positions of a w-token window: (w,) from an int ``pos``, (b, w)
+    from a per-row ``pos`` (b,) tensor."""
+    j = torch.arange(w, device=device)
+    return pos.long()[:, None] + j if isinstance(pos, torch.Tensor) else pos + j
+
+
 def _attend_cached(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                   pos: int, window: int = 0) -> torch.Tensor:
+                   pos, window: int = 0) -> torch.Tensor:
     """q: (b, w, h, d) window at positions pos..pos+w-1; caches (b, S, kv, d).
+    ``pos`` is an int shared by every row or a (b,) tensor, one per row.
 
     Window row r attends keys [0, pos+r] (and, with ``window``, only the
-    last ``window`` of them).  Query head i reads cache head
-    ``i // (h // kv)``.  q is scaled in the model dtype before the product
-    and the scores widened to f32, as in the dense forward."""
+    last ``window`` of them), so cache contents past a row's own position
+    (a rejected speculative draft) are never read.  Query head i reads
+    cache head ``i // (h // kv)``.  q is scaled in the model dtype before
+    the product and the scores widened to f32, as in the dense forward."""
     b, w, h, dh = q.shape
     kvh = k_cache.shape[2]
     g = h // kvh
     q = q / torch.tensor(math.sqrt(dh), dtype=torch.float64).to(q.dtype)
     qg = q.reshape(b, w, kvh, g, dh)
     s = torch.einsum("bqcgd,bkcd->bcgqk", qg, k_cache).float()
-    key_pos = torch.arange(k_cache.shape[1], device=q.device)[None, :]
-    q_pos = pos + torch.arange(w, device=q.device)[:, None]
+    key_pos = torch.arange(k_cache.shape[1], device=q.device)
+    q_pos = _positions(pos, w, q.device)[..., None]  # (w, 1) or (b, w, 1)
     valid = key_pos <= q_pos
     if window:
         valid = valid & (key_pos > q_pos - window)
+    if valid.dim() == 3:  # per row: (b, 1, 1, w, S)
+        valid = valid[:, None, None]
     s = torch.where(valid, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bcgqk,bkcd->bqcgd", p, v_cache.float())
@@ -72,20 +83,26 @@ def _attend_cached(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor
 
 
 def _decode_block(x: torch.Tensor, blk, k_cache: torch.Tensor, v_cache: torch.Tensor,
-                  pos: int, cfg: LabformerConfig) -> torch.Tensor:
+                  pos, cfg: LabformerConfig) -> torch.Tensor:
     """One transformer block for a (b, w, d) window at positions
-    pos..pos+w-1; writes the window's K/V into the layer's caches in place."""
+    pos..pos+w-1 (``pos`` an int, or a (b,) tensor of per-row positions);
+    writes the window's K/V into the layer's caches in place."""
     b, w, _ = x.shape
     h, dh, kvh = cfg.n_heads, cfg.head_dim, cfg.kv_heads
     xn = _rmsnorm(x, blk.ln1)
     q = qmat(xn, blk.wq).reshape(b, w, h, dh)
     k = qmat(xn, blk.wk).reshape(b, w, kvh, dh)
     v = qmat(xn, blk.wv).reshape(b, w, kvh, dh)
-    positions = pos + torch.arange(w, device=x.device)
+    positions = _positions(pos, w, x.device)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
-    k_cache[:, pos:pos + w] = k
-    v_cache[:, pos:pos + w] = v
+    if isinstance(pos, torch.Tensor):
+        rows = torch.arange(b, device=x.device)[:, None]
+        k_cache[rows, positions] = k
+        v_cache[rows, positions] = v
+    else:
+        k_cache[:, pos:pos + w] = k
+        v_cache[:, pos:pos + w] = v
     o = _attend_cached(q, k_cache, v_cache, pos, cfg.attn_window)
     x = x + qmat(o.reshape(b, w, cfg.d_model), blk.wo)
     y, _ = _mlp(_rmsnorm(x, blk.ln2), blk, cfg)  # aux unused at decode
@@ -93,8 +110,10 @@ def _decode_block(x: torch.Tensor, blk, k_cache: torch.Tensor, v_cache: torch.Te
 
 
 def _forward_window(model: Labformer, tokens: torch.Tensor, k_caches: torch.Tensor,
-                    v_caches: torch.Tensor, pos: int):
-    """tokens (b, w) at positions pos.. -> (logits (b, w, vocab), caches)."""
+                    v_caches: torch.Tensor, pos):
+    """tokens (b, w) at positions pos.. (an int, or (b,) per row) ->
+    (logits (b, w, vocab), caches): the speculative verify scores every
+    window position in one pass."""
     cfg = model.cfg
     x = embed_lookup(model.top.embed, tokens, cfg.dtype)
     for i, blk in enumerate(model.blocks):
@@ -104,8 +123,9 @@ def _forward_window(model: Labformer, tokens: torch.Tensor, k_caches: torch.Tens
 
 
 def _forward_step(model: Labformer, token: torch.Tensor, k_caches: torch.Tensor,
-                  v_caches: torch.Tensor, pos: int):
-    """token (b,) at position ``pos`` -> (logits (b, vocab), caches)."""
+                  v_caches: torch.Tensor, pos):
+    """token (b,) at position ``pos`` (an int, or (b,) per row) ->
+    (logits (b, vocab), caches)."""
     logits, k_caches, v_caches = _forward_window(model, token[:, None], k_caches,
                                                  v_caches, pos)
     return logits[:, 0, :], k_caches, v_caches
@@ -282,6 +302,16 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backend", default=None, choices=BACKENDS,
                     help="cuda (default) or cpu")
+    ap.add_argument("--speculative", action="store_true",
+                    help="greedy speculative decode with the int8-quantized "
+                         "model as draft (lossless: plain greedy's tokens)")
+    ap.add_argument("--draft-k", type=int, default=4,
+                    help="draft tokens proposed per verify round")
+    ap.add_argument("--prompt-lookup", action="store_true",
+                    help="draft-free greedy speculative decoding: n-gram "
+                         "proposals from the committed sequence (lossless)")
+    ap.add_argument("--lookup-ngram", type=int, default=3,
+                    help="n-gram length the lookup proposer matches")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.backend)
@@ -291,13 +321,51 @@ def main(argv=None) -> int:
             f"--stop-byte must be a byte in [0, {cfg.vocab - 1}] (or -1 "
             f"= off); got {args.stop_byte}"
         )
-    model = Labformer.from_numpy(init_params(cfg, seed=args.seed), cfg, device)
+
+    def refuse_sampling_flags(what: str, *extra: str):
+        """A deterministic strategy refuses every sampling flag."""
+        if (args.temperature not in (0.0, 1.0) or args.top_k
+                or args.top_p != 1.0 or args.repetition_penalty != 1.0
+                or args.stop_byte >= 0
+                or any(getattr(args, e.replace("-", "_")) for e in extra)):
+            raise SystemExit(
+                f"{what} is deterministic; drop --temperature/--top-k/"
+                f"--top-p/--repetition-penalty/--stop-byte"
+                + "".join(f"/--{e}" for e in extra))
+
+    params = init_params(cfg, seed=args.seed)
+    model = Labformer.from_numpy(params, cfg, device)
     raw = args.prompt.encode("utf-8")
     prompt = np.frombuffer(raw, np.uint8)[None, :].astype(np.int32)
-    out = generate(model, prompt, steps=args.steps, temperature=args.temperature,
-                   seed=args.seed, top_k=args.top_k, top_p=args.top_p,
-                   repetition_penalty=args.repetition_penalty,
-                   stop_token=args.stop_byte)
+    if args.prompt_lookup:
+        refuse_sampling_flags("--prompt-lookup", "speculative")
+        if args.draft_k < 1:
+            raise SystemExit(f"--draft-k must be >= 1, got {args.draft_k}")
+        if args.lookup_ngram < 1:
+            raise SystemExit(f"--lookup-ngram must be >= 1, got {args.lookup_ngram}")
+        from tpulab_torch.models.speculative import prompt_lookup_generate
+
+        out, acc = prompt_lookup_generate(model, prompt, steps=args.steps, k=args.draft_k,
+                                          ngram=args.lookup_ngram)
+        print(f"[prompt-lookup] mean accepted {acc:.2f}/{args.draft_k} per round",
+              file=sys.stderr)
+    elif args.speculative:
+        refuse_sampling_flags("--speculative")
+        if args.draft_k < 1:
+            raise SystemExit(f"--draft-k must be >= 1, got {args.draft_k}")
+        from tpulab_torch.models.quant import quantize_decode_params
+        from tpulab_torch.models.speculative import speculative_generate
+
+        draft = Labformer.from_numpy(quantize_decode_params(params, cfg), cfg, device)
+        out, acc = speculative_generate(draft, model, prompt, steps=args.steps,
+                                        k=args.draft_k)
+        print(f"[speculative] mean accepted {acc:.2f}/{args.draft_k} per round",
+              file=sys.stderr)
+    else:
+        out = generate(model, prompt, steps=args.steps, temperature=args.temperature,
+                       seed=args.seed, top_k=args.top_k, top_p=args.top_p,
+                       repetition_penalty=args.repetition_penalty,
+                       stop_token=args.stop_byte)
     # the stop byte is the final token and is kept in the text
     toks = [int(t) for t in out[0]]
     if args.stop_byte >= 0 and args.stop_byte in toks:

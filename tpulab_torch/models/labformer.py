@@ -492,12 +492,13 @@ def _rope_freqs(half: int, theta: float, device: torch.device) -> torch.Tensor:
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
-    """Rotary position embedding over (..., seq, heads, head_dim)."""
+    """Rotary position embedding over (..., seq, heads, head_dim), at
+    ``positions`` (seq,) shared by every row or (batch, seq) per row."""
     half = x.shape[-1] // 2
     freqs = _rope_freqs(half, float(theta), x.device)
-    angles = positions[:, None].float() * freqs[None, :]  # (seq, half)
-    cos = torch.cos(angles)[None, :, None, :].to(x.dtype)
-    sin = torch.sin(angles)[None, :, None, :].to(x.dtype)
+    angles = positions[..., None].float() * freqs  # (seq, half) or (batch, seq, half)
+    cos = torch.cos(angles)[..., None, :].to(x.dtype)
+    sin = torch.sin(angles)[..., None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 

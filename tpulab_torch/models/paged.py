@@ -55,12 +55,29 @@ counter advances every tick for every slot and restarts at admission.
 These are not ``jax.random``'s streams: sampled output is held to its
 distribution, greedy output token for token.
 
+``spec_k > 0`` adds batched speculative decoding.  A tick in which some
+decoding slot speculates is one :func:`paged_verify` pass over a
+``(slots, spec_k + 1)`` window: each speculating slot's ``[committed,
+d_1..d_k]``, its drafts from the n-gram lookup proposer (``spec="lookup"``)
+or from a dense draft model (``spec="draft"``, :meth:`PagedEngine.set_draft`,
+typically the int8-quantized target), while plain and sampled slots ride
+row 0 as an ordinary single-token tick.  Each slot commits its longest
+agreeing draft prefix plus the target's own next token, so a greedy
+stream is the one plain ticks give.  The verify window attends through
+the gather path, as in ``tpulab``; ticks in which no slot speculates run
+:func:`paged_tick`, through kernel B7 under ``attn="pallas"`` (``tpulab``
+refuses ``spec_k`` beside ``"pallas"``; the port lets the two rounding
+paths share an engine, since a greedy stream differs between them only at
+a near-tie).  Every tick advances every slot's draw counter once, so a
+sampled stream is the same with and without speculating neighbours.  A
+speculative tick waits for the device once: its drafts, choices and
+row-0 tokens come back in one copy.
+
 Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item: speculative decoding (A10.1), the radix prefix index and the
-host spill tier (A10.2), priorities, preemption and resubmit (A10.3), the
-prefill/decode KV handoff (A10.4), mesh serving (A12), and observability
-(histograms, tracer, journeys, slow log, fault sites, published metrics:
-A11).
+ROADMAP item: the radix prefix index and the host spill tier (A10.2),
+priorities, preemption and resubmit (A10.3), the prefill/decode KV
+handoff (A10.4), mesh serving (A12), and observability (histograms,
+tracer, journeys, slow log, fault sites, published metrics: A11).
 """
 
 from __future__ import annotations
@@ -85,6 +102,7 @@ from tpulab_torch.models.labformer import (
     _rope_freqs,
 )
 from tpulab_torch.models.quant import embed_lookup, qmat, unembed
+from tpulab_torch.models.speculative import _draft_propose_slots, _lookup_propose
 from tpulab_torch.ops.cuda.paged import Pool, paged_attend_kernel
 from tpulab_torch.ops.cuda.paged import pool_gather as _pool_gather
 from tpulab_torch.parallel.ring import NEG_INF
@@ -277,6 +295,61 @@ def paged_decode_step(model: Labformer, tokens: torch.Tensor, kpool: Pool, vpool
                         attn), kpool, vpool
 
 
+def paged_verify(model: Labformer, tokens: torch.Tensor, kpool: Pool, vpool: Pool,
+                 tables: torch.Tensor, lengths: torch.Tensor, n_draft: torch.Tensor,
+                 cfg: LabformerConfig, block_size: int):
+    """One batched speculative verify pass over every slot:
+    ``(logits (S, W, vocab), kpool, vpool)``, the pools updated in place.
+
+    tokens (S, W): row 0 is each slot's committed last token, rows 1..k its
+    drafts; token j of slot s sits at position ``lengths[s] + j``, and
+    logits row j is the target's next-token distribution after
+    ``tokens[s, :j+1]``.  ``n_draft`` (S,) counts each slot's valid drafts:
+    K/V of rows past it (padding; a plain or sampled slot runs with 0) and
+    of rows whose block would fall past the table go to TRASH.  Query row j
+    attends keys [0, lengths + j], so rejected drafts leave only stale K/V
+    past the committed frontier, which the next round overwrites.  The
+    window attends through the gather path (``tpulab`` takes W as a static
+    argument for its jit; here it is ``tokens.shape[1]``)."""
+    S, W = tokens.shape
+    h, dh, kvh = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    x = embed_lookup(model.top.embed, tokens, cfg.dtype)
+    j = torch.arange(W, device=tokens.device)
+    pos = lengths.long()[:, None] + j
+    logical = pos // block_size
+    M = tables.shape[1]
+    writable = (j <= n_draft.long()[:, None]) & (logical < M)
+    blk = torch.where(writable, tables.gather(1, torch.clamp(logical, max=M - 1)).long(),
+                      TRASH)
+    off = pos % block_size
+    cos, sin = _rope_cos_sin(pos, dh, cfg.rope_theta, cfg.dtype)
+    for i, layer in enumerate(model.blocks):
+        xn = _rmsnorm(x, layer.ln1)
+        q = _rope_apply(qmat(xn, layer.wq).reshape(S, W, h, dh), cos, sin)
+        k = _rope_apply(qmat(xn, layer.wk).reshape(S, W, kvh, dh), cos, sin)
+        v = qmat(xn, layer.wv).reshape(S, W, kvh, dh)
+        kpool_l, vpool_l = _layer(kpool, i), _layer(vpool, i)
+        _pool_write(kpool_l, (blk, off), k)
+        _pool_write(vpool_l, (blk, off), v)
+        o = _paged_attend(q, kpool_l, vpool_l, tables, lengths + 1, block_size,
+                          window=cfg.attn_window)
+        x = x + qmat(o.reshape(S, W, cfg.d_model), layer.wo)
+        y, _ = _mlp(_rmsnorm(x, layer.ln2), layer, cfg)
+        x = x + y
+    x = _rmsnorm(x, model.top.final_norm)
+    return unembed(x, model.top.embed), kpool, vpool
+
+
+def _draft_extend(draft: Labformer, tokens: torch.Tensor, d_kc: torch.Tensor,
+                  d_vc: torch.Tensor, s: int, start: int) -> None:
+    """Advance slot ``s``'s dense draft cache by one prefill window:
+    ``tokens`` (1, bucket) at positions ``start``.. through the draft's
+    windowed forward, written into the slot's cache rows in place.  The
+    last window's padding lands past the prompt's frontier, where the
+    proposer rewrites every position before it reads it."""
+    _gen._forward_window(draft, tokens, d_kc[:, s:s + 1], d_vc[:, s:s + 1], start)
+
+
 def paged_extend(model: Labformer, tokens: torch.Tensor, kpool: Pool, vpool: Pool,
                  table_row: torch.Tensor, start: int, n_valid: int, cfg: LabformerConfig,
                  block_size: int, bucket: int):
@@ -395,6 +468,22 @@ def paged_tick(model: Labformer, state: Dict[str, torch.Tensor], kpool: Pool, vp
     return toks
 
 
+def _spec_commit(state: Dict[str, torch.Tensor], adv: torch.Tensor, last_tok: torch.Tensor,
+                 marks: torch.Tensor, mark_vals: torch.Tensor) -> None:
+    """Advance the device state after a speculative tick's host-side
+    accept, in place: ``adv`` (S,) tokens committed per slot,
+    ``last_tok`` (S,) the last of them (kept where ``adv`` is 0), the
+    ``seen`` marks at ``marks`` (S, W) with ``mark_vals``, and every
+    slot's draw counter, once, as a plain tick advances it.  The host
+    points a row's padding marks at a committed token of that row, so a
+    repeated index always writes one value."""
+    state["lengths"] += adv.to(torch.int32)
+    state["last_tok"].copy_(torch.where(adv > 0, last_tok, state["last_tok"]))
+    state["draws"] += 1
+    rows = torch.arange(marks.shape[0], device=marks.device)[:, None]
+    state["seen"][rows, marks] |= mark_vals
+
+
 # ------------------------------------------------------------ requests
 
 
@@ -425,6 +514,9 @@ class _Request:
     seed: int = 0
     repetition_penalty: float = 1.0  # HF convention; 1.0 = off
     stop_byte: int = -1         # finish early after emitting it; -1 = off
+    spec: str = "off"           # "off" | "lookup" | "draft" proposer
+    spec_k: int = 0             # drafts per verify round (<= the engine's)
+    spec_ngram: int = 3         # the lookup proposer's n-gram length
     out: List[int] = field(default_factory=list)
     cancelled: bool = False     # finish at the next tick (client gone)
     # interleaved admission: "prefill" while chunks are owed (device slot
@@ -432,6 +524,7 @@ class _Request:
     phase: str = "decode"
     pf_pos: int = 0             # next prompt position to paged_extend
     pf_end: int = 0             # prefill frontier: len(prompt) - 1
+    d_pf_pos: int = 0           # draft-cache prefill cursor ("draft")
 
     def total_positions(self) -> int:
         """Positions this request can ever occupy: prompt plus budget."""
@@ -450,12 +543,14 @@ class PagedEngine:
     and advances every active slot one token; ``run()`` drains everything
     and returns {req_id: generated tokens}.  Greedy by default;
     per-request temperature and seed make sampled slots that share the
-    batch with greedy ones.
+    batch with greedy ones; ``spec_k > 0`` lets requests speculate
+    (``submit(spec=...)``, :meth:`set_draft`).
 
     ``model`` is the port's :class:`Labformer` (the engine runs where it
     lies) or ``tpulab``'s parameter tree, then placed on ``device`` (the
     card unless ``"cpu"``).  ``interleave``, ``overlap``, ``prefill_chunk``,
-    ``attn``, ``kv_dtype`` and ``max_pending`` are ``tpulab``'s knobs."""
+    ``attn``, ``kv_dtype``, ``spec_k``, ``spec_ngram``, ``draft_params``,
+    ``draft_cfg`` and ``max_pending`` are ``tpulab``'s knobs."""
 
     def __init__(self, model, cfg: LabformerConfig, *, slots: int = 4,
                  n_blocks: int = 64, block_size: int = 16, max_seq: int = 256,
@@ -465,8 +560,6 @@ class PagedEngine:
                  interleave: bool = True, obs: bool = False, max_pending: int = 0,
                  prefix_index: str = "dict", spill_blocks: int = 0,
                  spill_dtype: str = "native", device=None):
-        if spec_k or draft_params is not None or draft_cfg is not None or spec_ngram != 3:
-            raise _unported("speculative decoding (spec_k, draft models)", "A10.1")
         if prefix_index != "dict" or spill_blocks or spill_dtype != "native":
             raise _unported("the radix prefix index and the host spill tier", "A10.2")
         if mesh is not None:
@@ -480,6 +573,10 @@ class PagedEngine:
             raise ValueError("prefill_chunk must be >= 0 (0 = whole tail)")
         if overlap not in (0, 1):
             raise ValueError(f"overlap must be 0 or 1, got {overlap}")
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
+        if spec_ngram < 1:
+            raise ValueError(f"spec_ngram must be >= 1, got {spec_ngram}")
         if cfg.lora_rank:
             raise ValueError(
                 "PagedEngine with lora_rank > 0: fold the adapters first "
@@ -556,6 +653,17 @@ class PagedEngine:
         self.handoff_at_boundary = False
         self._kv_pool_bytes = _pool_nbytes(self.kpool) + _pool_nbytes(self.vpool)
         self._block_bytes = self._kv_pool_bytes // n_blocks
+        # speculative decoding: a tick verifies (spec_k + 1)-token windows
+        # whenever a decoding slot speculates; spec_fetches counts the
+        # host's waits in those ticks (one each)
+        self.spec_k = spec_k
+        self.spec_ngram = spec_ngram
+        self.spec_fetches = 0
+        self.draft: Optional[Labformer] = None
+        self.draft_cfg: Optional[LabformerConfig] = None
+        self.d_kc = self.d_vc = None
+        if draft_params is not None:
+            self.set_draft(draft_params, draft_cfg)
 
     def _init_dev_state(self) -> Dict[str, torch.Tensor]:
         S, dev = self.slots, self.device
@@ -585,18 +693,46 @@ class PagedEngine:
         admission and release upload); marks the tick as h2d."""
         self._h2d = True
         st = self._dev
-        st["lengths"][s] = int(self.lengths[s])
-        st["last_tok"][s] = int(self.last_tok[s])
-        st["temps"][s] = float(self.temps[s])
-        st["seeds"][s] = int(self.seeds[s])
-        st["draws"][s] = 0
-        st["penalties"][s] = float(self.penalties[s])
+        # fill_ takes the scalar as a launch argument; assigning one would
+        # copy it from pageable memory and wait for the device
+        st["lengths"][s].fill_(int(self.lengths[s]))
+        st["last_tok"][s].fill_(int(self.last_tok[s]))
+        st["temps"][s].fill_(float(self.temps[s]))
+        st["seeds"][s].fill_(int(self.seeds[s]))
+        st["draws"][s].fill_(0)
+        st["penalties"][s].fill_(float(self.penalties[s]))
         st["seen"][s] = self._upload(self.seen[s])
         st["tables"][s] = self._upload(self.tables[s])
-        st["active"][s] = bool(active)
+        st["active"][s].fill_(bool(active))
 
     def set_draft(self, draft_params, draft_cfg: LabformerConfig = None):
-        raise _unported("the dense-draft proposer", "A10.1")
+        """Enable the dense-draft proposer (``spec="draft"``): a second
+        model with the target's vocabulary (a :class:`Labformer`, or a
+        parameter tree placed on the engine's device), typically the
+        int8-quantized target, proposes from per-slot dense KV caches.
+        The first draft set stays (the daemon sets it lazily)."""
+        if self.draft is not None:
+            return
+        if self.spec_k <= 0:
+            raise ValueError("set_draft on an engine with spec_k=0: "
+                             "build the engine with spec_k > 0")
+        if draft_cfg is None:
+            draft_cfg = draft_params.cfg if isinstance(draft_params, Labformer) else self.cfg
+        if draft_cfg.vocab != self.cfg.vocab:
+            raise ValueError("draft and target must share a vocabulary")
+        self.draft_cfg = draft_cfg
+        self.draft = (draft_params if isinstance(draft_params, Labformer)
+                      else Labformer.from_numpy(draft_params, draft_cfg, self.device))
+        # the proposer writes k+1 positions past any committed frontier
+        # (< max_seq), a dense prefill pads to a power-of-two bucket, and a
+        # chunked draft prefill writes a whole chunk bucket from anywhere
+        # below the frontier: the cache holds all three
+        self._draft_cache_len = max(
+            self.max_blocks * self.block_size + self.spec_k + 2,
+            _bucket(self.max_blocks * self.block_size),
+        ) + (_bucket(self.prefill_chunk) if self.prefill_chunk else 0)
+        self.d_kc, self.d_vc = _gen.init_kv_cache(draft_cfg, self.slots,
+                                                  self._draft_cache_len, self.device)
 
     # ------------------------------------------------------------- admission
     def submit(self, prompt, max_new: int, *, temperature: float = 0.0,
@@ -608,9 +744,27 @@ class PagedEngine:
         else the slot samples from its seeded stream.  ``repetition_penalty``
         discounts bytes already in the prompt or output (HF convention; greedy
         too); ``stop_byte >= 0`` finishes the request right after that byte
-        (it is the last output token)."""
-        if spec != "off" or spec_k or spec_ngram:
-            raise _unported("speculative requests (spec, spec_k, spec_ngram)", "A10.1")
+        (it is the last output token).
+
+        ``spec="lookup"`` or ``"draft"`` (an engine with ``spec_k > 0``;
+        ``"draft"`` also needs :meth:`set_draft`) lets the request
+        speculate: each tick it proposes up to ``spec_k`` drafts (0 = the
+        engine's) and commits 1..spec_k+1 tokens, the greedy stream of
+        ``spec="off"``.  A sampled request keeps single-token ticks.
+        ``spec_ngram`` overrides the engine's lookup n-gram (0 = its own)."""
+        if spec not in ("off", "lookup", "draft"):
+            raise ValueError(f"spec={spec!r}; expected 'off', 'lookup' or 'draft'")
+        if spec != "off":
+            if self.spec_k <= 0:
+                raise ValueError(f"spec={spec!r} needs an engine built with spec_k > 0")
+            if spec == "draft" and self.draft is None:
+                raise ValueError("spec='draft' needs a draft model: call "
+                                 "engine.set_draft(...) first")
+        if not 0 <= spec_k <= self.spec_k:
+            raise ValueError(
+                f"spec_k must be in [0, {self.spec_k}] (engine verify window), got {spec_k}")
+        if spec_ngram < 0:
+            raise ValueError(f"spec_ngram must be >= 0, got {spec_ngram}")
         if priority:
             raise _unported("request priorities and preemption", "A10.3")
         if rid is not None or tag:
@@ -638,7 +792,8 @@ class PagedEngine:
                 f"({self.max_blocks} blocks/slot, pool "
                 f"{self.n_usable_blocks} blocks)")
         req = _Request(self._next_id, prompt, max_new, float(temperature), int(seed),
-                       float(repetition_penalty), int(stop_byte))
+                       float(repetition_penalty), int(stop_byte), spec,
+                       int(spec_k) or self.spec_k, int(spec_ngram) or self.spec_ngram)
         self._next_id += 1
         self.pending.append(req)
         return req.req_id
@@ -741,8 +896,16 @@ class PagedEngine:
                 req.pf_pos = shared_pos
                 self.lengths[s] = 0
                 self.last_tok[s] = 0
+                if req.spec == "draft":
+                    if self.prefill_chunk:
+                        req.d_pf_pos = 0  # draft windows ride the ticks too
+                    else:
+                        self._draft_prefill_slot(s, req)
+                        req.d_pf_pos = p
             else:
                 self._prefill_slot(s, req, row, shared_pos)
+                if req.spec == "draft":
+                    self._draft_prefill_slot(s, req)
                 self._register_prefix(req.prompt, row)
                 req.phase = "decode"
                 self._push_slot(s, True)
@@ -790,6 +953,23 @@ class PagedEngine:
         self.lengths[s] = p
         self.last_tok[s] = req.prompt[-1]
 
+    def _draft_prefill_slot(self, s: int, req: _Request):
+        """Fill the slot's dense draft cache for prompt[:-1] in one prefill
+        (the draft has no paged pool and no prefix cache).  Bucket padding
+        past the frontier is rewritten by the proposer before it is read."""
+        p = len(req.prompt) - 1
+        if p == 0:
+            return
+        bucket = _bucket(p)
+        padded = np.zeros((1, bucket), np.int64)
+        padded[0, :p] = req.prompt[:-1]
+        _, kc, vc = _gen._prefill(self.draft, self._upload(padded), self._draft_cache_len)
+        self.d_kc[:, s] = kc[:, 0]
+        self.d_vc[:, s] = vc[:, 0]
+        self.counters["prefill_chunks"] += 1
+        self._stall_prefill_dispatches += 1
+        self._stall_prefill_credit += 1
+
     def _extend_window(self, s: int, prompt: np.ndarray, start: int, chunk: int,
                        end: int) -> int:
         """Dispatch one ``paged_extend`` window for slot ``s`` (positions
@@ -815,14 +995,28 @@ class PagedEngine:
 
     # ----------------------------------------------- interleaved prefill
     def _advance_prefill(self, s: int, req: _Request):
-        """Advance one prefilling slot by one ``paged_extend`` chunk."""
+        """Advance one prefilling slot by one ``paged_extend`` chunk (and,
+        for a draft-speculating slot, one draft-cache window)."""
         p = req.pf_end
         if req.pf_pos < p:
             chunk = self.prefill_chunk or (p - req.pf_pos)
             req.pf_pos = self._extend_window(s, req.prompt, req.pf_pos, chunk, p)
             self._stall_prefill_credit += 1
             self._h2d = True
-        if req.pf_pos >= p:
+        if req.spec == "draft" and req.d_pf_pos < p:
+            # chunked by construction: an unchunked engine prefills the
+            # draft at admission
+            n = min(self.prefill_chunk, p - req.d_pf_pos)
+            padded = np.zeros((1, _bucket(self.prefill_chunk)), np.int64)
+            padded[0, :n] = req.prompt[req.d_pf_pos:req.d_pf_pos + n]
+            _draft_extend(self.draft, self._upload(padded), self.d_kc, self.d_vc, s,
+                          req.d_pf_pos)
+            req.d_pf_pos += n
+            self.counters["prefill_chunks"] += 1
+            self._stall_prefill_dispatches += 1
+            self._stall_prefill_credit += 1
+            self._h2d = True
+        if req.pf_pos >= p and (req.spec != "draft" or req.d_pf_pos >= p):
             self._finish_prefill(s, req)
 
     def _finish_prefill(self, s: int, req: _Request):
@@ -1025,9 +1219,23 @@ class PagedEngine:
                 self._drain_all(finished)
                 if self._head_admittable():
                     self._admit()
+        spec = self._spec_wanted()
+        if spec and self._inflight:
+            # the verify tick proposes and accepts on the host: drain, then
+            # look again (a stale budget only overestimates)
+            self._drain_all(finished)
+            spec = self._spec_wanted()
         if not any(r is not None for r in self.active):
             self._drain_all(finished)
             self._count_stalls(decode_waiting, decode_dispatched)
+            self._count_h2d()
+            return finished
+        if spec:
+            finished.extend(self._step_spec())
+            self._h2d = True
+            # prefill chunks ride the verify tick as they ride plain ticks
+            finished.extend(self._prefill_tick())
+            self._count_stalls(decode_waiting, True)
             self._count_h2d()
             return finished
         if any(r is not None and r.phase == "decode" for r in self.active):
@@ -1065,6 +1273,156 @@ class PagedEngine:
             self.counters["h2d_ticks"] += 1
             self._h2d = False
 
+    # ------------------------------------------------------------ speculation
+    def _spec_budget(self, req: _Request) -> int:
+        """Drafts this round for a speculating slot: at most its own k and
+        its budget less one, so every accepted position lies in the blocks
+        admission allocated."""
+        if req.spec == "off" or req.temperature > 0:
+            return 0
+        return max(0, min(req.spec_k, req.max_new - len(req.out) - 1))
+
+    def _spec_wanted(self) -> bool:
+        # a prefilling slot speculates from the tick after it activates
+        return bool(self.spec_k) and any(
+            r is not None and r.phase == "decode" and self._spec_budget(r) > 0
+            for r in self.active)
+
+    def _fetch_wait(self, tensors: List[torch.Tensor]) -> List[np.ndarray]:
+        """Copy ``tensors`` to the host and wait for the device once: the
+        copies run in stream order, so the last one's event covers all."""
+        fetched = [self._fetch(t) for t in tensors]
+        if fetched[-1][1] is not None:
+            fetched[-1][1].synchronize()
+        return [host.numpy() for host, _ in fetched]
+
+    def _step_spec(self) -> List[int]:
+        """One speculative tick: per-slot proposals, one batched
+        :func:`paged_verify` pass, and each slot's commit of its longest
+        agreeing draft prefix plus the target's next token (1..k+1 tokens).
+        Plain and sampled slots ride row 0 as a single-token tick and draw
+        from their counters as a plain tick does.
+
+        The dense draft's proposals stay on the device and enter the window
+        there; the window, the target's choices and the row-0 tokens (and
+        the logits, where a penalized slot speculates) come back in one
+        copy, and the commit goes back in one :func:`_spec_commit`."""
+        k, W, S = self.spec_k, self.spec_k + 1, self.slots
+        dev = self.device
+        tokens = np.zeros((S, W), np.int64)
+        tokens[:, 0] = self.last_tok
+        n_draft = np.zeros(S, np.int64)
+        from_draft = np.zeros((S, W), bool)
+        for s, req in enumerate(self.active):
+            if req is None or req.phase != "decode":
+                continue
+            k_eff = self._spec_budget(req)
+            if k_eff < 1:
+                continue
+            n_draft[s] = k_eff
+            if req.spec == "draft":
+                from_draft[s, 1:1 + k_eff] = True
+            else:
+                hist = np.concatenate([req.prompt, np.asarray(req.out, np.int32)])
+                tokens[s, 1:1 + k_eff] = _lookup_propose(hist, k_eff, req.spec_ngram)
+        window = self._upload(tokens)
+        if from_draft.any():
+            # every slot proposes from its own cache row; a device-inactive
+            # slot (idle, or prefilling) writes past max_seq, where nothing
+            # reads, so a prefilling draft's fresh rows stay intact
+            st = self._dev
+            safe_pos = torch.where(st["active"], st["lengths"],
+                                   self.max_blocks * self.block_size)
+            drafts = _draft_propose_slots(self.draft, st["last_tok"], self.d_kc, self.d_vc,
+                                          safe_pos, k)
+            drafts = torch.cat([drafts[:, :1], drafts], dim=1)  # column j = draft j
+            window = torch.where(self._upload(from_draft), drafts, window)
+        logits, _, _ = paged_verify(self.model, window, self.kpool, self.vpool,
+                                    self._dev["tables"], self._dev["lengths"],
+                                    self._upload(n_draft), self.cfg, self.block_size)
+        st = self._dev
+        toks0 = _sample_core(logits[:, 0], st["temps"], st["seeds"], st["draws"],
+                             st["penalties"], st["seen"], bool((self.temps > 0).any()))
+        ints = torch.cat([window, logits.argmax(dim=-1), toks0[:, None]], dim=1)
+        need_logits = any(n_draft[s] > 0 and self.penalties[s] != 1.0 for s in range(S))
+        fetched = self._fetch_wait([ints, logits.float()] if need_logits else [ints])
+        self.spec_fetches += 1
+        window_np, choices, nxt0 = fetched[0][:, :W], fetched[0][:, W:2 * W], fetched[0][:, -1]
+        logits_np = fetched[1] if need_logits else None
+        if ((choices < 0) | (choices >= self.cfg.vocab)).any():
+            raise EngineIntegrityError(
+                f"verify pass carries out-of-vocab tokens {choices.tolist()}")
+        self.counters["ticks"] += 1
+        self.counters["verify_passes"] += 1
+        finished: List[int] = []
+        adv = np.zeros(S, np.int64)
+        last = np.zeros(S, np.int64)
+        marks = np.zeros((S, W), np.int64)
+        to_release = []
+        for s, req in enumerate(self.active):
+            if req is None or req.phase != "decode":
+                continue  # a prefilling slot rode inert: TRASH table, no draft
+            if n_draft[s] == 0:
+                committed = [int(nxt0[s])]
+            else:
+                committed = self._accept(s, window_np[s], int(n_draft[s]), choices[s],
+                                         None if logits_np is None else logits_np[s])
+                self.counters["spec_rounds"] += 1
+                self.counters["spec_accepted"] += len(committed) - 1
+            for t in committed:
+                if n_draft[s]:
+                    self.counters["spec_tokens"] += 1
+                marks[s, adv[s]] = t
+                adv[s] += 1
+                last[s] = t
+                if self._emit(s, req, t):
+                    to_release.append((s, req))
+                    break
+        # padding marks repeat a committed token of their row, so each
+        # index of the seen scatter gets one value
+        mark_vals = np.broadcast_to((adv > 0)[:, None], (S, W))
+        marks = np.where(np.arange(W)[None, :] < adv[:, None], marks, marks[:, :1])
+        # commit every slot before the releases, whose slot resets would
+        # otherwise be advanced a second time
+        _spec_commit(self._dev, self._upload(adv), self._upload(last), self._upload(marks),
+                     self._upload(mark_vals))
+        for s, req in to_release:
+            self._release_slot(s, req)
+            finished.append(req.req_id)
+        if self.cfg.attn_window:
+            self._retire_windowed_blocks()
+        return finished
+
+    def _accept(self, s: int, window: np.ndarray, k_eff: int, choices: np.ndarray,
+                logits: Optional[np.ndarray] = None) -> List[int]:
+        """One slot's greedy accept: the longest draft prefix the target
+        agrees with, plus its token after that prefix; 1..k_eff+1 tokens,
+        what plain greedy ticks would emit.
+
+        The choices are the device's argmax; a penalized slot re-argmaxes
+        its logits rows here with the seen set growing over the window
+        (draft j is seen by every later row), as the plain tick's
+        ``apply_repetition_penalty`` and argmax would, in the same float32
+        operations with the same first-index tie-break."""
+        drafts = window[1:1 + k_eff]
+        pen = float(self.penalties[s])
+        seen = self.seen[s].copy() if pen != 1.0 else None
+        committed: List[int] = []
+        for j in range(k_eff + 1):
+            if seen is None:
+                choice = int(choices[j])
+            else:
+                lg = logits[j]
+                lg = np.where(seen, np.where(lg > 0, lg / np.float32(pen),
+                                             lg * np.float32(pen)), lg)
+                choice = int(np.argmax(lg))
+            committed.append(choice)
+            if j >= k_eff or int(drafts[j]) != choice:
+                break
+            if seen is not None:
+                seen[choice] = True
+        return committed
+
     def _retire_windowed_blocks(self):
         """Free KV blocks wholly behind the sliding window.
 
@@ -1086,7 +1444,7 @@ class PagedEngine:
                     # the device table follows; safe under overlap, since
                     # the block is already outside every in-flight window
                     self._h2d = True
-                    self._dev["tables"][s, j] = TRASH
+                    self._dev["tables"][s, j].fill_(TRASH)
                     self.counters["blocks_retired"] += 1
             self._retire_from[s] = max(self._retire_from[s], n_dead)
 

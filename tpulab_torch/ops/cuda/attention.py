@@ -155,12 +155,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, wind
 
 
 def visible(s: int, causal: bool, window: int, q_offset: int,
-            device) -> Optional[torch.Tensor]:
-    """(s, s) bool: query row ``i`` sees key ``j``; None when not causal
-    (every pair is visible)."""
+            device, first_row: int = 0) -> Optional[torch.Tensor]:
+    """(s - first_row, s) bool: query row ``i`` (from ``first_row`` on)
+    sees key ``j``; None when not causal (every pair is visible)."""
     if not causal:
         return None
-    q_pos = q_offset + torch.arange(s, device=device)[:, None]
+    q_pos = q_offset + torch.arange(first_row, s, device=device)[:, None]
     k_pos = torch.arange(s, device=device)[None, :]
     keep = k_pos <= q_pos
     if window:
@@ -169,17 +169,19 @@ def visible(s: int, causal: bool, window: int, q_offset: int,
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                          causal: bool = True, window: int = 0,
-                          q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+                          causal: bool = True, window: int = 0, q_offset: int = 0,
+                          first_row: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch flash forward: ``(o, lse)``, ``o`` in q's dtype,
-    ``lse`` (batch, seq, heads) f32."""
+    ``lse`` (batch, seq, heads) f32.  ``first_row`` > 0 gives the query
+    rows from that one on against every key (a check of a long sequence's
+    tail, where the whole score matrix would not fit)."""
     b, s, h, d = q.shape
     g = h // k.shape[2]
     if g > 1:
         k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
-    qs = (q.float() * softmax_scale(d)).to(q.dtype)
+    qs = (q[:, first_row:].float() * softmax_scale(d)).to(q.dtype)
     scores = torch.einsum("bqhd,bkhd->bhqk", qs.float(), k.float())
-    keep = visible(s, causal, window, q_offset, q.device)
+    keep = visible(s, causal, window, q_offset, q.device, first_row)
     if keep is not None:
         scores = scores.masked_fill(~keep, -math.inf)
     m = scores.amax(dim=-1, keepdim=True)

@@ -1,4 +1,4 @@
-"""The rounding mode of torch's CPU threads.
+"""The floating-point environment of torch's CPU threads.
 
 The port's CPU path is the plain version of every kernel, and its bits
 are held against the JAX package's; they assume round-to-nearest.  A
@@ -18,6 +18,17 @@ CPU branch of each kernel wrapper): if a thread is off nearest it sets
 every thread of the pool to nearest (``fesetround`` run on each through
 libgomp's ``GOMP_parallel``) and checks again, and it raises, naming the
 mode it found, where that does not help.
+
+It also makes one call, on the calling thread, of each elementwise
+function that ATen can hand to MKL's vector math library (VML), once per
+process (:func:`init_vml`).  MKL chooses each VML function's code lazily,
+at its first call; when two of torch's threads make that first call at
+once, on a loaded machine, one of them can compute with another
+variant: a first parallel ``torch.exp`` was seen giving one thread's half
+of its output with relative errors up to 1.5e-4 (the usual 6e-8), the
+next call right.  That moved the port's CPU flash attention past its
+tolerance against ``tpulab`` (ROADMAP C9 and C7).  A first call on one
+thread leaves nothing for the threads to race on.
 """
 
 from __future__ import annotations
@@ -99,8 +110,26 @@ def set_pool_rounding(mode: int, threads: Optional[int] = None) -> None:
     gomp.GOMP_parallel(fn, ctypes.c_void_p(mode), threads or torch.get_num_threads(), 0)
 
 
+#: elementwise functions ATen may run through MKL's VML
+_VML_FUNCTIONS = (torch.exp, torch.log, torch.log1p, torch.expm1, torch.tanh, torch.sin,
+                  torch.cos, torch.sqrt, torch.rsqrt, torch.erf)
+
+
+@functools.lru_cache(maxsize=1)
+def init_vml() -> None:
+    """Call each of ``_VML_FUNCTIONS`` once on this thread alone (8
+    elements, far under ATen's grain), so MKL's lazy choice of code is
+    made before any parallel call."""
+    x = torch.full((8,), 0.5, dtype=torch.float32)
+    for fn in _VML_FUNCTIONS:
+        fn(x)
+        fn(x.double())
+
+
 def ensure_nearest() -> None:
-    """Leave every thread of torch's pool rounding to nearest, or raise."""
+    """Leave every thread of torch's pool rounding to nearest, or raise;
+    and MKL's VML chosen on one thread (:func:`init_vml`)."""
+    init_vml()
     if pool_rounds_to_nearest():
         return
     found = sorted(MODE_NAMES[m] for m in probe_modes())

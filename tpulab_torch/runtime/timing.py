@@ -131,3 +131,34 @@ def measure_kernel_ms(
         collect.extend(samples)
     return statistics.median(samples), out
 
+
+
+def measure_call_ms(fn: Callable, *, device: torch.device, reps: int = 3, warmup: int = 1,
+                    collect: Optional[list] = None) -> Tuple[float, Any]:
+    """Time of one call of ``fn()`` on ``device``; ``(median ms, last
+    output)``.  For a loop that the host drives (a decode run, a train
+    step, a forward of many launches), where a call's host work belongs in
+    its time: on the card ``torch.cuda.Event`` pairs around each call after
+    a synchronize, on the CPU ``time.perf_counter``.  ``warmup`` untimed
+    calls come first; ``collect``, if given, receives every call's ms."""
+    out = None
+    for _ in range(max(warmup, 0)):
+        out = fn()
+    samples = []
+    for _ in range(max(reps, 1)):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn()
+            end.record()
+            end.synchronize()
+            samples.append(start.elapsed_time(end))
+        else:
+            t0 = time.perf_counter()
+            out = fn()
+            samples.append((time.perf_counter() - t0) * 1e3)
+    if collect is not None:
+        collect.extend(samples)
+    return statistics.median(samples), out
