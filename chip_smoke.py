@@ -179,16 +179,42 @@ failure:
       mode), B7 once per layer of each plain tick, no leaked block; at the
       paged bench's width in float32, greedy streams equal to the engine
       without speculation up to the first near-tie, and both tokens/s;
-   c. every model row of ``tpulab_torch bench`` through the CLI (one
-      ``--only`` group at a time, ``BENCH_GROUPS``), each printed with the
-      card's name, power limit and, where it counts flops, MFU against the
-      H100's bf16 peak; ``labformer_train`` must launch B4, B5 and B6, the
-      flash rows B4.  Then B4 at (1, s, 8, 64) bf16 against its plain
+   c. a pure-Python loop timed 20 times (the host's drift), then every
+      model row of ``tpulab_torch bench`` through the CLI (one ``--only``
+      group at a time, ``BENCH_GROUPS``), each printed with the card's
+      name, power limit and, where it counts flops, MFU against the H100's
+      bf16 peak; ``labformer_train`` must launch B4, B5 and B6, the flash
+      rows B4; ``spill_overhead`` and ``handoff_overhead`` hold their 1 %
+      and 3 % budgets.  Then B4 at (1, s, 8, 64) bf16 against its plain
       version within ``o_tolerance``: at s=32768 on the last 256 query rows
       (every key; the whole score matrix would take 34 GB), at 8192 whole.
-10. One ``{"model": {...}}`` line with phases 5 to 7's and 9's numbers, one
-   ``{"lab_suite": {...}}`` line with phase 8's, one ``{"kernels": [...]}``
-   line, the card line again, and last ``{"ok": true, "device": {...}}``.
+10. The cache tier and scheduler of the ``PagedEngine`` (the radix index,
+    the host spill tier, priorities and preemption, the prefill/decode
+    handoff), each run with every launch count set to 0 just before and
+    read just after (B7 once per layer of each tick, nothing else):
+
+    a. at the paged bench's width in bfloat16 with the daemon's engine
+       settings, ``attn="pallas"``, ``prefix_index="radix"`` and
+       ``spill_blocks=64``, ``n_blocks`` cut (and printed) only where a
+       scenario needs pressure: a storm of 128-token prefixes whose cold
+       leaves spill and come back with the last wave; two priority-0
+       requests and a priority-5 arrival that preempts one; two requests
+       handed from a prefill engine to a decode engine (one export, the
+       blocks restored at admission).  Blocks spilled, prefetched and hit,
+       preemptions and handoff bytes must each be at least 1; every greedy
+       stream equals an engine without spill, preemption or handoff up to
+       the first near tie (phase 9a's rule); no block leaks; no call the
+       CUDA runtime flags as synchronizing (``set_sync_debug_mode``), and
+       a steady window on the decode engine uploads nothing, drains
+       nothing and reads no block back.  The waits for block reads (at
+       eviction and export) and the drains are counted and printed;
+    b. the small labformer of phase 9a, trained again here: a preempted
+       greedy and a preempted sampled request, the spill round trip and the
+       handoff, each stream bit-equal to its uninterrupted run.
+11. One ``{"model": {...}}`` line with phases 5 to 7's, 9's and 10's
+    numbers, one ``{"lab_suite": {...}}`` line with phase 8's, one
+    ``{"kernels": [...]}`` line, the card line again, and last ``{"ok":
+    true, "device": {...}}``.
 
 Bounds use the H100 SXM's published rates (NVIDIA data sheet): 3.35 TB/s
 of device memory, 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the
@@ -397,6 +423,35 @@ def counted(fn, device, want: dict, path: str) -> tuple:
                   f"{name} launches {launches[name]} on the {path}, want {want.get(name, 0)}")
         check(all(launches[k] == 0 for k in LAB_KERNELS), f"lab kernels ran on the {path}: {launches}")
     return result, launches
+
+
+@contextlib.contextmanager
+def watch_syncs(device):
+    """Within the block, note every call the CUDA runtime flags as
+    synchronizing (``torch.cuda.set_sync_debug_mode("warn")``), each with
+    the frames above it; the list is yielded (always empty on the CPU)."""
+    import traceback
+    import warnings
+
+    import torch
+
+    syncs: list = []
+
+    def note(message, category, filename, lineno, file=None, line=None):
+        if "called a synchronizing" in str(message):
+            syncs.append("".join(traceback.format_stack(limit=6)[:-1]))
+
+    debug = device.type == "cuda"
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = note
+        if debug:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield syncs
+        finally:
+            if debug:
+                torch.cuda.set_sync_debug_mode("default")
 
 
 def drive_main_path(inp: dict, backend: str) -> tuple:
@@ -1493,9 +1548,15 @@ def paged_wave(model, cfg, sizes: dict, attn: str, kv_dtype: str, device) -> dic
 
 
 def check_no_leak(eng, what: str) -> None:
-    cached = {b for blocks in eng.prefix_cache.values() for b in blocks}
+    """Every usable block is free or held by the prefix cache alone (the
+    dict's entries or the radix index's nodes), and no slot holds one."""
+    if eng._radix is not None:
+        held = list(eng._radix.blocks())
+    else:
+        held = [b for blocks in eng.prefix_cache.values() for b in blocks]
+    cached = set(held)
     check(len(eng.free) + len(cached) == eng.n_usable_blocks
-          and int(eng.block_refs.sum()) == sum(len(b) for b in eng.prefix_cache.values()),
+          and int(eng.block_refs.sum()) == len(held) and bool(np.all(eng.tables == 0)),
           f"{what}: blocks leaked ({len(eng.free)} free, {len(cached)} cached of "
           f"{eng.n_usable_blocks})")
 
@@ -2054,8 +2115,8 @@ SMALL = dict(d_model=32, n_heads=4, n_layers=2, d_ff=64, max_seq=128)
 #: bench groups of phase 9c: each a ``--only`` substring (``labformer_decode``
 #: runs its int8 and gqa2 rows, ``flash_attention`` its 8k row too)
 BENCH_GROUPS = ("labformer_fwd", "labformer_train", "labformer_decode", "speculative_decode",
-                "paged_engine", "paged_tick_overhead", "prefill_interleave", "prefix_lookup",
-                "flash_attention")
+                "paged_engine", "paged_tick_overhead", "prefill_interleave", "spill_overhead",
+                "handoff_overhead", "prefix_lookup", "flash_attention")
 
 
 def cycle(n: int, offset: int = 0) -> np.ndarray:
@@ -2200,9 +2261,6 @@ def spec_engine_wave(model, cfg, draft, sizes: dict, jobs: list, spec_k: int, at
     """One wave of ``jobs`` through an engine at the daemon's settings; its
     streams, stats, fetches per verify tick, wall seconds and (with
     ``sync_debug``, on the card) the host syncs the CUDA runtime saw."""
-    import traceback
-    import warnings
-
     import torch
 
     from tpulab_torch.models.paged import PagedEngine
@@ -2214,24 +2272,9 @@ def spec_engine_wave(model, cfg, draft, sizes: dict, jobs: list, spec_k: int, at
     rids = [eng.submit(j["prompt"], max_new=j["max_new"], temperature=j.get("temperature", 0.0),
                        seed=j.get("seed", 0), repetition_penalty=j.get("repetition_penalty", 1.0),
                        spec=j.get("spec", "off") if spec_k else "off") for j in jobs]
-    debug = sync_debug and device.type == "cuda"
     t0 = time.perf_counter()
-    syncs = []
-
-    def note(message, category, filename, lineno, file=None, line=None):
-        if "called a synchronizing" in str(message):  # where: the frames above the call
-            syncs.append("".join(traceback.format_stack(limit=6)[:-1]))
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("always")
-        warnings.showwarning = note
-        if debug:
-            torch.cuda.set_sync_debug_mode("warn")
-        try:
-            out = eng.run()
-        finally:
-            if debug:
-                torch.cuda.set_sync_debug_mode("default")
+    with watch_syncs(device if sync_debug else torch.device("cpu")) as syncs:
+        out = eng.run()
     if device.type == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -2323,10 +2366,27 @@ def check_spec_engine(sizes: dict, device, card: str, small) -> dict:
     return out
 
 
+def host_loop_ms(n: int = 20, iters: int = 1_000_000) -> dict:
+    """Wall ms of one pure-Python loop, ``n`` times in a row: how far the
+    host's speed moves between runs of the same work (the host-bound rows
+    compare two sides within a budget of 1 or 3 %)."""
+    runs = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        x = 0
+        for i in range(iters):
+            x += i * i
+        runs.append((time.perf_counter() - t0) * 1e3)
+    return {"min": min(runs), "median": float(np.median(runs)), "max": max(runs)}
+
+
 def run_bench_rows(sizes: dict, device, backend: str, card: str) -> dict:
     """Phase 9c: every model row of ``tpulab_torch bench`` through the CLI,
     one ``--only`` group at a time with every launch count set to 0 just
-    before and read just after; each row printed."""
+    before and read just after; each row printed.  A pure-Python loop is
+    timed first (:func:`host_loop_ms`)."""
+    loop = host_loop_ms()
+    print(f"host loop before the bench rows (9c): {json.dumps(loop)} ms ({card})", flush=True)
     extra = ["--backend", backend] if backend == "cpu" else []
     for key, value in sizes["bench_model"].items():
         extra += [f"--{key}", str(value)]
@@ -2346,11 +2406,12 @@ def run_bench_rows(sizes: dict, device, backend: str, card: str) -> dict:
         rows.extend(got)
         check(all(launches[group][k] == 0 for k in LAB_KERNELS), f"lab kernels in {group}")
     if device.type == "cuda":
-        check(all(launches["labformer_train"][k] > 0 for k in TRAIN_KERNELS),
-              f"labformer_train launched {launches['labformer_train']}")
+        if "labformer_train" in launches:
+            check(all(launches["labformer_train"][k] > 0 for k in TRAIN_KERNELS),
+                  f"labformer_train launched {launches['labformer_train']}")
         if "flash_attention" in launches:
             check(launches["flash_attention"]["flash_fwd"] > 0, "flash rows launched no B4")
-    return {"rows": rows, "launches": launches}
+    return {"rows": rows, "launches": launches, "host_loop_ms": loop}
 
 
 def flash_long_rows(sizes: dict, device) -> list:
@@ -2376,6 +2437,295 @@ def run_spec_and_bench_path(sizes: dict, device, backend: str, card: str) -> tup
     long_rows = flash_long_rows(sizes, device)
     print(f"phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
     return long_rows, {"speculative": spec, "engine": engine, "bench": bench_rows}
+
+
+# ------------------------------------------------- the cache tier and scheduler
+
+
+def cache_engine(model, cfg, sizes: dict, n_blocks: int, *, spill: bool, **kw):
+    """An engine at the daemon's settings with ``attn="pallas"``; with
+    ``spill``, the radix index and the host tier armed."""
+    from tpulab_torch.models.paged import PagedEngine
+
+    tier = dict(prefix_index="radix", spill_blocks=sizes["cache_spill_blocks"]) if spill else {}
+    return PagedEngine(model, cfg, slots=sizes["daemon_slots"], n_blocks=n_blocks,
+                       block_size=16, max_seq=sizes["daemon_max_seq"],
+                       prefill_chunk=sizes["daemon_chunk"], attn="pallas", **tier, **kw)
+
+
+def cache_requests(sizes: dict, seed: int = 11) -> dict:
+    """The full-width phase's requests: (prompt, max_new) per scenario.
+
+    ``storm``: waves of requests that share one prefix a wave, the last
+    wave back on the first prefix; ``preempt``: two long priority-0
+    requests, then a priority-5 one; ``handoff``: a prompt of whole blocks
+    plus one token and one with a tail to recompute."""
+    rng = np.random.default_rng(seed)
+
+    def text(n):
+        return rng.integers(0, 256, n).astype(np.int32)
+
+    prefixes = [text(sizes["cache_prefix"]) for _ in range(sizes["cache_waves"])]
+    storm = [[(np.concatenate([prefix, text(int(t))]), sizes["cache_new"])
+              for t in rng.integers(1, sizes["cache_tail_max"] + 1, sizes["cache_wave_reqs"])]
+             for prefix in prefixes + prefixes[:1]]
+    low, high = sizes["cache_low"], sizes["cache_high"]
+    preempt = [(text(low[0]), low[1]), (text(low[0]), low[1]), (text(high[0]), high[1])]
+    handoff = [(text(n), sizes["cache_handoff_new"]) for n in sizes["cache_handoff_prompts"]]
+    return {"storm": storm, "preempt": preempt, "handoff": handoff}
+
+
+def run_storm(model, cfg, sizes: dict, waves: list) -> tuple:
+    """The prefix storm on a pool cut to ``cache_storm_blocks``: cold leaves
+    spill as later prefixes push them out, and come back with the last wave;
+    (streams, engine)."""
+    eng = cache_engine(model, cfg, sizes, sizes["cache_storm_blocks"], spill=True)
+    streams = []
+    for wave in waves:
+        rids = [eng.submit(p, max_new=n) for p, n in wave]
+        out = eng.run()
+        streams += [out[r] for r in rids]
+    return streams, eng
+
+
+def run_preempt(model, cfg, sizes: dict, reqs: list) -> tuple:
+    """Two priority-0 requests fill a pool cut to ``cache_preempt_blocks``;
+    once both decode, a priority-5 arrival needs more than is free and
+    preempts the later one, which resumes behind it; (streams, engine)."""
+    eng = cache_engine(model, cfg, sizes, sizes["cache_preempt_blocks"], spill=True)
+    rids = [eng.submit(p, max_new=n) for p, n in reqs[:2]]
+    while not (all(r is not None and r.phase == "decode" and len(r.out) >= 4
+                   for r in eng.active[:2])):
+        eng.step()
+    rids.append(eng.submit(reqs[2][0], max_new=reqs[2][1], priority=5))
+    out = eng.run()
+    return [out[r] for r in rids], eng
+
+
+def run_handoff(model, cfg, sizes: dict, reqs: list, device) -> tuple:
+    """The handoff between a prefill and a decode engine (both at the
+    daemon's pool): both requests park at the end of their interleaved
+    prefill, leave in one export, land in the decode engine's host tier and
+    resume there with fresh ids.  Then a steady window on the decode engine:
+    no upload, no host sync, no block read.  (streams, engines, bytes, the
+    steady window's numbers)."""
+    eng_p = cache_engine(model, cfg, sizes, sizes["daemon_blocks"], spill=True)
+    eng_d = cache_engine(model, cfg, sizes, sizes["daemon_blocks"], spill=True)
+    eng_p.handoff_at_boundary = True
+    for p, n in reqs:
+        eng_p.submit(p, max_new=n)
+    while len(eng_p.handoff_ready) < len(reqs):
+        eng_p.step()
+    exported = eng_p.export_handoff()
+    check(all(len(payload) == (len(p) - 1) // 16 for (_, payload), (p, _) in
+              zip(exported, reqs)), "handoff: an export lacks blocks")
+    nbytes = sum(eng_d.import_handoff(payload) for _, payload in exported)
+    rids = [eng_d.resubmit(req, fresh_id=True) for req, _ in exported]
+    while eng_d.pending or any(r is not None and r.phase != "decode" for r in eng_d.active):
+        eng_d.step()
+    for _ in range(2):
+        eng_d.step()
+    before = dict(eng_d.stats(), kv_fetches=eng_d.kv_fetches)
+    steps = sizes["cache_steady_steps"]
+    with watch_syncs(device) as syncs:
+        for _ in range(steps):
+            eng_d.step()
+    after = dict(eng_d.stats(), kv_fetches=eng_d.kv_fetches)
+    steady = {k: after[k] - before[k] for k in ("ticks", "h2d_ticks", "host_syncs", "kv_fetches")}
+    check(steady == {"ticks": steps, "h2d_ticks": 0, "host_syncs": 0, "kv_fetches": 0}
+          and not syncs, f"handoff decode engine: a steady tick moved host state {steady} "
+          f"or synced {syncs[:2]}")
+    out = eng_d.run()
+    return [out[r] for r in rids], (eng_p, eng_d), nbytes, dict(steady, sync_warnings=len(syncs))
+
+
+def block_transfer_ms(eng, device, reps: int = 10) -> dict:
+    """Wall ms of the spill tier's two legs on ``eng``'s pool, the median of
+    ``reps``: reading 1 and 8 blocks back to the host (one gather, one
+    pinned copy, its wait) and writing them again (one upload each part,
+    then a synchronize)."""
+    import statistics
+
+    import torch
+
+    out = {}
+    for n in (1, 8):
+        blocks = list(range(1, n + 1))
+        reads, writes = [], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            kp, vp = eng._read_blocks(blocks)
+            reads.append((time.perf_counter() - t0) * 1e3)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            eng._write_blocks(blocks, kp, vp)
+            if device.type == "cuda":
+                torch.cuda.synchronize()
+            writes.append((time.perf_counter() - t0) * 1e3)
+        out[f"{n}_blocks"] = {"read_ms": statistics.median(reads),
+                              "write_ms": statistics.median(writes)}
+    return out
+
+
+def check_cache_width(sizes: dict, device, card: str) -> dict:
+    """Phase 10a: the cache tier and scheduler at the paged bench's width in
+    bf16 with the daemon's settings: spill and prefetch, preemption and the
+    handoff, each greedy stream equal to an engine without them up to the
+    first near tie, B7 once per layer of each tick, no leaked block, and no
+    call that synchronizes (the block reads back and drains wait on
+    events, and are counted)."""
+    import torch
+
+    from tpulab_torch.models.labformer import Labformer, LabformerConfig, init_params
+
+    cfg = LabformerConfig(**sizes["paged"], dtype=torch.bfloat16)
+    model = Labformer.from_numpy(init_params(cfg, seed=0), cfg, device)
+    reqs = cache_requests(sizes)
+    cuts = {"storm": (sizes["daemon_blocks"], sizes["cache_storm_blocks"]),
+            "preempt": (sizes["daemon_blocks"], sizes["cache_preempt_blocks"])}
+    for name, (was, now) in cuts.items():
+        print(f"cache tier (10a): n_blocks cut {was} -> {now} for the {name} scenario",
+              flush=True)
+
+    def served():
+        t0 = time.perf_counter()
+        with watch_syncs(device) as syncs:
+            storm, e_storm = run_storm(model, cfg, sizes, reqs["storm"])
+            pre, e_pre = run_preempt(model, cfg, sizes, reqs["preempt"])
+            hand, e_hand, nbytes, steady = run_handoff(model, cfg, sizes, reqs["handoff"],
+                                                       device)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        engines = [e_storm, e_pre, *e_hand]
+        return {"streams": {"storm": storm, "preempt": pre, "handoff": hand},
+                "engines": engines, "bytes": nbytes, "steady": steady, "syncs": syncs,
+                "wall_s": time.perf_counter() - t0}
+
+    def b7_ticks(res):
+        return {"paged_decode": sum(e.stats()["ticks"] for e in res["engines"]) * cfg.n_layers}
+
+    res, launches = counted(served, device, b7_ticks, "cache tier and scheduler")
+    e_storm, e_pre, e_p, e_d = res["engines"]
+    for name, eng in zip(("storm", "preempt", "prefill", "decode"), res["engines"]):
+        check_no_leak(eng, f"cache tier ({name} engine)")
+    st, sp = e_storm.stats(), e_pre.stats()
+    for key, value in (("spill_spilled", st["spill_spilled"]),
+                       ("spill_prefetched", st["spill_prefetched"]),
+                       ("spill_hits", st["spill_hits"]), ("preemptions", sp["preemptions"])):
+        check(value >= 1, f"cache tier: {key} = {value}")
+    check(res["bytes"] > 0, "cache tier: the handoff carried no bytes")
+    check(not res["syncs"], f"cache tier: synchronizing calls {res['syncs'][:3]}")
+
+    def reference():
+        eng = cache_engine(model, cfg, sizes, sizes["daemon_blocks"], spill=False)
+        flat = [r for wave in reqs["storm"] for r in wave] + reqs["preempt"] + reqs["handoff"]
+        rids = [eng.submit(p, max_new=n) for p, n in flat]
+        out = eng.run()
+        check_no_leak(eng, "cache tier (reference engine)")
+        return {"streams": [out[r] for r in rids], "ticks": eng.stats()["ticks"]}
+
+    ref, ref_launches = counted(reference, device,
+                                lambda r: {"paged_decode": r["ticks"] * cfg.n_layers},
+                                "cache tier reference")
+    got = res["streams"]["storm"] + res["streams"]["preempt"] + res["streams"]["handoff"]
+    flat = [r for wave in reqs["storm"] for r in wave] + reqs["preempt"] + reqs["handoff"]
+    held = []
+    for i, ((prompt, n), a, b) in enumerate(zip(flat, ref["streams"], got)):
+        check(len(b) == n, f"cache tier request {i}: {len(b)} tokens of {n}")
+        _, logits = greedy_with_logits(model, torch.from_numpy(prompt)[None].to(device), n)
+        held.append(equal_until_near_tie(a, b, logits[0], True, f"cache tier request {i}"))
+    waits = {name: e.kv_fetches for name, e in zip(("storm", "preempt", "prefill", "decode"),
+                                                   res["engines"])}
+    legs = block_transfer_ms(e_storm, device)
+    row = {"n_blocks_cuts": cuts,
+           **{k: st[k] for k in ("spill_spilled", "spill_prefetched", "spill_hits", "evictions",
+                                 "spill_host_blocks", "spill_host_bytes", "prefix_hits")},
+           "preemptions": sp["preemptions"], "handoff_bytes": res["bytes"],
+           "handoff_blocks": e_d.stats()["spill_prefetched"],
+           "kv_read_waits": waits, "host_syncs": {"storm": st["host_syncs"],
+                                                 "preempt": sp["host_syncs"],
+                                                 "decode": e_d.stats()["host_syncs"]},
+           "sync_warnings": len(res["syncs"]), "steady_window": res["steady"],
+           "block_bytes": e_storm._block_bytes, "block_transfer_ms": legs,
+           "requests": len(flat), "tokens_equal_until_near_tie": held,
+           "wall_s": res["wall_s"], "launches": launches, "reference_launches": ref_launches}
+    print(f"cache tier (10a): {json.dumps(row)} ({card})", flush=True)
+    return row
+
+
+def check_cache_small(small, device, card: str) -> dict:
+    """Phase 10b: the small labformer phase 9a trains (``small``: model and
+    config), on the card: a preempted greedy and a preempted sampled
+    request, the spill round trip and the handoff, every stream bit-equal
+    to its uninterrupted run."""
+    from tpulab_torch.models.paged import PagedEngine
+
+    model, cfg = small
+    engines = []
+
+    def engine(**kw):
+        engines.append(PagedEngine(model, cfg, block_size=8, max_seq=64, attn="pallas", **kw))
+        return engines[-1]
+
+    def alone(prompt, n, **kw):
+        eng = engine(slots=1, n_blocks=32)
+        rid = eng.submit(prompt, max_new=n, **kw)
+        return eng.run()[rid]
+
+    out = {}
+    for name, kw in (("greedy", {}), ("sampled", dict(temperature=2.0, seed=7))):
+        eng = engine(slots=2, n_blocks=9)
+        low = eng.submit(cycle(4), max_new=40, **kw)
+        for _ in range(8):
+            eng.step()
+        high = eng.submit(cycle(5), max_new=30, priority=5)
+        res = eng.run()
+        check_no_leak(eng, f"small preempt ({name})")
+        check(eng.stats()["preemptions"] == 1, f"small preempt ({name}): no preemption")
+        check(np.array_equal(res[low], alone(cycle(4), 40, **kw))
+              and np.array_equal(res[high], alone(cycle(5), 30)),
+              f"small preempt ({name}): a stream differs from its uninterrupted run")
+        out[f"preempt_{name}"] = "bit-equal"
+    a = cycle(17)
+    fillers = [((np.arange(i, i + 17)) % 11).astype(np.int32) for i in (1, 2, 3)]
+    eng = engine(slots=1, n_blocks=8, prefix_index="radix", spill_blocks=16)
+    for p in [a, *fillers, a]:
+        rid = eng.submit(p, max_new=5)
+        check(np.array_equal(eng.run()[rid], alone(p, 5)), "small spill round trip differs")
+    st = eng.stats()
+    check(st["spill_spilled"] >= 1 and st["spill_hits"] >= 1, f"small spill: {st}")
+    check_no_leak(eng, "small spill")
+    out["spill"] = {k: st[k] for k in ("spill_spilled", "spill_prefetched", "spill_hits")}
+    eng_p = engine(slots=2, n_blocks=32, prefix_index="radix", spill_blocks=16)
+    eng_d = engine(slots=2, n_blocks=32, prefix_index="radix", spill_blocks=16)
+    eng_p.handoff_at_boundary = True
+    prompt = cycle(41)
+    eng_p.submit(prompt, max_new=12)
+    while not eng_p.handoff_ready:
+        eng_p.step()
+    (req, payload), = eng_p.export_handoff()
+    nbytes = eng_d.import_handoff(payload)
+    rid = eng_d.resubmit(req, fresh_id=True)
+    check(np.array_equal(eng_d.run()[rid], alone(prompt, 12)), "small handoff differs")
+    out["handoff"] = {"blocks": len(payload), "bytes": nbytes}
+    out["ticks"] = sum(e.stats()["ticks"] for e in engines)
+    print(f"cache tier (10b): {json.dumps(out)} ({card})", flush=True)
+    return out
+
+
+def run_cache_path(sizes: dict, device, card: str) -> dict:
+    """Phase 10: the cache tier and scheduler at full width, then on the
+    small labformer (trained here as phase 9a trains it)."""
+    t0 = time.perf_counter()
+    width = check_cache_width(sizes, device, card)
+    model, cfg, _ = train_small(sizes, device)
+    small, launches = counted(lambda: check_cache_small((model, cfg), device, card),
+                              device, lambda r: {"paged_decode": r["ticks"] * cfg.n_layers},
+                              "small cache tier")
+    small["launches"] = launches
+    print(f"phase 10 took {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"width": width, "small_trained": small}
 
 
 KERNEL_META = {
@@ -2483,12 +2833,19 @@ FULL_SIZES = {
     "spec_k": 4, "spec_steps": 128, "spec_prompt": 1024, "spec_reps": 3,
     "small_train_steps": 80, "bench_model": {}, "bench_groups": BENCH_GROUPS,
     "b4_long": ((32768, 256), (8192, 0)),
+    # phase 10: the daemon's engine settings with spill_blocks=64; the storm
+    # (6 prefixes of 8 blocks, then the first again) on 48 blocks and the
+    # preemption ((prompt, max_new) of each request) on 40
+    "cache_prefix": 128, "cache_tail_max": 15, "cache_waves": 6, "cache_wave_reqs": 4,
+    "cache_new": 16, "cache_storm_blocks": 48, "cache_preempt_blocks": 40,
+    "cache_low": (64, 160), "cache_high": (100, 100), "cache_handoff_prompts": (257, 300),
+    "cache_handoff_new": 32, "cache_spill_blocks": 64, "cache_steady_steps": 8,
 }
 
 
 def run(device, sizes: dict, backend: str, card: str = "cpu",
         parent: Path | None = None) -> dict:
-    """Phases 2 to 9 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
+    """Phases 2 to 10 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
     ``parent``: a checkout to time phases 4, 6c and 7d against (:func:`in_turns`)."""
     t0 = time.perf_counter()
     inp = make_inputs(sizes)
@@ -2518,6 +2875,7 @@ def run(device, sizes: dict, backend: str, card: str = "cpu",
     suite, _ = run_lab_suite_path(sizes, device, backend)
     rows["flash_fwd"]["long_context"], model["phase9"] = run_spec_and_bench_path(
         sizes, device, backend, card)
+    model["phase10"] = run_cache_path(sizes, device, card)
     kernels = []
     for name, row in rows.items():
         source, replaces = KERNEL_META[name]

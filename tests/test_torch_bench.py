@@ -101,6 +101,8 @@ ROW_FUNCS = {
     "paged_engine": ("bench_paged_engine", "bench_paged_engine"),
     "paged_tick_overhead": ("bench_paged_tick", "bench_paged_tick"),
     "prefill_interleave": ("bench_prefill_interleave", "bench_prefill_interleave"),
+    "spill_overhead": ("bench_spill_overhead", "bench_spill_overhead"),
+    "handoff_overhead": ("bench_handoff_overhead", "bench_handoff_overhead"),
     "prefix_lookup": ("bench_prefix_lookup", "bench_prefix_lookup"),
     "flash_attention": ("bench_flash_attention", "bench_flash_attention"),
 }
@@ -141,14 +143,15 @@ def test_registry_holds_tpulabs_model_rows():
     assert tuple(n for n in bench.REGISTRY if n not in bench.LAB_ROWS) == (
         "labformer_fwd", "labformer_train", "labformer_decode", "labformer_decode_int8",
         "labformer_decode_gqa2", "speculative_decode", "paged_engine", "paged_tick_overhead",
-        "prefill_interleave", "prefix_lookup", "flash_attention", "flash_attention_8k")
+        "prefill_interleave", "spill_overhead", "handoff_overhead", "prefix_lookup",
+        "flash_attention", "flash_attention_8k")
     assert bench.REGISTRY["labformer_decode_int8"].keywords == {"int8": True}
     assert bench.REGISTRY["labformer_decode_gqa2"].keywords == {"kv_heads": 2}
     assert bench.REGISTRY["flash_attention_8k"].keywords == {"s": 8192}
     for name in bench.REGISTRY:  # none is a row tpulab does not have
         assert name in inspect.getsource(jbench.run_benchmarks)
-    for waiting in ("mesh_tick_overhead", "obs_overhead", "spill_overhead", "handoff_overhead",
-                    "decode_recompiles", "train_step_overhead", "labvision_train"):
+    for waiting in ("mesh_tick_overhead", "obs_overhead", "decode_recompiles",
+                    "train_step_overhead", "labvision_train"):
         assert waiting not in bench.REGISTRY and waiting in bench.__doc__
 
 
@@ -201,6 +204,77 @@ def test_paged_rows_on_the_cpu():
     assert look["scaling_ratio"] < look["linear_bound"] == 8.0
 
 
+def test_cache_rows_on_the_cpu(monkeypatch):
+    """The spill and handoff rows at a tiny size: the engines run as on the
+    card, in turns (a cold armed window that spills nothing, a handed-off
+    stream equal to the unified one in every pair), and every sample is
+    given the same time, since their 1 % and 3 % budgets mean nothing
+    between CPU samples of a few ms (the card checks them for real:
+    ``chip_smoke.py`` phase 9c)."""
+    real, pairs = bench._paired, []
+
+    def flat_clock(first, second):
+        spent, done = real(first, second)
+        pairs.append(spent)
+        return [0.01, 0.01], done
+
+    monkeypatch.setattr(bench, "_paired", flat_clock)
+    (spill,) = _rows("spill_overhead", slots=2, steps=3, reps=1)
+    assert spill["metric"] == "spill_overhead_2slots_ticks_per_s" and spill["value"] == 300.0
+    assert spill["off_ticks_per_s"] == 300.0 and spill["spill_blocks"] == 64
+    assert spill["overhead_pct_best"] == spill["overhead_pct_median"] == 0.0
+    assert spill["n_trials"] == 3  # one round of 3 pairs: the armed side's
+    (hand,) = _rows("handoff_overhead", prompt_len=33, steps=4, reps=1)
+    assert hand["metric"] == "handoff_overhead_e2e_tokens_per_s" and hand["prompt_len"] == 33
+    assert hand["value"] == hand["unified_tokens_per_s"] == 400.0
+    # each row: one untimed pair first, then one round of 3 pairs
+    assert len(pairs) == 2 * (1 + 3) and all(min(p) > 0 for p in pairs)
+
+
+def test_paired_runs_two_generators_in_turns(monkeypatch):
+    """One step of each in turn until both end; each side is charged the
+    clock time of its own steps only, and gets its generator's return."""
+    log, ticks = [], iter(range(1000))
+
+    class Clock:
+        @staticmethod
+        def perf_counter():
+            return float(next(ticks))
+
+    def gen(name, n):
+        for i in range(n):
+            log.append(f"{name}{i}")
+            yield
+        return name
+
+    monkeypatch.setattr(bench, "time", Clock)
+    spent, done = bench._paired(gen("a", 3), gen("b", 1))
+    assert log == ["a0", "b0", "a1", "a2"] and done == ["a", "b"]
+    assert spent == [4.0, 2.0]  # one clock tick a resumption, the last one ends it
+
+
+@pytest.mark.parametrize("budget,slower,passes", [
+    (0.01, 1.005, True), (0.01, 1.02, False), (0.03, 1.02, True), (0.03, 1.04, False)])
+def test_overhead_budget_is_best_of_reps(budget, slower, passes):
+    """The budget holds the best "on" sample against the best "off" one, over
+    retried rounds, and raises past it: a row cannot pass a slower side."""
+    firsts = []
+
+    def pair(on_first):
+        firsts.append(on_first)
+        # the k-th pair's samples are 1.0x, 1.1x or 1.2x their floors: the best is the floor
+        extra = 0.1 * (len(firsts) % 3)
+        return {False: 1.0 + extra, True: slower + extra}
+    if passes:
+        times = bench._best_of_reps(pair, 3, budget)
+        assert len(times[True]) == len(times[False]) == 3
+    else:
+        with pytest.raises(RuntimeError, match="budget"):
+            bench._best_of_reps(pair, 3, budget)
+        assert len(firsts) == 3 * 5  # five rounds before it gives up
+    assert firsts[:3] == [False, True, False]  # each pair swaps which side steps first
+
+
 def test_flash_row_on_the_cpu():
     """``only="flash_attention"`` would also run the 8k row at its bound
     s=8192, so the row is called here as the registry holds it."""
@@ -232,7 +306,9 @@ def test_chip_smoke_phase9_rehearses_on_the_cpu():
                 spec_steps=12, spec_prompt=16, spec_reps=1,
                 bench_model=dict(b=1, s=16, steps=3, reps=1, dtype="float32", slots=2, k=2,
                                  short=256),
-                bench_groups=tuple(g for g in chip_smoke.BENCH_GROUPS if g != "flash_attention"),
+                bench_groups=tuple(g for g in chip_smoke.BENCH_GROUPS
+                                   if g not in ("flash_attention", "spill_overhead",
+                                                "handoff_overhead")),
                 b4_long=((256, 64), (128, 0)))
     long_rows, out = chip_smoke.run_spec_and_bench_path(tiny, torch.device("cpu"), "cpu", "cpu")
     assert [r["rows_held"] for r in long_rows] == [[192, 256], [0, 128]]

@@ -880,3 +880,49 @@ def test_flash_kernel_long_context_tail(cuda_device):
     row = chip_smoke.flash_row((1, 8, 32768, 64), torch.bfloat16, cuda_device, 1, 1, seed=13,
                                first_row=32768 - 256)
     assert row["err_over_tolerance"] <= 1 and row["rows_held"] == [32512, 32768]
+
+
+# ------------------------------------------------- the cache tier and scheduler
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True], ids=["native", "int8"])
+def test_block_read_and_restore_on_card(cuda_device, int8):
+    """The spill tier's legs on card pools: blocks read back in one copy
+    equal the pool, written elsewhere and read again they are unchanged,
+    with no call that synchronizes."""
+    from tpulab_torch.models.labformer import Labformer, LabformerConfig, init_params
+    from tpulab_torch.models.paged import PagedEngine
+
+    cfg = LabformerConfig(d_model=64, n_heads=4, n_kv_heads=2, n_layers=2, d_ff=128,
+                          dtype=torch.bfloat16)
+    model = Labformer.from_numpy(init_params(cfg, seed=0), cfg, cuda_device)
+    eng = PagedEngine(model, cfg, slots=1, n_blocks=12, block_size=16, max_seq=64,
+                      kv_dtype="int8" if int8 else "native")
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for pool in (eng.kpool, eng.vpool):
+        for t in (pool if int8 else (pool,)):
+            t.copy_((torch.randn(t.shape, generator=gen, device=cuda_device) * 50).to(t.dtype))
+    with chip_smoke.watch_syncs(cuda_device) as syncs:
+        kp, vp = eng._read_blocks([3, 7, 5])
+        eng._write_blocks([1, 2, 9], kp, vp)
+        kp2, vp2 = eng._read_blocks([1, 2, 9])
+    assert not syncs and eng.kv_fetches == 2
+    for got, want in zip(kp2 + vp2, kp + vp):
+        for a, b in zip(got if int8 else (got,), want if int8 else (want,)):
+            assert torch.equal(a, b)
+    for i, b in enumerate((3, 7, 5)):
+        for a, pool in ((kp[i], eng.kpool), (vp[i], eng.vpool)):
+            for x, t in zip(a if int8 else (a,), pool if int8 else (pool,)):
+                assert torch.equal(x, t[:, b].cpu())
+
+
+@pytest.mark.cuda
+def test_cache_tier_on_card(cuda_device, small_on_card):
+    """chip_smoke's phase 10b on the card: preempted greedy and sampled
+    requests, the spill round trip and the handoff, each stream bit-equal to
+    its uninterrupted run."""
+    model, cfg, _ = small_on_card
+    out = chip_smoke.check_cache_small((model, cfg), cuda_device, "test")
+    assert out["preempt_greedy"] == out["preempt_sampled"] == "bit-equal"
+    assert out["handoff"]["blocks"] == 5 and out["spill"]["spill_hits"] >= 1

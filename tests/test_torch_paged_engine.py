@@ -261,13 +261,9 @@ def test_oversized_request_and_bad_knobs_rejected(models):
 
 
 @pytest.mark.parametrize("what,item", [
-    pytest.param(dict(prefix_index="radix"), "A10.2", id="what2-A10.2"),
-    pytest.param(dict(spill_blocks=4), "A10.2", id="what3-A10.2"),
     pytest.param(dict(mesh=object()), "A12", id="what4-A12"),
     pytest.param(dict(obs=True), "A11", id="what5-A11"),
-    ("priority", "A10.3"), ("rid", "A11"),
-    ("resubmit", "A10.3"), ("handoff", "A10.4"), ("export_handoff", "A10.4"),
-    ("import_handoff", "A10.4"), ("publish_metrics", "A11")])
+    ("rid", "A11"), ("publish_metrics", "A11")])
 def test_unported_knobs_refused(models, what, item):
     _, _, model = models["small"]
     geo = dict(slots=1, n_blocks=8, block_size=8, max_seq=32)
@@ -276,12 +272,7 @@ def test_unported_knobs_refused(models, what, item):
             tpaged.PagedEngine(model, model.cfg, **geo, **what)
         eng = tpaged.PagedEngine(model, model.cfg, **geo)
         calls = {
-            "priority": lambda: eng.submit(_cycle(3), max_new=2, priority=1),
             "rid": lambda: eng.submit(_cycle(3), max_new=2, rid=7),
-            "resubmit": lambda: eng.resubmit(None),
-            "handoff": lambda: (setattr(eng, "handoff_at_boundary", True), eng.step()),
-            "export_handoff": eng.export_handoff,
-            "import_handoff": lambda: eng.import_handoff([]),
             "publish_metrics": eng.publish_metrics,
         }
         calls[what]()

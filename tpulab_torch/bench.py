@@ -19,8 +19,8 @@ the reference suite's RTX A6000 median (``BASELINE.md``) by this row's.
 The model rows: ``labformer_fwd``, ``labformer_train``,
 ``labformer_decode`` (and its ``_int8`` and ``_gqa2`` variants),
 ``speculative_decode``, ``paged_engine``, ``paged_tick_overhead``,
-``prefill_interleave``, ``prefix_lookup``, ``flash_attention`` and
-``flash_attention_8k``.  Their MFU fields come from
+``prefill_interleave``, ``spill_overhead``, ``handoff_overhead``,
+``prefix_lookup``, ``flash_attention`` and ``flash_attention_8k``.  Their MFU fields come from
 :mod:`tpulab_torch.obs.roofline` (H100 peaks; none on the CPU).
 ``tpulab`` times a jitted program by enqueueing many calls; the port's
 model loops are eager, so each row's docstring says how it is timed: CUDA
@@ -36,14 +36,14 @@ Rows of ``tpulab``'s registry that wait for a module of their own are not
 registered (``run_benchmarks`` raises rather than turning an error into a
 row): ``mesh_tick_overhead`` (ROADMAP A12); ``obs_overhead``,
 ``journey_overhead``, ``obs_history_overhead``, ``fault_overhead``,
-``journal_overhead`` and ``autoscale_overhead`` (A11); ``spill_overhead``
-(A10.2); ``handoff_overhead`` (A10.4); ``decode_recompiles`` and
-``train_step_overhead`` (A13, A8.6); ``labvision_train`` (A8.8).
+``journal_overhead`` and ``autoscale_overhead`` (A11); ``decode_recompiles``
+and ``train_step_overhead`` (A13, A8.6); ``labvision_train`` (A8.8).
 """
 
 from __future__ import annotations
 
 import functools
+import gc
 import inspect
 import subprocess
 import time
@@ -452,6 +452,215 @@ def bench_prefill_interleave(slots: int = 4, reps: int = 5,
         host_syncs=stats["interleave"]["host_syncs"])
 
 
+def _paired(first, second) -> tuple:
+    """Advance two generators in turns, one step of each, until both end:
+    (the seconds each spent inside its own steps, what each returned).
+    Run so, the two sides of a comparison share the host's moment: on the
+    card's machine the same Python loop's time moves by more than these
+    rows' budgets from one second to the next (``chip_smoke.py`` phase 9c
+    times one)."""
+    gens, spent, results, live = (first, second), [0.0, 0.0], [None, None], [True, True]
+    while any(live):
+        for i in (0, 1):
+            if not live[i]:
+                continue
+            t0 = time.perf_counter()
+            try:
+                next(gens[i])
+            except StopIteration as stop:
+                live[i], results[i] = False, stop.value
+            spent[i] += time.perf_counter() - t0
+    return spent, results
+
+
+def _steps(eng, n: int):
+    """``n`` engine steps, one a turn."""
+    for _ in range(n):
+        eng.step()
+        yield
+
+
+def _served(eng):
+    """Engine steps, one a turn, until its queue and slots are empty; then
+    what ``run()`` returns (the finished streams)."""
+    for _ in range(100_000):
+        if not (eng.pending or eng.inflight_depth or any(r is not None for r in eng.active)):
+            return eng.run()
+        eng.step()
+        yield
+    raise RuntimeError("engine did not converge")
+
+
+def _best_of_reps(pair, reps: int, budget: float) -> Dict[bool, list]:
+    """``tpulab``'s best-of-reps retry-merge: ``max(reps, 3)`` pairs a
+    round, until the best "on" time is within ``budget`` of the best "off"
+    time (5 rounds at most), else raise.  The seconds per side.
+
+    ``pair(on_first)`` times one "off" and one "on" sample together
+    (:func:`_paired`) and gives ``{False: s, True: s}``; each pair swaps
+    which side steps first, and the cyclic garbage collector is off inside
+    a pair (run beforehand instead), so neither side pays for the other's
+    garbage."""
+    times: Dict[bool, list] = {False: [], True: []}
+    for _ in range(5):
+        for i in range(max(reps, 3)):
+            gc.collect()
+            gc.disable()
+            try:
+                got = pair(i % 2 == 1)
+            finally:
+                gc.enable()
+            for on in (False, True):
+                times[on].append(got[on])
+        best = min(times[True]) / min(times[False]) - 1.0
+        if best < budget:
+            return times
+    raise RuntimeError(f"overhead {best * 100:.2f}% over the {budget * 100:g}% budget "
+                       f"(on={min(times[True]):.4f}s off={min(times[False]):.4f}s)")
+
+
+def _overhead_fields(times: Dict[bool, list]) -> Dict[str, Any]:
+    t_on, t_off = float(np.median(times[True])), float(np.median(times[False]))
+    return {"overhead_pct_median": round((t_on / t_off - 1.0) * 100, 2),
+            "overhead_pct_best": round((min(times[True]) / min(times[False]) - 1.0) * 100, 2)}
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def bench_spill_overhead(slots: int = 4, steps: int = 96, reps: int = 5,
+                         backend: Optional[str] = None) -> Dict[str, Any]:
+    """The cache tier's tax on steady decode (d64, L2, f32): engine ticks/s
+    without it (the dict index, no spill) and with the radix index and an
+    armed but cold host tier (``spill_blocks=64``), whose short prompts on
+    a roomy pool never cross the spill watermark, so no block crosses to
+    the host inside the window.  A window is ``steps`` mid-generation
+    ``step()`` calls after admission and 6 warm-up steps.  ``tpulab`` times
+    the two windows of a pair one after the other; here they run in turns,
+    one step each (:func:`_paired`), each side timed over its own steps,
+    between two synchronizes.  Budget: the best armed window within 1 % of
+    the best plain one (best-of-reps, retried as ``tpulab`` retries it).
+    The value is the armed ticks/s."""
+    from tpulab_torch.models.paged import PagedEngine
+
+    device = resolve_device(backend)
+    cfg = _small_cfg(256)
+    model = _model(cfg, device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (8,)).astype(np.int32) for _ in range(slots)]
+    warm = 6
+
+    def warmed(spill_on: bool):
+        kw = {"prefix_index": "radix", "spill_blocks": 64} if spill_on else {}
+        eng = PagedEngine(model, cfg, slots=slots, n_blocks=64, block_size=16, max_seq=256,
+                          **kw)
+        for p in prompts:  # the budget outlives warm-up and window
+            eng.submit(p, max_new=warm + steps + 4)
+        for _ in range(warm):
+            eng.step()
+        return eng
+
+    def pair(on_first: bool) -> Dict[bool, float]:
+        order = (True, False) if on_first else (False, True)
+        engs = {on: warmed(on) for on in order}
+        _sync(device)
+        spent, _ = _paired(*(_steps(engs[on], steps) for on in order))
+        _sync(device)
+        if engs[True].counters["spill_spilled"]:
+            raise RuntimeError("spill fired inside the cold window")
+        return dict(zip(order, spent))
+
+    pair(False)
+    times = _best_of_reps(pair, reps, 0.01)
+    t_on, t_off = float(np.median(times[True])), float(np.median(times[False]))
+    return {
+        "metric": f"spill_overhead_{slots}slots_ticks_per_s",
+        "value": round(steps / t_on, 1),
+        "unit": "ticks/s",
+        "vs_baseline": None,
+        "off_ticks_per_s": round(steps / t_off, 1),
+        **_overhead_fields(times),
+        "spill_blocks": 64,
+        **card_fields(device.type),
+        **variance_fields([t * 1e3 for t in times[True]]),
+    }
+
+
+def bench_handoff_overhead(prompt_len: int = 241, steps: int = 48, reps: int = 5,
+                           backend: Optional[str] = None) -> Dict[str, Any]:
+    """The prefill/decode KV handoff's tax on one request's end-to-end time
+    (d64, L2, f32): the same request served unified (one engine prefills
+    and decodes) and handed off (a prefill engine runs to the end of the
+    prefill, exports its blocks, and a decode engine imports them and
+    resumes through ``resubmit``, its admission restoring the prefix from
+    the host tier).  The prompt is a block plus one, so the decode side
+    recomputes nothing and the difference is the transport.  Both use the
+    radix index and the spill tier; the handed-off stream must equal the
+    unified one before any time counts, and in every timed pair.  The
+    engines are built beforehand; the two requests of a pair run in turns,
+    one engine step (or the export and import) each (:func:`_paired`),
+    each timed over its own steps, between two synchronizes (``tpulab``
+    times them one after the other).  Budget: the best handoff within 3 %
+    of the best unified run (best-of-reps, retried as ``tpulab`` retries
+    it).  The value is the handoff's tokens/s."""
+    from tpulab_torch.models.paged import PagedEngine
+
+    device = resolve_device(backend)
+    cfg = _small_cfg(384)
+    model = _model(cfg, device)
+    prompt = (np.arange(prompt_len) % (cfg.vocab - 1)).astype(np.int32)
+
+    def mk():
+        return PagedEngine(model, cfg, slots=2, n_blocks=32, block_size=16, max_seq=384,
+                           prefix_index="radix", spill_blocks=64)
+
+    def unified(eng):
+        eng.submit(prompt, max_new=steps)
+        return (yield from _served(eng))
+
+    def handed_off(eng_p, eng_d):
+        eng_p.handoff_at_boundary = True
+        eng_p.submit(prompt, max_new=steps)
+        while not eng_p.handoff_ready:
+            eng_p.step()
+            yield
+        (req, payload), = eng_p.export_handoff()
+        eng_d.import_handoff(payload)
+        eng_d.resubmit(req, fresh_id=True)
+        yield
+        return (yield from _served(eng_d))
+
+    def pair(on_first: bool) -> Dict[bool, float]:
+        runs = {False: unified(mk()), True: handed_off(mk(), mk())}
+        order = (True, False) if on_first else (False, True)
+        _sync(device)
+        spent, done = _paired(*(runs[on] for on in order))
+        _sync(device)
+        streams = dict(zip(order, done))
+        (ref,), (hand,) = streams[False].values(), streams[True].values()
+        if not np.array_equal(ref, hand):
+            raise RuntimeError(f"handoff stream diverged from unified serving: {ref[:8]}... "
+                               f"vs {hand[:8]}...")
+        return dict(zip(order, spent))
+
+    pair(False)
+    times = _best_of_reps(pair, reps, 0.03)
+    t_on, t_off = float(np.median(times[True])), float(np.median(times[False]))
+    return {
+        "metric": "handoff_overhead_e2e_tokens_per_s",
+        "value": round(steps / t_on, 1),
+        "unit": "tokens/s",
+        "vs_baseline": None,
+        "unified_tokens_per_s": round(steps / t_off, 1),
+        **_overhead_fields(times),
+        "prompt_len": prompt_len,
+        **card_fields(device.type),
+        **variance_fields([t * 1e3 for t in times[True]]),
+    }
+
+
 def bench_prefix_lookup(short: int = 4096, factor: int = 4, reps: int = 7,
                         backend: Optional[str] = None) -> Dict[str, Any]:
     """The admission path's prefix lookup scales linearly in prompt length:
@@ -524,6 +733,8 @@ REGISTRY = {
     "paged_engine": bench_paged_engine,
     "paged_tick_overhead": bench_paged_tick,
     "prefill_interleave": bench_prefill_interleave,
+    "spill_overhead": bench_spill_overhead,
+    "handoff_overhead": bench_handoff_overhead,
     "prefix_lookup": bench_prefix_lookup,
     "lab2_roberts_1024": bench_lab2,
     "lab3_classify_1024": bench_lab3,

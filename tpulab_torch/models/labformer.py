@@ -487,8 +487,13 @@ def _rmsnorm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 @functools.lru_cache(maxsize=None)
 def _rope_freqs(half: int, theta: float, device: torch.device) -> torch.Tensor:
     """The rotary frequencies, computed in float64 and rounded to f32 as
-    ``tpulab`` does; kept on ``device`` so no layer copies them again."""
-    return torch.from_numpy((theta ** (-np.arange(0, half) / half)).astype(np.float32)).to(device)
+    ``tpulab`` does; kept on ``device`` so no layer copies them again.  On
+    the card they leave from pinned memory, so even this first copy does
+    not wait for the work already queued."""
+    host = torch.from_numpy((theta ** (-np.arange(0, half) / half)).astype(np.float32))
+    if torch.device(device).type != "cuda":
+        return host.to(device)
+    return host.pin_memory().to(device, non_blocking=True)
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:

@@ -51,9 +51,10 @@ its blocks and computes only its tail.
 Sampled slots draw by Gumbel-max from a counter-based hash of each slot's
 ``(seed, draw)`` and the vocabulary index, written in integer tensor
 ops, so the same bits come out on the CPU and on the card; the draw
-counter advances every tick for every slot and restarts at admission.
-These are not ``jax.random``'s streams: sampled output is held to its
-distribution, greedy output token for token.
+counter advances every tick for every slot and is set at admission (0,
+or where a resumed request stopped).  These are not ``jax.random``'s
+streams: sampled output is held to its distribution, greedy output token
+for token.
 
 ``spec_k > 0`` adds batched speculative decoding.  A tick in which some
 decoding slot speculates is one :func:`paged_verify` pass over a
@@ -73,11 +74,40 @@ sampled stream is the same with and without speculating neighbours.  A
 speculative tick waits for the device once: its drafts, choices and
 row-0 tokens come back in one copy.
 
+``prefix_index="radix"`` swaps the exact-match prefix dict for a radix
+tree over block-sized token chunks (``kvcache/radix.py``), whose lookup
+returns the longest partial hit and whose eviction drops one cold leaf at
+a time.  ``spill_blocks > 0`` arms a host-RAM tier (``kvcache/spill.py``):
+a cold leaf evicted with nothing else holding its block is copied to the
+host, and an admission whose prompt walks back onto a spilled prefix
+restores those blocks ahead of its prefill.  Both copies happen at
+admission boundaries only: an eviction's reads are gathered into one
+device-to-host copy and one wait, a prefetch's writes into one upload, so
+steady ticks with the tier armed upload nothing.
+
+Requests carry a priority.  When the head of the queue cannot be
+admitted even after eviction, it preempts the lowest-priority slot of
+strictly lower priority (:meth:`PagedEngine._preempt_for_head`): the
+window is drained, the victim's blocks are released and the victim is
+requeued behind the head through :meth:`PagedEngine.resubmit`, which
+folds its emitted tokens into its prompt, so the resumed greedy stream is
+the uninterrupted one.  A sampled slot resumes its draw counter at the
+number of tokens it has emitted: token ``i`` of a request is always drawn
+at counter ``i``, because the last prompt token is held back for the
+first tick and every tick, plain or speculative, advances every slot's
+counter once and gives a sampled slot one token.
+
+A prefill engine with ``handoff_at_boundary`` parks each request at the
+end of its prefill (phase ``"handoff"``) instead of decoding it;
+:meth:`PagedEngine.export_handoff` reads the parked requests' full blocks
+back to the host, and a decode engine with a spill tier takes them in
+with :meth:`PagedEngine.import_handoff` and resumes the request with
+``resubmit(req, fresh_id=True)``, its admission restoring the blocks.
+
 Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item: the radix prefix index and the host spill tier (A10.2),
-priorities, preemption and resubmit (A10.3), the prefill/decode KV
-handoff (A10.4), mesh serving (A12), and observability (histograms,
-tracer, journeys, slow log, fault sites, published metrics: A11).
+ROADMAP item: mesh serving (A12), and observability (histograms, tracer,
+journeys, slow log, fault sites, request ids and tags, published metrics:
+A11).
 """
 
 from __future__ import annotations
@@ -91,6 +121,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from tpulab_torch.kvcache.radix import RadixPrefixIndex
+from tpulab_torch.kvcache.spill import SPILL_DTYPES, HostSpillTier, SpillPolicy
 from tpulab_torch.models import generate as _gen
 from tpulab_torch.models.generate import _attend_cached, apply_repetition_penalty
 from tpulab_torch.models.labformer import (
@@ -191,6 +223,33 @@ def _layer(pool: Pool, i: int) -> Pool:
     if isinstance(pool, tuple):
         return pool[0][i], pool[1][i]
     return pool[i]
+
+
+def _spill_read(kpool: Pool, vpool: Pool, blocks: torch.Tensor):
+    """Copies of pool blocks ``blocks`` (n,) on the pools' device, block
+    first: ``(n, L, BS, kv, d)`` for a native pool, an ``(int8 data, f32
+    scale)`` pair of such for an int8 pool (the read leg of a spill and of
+    a handoff export)."""
+    def rd(pool):
+        if isinstance(pool, tuple):
+            return tuple(rd(t) for t in pool)
+        return pool.index_select(1, blocks).transpose(0, 1).contiguous()
+    return rd(kpool), rd(vpool)
+
+
+def _spill_restore(kpool: Pool, vpool: Pool, kblk, vblk, blocks: torch.Tensor) -> None:
+    """Write blocks ``(n, L, BS, kv, d)`` (an int8 pool: ``(data, scale)``
+    pairs) into the pools at ``blocks`` (n,), in place: a placement in the
+    pool's own representation, never a requantize (the write leg of a
+    prefetch)."""
+    def put(pool, blk):
+        if isinstance(pool, tuple):
+            for t, b in zip(pool, blk):
+                put(t, b)
+        else:
+            pool[:, blocks] = blk.transpose(0, 1)
+    put(kpool, kblk)
+    put(vpool, vblk)
 
 
 # ------------------------------------------------------------ attention
@@ -454,7 +513,7 @@ def paged_tick(model: Labformer, state: Dict[str, torch.Tensor], kpool: Pool, vp
     ``last_tok`` takes the sampled token, ``lengths`` grows by one and
     ``seen`` marks the token, each only where ``active`` (idle slots keep
     their state for the next admission); ``draws`` advances for every slot,
-    so admission restarts a slot's draw counter."""
+    so admission sets a slot's draw counter."""
     logits = _decode_core(model, state["last_tok"], kpool, vpool, state["tables"],
                           state["lengths"], cfg, block_size, attn)
     toks = _sample_core(logits, state["temps"], state["seeds"], state["draws"],
@@ -517,18 +576,34 @@ class _Request:
     spec: str = "off"           # "off" | "lookup" | "draft" proposer
     spec_k: int = 0             # drafts per verify round (<= the engine's)
     spec_ngram: int = 3         # the lookup proposer's n-gram length
+    priority: int = 0           # preemption rank under KV pressure (higher wins)
     out: List[int] = field(default_factory=list)
     cancelled: bool = False     # finish at the next tick (client gone)
+    # resume (preemption requeue, replay, handoff): how many of out's
+    # tokens resubmit has folded into prompt, and the draw counter a
+    # sampled slot resumes at (token i is drawn at counter i)
+    n_resumed: int = 0
+    resume_draw: int = 0
+    preemptions: int = 0        # times this request was preempted
+    resubmits: int = 0          # preemption requeues, replays, handoffs
+    # admission order: the victim tie-break (tpulab's -t_admit from
+    # time.monotonic(); a counter gives the same order unless two
+    # monotonic reads tie)
+    admit_seq: int = 0
+    hops: List[int] = field(default_factory=list)  # replicas placed on
     # interleaved admission: "prefill" while chunks are owed (device slot
-    # inactive, no tokens yet), "decode" once live
+    # inactive, no tokens yet), "decode" once live, "handoff" parked for
+    # export at the end of its prefill
     phase: str = "decode"
     pf_pos: int = 0             # next prompt position to paged_extend
     pf_end: int = 0             # prefill frontier: len(prompt) - 1
     d_pf_pos: int = 0           # draft-cache prefill cursor ("draft")
 
     def total_positions(self) -> int:
-        """Positions this request can ever occupy: prompt plus budget."""
-        return len(self.prompt) + self.max_new
+        """Positions this request can ever occupy: prompt plus the budget
+        left.  A resumed prompt holds the tokens ``out`` already counts, so
+        every sizing site (submit, admission, release) uses this."""
+        return len(self.prompt) + self.max_new - self.n_resumed
 
 
 # ------------------------------------------------------------ the engine
@@ -550,7 +625,8 @@ class PagedEngine:
     lies) or ``tpulab``'s parameter tree, then placed on ``device`` (the
     card unless ``"cpu"``).  ``interleave``, ``overlap``, ``prefill_chunk``,
     ``attn``, ``kv_dtype``, ``spec_k``, ``spec_ngram``, ``draft_params``,
-    ``draft_cfg`` and ``max_pending`` are ``tpulab``'s knobs."""
+    ``draft_cfg``, ``max_pending``, ``prefix_index``, ``spill_blocks`` and
+    ``spill_dtype`` are ``tpulab``'s knobs."""
 
     def __init__(self, model, cfg: LabformerConfig, *, slots: int = 4,
                  n_blocks: int = 64, block_size: int = 16, max_seq: int = 256,
@@ -560,8 +636,6 @@ class PagedEngine:
                  interleave: bool = True, obs: bool = False, max_pending: int = 0,
                  prefix_index: str = "dict", spill_blocks: int = 0,
                  spill_dtype: str = "native", device=None):
-        if prefix_index != "dict" or spill_blocks or spill_dtype != "native":
-            raise _unported("the radix prefix index and the host spill tier", "A10.2")
         if mesh is not None:
             raise _unported("mesh serving", "A12")
         if obs:
@@ -587,6 +661,16 @@ class PagedEngine:
             raise ValueError(f"kv_dtype={kv_dtype!r}; expected 'native' or 'int8'")
         if max_pending < 0:
             raise ValueError(f"max_pending must be >= 0, got {max_pending}")
+        if prefix_index not in ("dict", "radix"):
+            raise ValueError(f"prefix_index={prefix_index!r}; expected 'dict' or 'radix'")
+        if spill_blocks < 0:
+            raise ValueError(f"spill_blocks must be >= 0, got {spill_blocks}")
+        if spill_blocks and prefix_index != "radix":
+            # the tier keys host payloads by radix token paths; the dict
+            # index cannot name a single evicted block
+            raise ValueError("spill_blocks > 0 requires prefix_index='radix'")
+        if spill_dtype not in SPILL_DTYPES:
+            raise ValueError(f"spill_dtype={spill_dtype!r}; expected one of {SPILL_DTYPES}")
         self.model = model if isinstance(model, Labformer) else Labformer.from_numpy(
             model, cfg, device)
         self.device = self.model.device
@@ -604,12 +688,14 @@ class PagedEngine:
         self.last_tok = np.zeros(slots, np.int32)
         self.temps = np.zeros(slots, np.float32)
         self.seeds = np.zeros(slots, np.int64)
+        self.draws = np.zeros(slots, np.int64)  # each slot's counter at its push
         self.penalties = np.ones(slots, np.float32)
         self.seen = np.zeros((slots, cfg.vocab), bool)
         self.active: List[Optional[_Request]] = [None] * slots
         self.pending: List[_Request] = []
         self._done: Dict[int, np.ndarray] = {}
         self._next_id = 0
+        self._admit_seq = 0
         # prefix sharing: block-aligned prompt prefixes cached with their
         # blocks reference-counted; the digest side-index lets a lookup
         # hash a prompt once and probe every block depth in O(1)
@@ -617,6 +703,12 @@ class PagedEngine:
         self.prefix_cache: "OrderedDict[bytes, List[int]]" = OrderedDict()
         self._pc_digest: Dict[bytes, bytes] = {}
         self._pc_by_digest: Dict[bytes, bytes] = {}
+        # the hierarchical cache: a radix index in place of the dict, and
+        # the host tier cold evictions land in
+        self.prefix_index = prefix_index
+        self._radix = RadixPrefixIndex(block_size) if prefix_index == "radix" else None
+        self._spill = HostSpillTier(spill_blocks, spill_dtype) if spill_blocks else None
+        self._spill_policy = SpillPolicy() if spill_blocks else None
         self.prefill_chunk = prefill_chunk
         self.interleave = bool(interleave)
         # prompt-length buckets of unchunked prefills, per program
@@ -629,16 +721,20 @@ class PagedEngine:
             "prefix_hits": 0, "prefix_misses": 0, "evictions": 0,
             "ticks": 0, "tokens_out": 0, "requests_done": 0,
             "blocks_retired": 0,
-            # speculative decoding (A10.1): always 0 here
+            # verify_passes = verify ticks; spec_rounds, spec_accepted and
+            # spec_tokens = per-slot rounds, drafts accepted, tokens committed
             "verify_passes": 0, "spec_rounds": 0, "spec_accepted": 0,
             "spec_tokens": 0,
             # host_syncs = barriers that drained the async window;
             # h2d_ticks = ticks that needed a host upload
             "host_syncs": 0, "h2d_ticks": 0,
             "admissions": 0, "prefill_chunks": 0, "stall_ticks": 0,
-            # preemption (A10.3), recompiles (no jit) and the spill tier
-            # (A10.2): always 0 here
+            # preemptions = slots released under KV pressure and requeued;
+            # recompiles: always 0 here (no jit)
             "preemptions": 0, "recompiles": 0,
+            # spill_spilled = cold blocks handed to the host tier;
+            # spill_prefetched = blocks restored at admission; spill_hits =
+            # admissions the host tier extended past the radix hit
             "spill_spilled": 0, "spill_prefetched": 0, "spill_hits": 0,
         }
         self.max_pending = max_pending
@@ -649,8 +745,16 @@ class PagedEngine:
         self._h2d = False
         # per slot: first logical block not yet window-retired
         self._retire_from = [0] * slots
-        # the prefill/decode handoff (A10.4) is refused at the next step
+        # fleet identity, set by a serving daemon (None for a bare engine)
+        self.replica_index: Optional[int] = None
+        self.pool_role: Optional[str] = None
+        # disaggregated serving: a prefill engine parks each request at the
+        # end of its prefill; export_handoff drains handoff_ready
         self.handoff_at_boundary = False
+        self.handoff_ready: List[Tuple[int, _Request]] = []
+        # host waits that read KV blocks back (a spill at eviction, an
+        # export): one each, whatever the number of blocks
+        self.kv_fetches = 0
         self._kv_pool_bytes = _pool_nbytes(self.kpool) + _pool_nbytes(self.vpool)
         self._block_bytes = self._kv_pool_bytes // n_blocks
         # speculative decoding: a tick verifies (spec_k + 1)-token windows
@@ -683,7 +787,14 @@ class PagedEngine:
         """A copy of host ``arr`` on the engine's device: through pinned
         memory with ``non_blocking=True`` on the card, so the host never
         waits for the ticks in flight."""
-        host = torch.from_numpy(np.array(arr))
+        return self._to_device(torch.from_numpy(np.array(arr)))
+
+    def _to_device(self, host: torch.Tensor) -> torch.Tensor:
+        """Host tensor ``host`` on the engine's device (itself on the CPU).
+        On the card the copy leaves from a pinned staging copy, queued
+        behind the ticks in flight.  The staging copy may be dropped at
+        once: PyTorch's pinned-memory allocator records the copy's stream
+        event and reuses that memory only once the copy has run."""
         if self.device.type != "cuda":
             return host
         return host.pin_memory().to(self.device, non_blocking=True)
@@ -699,7 +810,7 @@ class PagedEngine:
         st["last_tok"][s].fill_(int(self.last_tok[s]))
         st["temps"][s].fill_(float(self.temps[s]))
         st["seeds"][s].fill_(int(self.seeds[s]))
-        st["draws"][s].fill_(0)
+        st["draws"][s].fill_(int(self.draws[s]))
         st["penalties"][s].fill_(float(self.penalties[s]))
         st["seen"][s] = self._upload(self.seen[s])
         st["tables"][s] = self._upload(self.tables[s])
@@ -751,7 +862,11 @@ class PagedEngine:
         speculate: each tick it proposes up to ``spec_k`` drafts (0 = the
         engine's) and commits 1..spec_k+1 tokens, the greedy stream of
         ``spec="off"``.  A sampled request keeps single-token ticks.
-        ``spec_ngram`` overrides the engine's lookup n-gram (0 = its own)."""
+        ``spec_ngram`` overrides the engine's lookup n-gram (0 = its own).
+
+        ``priority`` ranks the request under KV pressure: a head request
+        that cannot be admitted preempts an active one of strictly lower
+        priority, which later resumes where it stopped."""
         if spec not in ("off", "lookup", "draft"):
             raise ValueError(f"spec={spec!r}; expected 'off', 'lookup' or 'draft'")
         if spec != "off":
@@ -765,8 +880,6 @@ class PagedEngine:
                 f"spec_k must be in [0, {self.spec_k}] (engine verify window), got {spec_k}")
         if spec_ngram < 0:
             raise ValueError(f"spec_ngram must be >= 0, got {spec_ngram}")
-        if priority:
-            raise _unported("request priorities and preemption", "A10.3")
         if rid is not None or tag:
             raise _unported("request tracing ids and tags", "A11")
         if self.max_pending and len(self.pending) >= self.max_pending:
@@ -793,8 +906,11 @@ class PagedEngine:
                 f"{self.n_usable_blocks} blocks)")
         req = _Request(self._next_id, prompt, max_new, float(temperature), int(seed),
                        float(repetition_penalty), int(stop_byte), spec,
-                       int(spec_k) or self.spec_k, int(spec_ngram) or self.spec_ngram)
+                       int(spec_k) or self.spec_k, int(spec_ngram) or self.spec_ngram,
+                       int(priority))
         self._next_id += 1
+        if self.replica_index is not None:
+            req.hops.append(self.replica_index)
         self.pending.append(req)
         return req.req_id
 
@@ -803,10 +919,15 @@ class PagedEngine:
 
     def _lookup_prefix(self, prompt: np.ndarray):
         """Longest cached block-aligned prefix of the prefill region
-        (prompt[:-1]): (shared_blocks, shared_positions)."""
+        (prompt[:-1]): (shared_blocks, shared_positions).  The radix walk
+        returns the longest partial hit; the dict probes the digest chain
+        and confirms the deepest exact hit against its key bytes."""
         nb_full = (len(prompt) - 1) // self.block_size
         if nb_full <= 0:
             return [], 0
+        if self._radix is not None:
+            blocks, nb = self._radix.lookup(prompt[: nb_full * self.block_size])
+            return blocks, nb * self.block_size
         key = prompt[: nb_full * self.block_size].tobytes()
         step = self.block_size * prompt.itemsize
         best = 0
@@ -822,10 +943,66 @@ class PagedEngine:
             best -= 1
         return [], 0
 
+    def _read_blocks(self, blocks: List[int]) -> Tuple[list, list]:
+        """Host copies of pool ``blocks`` in the pool's representation:
+        (K payloads, V payloads), one per block, each ``(L, BS, kv, d)``
+        (an int8 pool: a ``(data, scale)`` pair).  One gather, one copy
+        and one wait for the device, counted in ``kv_fetches``."""
+        kd, vd = _spill_read(self.kpool, self.vpool, self._upload(np.asarray(blocks, np.int64)))
+        quantized = isinstance(kd, tuple)
+        host = self._fetch_all([*kd, *vd] if quantized else [kd, vd])
+        self.kv_fetches += 1
+        if quantized:
+            kq, ks, vq, vs = host
+            return ([(kq[i], ks[i]) for i in range(len(blocks))],
+                    [(vq[i], vs[i]) for i in range(len(blocks))])
+        return list(host[0]), list(host[1])
+
+    def _write_blocks(self, blocks: List[int], kparts: list, vparts: list) -> None:
+        """Write host payloads (as :meth:`_read_blocks` gives them) into
+        pool ``blocks``: one upload of each stacked part."""
+        def stack(parts):
+            if isinstance(parts[0], tuple):
+                return tuple(self._to_device(torch.stack([p[i] for p in parts]))
+                             for i in range(2))
+            return self._to_device(torch.stack(parts))
+        _spill_restore(self.kpool, self.vpool, stack(kparts), stack(vparts),
+                       self._upload(np.asarray(blocks, np.int64)))
+
+    def _spill_out(self, evicted: List[Tuple[int, Tuple[int, ...]]]):
+        """Hand cold evicted blocks ``(block, token path)`` to the host tier,
+        keyed by the path's digest: one read-back at an eviction boundary,
+        never inside steady decode.  The blocks are already on the free
+        list, but nothing writes to them before the read: the read is
+        queued now, ahead of any later dispatch."""
+        kparts, vparts = self._read_blocks([b for b, _ in evicted])
+        for (_, path), kblk, vblk in zip(evicted, kparts, vparts):
+            key = _chain_digests(np.asarray(path, np.int32).tobytes(), self.block_size * 4)[-1]
+            self._spill.put(key, kblk, vblk)
+            self.counters["spill_spilled"] += 1
+
     def _evict_prefixes(self, want_free: int):
         """Drop least-recently-used cached prefixes until ``want_free``
         blocks are free (a block a live request holds only loses the
-        cache's reference)."""
+        cache's reference).
+
+        radix: one leaf at a time, so cold deep suffixes go first and the
+        hot shared trunk stays; with the spill tier armed, a cold leaf
+        (the cache's reference alone) goes to the host on its way out."""
+        if self._radix is not None:
+            evicted = []
+            while len(self.free) < want_free and self._radix.n_blocks:
+                got = self._radix.evict_leaf()
+                if got is None:
+                    break
+                block, path = got
+                self.counters["evictions"] += 1
+                if self._spill is not None and self.block_refs[block] == 1:
+                    evicted.append((block, path))
+                self._deref(block)
+            if evicted:
+                self._spill_out(evicted)
+            return
         while len(self.free) < want_free and self.prefix_cache:
             key, blocks = self.prefix_cache.popitem(last=False)
             d = self._pc_digest.pop(key, None)
@@ -837,6 +1014,9 @@ class PagedEngine:
 
     def _evictable_blocks(self) -> int:
         """Blocks the cache alone holds: what eviction could free."""
+        if self._radix is not None:
+            # one cache reference a node: cache-only means a refcount of 1
+            return sum(1 for b in self._radix.blocks() if self.block_refs[b] == 1)
         cache_refs: Dict[int, int] = {}
         for blocks in self.prefix_cache.values():
             for b in blocks:
@@ -850,12 +1030,68 @@ class PagedEngine:
         if self.block_refs[block] == 0:
             self.free.append(int(block))
 
+    def _prefetch_spill(self, req: _Request, shared: List[int], shared_pos: int):
+        """Extend the radix hit with host-tier blocks: probe the tier for
+        successively deeper block-aligned prefixes and restore each hit into
+        a free block before prefill decides what to recompute.  The restored
+        blocks become ordinary radix entries (one cache reference each), so
+        each one takes a free block and shortens the prefill tail by a
+        block, and ``_head_admittable``'s arithmetic holds.  Runs at
+        admission only; the restores leave in one upload."""
+        prompt = req.prompt
+        bs = self.block_size
+        nb_full = (len(prompt) - 1) // bs
+        j = shared_pos // bs
+        if j >= nb_full or len(self._spill) == 0:
+            return shared, shared_pos
+        digs = _chain_digests(np.ascontiguousarray(prompt[: nb_full * bs], np.int32).tobytes(),
+                              bs * 4)
+        quantized = isinstance(self.kpool, tuple)
+        pool_dtype = (self.kpool[0] if quantized else self.kpool).dtype
+        shared = list(shared)
+        got, restored, kparts, vparts = 0, [], [], []
+        while j + got < nb_full and self.free:
+            payload = self._spill.get(digs[j + got], pool_is_quantized=quantized,
+                                      pool_dtype=pool_dtype)
+            if payload is None:
+                break
+            b = self.free.pop()
+            adopted = self._radix.insert(prompt[: (j + got + 1) * bs], shared + [b])
+            for a in adopted:
+                self.block_refs[a] += 1
+            if adopted != [b]:
+                # the path already existed past the lookup's depth: b stays free
+                self.free.append(b)
+                break
+            restored.append(b)
+            kparts.append(payload[0])
+            vparts.append(payload[1])
+            shared.append(b)
+            got += 1
+            self.counters["spill_prefetched"] += 1
+        if restored:
+            self._h2d = True
+            self._write_blocks(restored, kparts, vparts)
+        if got:
+            self.counters["spill_hits"] += 1
+            shared_pos = (j + got) * bs
+        return shared, shared_pos
+
     def _admit(self):
+        if self._spill_policy is not None and self.pending:
+            # proactive spill past the watermark: shed a bounded batch of
+            # cold leaves to the host tier at this admission boundary
+            used = self.n_usable_blocks - len(self.free)
+            over = self._spill_policy.overage(used, self.n_usable_blocks)
+            if over > 0:
+                self._evict_prefixes(len(self.free) + over)
         for s in range(self.slots):
             if self.active[s] is not None or not self.pending:
                 continue
             req = self.pending[0]
             shared, shared_pos = self._lookup_prefix(req.prompt)
+            if self._spill is not None:
+                shared, shared_pos = self._prefetch_spill(req, shared, shared_pos)
             # pin the shared blocks now: eviction below may drop the very
             # cache entry just matched
             for b in shared:
@@ -873,6 +1109,8 @@ class PagedEngine:
             self.pending.pop(0)
             self.counters["prefix_hits" if shared else "prefix_misses"] += 1
             self.counters["admissions"] += 1
+            req.admit_seq = self._admit_seq
+            self._admit_seq += 1
             fresh = [self.free.pop() for _ in range(need_new)]
             for b in fresh:
                 self.block_refs[b] += 1
@@ -881,6 +1119,8 @@ class PagedEngine:
             self.tables[s] = row
             self.temps[s] = req.temperature
             self.seeds[s] = req.seed
+            # a resumed sampled slot continues its stream where it stopped
+            self.draws[s] = req.resume_draw
             self.penalties[s] = req.repetition_penalty
             self.seen[s] = False
             self.seen[s, req.prompt] = True
@@ -907,14 +1147,26 @@ class PagedEngine:
                 if req.spec == "draft":
                     self._draft_prefill_slot(s, req)
                 self._register_prefix(req.prompt, row)
+                if self.handoff_at_boundary:
+                    self._park_handoff(s, req)
+                    continue
                 req.phase = "decode"
                 self._push_slot(s, True)
 
     def _register_prefix(self, prompt: np.ndarray, row: np.ndarray):
         """Cache this request's full prefill blocks (the cache holds its
-        own reference on each)."""
+        own reference on each).  radix: the first writer of a chunk wins,
+        so the cache takes a reference on the newly adopted blocks only; a
+        duplicate block this request prefilled privately frees on
+        release."""
         nb_full = (len(prompt) - 1) // self.block_size
         if nb_full == 0:
+            return
+        if self._radix is not None:
+            adopted = self._radix.insert(prompt[: nb_full * self.block_size],
+                                         [int(b) for b in row[:nb_full]])
+            for b in adopted:
+                self.block_refs[b] += 1
             return
         key = prompt[: nb_full * self.block_size].tobytes()
         if key in self.prefix_cache:
@@ -1026,6 +1278,9 @@ class PagedEngine:
         self.lengths[s] = req.pf_end
         self.last_tok[s] = req.prompt[-1]
         self._register_prefix(req.prompt, self.tables[s])
+        if self.handoff_at_boundary:
+            self._park_handoff(s, req)
+            return
         req.phase = "decode"
         self._push_slot(s, True)
 
@@ -1109,18 +1364,130 @@ class PagedEngine:
         self.penalties[s] = 1.0
         self.seen[s] = False
         self.seeds[s] = 0
+        self.draws[s] = 0
         self._retire_from[s] = 0
         self.active[s] = None
         self._push_slot(s, False)
 
+    # ---------------------------------------------------- resume, preempt
     def resubmit(self, req: _Request, fresh_id: bool = False) -> int:
-        raise _unported("resubmit (preemption and supervisor replay)", "A10.3")
+        """Requeue ``req`` so that its decode resumes where it stopped: the
+        mechanism behind preemption, a supervisor's replay on a rebuilt
+        engine and the decode side of a handoff.
 
-    def export_handoff(self):
-        raise _unported("the prefill/decode KV handoff", "A10.4")
+        The tokens emitted since the last resume fold into the prompt
+        (``out`` keeps them, so the result is the whole stream and the
+        budget is unchanged); admission then prefills them and the next
+        tick continues the stream, bit-identical for greedy decoding.  A
+        sampled request resumes its draw counter at ``len(out)``.
 
-    def import_handoff(self, payload):
-        raise _unported("the prefill/decode KV handoff", "A10.4")
+        ``req_id`` is kept (waiters keep their handle) and the id counter
+        moves past it; ``fresh_id=True`` takes a new id from this engine's
+        counter instead, for a request arriving from another engine."""
+        if req.cancelled:
+            raise ValueError("resubmit of a cancelled request")
+        if len(req.out) > req.n_resumed:
+            req.prompt = np.concatenate(
+                [req.prompt, np.asarray(req.out[req.n_resumed:], np.int32)])
+            req.n_resumed = len(req.out)
+        if req.temperature > 0:
+            req.resume_draw = len(req.out)
+        req.phase = "decode"
+        req.pf_pos = req.pf_end = req.d_pf_pos = 0
+        req.resubmits += 1
+        if self.replica_index is not None and (not req.hops
+                                               or req.hops[-1] != self.replica_index):
+            req.hops.append(self.replica_index)
+        if fresh_id:
+            req.req_id = self._next_id
+        self._next_id = max(self._next_id, req.req_id + 1)
+        self.pending.append(req)
+        return req.req_id
+
+    def _preempt_for_head(self, finished: List[int]) -> bool:
+        """KV pressure: the head request cannot be admitted even after
+        eviction, so preempt the lowest-priority active slot whose priority
+        is strictly below the head's (never an equal one: FIFO arrivals do
+        not evict each other), release its blocks and requeue it right
+        behind the head.  Ties go to the most recently admitted slot, the
+        least prefill thrown away.  A slot parked for a handoff is not a
+        victim.
+
+        The window is drained first: the ticks in flight read the victim's
+        blocks and hold tokens it has not emitted yet.  True when a slot was
+        preempted or the drain itself freed one (the caller looks again)."""
+        head = self.pending[0]
+        victims = [(r.priority, -r.admit_seq, s) for s, r in enumerate(self.active)
+                   if r is not None and not r.cancelled and r.phase != "handoff"
+                   and r.priority < head.priority]
+        if not victims:
+            return False
+        self._drain_all(finished)
+        if any(r is None for r in self.active) and self._head_admittable():
+            return True  # a request finished inside the window
+        _, _, s = min(victims)
+        req = self.active[s]
+        if req is None or req.cancelled:
+            return True  # the drain retired the victim
+        self.counters["preemptions"] += 1
+        req.preemptions += 1
+        self._release_blocks(s, req)
+        self._clear_slot(s)
+        self.resubmit(req)
+        self.pending.insert(1, self.pending.pop())
+        return True
+
+    # ----------------------------------------------------------- handoff
+    def _park_handoff(self, s: int, req: _Request):
+        """The end of a prefill on a prefill engine: park the request in
+        phase ``"handoff"`` instead of decoding it.  No dispatch path reads
+        a parked slot (each filters on the phase) and its device slot stays
+        inactive, but ``active[s]`` holds it until :meth:`export_handoff`."""
+        req.phase = "handoff"
+        self.handoff_ready.append((s, req))
+
+    def export_handoff(self) -> List[Tuple[_Request, List[tuple]]]:
+        """Drain the parked requests: read each one's full prefill blocks
+        back to the host, keyed by the digest chain the decode side's
+        prefetch probes, then release its slot (the prefix it registered
+        here keeps its own references).
+
+        ``[(req, [(digest, kblk, vblk), ...]), ...]``, the blocks in the
+        pool's representation (what a spill hands the host tier).  A
+        cancelled request, or any on an engine without a spill tier,
+        exports an empty payload; a prompt shorter than a block exports
+        none either.  All blocks of the call come back in one read."""
+        ready, self.handoff_ready = self.handoff_ready, []
+        wanted = []
+        for s, req in ready:
+            digs, blocks = [], []
+            if not req.cancelled and self._spill is not None:
+                bs = self.block_size
+                prompt = np.ascontiguousarray(req.prompt, np.int32)
+                nb_full = (len(prompt) - 1) // bs
+                digs = _chain_digests(prompt[: nb_full * bs].tobytes(), bs * 4)
+                blocks = [int(b) for b in self.tables[s, :nb_full]]
+            wanted.append((digs, blocks))
+        all_blocks = [b for _, blocks in wanted for b in blocks]
+        kparts, vparts = self._read_blocks(all_blocks) if all_blocks else ([], [])
+        out, at = [], 0
+        for (s, req), (digs, blocks) in zip(ready, wanted):
+            n = len(blocks)
+            out.append((req, list(zip(digs, kparts[at:at + n], vparts[at:at + n]))))
+            at += n
+            self._release_blocks(s, req)
+            self._clear_slot(s)
+        return out
+
+    def import_handoff(self, payload: List[tuple]) -> int:
+        """Land a peer's exported blocks ``[(digest, kblk, vblk), ...]`` in
+        this engine's host tier, where the admission of the resubmitted
+        request restores them, so its prefill recomputes only the tail
+        shorter than a block.  The encoded bytes taken (what a handoff
+        charges; a quantized spill dtype charges its own size)."""
+        if self._spill is None:
+            raise EngineConfigError("import_handoff requires spill_blocks > 0")
+        return sum(self._spill.put(key, kblk, vblk) for key, kblk, vblk in payload)
 
     def publish_metrics(self):
         raise _unported("published engine metrics", "A11")
@@ -1192,9 +1559,7 @@ class PagedEngine:
         Admission does bookkeeping only and never drains the async window
         under ``interleave``; the one admission sync left is block
         reclamation, when the head request needs blocks held by a request
-        that finishes inside the window."""
-        if self.handoff_at_boundary:
-            raise _unported("the prefill/decode KV handoff", "A10.4")
+        that finishes inside the window; preemption drains it too."""
         finished: List[int] = []
         self._h2d = False
         self._stall_prefill_dispatches = 0
@@ -1218,6 +1583,13 @@ class PagedEngine:
                 # head's only way in
                 self._drain_all(finished)
                 if self._head_admittable():
+                    self._admit()
+            elif self._preempt_for_head(finished):
+                # a strictly higher-priority head released the lowest-priority
+                # slot, which is requeued behind it
+                if self.pending and self._head_admittable():
+                    if not self.interleave:
+                        self._drain_all(finished)
                     self._admit()
         spec = self._spec_wanted()
         if spec and self._inflight:
@@ -1288,13 +1660,17 @@ class PagedEngine:
             r is not None and r.phase == "decode" and self._spec_budget(r) > 0
             for r in self.active)
 
-    def _fetch_wait(self, tensors: List[torch.Tensor]) -> List[np.ndarray]:
+    def _fetch_all(self, tensors: List[torch.Tensor]) -> List[torch.Tensor]:
         """Copy ``tensors`` to the host and wait for the device once: the
         copies run in stream order, so the last one's event covers all."""
         fetched = [self._fetch(t) for t in tensors]
         if fetched[-1][1] is not None:
             fetched[-1][1].synchronize()
-        return [host.numpy() for host, _ in fetched]
+        return [host for host, _ in fetched]
+
+    def _fetch_wait(self, tensors: List[torch.Tensor]) -> List[np.ndarray]:
+        """:meth:`_fetch_all` as numpy arrays."""
+        return [host.numpy() for host in self._fetch_all(tensors)]
 
     def _step_spec(self) -> List[int]:
         """One speculative tick: per-slot proposals, one batched
@@ -1468,18 +1844,24 @@ class PagedEngine:
         return len(self._inflight)
 
     def stats(self) -> Dict[str, int]:
-        """``tpulab``'s stats keys: the counters, pool occupancy and the
-        async window's depth; the spill tier and mesh report their disarmed
-        values."""
+        """``tpulab``'s stats keys: the counters, pool occupancy, the cache
+        and its host tier (zeros while disarmed) and the async window's
+        depth; the mesh reports its disarmed values."""
+        radix, spill = self._radix, self._spill
         return {
             **self.counters,
             "blocks_free": len(self.free),
             "blocks_used": self.n_usable_blocks - len(self.free),
             "blocks_total": self.n_usable_blocks,
-            "cache_entries": len(self.prefix_cache),
-            "cache_bytes": self._block_bytes * sum(len(b) for b in self.prefix_cache.values()),
-            "spill_host_blocks": 0, "spill_host_bytes": 0,
-            "spill_capacity_blocks": 0, "spill_dropped": 0,
+            "cache_entries": radix.n_entries if radix is not None else len(self.prefix_cache),
+            # one reference a radix node; a dict entry counts each block it lists
+            "cache_bytes": self._block_bytes * (
+                radix.n_blocks if radix is not None
+                else sum(len(b) for b in self.prefix_cache.values())),
+            "spill_host_blocks": len(spill) if spill is not None else 0,
+            "spill_host_bytes": spill.nbytes if spill is not None else 0,
+            "spill_capacity_blocks": spill.capacity if spill is not None else 0,
+            "spill_dropped": spill.dropped if spill is not None else 0,
             "kv_pool_bytes": self._kv_pool_bytes,
             "kv_pool_device_bytes": self._kv_pool_bytes,
             "kv_pool_bytes_per_shard": self._kv_pool_bytes,

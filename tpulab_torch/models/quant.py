@@ -3,14 +3,15 @@
 
 Symmetric per-channel scheme: ``s_c = max|w_c| / 127``, ``q = round(w/s)``;
 the dequantize folds after the matmul, ``x @ (q * s) == (x @ q) * s`` for
-a per-column scale.  The int4 packing of the KV spill tier waits for that
-tier.
+a per-column scale.  ``pack_int4``/``unpack_int4`` are the KV spill
+tier's cold host format, in numpy.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, NamedTuple
+from typing import Any, Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 
@@ -53,6 +54,34 @@ def unembed(x: torch.Tensor, embed) -> torch.Tensor:
     if isinstance(embed, QTensor):
         return (x @ embed.q.T.to(x.dtype)) * embed.s.to(x.dtype)
     return x @ embed.T
+
+
+def pack_int4(q: np.ndarray) -> Tuple[np.ndarray, bool]:
+    """Pack int8 values in [-8, 7] two to a byte, low nibble first.
+
+    Host-side numpy, the KV spill tier's cold format: the packed uint8
+    array over the flattened input, and whether a padding nibble was
+    appended (an odd count); :func:`unpack_int4` inverts it exactly."""
+    flat = np.asarray(q, np.int8).reshape(-1)
+    if flat.size and (flat.min() < -8 or flat.max() > 7):
+        raise ValueError("pack_int4 input out of int4 range [-8, 7]")
+    odd = bool(flat.size % 2)
+    if odd:
+        flat = np.concatenate([flat, np.zeros(1, np.int8)])
+    u = (flat.astype(np.int16) & 0xF).astype(np.uint8)
+    return (u[0::2] | (u[1::2] << 4)).astype(np.uint8), odd
+
+
+def unpack_int4(packed: np.ndarray, odd: bool = False) -> np.ndarray:
+    """Inverse of :func:`pack_int4`: packed uint8 -> flat int8 in [-8, 7]."""
+    p = np.asarray(packed, np.uint8)
+    lo = (p & 0xF).astype(np.int8)
+    hi = ((p >> 4) & 0xF).astype(np.int8)
+    out = np.empty(p.size * 2, np.int8)
+    out[0::2] = lo
+    out[1::2] = hi
+    out = np.where(out > 7, out - 16, out).astype(np.int8)
+    return out[:-1] if odd else out
 
 
 def quantize_decode_params(params: Dict[str, Any], cfg) -> Dict[str, Any]:
