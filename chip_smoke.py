@@ -211,7 +211,36 @@ failure:
     b. the small labformer of phase 9a, trained again here: a preempted
        greedy and a preempted sampled request, the spill round trip and the
        handoff, each stream bit-equal to its uninterrupted run.
-11. One ``{"model": {...}}`` line with phases 5 to 7's, 9's and 10's
+11. The text model's checkpoint lifecycle, in ``build/chip_smoke/lifecycle``
+    (removed at the end), each run with every launch count set to 0 just
+    before and read just after (B4, B5 and B6 once per layer of each
+    dispatched training step at s >= 1024; B4 once per layer of each eval
+    batch, of each prefill of >= 1024 tokens and of each teacher and
+    student forward in ``distill``; no lab kernel and no B7):
+
+    a. a seeded ~4 MB corpus over 4 files (words drawn Zipf-like from a
+       seeded list), ``tpulab_torch tokenizer train --vocab 512`` through
+       the CLI; ``decode(encode(corpus))`` equals the corpus;
+    b. the flagship (d512, 8 heads, 8 layers, d_ff 2048, bf16, b8 s2048) on
+       the native loader with snapshots every 10 steps: 20 steps straight,
+       10 then ``resume`` to 20, and 20 with ``recover=1`` and a fault at
+       step 15; the printed losses and the step-20 snapshots (parameters,
+       moments, counters) are bit-equal; save and restore ms of the
+       flagship's train state and its snapshot bytes, with the card line;
+    c. the same width at the tokenizer's vocab with ``--tokenizer``, 10
+       steps and a snapshot; ``tpulab_torch eval --seq 2048`` through the
+       CLI (finite loss, perplexity, bits per byte); ``generate
+       --ckpt-dir`` greedy over a prompt of >= 1024 tokens, its text equal
+       to ``generate()`` on ``load_params``;
+    d. ``init_from`` b's snapshot with ``lora_rank=8`` for 5 steps (every
+       base leaf bit-unchanged, ``generate --ckpt-dir`` prints the merged
+       LoRA line); ``tpulab_torch distill`` from c's snapshot into a
+       4-layer student at s1024 for 3 steps, then ``generate --ckpt-dir``
+       on the student;
+    e. ``tpulab_torch train --data-dir ... --seq 1024 --ckpt-dir ...
+       --save-every 2 --steps 4``, then ``--resume --steps 6``: the resumed
+       ``[train]`` lines equal a straight 6-step run's.
+12. One ``{"model": {...}}`` line with phases 5 to 7's and 9 to 11's
     numbers, one ``{"lab_suite": {...}}`` line with phase 8's, one
     ``{"kernels": [...]}`` line, the card line again, and last ``{"ok":
     true, "device": {...}}``.
@@ -2728,6 +2757,360 @@ def run_cache_path(sizes: dict, device, card: str) -> dict:
     return {"width": width, "small_trained": small}
 
 
+# ----------------------------------------------------- phase 11: the lifecycle
+
+
+def lifecycle_corpus(root: Path, total: int, files: int, seed: int = 0) -> Path:
+    """``total`` bytes of text over ``files`` files: words drawn Zipf-like
+    (exponent 1.1) from a seeded list of 2000 lowercase words, so merges and
+    losses mean something; under ``root/data``."""
+    rng = np.random.default_rng(seed)
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", np.uint8)
+    words = [bytes(rng.choice(letters, rng.integers(2, 9))) for _ in range(2000)]
+    p = 1.0 / np.arange(1, 2001) ** 1.1
+    text = b" ".join(words[i] for i in rng.choice(2000, total // 5 + 16, p=p / p.sum()))
+    data = root / "data"
+    data.mkdir(parents=True)
+    per = total // files
+    for i in range(files):
+        (data / f"part{i:02d}.txt").write_bytes(text[i * per:(i + 1) * per])
+    return data
+
+
+def train_lines(out: list) -> list:
+    """The ``[train] step`` and ``[eval]`` lines of a run, without their times."""
+    return [ln.split(" (")[0] for ln in out if ln.startswith(("[train] step", "[eval]"))]
+
+
+def dispatches(out: list) -> int:
+    line = [ln for ln in out if ln.startswith("[train] counters")][-1]
+    return int(line.split("dispatches=")[1].split()[0])
+
+
+def first_seen(lines: list) -> list:
+    """``lines`` without repeats: a rollback replays the steps after its
+    snapshot, whose lines print again."""
+    return [ln for i, ln in enumerate(lines) if ln not in lines[:i]]
+
+
+def snapshot_equal(a: Path, b: Path, step: int) -> bool:
+    """Whether two snapshots of ``step`` hold the same bits, every
+    parameter, moment and counter."""
+    import torch
+
+    from tpulab_torch import ckpt
+
+    def load(d):
+        return torch.load(d / str(step) / ckpt.STATE_FILE, weights_only=True)
+
+    def same(x, y):
+        if isinstance(x, torch.Tensor):
+            return (x.dtype == y.dtype and x.shape == y.shape
+                    and bitwise_equal(x.contiguous(), y.contiguous()))
+        if isinstance(x, dict):
+            return set(x) == set(y) and all(same(x[k], y[k]) for k in x)
+        if isinstance(x, list):
+            return len(x) == len(y) and all(same(u, v) for u, v in zip(x, y))
+        return x == y
+
+    return same(load(a), load(b))
+
+
+def life_train(sizes: dict, device, cfg, path: str, **kw) -> tuple:
+    """``tpulab_torch.train.train`` at the lifecycle's batch and sequence,
+    counted: B4, B5 and B6 once per layer of each dispatched step; (its
+    log lines, launches)."""
+    from tpulab_torch.train import train
+
+    out: list = []
+
+    def run():
+        train(batch=sizes["life_batch"], seq=sizes["life_seq"], cfg=cfg, seed=0,
+              log=out.append, device=device, **kw)
+        return out
+
+    _, launches = counted(run, device, lambda o: dict.fromkeys(
+        TRAIN_KERNELS, dispatches(o) * cfg.n_layers if sizes["life_seq"] >= 1024 else 0), path)
+    return out, launches
+
+
+def save_restore_ms(sizes: dict, device, cfg, work: Path, card: str) -> dict:
+    """Wall ms of ``ckpt.save`` and ``ckpt.restore`` of the flagship's train
+    state (3 each, after a synchronize), and the snapshot's bytes."""
+    import statistics
+
+    import torch
+
+    from tpulab_torch import ckpt
+    from tpulab_torch.models.labformer import init_train_state
+    from tpulab_torch.train import batches
+
+    model, state, step = init_train_state(cfg, None, seed=0, device=device)
+    step(model, state, batches(cfg.vocab, 1, 64, 0)(0))  # moments and counters exist
+    sync = (lambda: torch.cuda.synchronize(device)) if device.type == "cuda" else (lambda: None)
+    save, restore = [], []
+    for i in range(3):
+        sync()
+        t0 = time.perf_counter()
+        nbytes = ckpt.save(str(work / "timed"), i + 1, model, state)
+        save.append((time.perf_counter() - t0) * 1e3)
+    for i in range(3):
+        sync()
+        t0 = time.perf_counter()
+        ckpt.restore(str(work / "timed"), i + 1, model, state)
+        sync()
+        restore.append((time.perf_counter() - t0) * 1e3)
+    out = {"save_ms": statistics.median(save), "save_ms_runs": save,
+           "restore_ms": statistics.median(restore), "restore_ms_runs": restore,
+           "snapshot_bytes": nbytes, "card": card}
+    print(f"checkpoint of the flagship train state ({cfg.dtype}, params and adam moments): "
+          f"save {out['save_ms']:.3f} ms (median of {save}), restore {out['restore_ms']:.3f} "
+          f"ms (median of {restore}), {nbytes} bytes a snapshot ({card})", flush=True)
+    return out
+
+
+def check_byte_flagship(sizes: dict, device, data: Path, work: Path) -> dict:
+    """Phase 11b: the flagship on the native loader, 20 steps straight, 10
+    then resumed to 20, and 20 with one recover from a fault at step 15:
+    the three runs' printed losses and final snapshots bit-equal."""
+    import torch
+
+    from tpulab_torch.models.labformer import LabformerConfig
+
+    cfg = LabformerConfig(**sizes["life"], max_seq=sizes["life_seq"], dtype=torch.bfloat16)
+    n, every, fault = sizes["life_steps"], sizes["life_save_every"], sizes["life_fault"]
+    common = dict(data_dir=str(data), save_every=every)
+    straight, l_straight = life_train(sizes, device, cfg, "straight flagship run",
+                                      steps=n, ckpt_dir=str(work / "straight"), **common)
+    first, l_first = life_train(sizes, device, cfg, "interrupted flagship run",
+                                steps=every, ckpt_dir=str(work / "resumed"), **common)
+    rest, l_rest = life_train(sizes, device, cfg, "resumed flagship run", steps=n,
+                              ckpt_dir=str(work / "resumed"), resume=True, **common)
+    rec, l_rec = life_train(sizes, device, cfg, "recovered flagship run", steps=n,
+                            ckpt_dir=str(work / "recovered"), recover=1,
+                            inject_fault=(fault,), **common)
+    want = train_lines(straight)
+    check(len(want) == n, f"straight run printed {straight[-3:]}")
+    check(f"[train] resumed from step {every}" in rest, f"resume printed {rest[:2]}")
+    check(train_lines(first) + train_lines(rest) == want,
+          f"resumed losses {train_lines(rest)} differ from {want[every:]}")
+    check(sum(ln.startswith("[fault]") for ln in rec) == 1
+          and any(ln.startswith("[recover]") and f"snapshot {every} (1/1)" in ln for ln in rec),
+          f"recover printed {[ln for ln in rec if ln.startswith(('[fault]', '[recover]'))]}")
+    check(first_seen(train_lines(rec)) == want,
+          f"recovered losses {train_lines(rec)} differ from {want}")
+    for name in ("resumed", "recovered"):
+        check(snapshot_equal(work / "straight", work / name, n),
+              f"the {name} run's step-{n} snapshot differs from the straight run's")
+    print(f"byte flagship (11b) bf16 b{sizes['life_batch']} s{sizes['life_seq']}: {n} steps "
+          f"straight, {every} + resume, and recover from a fault at {fault} are bit-equal "
+          f"(losses and step-{n} snapshots); losses {[ln.split()[-1] for ln in want]}; "
+          f"dispatches {dispatches(straight)}, {dispatches(first)} + {dispatches(rest)}, "
+          f"{dispatches(rec)}", flush=True)
+    return {"losses": [float(ln.split()[-1]) for ln in want], "bit_equal": True,
+            "launches": {"straight": l_straight, "interrupted": l_first, "resumed": l_rest,
+                         "recovered": l_rec},
+            "dispatches": {"straight": dispatches(straight), "interrupted": dispatches(first),
+                           "resumed": dispatches(rest), "recovered": dispatches(rec)}}
+
+
+def bpe_prompt(tok, data: Path, n_tokens: int) -> str:
+    """Corpus text from the start of the last file that encodes to at least
+    ``n_tokens`` ids."""
+    text = sorted(data.iterdir())[-1].read_bytes()
+    n = 4 * n_tokens
+    while len(tok.encode(text[:n])) < n_tokens:
+        n *= 2
+    return text[:n].decode()
+
+
+def cli_generate(sizes: dict, device, backend: str, ckpt_dir: Path, prompt: str,
+                 prompt_tokens: int, layers: int, path: str) -> tuple:
+    """``tpulab_torch generate --ckpt-dir`` greedy through the CLI, counted:
+    B4 once per layer of a prefill of at least 1024 tokens; (stdout,
+    launches)."""
+    argv = ["generate", "--backend", backend, "--ckpt-dir", str(ckpt_dir), "--prompt", prompt,
+            "--steps", str(sizes["life_gen_steps"]), "--temperature", "0"]
+    return counted(lambda: cli(argv, ""), device,
+                   {"flash_fwd": layers if prompt_tokens >= 1024 else 0}, path)
+
+
+def check_bpe_flagship(sizes: dict, device, backend: str, data: Path, tok_path: Path,
+                       work: Path) -> dict:
+    """Phase 11c: the flagship width at the tokenizer's vocab, trained on
+    the encoded corpus with a snapshot, evaluated and served through the
+    CLI; the served tokens equal ``generate()`` on ``load_params``."""
+    import torch
+
+    from tpulab_torch.io.bpe import BPETokenizer
+    from tpulab_torch.models.generate import generate, load_params, load_sidecar
+    from tpulab_torch.models.labformer import Labformer, LabformerConfig
+
+    tok = BPETokenizer.load(str(tok_path))
+    cfg = LabformerConfig(**sizes["life"], vocab=tok.vocab, max_seq=sizes["life_seq"],
+                          dtype=torch.bfloat16)
+    steps, ck = sizes["life_bpe_steps"], work / "bpe"
+    out, l_train = life_train(sizes, device, cfg, "BPE flagship run", steps=steps,
+                              ckpt_dir=str(ck), save_every=steps, data_dir=str(data),
+                              tokenizer=str(tok_path))
+    check(len(train_lines(out)) == steps, f"BPE run printed {out[-3:]}")
+    nb, seq = sizes["life_eval_batches"], sizes["life_seq"]
+    report, l_eval = counted(
+        lambda: json.loads(cli(["eval", "--backend", backend, "--ckpt-dir", str(ck),
+                                "--data-dir", str(data), "--seq", str(seq), "--batches",
+                                str(nb), "--batch", str(sizes["life_batch"])], "")),
+        device, {"flash_fwd": nb * cfg.n_layers if seq >= 1024 else 0}, "eval CLI")
+    check(report["step"] == steps and report["tokenizer_vocab"] == tok.vocab
+          and all(np.isfinite(report[k]) for k in
+                  ("loss_nats_per_token", "perplexity", "bits_per_byte")),
+          f"eval reported {report}")
+    prompt = bpe_prompt(tok, data, sizes["life_prompt_tokens"])
+    n_prompt = len(tok.encode(prompt.encode()))
+    text, l_gen = cli_generate(sizes, device, backend, ck, prompt, n_prompt, cfg.n_layers,
+                               "generate --ckpt-dir")
+    check(f"[generate] loaded checkpoint step {steps}" in text, f"generate printed {text[:200]}")
+    sc_cfg, sc_tok = load_sidecar(str(ck))
+    params, step = load_params(sc_cfg, str(ck))
+    ids = generate(Labformer.from_numpy(params, sc_cfg, device), sc_tok.encode(
+        prompt.encode())[None, :], steps=sizes["life_gen_steps"], temperature=0.0)
+    want = prompt + sc_tok.decode(ids[0]).decode("utf-8", errors="replace") + "\n"
+    check(text.endswith(want), "generate --ckpt-dir differs from generate() on load_params")
+    print(f"BPE flagship (11c) vocab {tok.vocab}: {steps} steps, losses "
+          f"{[ln.split()[-1] for ln in train_lines(out)]}; eval {json.dumps(report)}; "
+          f"generate over a {n_prompt}-token prompt equal to generate() on load_params",
+          flush=True)
+    return {"losses": [float(ln.split()[-1]) for ln in train_lines(out)], "eval": report,
+            "prompt_tokens": n_prompt,
+            "launches": {"train": l_train, "eval": l_eval, "generate": l_gen},
+            "prompt": (prompt, n_prompt)}
+
+
+def check_finetune_and_distill(sizes: dict, device, backend: str, data: Path,
+                               prompt: tuple, work: Path) -> dict:
+    """Phase 11d: LoRA from 11b's snapshot (base leaves bit-unchanged, the
+    served model merged), and ``distill`` from 11c's snapshot into a
+    smaller student served through ``generate --ckpt-dir``."""
+    import torch
+
+    from tpulab_torch.models.labformer import LabformerConfig
+
+    cfg = LabformerConfig(**sizes["life"], max_seq=sizes["life_seq"], dtype=torch.bfloat16,
+                          lora_rank=sizes["life_lora_rank"])
+    n = sizes["life_lora_steps"]
+    out, l_lora = life_train(sizes, device, cfg, "LoRA fine-tune", steps=n,
+                             ckpt_dir=str(work / "lora"), save_every=n,
+                             init_from=str(work / "straight"), data_dir=str(data))
+    base = torch.load(work / "straight" / str(sizes["life_steps"]) / "state.pt",
+                      weights_only=True)["params"]
+    tuned = torch.load(work / "lora" / str(n) / "state.pt", weights_only=True)["params"]
+    check(all(bitwise_equal(tuned[k], v) for k, v in base.items())
+          and any("_lora_" in k for k in tuned), "the LoRA run moved a base leaf")
+    byte_prompt = seeded_text(sizes["life_prompt_tokens"], 5)
+    text, l_lora_gen = cli_generate(sizes, device, backend, work / "lora", byte_prompt,
+                                    len(byte_prompt), cfg.n_layers, "generate --ckpt-dir (LoRA)")
+    check(f"[generate] merged LoRA adapters (rank {cfg.lora_rank})" in text,
+          f"generate printed {text[:300]}")
+    layers, steps = sizes["life_student_layers"], sizes["life_distill_steps"]
+    seq, b = sizes["life_distill_seq"], sizes["life_distill_batch"]
+    teacher_layers = sizes["life"]["n_layers"]
+    flash = seq >= 1024
+    dist_out, l_dist = counted(
+        lambda: cli(["distill", "--backend", backend, "--teacher", str(work / "bpe"), "--out",
+                     str(work / "student"), "--student-layers", str(layers), "--steps",
+                     str(steps), "--batch", str(b), "--seq", str(seq), "--data-dir",
+                     str(data)], ""),
+        device, {"flash_fwd": steps * (teacher_layers + layers) if flash else 0,
+                 "flash_dq": steps * layers if flash else 0,
+                 "flash_dkv": steps * layers if flash else 0}, "distill CLI")
+    final = json.loads(dist_out.splitlines()[-1])
+    check(final["student_layers"] == layers and np.isfinite(final["final_loss"]),
+          f"distill printed {dist_out[-300:]}")
+    stext, l_sgen = cli_generate(sizes, device, backend, work / "student", *prompt, layers,
+                                 "generate --ckpt-dir (student)")
+    check(f"[generate] loaded checkpoint step {steps}" in stext, f"generate printed {stext[:200]}")
+    print(f"fine-tune and distil (11d): LoRA r{cfg.lora_rank} {n} steps from step "
+          f"{sizes['life_steps']}, losses {[ln.split()[-1] for ln in train_lines(out)]}, base "
+          f"leaves bit-unchanged; student L{layers}: {json.dumps(final)}", flush=True)
+    return {"lora_losses": [float(ln.split()[-1]) for ln in train_lines(out)],
+            "distill": final, "launches": {"lora": l_lora, "lora_generate": l_lora_gen,
+                                           "distill": l_dist, "student_generate": l_sgen}}
+
+
+def check_train_cli_resume(sizes: dict, device, backend: str, data: Path, work: Path) -> dict:
+    """Phase 11e: ``tpulab_torch train`` through the CLI at the demo width on
+    the corpus, 4 steps with snapshots every 2, then ``--resume`` to 6: the
+    resumed ``[train]`` lines equal a straight 6-step run's."""
+    seq, b = sizes["life_cli_seq"], sizes["life_cli_batch"]
+    per = TRAIN_CLI_LAYERS if seq >= 1024 else 0
+
+    def run(steps, ck, *extra):
+        argv = ["train", "--backend", backend, "--data-dir", str(data), "--seq", str(seq),
+                "--batch", str(b), "--ckpt-dir", str(ck), "--save-every", "2", "--steps",
+                str(steps), *extra]
+        return counted(lambda: cli(argv, "").splitlines(), device,
+                       lambda o: dict.fromkeys(TRAIN_KERNELS, dispatches(o) * per),
+                       f"train CLI {' '.join(extra)}")
+
+    first, _ = run(4, work / "cli")
+    rest, l_rest = run(6, work / "cli", "--resume")
+    straight, l_straight = run(6, work / "cli_straight")
+    check("[train] resumed from step 4" in rest, f"train --resume printed {rest[:2]}")
+    check(train_lines(first) + train_lines(rest) == train_lines(straight),
+          f"resumed CLI lines {train_lines(rest)} differ from {train_lines(straight)}")
+    print(f"train CLI (11e) s{seq} b{b}: 4 + --resume to 6 equals 6 straight: "
+          f"{train_lines(rest)}", flush=True)
+    return {"resumed_lines": train_lines(rest),
+            "launches": {"resumed": l_rest, "straight": l_straight}}
+
+
+def run_lifecycle_path(sizes: dict, device, backend: str, card: str,
+                       work: Path = WORK) -> dict:
+    """Phase 11: the text model's checkpoint lifecycle at full width on
+    ``device`` (corpus and tokenizer, the flagship's save, resume and
+    recover, BPE training, eval, generate, LoRA, distil, the CLI's
+    resume); its numbers."""
+    import shutil
+
+    import torch
+
+    from tpulab_torch.io.bpe import BPETokenizer, corpus_from_dir
+    from tpulab_torch.models.labformer import LabformerConfig
+
+    t0 = time.perf_counter()
+    root = work / "lifecycle"
+    shutil.rmtree(root, ignore_errors=True)
+    data = lifecycle_corpus(root, sizes["life_corpus_bytes"], sizes["life_files"])
+    tok_path = root / "tok.json"
+    t_tok = time.perf_counter()
+    made = json.loads(cli(["tokenizer", "train", "--data-dir", str(data), "--vocab",
+                           str(sizes["life_vocab"]), "--out", str(tok_path)], ""))
+    t_tok = time.perf_counter() - t_tok
+    tok = BPETokenizer.load(str(tok_path))
+    corpus = corpus_from_dir(str(data))
+    t_enc = time.perf_counter()
+    ids = tok.encode(corpus)
+    t_enc = time.perf_counter() - t_enc
+    check(made["vocab"] == tok.vocab == sizes["life_vocab"] and tok.decode(ids) == corpus,
+          f"tokenizer: {made}; decode(encode(corpus)) differs from the corpus")
+    print(f"corpus and tokenizer (11a): {len(corpus)} bytes over {sizes['life_files']} files, "
+          f"{json.dumps(made)} in {t_tok:.1f} s; the corpus encodes to {len(ids)} ids in "
+          f"{t_enc:.1f} s and decodes back", flush=True)
+    out = {"corpus_bytes": len(corpus), "tokenizer": made, "tokenizer_train_s": t_tok,
+           "encode_s": t_enc, "corpus_ids": int(len(ids))}
+    out["byte_flagship"] = check_byte_flagship(sizes, device, data, root)
+    cfg = LabformerConfig(**sizes["life"], max_seq=sizes["life_seq"], dtype=torch.bfloat16)
+    out["checkpoint"] = save_restore_ms(sizes, device, cfg, root, card)
+    bpe = check_bpe_flagship(sizes, device, backend, data, tok_path, root)
+    out["bpe_flagship"] = {k: v for k, v in bpe.items() if k != "prompt"}
+    out["finetune_distill"] = check_finetune_and_distill(sizes, device, backend, data,
+                                                         bpe["prompt"], root)
+    out["train_cli"] = check_train_cli_resume(sizes, device, backend, data, root)
+    shutil.rmtree(root)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 11 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 KERNEL_META = {
     "roberts": ("tpulab_torch/csrc/stencil.cu", "tpulab/ops/pallas/stencil.py:82"),
     "elementwise": ("tpulab_torch/csrc/elementwise.cu", "tpulab/ops/pallas/elementwise.py:57"),
@@ -2840,12 +3223,22 @@ FULL_SIZES = {
     "cache_new": 16, "cache_storm_blocks": 48, "cache_preempt_blocks": 40,
     "cache_low": (64, 160), "cache_high": (100, 100), "cache_handoff_prompts": (257, 300),
     "cache_handoff_new": 32, "cache_spill_blocks": 64, "cache_steady_steps": 8,
+    # phase 11: a ~4 MB corpus over 4 files, a 512-token BPE table; the
+    # flagship (tpulab/bench.py:142-149) bf16 b8 s2048 for 20 steps with
+    # snapshots every 10 and a fault at 15; prompts of >= 1024 tokens, so
+    # every prefill runs B4
+    "life_corpus_bytes": 4_000_000, "life_files": 4, "life_vocab": 512, "life": TRAIN,
+    "life_batch": 8, "life_seq": 2048, "life_steps": 20, "life_save_every": 10,
+    "life_fault": 15, "life_bpe_steps": 10, "life_eval_batches": 4, "life_prompt_tokens": 1024,
+    "life_gen_steps": 16, "life_lora_rank": 8, "life_lora_steps": 5,
+    "life_student_layers": 4, "life_distill_steps": 3, "life_distill_seq": 1024,
+    "life_distill_batch": 4, "life_cli_seq": 1024, "life_cli_batch": 2,
 }
 
 
 def run(device, sizes: dict, backend: str, card: str = "cpu",
         parent: Path | None = None) -> dict:
-    """Phases 2 to 10 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
+    """Phases 2 to 11 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
     ``parent``: a checkout to time phases 4, 6c and 7d against (:func:`in_turns`)."""
     t0 = time.perf_counter()
     inp = make_inputs(sizes)
@@ -2876,6 +3269,7 @@ def run(device, sizes: dict, backend: str, card: str = "cpu",
     rows["flash_fwd"]["long_context"], model["phase9"] = run_spec_and_bench_path(
         sizes, device, backend, card)
     model["phase10"] = run_cache_path(sizes, device, card)
+    model["phase11"] = run_lifecycle_path(sizes, device, backend, card)
     kernels = []
     for name, row in rows.items():
         source, replaces = KERNEL_META[name]

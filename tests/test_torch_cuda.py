@@ -926,3 +926,72 @@ def test_cache_tier_on_card(cuda_device, small_on_card):
     out = chip_smoke.check_cache_small((model, cfg), cuda_device, "test")
     assert out["preempt_greedy"] == out["preempt_sampled"] == "bit-equal"
     assert out["handoff"]["blocks"] == 5 and out["spill"]["spill_hits"] >= 1
+
+
+# ------------------------------------------------------------ the checkpoint lifecycle
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["resume", "recover"])
+def test_resume_and_recover_are_bit_equal_on_card(cuda_device, tmp_path, mode):
+    """The trainer's demo labformer at seq 1024 on the card: 6 steps with
+    snapshots every 3, resumed after 3 or rolled back from a fault at 4,
+    print the same losses and end on the same snapshot bits as a straight
+    run; B4, B5 and B6 launch once per layer of every dispatched step."""
+    from tpulab_torch import train as ttrain
+
+    kernels = (flash_attention_with_lse, flash_attention_bwd_dq, flash_attention_bwd_dkv)
+
+    def run(steps, d, **kw):
+        out = []
+        before = [f.launches for f in kernels]
+        ttrain.train(steps=steps, batch=1, seq=1024, ckpt_dir=str(tmp_path / d), save_every=3,
+                     log=out.append, **kw)
+        n = chip_smoke.dispatches(out)
+        assert [f.launches - b for f, b in zip(kernels, before)] == [4 * n] * 3
+        return chip_smoke.train_lines(out), out
+
+    want, _ = run(6, "straight")
+    if mode == "resume":
+        first, _ = run(3, "other")
+        rest, out = run(6, "other", resume=True)
+        assert "[train] resumed from step 3" in out and first + rest == want
+    else:
+        got, out = run(6, "other", recover=1, inject_fault=(4,))
+        assert any(ln.startswith("[recover]") for ln in out)
+        assert chip_smoke.first_seen(got) == want
+    assert chip_smoke.snapshot_equal(tmp_path / "straight", tmp_path / "other", 6)
+
+
+@pytest.mark.cuda
+def test_loader_library_is_built_from_the_checkout(cuda_device):
+    from tpulab_torch.io import loader as tloader
+
+    lib = tloader.build()
+    assert lib.parent.parent == _build.BUILD_ROOT and lib.parent.name.startswith("loader-")
+    assert tloader.SOURCE == chip_smoke.ROOT / "native" / "loader" / "tpulab_loader.cpp"
+    assert "native/lib" not in str(lib)
+    tloader._load()
+
+
+@pytest.mark.cuda
+def test_generate_ckpt_dir_with_a_bpe_sidecar_launches_b4(cuda_device, tmp_path):
+    """``generate --ckpt-dir`` on a checkpoint whose sidecar names a BPE
+    table: a prompt of >= 1024 tokens prefills through B4, once per layer."""
+    from tpulab_torch import ckpt
+    from tpulab_torch.io.bpe import train_bpe
+    from tpulab_torch.models.labformer import Labformer, LabformerConfig, init_params
+
+    corpus = chip_smoke.lifecycle_corpus(tmp_path, 200_000, 2)
+    text = b"".join(p.read_bytes() for p in sorted(corpus.iterdir()))
+    tok = train_bpe(text[:50_000], 300)
+    tok.save(str(tmp_path / "tok.json"))
+    cfg = LabformerConfig(d_model=64, n_heads=4, n_layers=2, d_ff=128, vocab=tok.vocab,
+                          max_seq=4096)
+    ckpt.save(str(tmp_path / "ck"), 5, Labformer.from_numpy(init_params(cfg, 0), cfg, "cpu"))
+    ckpt.write_sidecar(str(tmp_path / "ck"), cfg, str(tmp_path / "tok.json"))
+    prompt = chip_smoke.bpe_prompt(tok, corpus, 1024)
+    out, launches = chip_smoke.cli_generate(
+        {"life_gen_steps": 4}, cuda_device, "cuda", tmp_path / "ck", prompt,
+        len(tok.encode(prompt.encode())), cfg.n_layers, "test")
+    assert "[generate] loaded checkpoint step 5" in out and launches["flash_fwd"] == 2

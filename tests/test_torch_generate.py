@@ -173,14 +173,19 @@ def test_sampled_generate_is_seeded(trained_small, trained_small_cfg):
 def test_load_sidecar_reads_tpulab_config(tmp_path):
     jcfg = jlf.LabformerConfig(d_model=64, n_heads=4, n_layers=3, d_ff=96, attn_window=16,
                                dtype=jnp.bfloat16)
-    assert tgen.load_sidecar(None) is None and tgen.load_sidecar(str(tmp_path)) is None
+    assert tgen.load_sidecar(None) == (None, None)
+    assert tgen.load_sidecar(str(tmp_path)) == (None, None)
     sidecar = {"config": jlf.cfg_to_dict(jcfg)}
     (tmp_path / "tpulab_config.json").write_text(json.dumps(sidecar))
-    cfg = tgen.load_sidecar(str(tmp_path))
-    assert cfg == _port_cfg(jcfg) and cfg.dtype == torch.bfloat16
+    cfg, tok = tgen.load_sidecar(str(tmp_path))
+    assert cfg == _port_cfg(jcfg) and cfg.dtype == torch.bfloat16 and tok is None
+    from tpulab.io.bpe import train_bpe
+
+    train_bpe(b"abcabcabd " * 30, 280).save(str(tmp_path / "t.json"))
     (tmp_path / "tpulab_config.json").write_text(json.dumps({**sidecar, "tokenizer": "t.json"}))
-    with pytest.raises(NotImplementedError, match="A8"):
-        tgen.load_sidecar(str(tmp_path))
+    cfg, tok = tgen.load_sidecar(str(tmp_path))
+    want = jgen.load_sidecar(str(tmp_path))[1]
+    assert cfg == _port_cfg(jcfg) and tok.vocab == want.vocab and tok.merges == want.merges
 
 
 def _run(main, argv):

@@ -266,8 +266,6 @@ def test_inject_fault_fails_fast():
 
 
 UNPORTED = [
-    dict(ckpt_dir="ckpt"), dict(resume=True), dict(recover=1), dict(save_every=5),
-    dict(data_dir="data"), dict(tokenizer="tok.json"), dict(init_from="ckpt"),
     dict(mesh_devices=4), dict(zero1=True), dict(zero2=True), dict(steps_per_call=4),
     dict(remat=True, remat_policy="dots"), dict(model="labvision"),
     dict(moe_impl="dispatch", experts=4), dict(trace_dir="trace"), dict(sanitize=True),
@@ -279,6 +277,75 @@ UNPORTED = [
 def test_unported_arguments_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP A"):
         ttrain.train(steps=1, batch=2, seq=8, log=lambda _: None, device="cpu", **kw)
+
+
+def _validation_case(name, tmp_path):
+    """(train arguments, exception, message) of one refusal, with the files
+    it needs made under ``tmp_path``."""
+    (tmp_path / "empty").mkdir(exist_ok=True)
+    bad_tok = tmp_path / "bad_tok.json"
+    bad_tok.write_text(json.dumps({"format": "sentencepiece", "vocab": 256, "merges": []}))
+    tok = tmp_path / "tok.json"
+    from tpulab_torch.io.bpe import train_bpe
+
+    train_bpe(b"abcabcabcabd " * 50, 300).save(str(tok))
+    data = tmp_path / "data"
+    data.mkdir(exist_ok=True)
+    (data / "a.txt").write_bytes(b"abcabcabcabd " * 50)
+    return {
+        "recover_without_ckpt_dir": (dict(recover=1), ValueError, "--recover rolls back"),
+        "init_from_with_resume": (dict(init_from=str(tmp_path / "empty"), resume=True,
+                                       ckpt_dir=str(tmp_path / "ck")),
+                                  ValueError, "mutually exclusive"),
+        "init_from_empty_dir": (dict(init_from=str(tmp_path / "empty")), FileNotFoundError,
+                                "no checkpoint found"),
+        "data_dir_without_files": (dict(data_dir=str(tmp_path / "empty")), RuntimeError,
+                                   "no files under"),
+        "tokenizer_wrong_format": (dict(tokenizer=str(bad_tok), data_dir=str(data)),
+                                   ValueError, "not a tpulab-bpe-v1 tokenizer file"),
+        "vocab_below_tokenizer": (dict(tokenizer=str(tok), data_dir=str(data), cfg="small"),
+                                  ValueError, "silently clamp"),
+        "tokenizer_without_data_dir": (dict(tokenizer=str(tok)), ValueError,
+                                       "--tokenizer encodes a corpus"),
+    }[name]
+
+
+def _foreign_snapshots(tmp_path):
+    """Each package's snapshot given to the other's ``load_params``: the
+    formats are not interchangeable, and each side refuses (the port names
+    orbax; tpulab finds no item it knows)."""
+    from tpulab.models.generate import load_params as jload_params
+
+    from tpulab_torch.models.generate import load_params as tload_params
+
+    jcfg = jlf.LabformerConfig(**BASE)
+    jtrain.train(steps=2, batch=2, seq=8, cfg=jcfg, ckpt_dir=str(tmp_path / "j"),
+                 save_every=2, log=lambda _: None)
+    ttrain.train(steps=2, batch=2, seq=8, cfg=tlf.LabformerConfig(**BASE),
+                 ckpt_dir=str(tmp_path / "t"), save_every=2, log=lambda _: None, device="cpu")
+    with pytest.raises(ValueError, match="holds an orbax checkpoint"):
+        tload_params(tlf.LabformerConfig(**BASE), str(tmp_path / "j"))
+    with pytest.raises(KeyError, match="not found in the checkpoint"):
+        jload_params(jcfg, str(tmp_path / "t"))
+
+
+@pytest.mark.parametrize("name", ["recover_without_ckpt_dir", "init_from_with_resume",
+                                  "init_from_empty_dir", "data_dir_without_files",
+                                  "tokenizer_wrong_format", "vocab_below_tokenizer",
+                                  "tokenizer_without_data_dir", "foreign_snapshot"])
+def test_ported_arguments_validate_as_tpulab(tmp_path, name):
+    """What ``train`` refuses, each refused as ``tpulab``'s trainer refuses
+    it: the same exception with the same message; and a snapshot of the
+    other package refused by each ``load_params``."""
+    if name == "foreign_snapshot":
+        return _foreign_snapshots(tmp_path)
+    kw, exc, match = _validation_case(name, tmp_path)
+    for fn, cfg_mod, extra in ((jtrain.train, jlf, {}), (ttrain.train, tlf, dict(device="cpu"))):
+        args = dict(kw)
+        if args.get("cfg") == "small":
+            args["cfg"] = cfg_mod.LabformerConfig(**BASE)  # vocab 256 < the table's 300
+        with pytest.raises(exc, match=match):
+            fn(steps=1, batch=2, seq=8, log=lambda _: None, **args, **extra)
 
 
 def test_train_defaults_to_the_card():

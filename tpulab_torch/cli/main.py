@@ -3,8 +3,12 @@
 Subcommands:
     tpulab_torch info              device introspection (gpu_info)
     tpulab_torch run <workload>    run a workload over the stdin/stdout protocol
-    tpulab_torch generate          byte-level sampling from the labformer demo model
-    tpulab_torch train             train the labformer (flash backward: kernels B5, B6)
+    tpulab_torch generate          sample from the labformer (demo weights or --ckpt-dir)
+    tpulab_torch train             train the labformer (flash backward: kernels B5, B6),
+                                   with checkpoints, resume, recover and --init-from
+    tpulab_torch tokenizer         train / inspect a BPE tokenizer
+    tpulab_torch eval              held-out loss, perplexity and bits per byte of a checkpoint
+    tpulab_torch distill           compress a checkpoint into a smaller servable student
     tpulab_torch bench             the lab benchmark rows, one JSON line each
     tpulab_torch selftest          one-minute end-to-end sanity check
 
@@ -35,9 +39,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     run_p.add_argument("--backend", default=None, choices=BACKENDS,
                        help="cuda (default) or cpu")
 
-    sub.add_parser("generate", help="sample bytes from the labformer demo model",
+    sub.add_parser("generate", help="sample from the labformer", add_help=False)
+    sub.add_parser("train", help="train the labformer (checkpoint/resume)", add_help=False)
+    sub.add_parser("tokenizer", help="train/inspect a BPE tokenizer", add_help=False)
+    sub.add_parser("eval", help="held-out loss/perplexity/bits-per-byte of a checkpoint",
                    add_help=False)
-    sub.add_parser("train", help="train the labformer", add_help=False)
+    sub.add_parser("distill", help="compress a checkpoint into a smaller servable student "
+                                   "(soft-target KL)", add_help=False)
     sub.add_parser("bench", help="run the lab benchmarks", add_help=False)
     sub.add_parser("selftest", help="one-minute end-to-end sanity check", add_help=False)
 
@@ -65,6 +73,21 @@ def main(argv: Optional[List[str]] = None) -> int:
         from tpulab_torch.train import main as train_main
 
         return train_main(extra)
+
+    if args.command == "tokenizer":
+        from tpulab_torch.io.bpe import main as tok_main
+
+        return tok_main(extra)
+
+    if args.command == "eval":
+        from tpulab_torch.evaluate import main as eval_main
+
+        return eval_main(extra)
+
+    if args.command == "distill":
+        from tpulab_torch.models.distill import main as distill_main
+
+        return distill_main(extra)
 
     if args.command == "bench":
         from tpulab_torch.cli.bench import run_bench_cli

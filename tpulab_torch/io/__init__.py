@@ -1,5 +1,6 @@
 """Image codecs, the lab5 typed-array format and the stdin grammars of the
-lab suite (numpy only)."""
+lab suite (numpy only); ``bpe`` (the BPE tokenizer) and ``loader`` (the
+native token loader) are imported by name."""
 
 from tpulab_torch.io import protocol
 from tpulab_torch.io.binfmt import load_typed_array, save_typed_array

@@ -261,27 +261,66 @@ def demo_config() -> LabformerConfig:
                            max_seq=1024)
 
 
-def load_sidecar(ckpt_dir: Optional[str]) -> Optional[LabformerConfig]:
-    """The config of a checkpoint's sidecar (``tpulab_config.json``, written
-    by ``tpulab``'s trainer), or None when there is none.  A sidecar that
-    names a tokenizer is refused: BPE waits for ROADMAP A8."""
+def load_sidecar(ckpt_dir: Optional[str]):
+    """``(cfg | None, tokenizer | None)`` from a checkpoint's config sidecar
+    (``tpulab_config.json`` and the copied tokenizer), written by either
+    package's trainer or ``distill``; ``(None, None)`` when there is none."""
     if not ckpt_dir:
-        return None
+        return None, None
     path = os.path.join(ckpt_dir, "tpulab_config.json")
     if not os.path.exists(path):
-        return None
+        return None, None
     with open(path) as f:
         sidecar = json.load(f)
+    cfg = cfg_from_dict(sidecar["config"])
+    tok = None
     if sidecar.get("tokenizer"):
-        raise NotImplementedError(
-            "the sidecar names a BPE tokenizer; the port is byte-level until ROADMAP A8")
-    return cfg_from_dict(sidecar["config"])
+        from tpulab_torch.io.bpe import BPETokenizer
+
+        tok = BPETokenizer.load(os.path.join(ckpt_dir, sidecar["tokenizer"]))
+    return cfg, tok
+
+
+def load_params(cfg: LabformerConfig, ckpt_dir: Optional[str] = None, seed: int = 0):
+    """``(params, step | None)``: ``init_params(cfg, seed)``, or with
+    ``ckpt_dir`` the newest snapshot's parameters in the port's format.
+
+    A partial restore, parameters only (the optimizer state is not read):
+    every leaf of ``cfg``'s tree must be in the snapshot with its shape,
+    and is cast to ``cfg.dtype``; snapshot leaves the tree lacks are left
+    out.  An orbax directory raises ``ValueError``, one with no snapshot
+    ``FileNotFoundError``."""
+    from tpulab_torch import ckpt
+
+    params = init_params(cfg, seed=seed)
+    if not ckpt_dir:
+        return params, None
+    path = os.path.abspath(ckpt_dir)
+    step = ckpt.latest_step(path)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoint found in {ckpt_dir} (no {ckpt.FORMAT} "
+                                f"snapshot)")
+    saved = ckpt.read_params(path, step)
+
+    def take(key, like, got):
+        if got is None:
+            raise ValueError(f"{ckpt_dir} step {step}: the snapshot has no leaf {key}")
+        if tuple(got.shape) != tuple(like.shape):
+            raise ValueError(f"{ckpt_dir} step {step}: leaf {key} is {tuple(got.shape)}, "
+                             f"the config wants {tuple(like.shape)}")
+        return got.to(like.dtype)
+
+    out = {k: take(k, v, saved.get(k)) for k, v in params.items() if k != "blocks"}
+    out["blocks"] = {k: take(f"blocks/{k}", v, saved["blocks"].get(k))
+                     for k, v in params["blocks"].items()}
+    return out, step
 
 
 def main(argv=None) -> int:
-    """``tpulab_torch generate``: byte-level sampling from the demo model
-    with random weights made from ``--seed``."""
+    """``tpulab_torch generate``: sampling from the labformer, with random
+    weights from ``--seed`` unless ``--ckpt-dir`` names a snapshot."""
     import argparse
+    import dataclasses
 
     from tpulab_torch.runtime.device import BACKENDS, resolve_device
 
@@ -302,6 +341,18 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backend", default=None, choices=BACKENDS,
                     help="cuda (default) or cpu")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the newest snapshot of a training run (the port's format); "
+                         "its sidecar sets the architecture and tokenizer")
+    ap.add_argument("--lora-rank", type=int, default=0,
+                    help="the checkpoint was finetuned with this LoRA rank: restore the "
+                         "adapters too and fold them (merge_lora) before serving")
+    ap.add_argument("--lora-alpha", type=float, default=None,
+                    help="LoRA scale numerator used at finetune time (default: the "
+                         "sidecar's value, else 16.0)")
+    ap.add_argument("--tokenizer", default=None, metavar="TOK_JSON",
+                    help="BPE table the checkpoint was trained with: sets the vocab, "
+                         "encodes the prompt, decodes the output")
     ap.add_argument("--speculative", action="store_true",
                     help="greedy speculative decode with the int8-quantized "
                          "model as draft (lossless: plain greedy's tokens)")
@@ -315,10 +366,44 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     device = resolve_device(args.backend)
-    cfg = demo_config()
-    if args.stop_byte >= cfg.vocab:
+    # precedence as tpulab's: the sidecar's config, then the tokenizer's
+    # vocab, then the LoRA flags (--lora-alpha None keeps the trained alpha)
+    sc_cfg, tok = load_sidecar(args.ckpt_dir)
+    if sc_cfg is not None:
+        cfg = sc_cfg
+        print(f"[generate] config sidecar: d{cfg.d_model} L{cfg.n_layers} vocab {cfg.vocab}"
+              + (f" lora r{cfg.lora_rank}" if cfg.lora_rank else ""))
+    else:
+        cfg = demo_config()
+    if args.tokenizer:
+        from tpulab_torch.io.bpe import BPETokenizer
+
+        tok = BPETokenizer.load(args.tokenizer)
+    if tok is not None and tok.vocab != cfg.vocab:
+        cfg = dataclasses.replace(cfg, vocab=tok.vocab)
+    if args.lora_rank and args.lora_rank != cfg.lora_rank:
+        cfg = dataclasses.replace(cfg, lora_rank=args.lora_rank)
+    if args.lora_alpha is not None and args.lora_alpha != cfg.lora_alpha:
+        cfg = dataclasses.replace(cfg, lora_alpha=args.lora_alpha)
+    try:
+        params, step = load_params(cfg, args.ckpt_dir, seed=args.seed)
+    except FileNotFoundError as e:
+        raise SystemExit(str(e))
+    if step is not None:
+        print(f"[generate] loaded checkpoint step {step}")
+    if cfg.lora_rank:
+        from tpulab_torch.models.labformer import merge_lora
+
+        rank = cfg.lora_rank
+        params, cfg = merge_lora(params, cfg)
+        print(f"[generate] merged LoRA adapters (rank {rank})")
+
+    # a stop byte is a byte in any token space: under BPE it is found in
+    # the decoded bytes (it may sit inside a merged token)
+    stop_limit = 256 if tok is not None else cfg.vocab
+    if args.stop_byte >= stop_limit:
         raise SystemExit(
-            f"--stop-byte must be a byte in [0, {cfg.vocab - 1}] (or -1 "
+            f"--stop-byte must be a byte in [0, {stop_limit - 1}] (or -1 "
             f"= off); got {args.stop_byte}"
         )
 
@@ -333,10 +418,10 @@ def main(argv=None) -> int:
                 f"--top-p/--repetition-penalty/--stop-byte"
                 + "".join(f"/--{e}" for e in extra))
 
-    params = init_params(cfg, seed=args.seed)
     model = Labformer.from_numpy(params, cfg, device)
     raw = args.prompt.encode("utf-8")
-    prompt = np.frombuffer(raw, np.uint8)[None, :].astype(np.int32)
+    prompt = (tok.encode(raw)[None, :] if tok is not None
+              else np.frombuffer(raw, np.uint8)[None, :]).astype(np.int32)
     if args.prompt_lookup:
         refuse_sampling_flags("--prompt-lookup", "speculative")
         if args.draft_k < 1:
@@ -362,14 +447,23 @@ def main(argv=None) -> int:
         print(f"[speculative] mean accepted {acc:.2f}/{args.draft_k} per round",
               file=sys.stderr)
     else:
+        # the in-loop freeze matches raw ids; under BPE the stop byte is
+        # also looked for in the decoded bytes below
         out = generate(model, prompt, steps=args.steps, temperature=args.temperature,
                        seed=args.seed, top_k=args.top_k, top_p=args.top_p,
                        repetition_penalty=args.repetition_penalty,
                        stop_token=args.stop_byte)
     # the stop byte is the final token and is kept in the text
     toks = [int(t) for t in out[0]]
-    if args.stop_byte >= 0 and args.stop_byte in toks:
-        toks = toks[: toks.index(args.stop_byte) + 1]
-    data = bytes(t & 0xFF for t in toks)
+    if tok is None:
+        if args.stop_byte >= 0 and args.stop_byte in toks:
+            toks = toks[: toks.index(args.stop_byte) + 1]
+        data = bytes(t & 0xFF for t in toks)
+    else:
+        data = tok.decode(toks)
+        if args.stop_byte >= 0:
+            cut = data.find(bytes([args.stop_byte]))
+            if cut >= 0:
+                data = data[: cut + 1]
     sys.stdout.write(args.prompt + data.decode("utf-8", errors="replace") + "\n")
     return 0

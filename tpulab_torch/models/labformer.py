@@ -200,6 +200,21 @@ def merge_lora(params: Dict[str, Any], cfg: LabformerConfig):
     return merged, dataclasses.replace(cfg, lora_rank=0)
 
 
+def _split_lora(params: Dict[str, Any]):
+    """(adapter subtree, base params), split by the ``_lora_`` leaf names."""
+    blocks = params["blocks"]
+    lora = {"blocks": {k: v for k, v in blocks.items() if "_lora_" in k}}
+    base = dict(params)
+    base["blocks"] = {k: v for k, v in blocks.items() if "_lora_" not in k}
+    return lora, base
+
+
+def _join_lora(base: Dict[str, Any], lora: Dict[str, Any]) -> Dict[str, Any]:
+    out = dict(base)
+    out["blocks"] = {**base["blocks"], **lora["blocks"]}
+    return out
+
+
 # ------------------------------------------------------------ the bridge
 
 
@@ -308,15 +323,15 @@ class Labformer(nn.Module):
         return [(name, ts) for name, ts in leaves
                 if isinstance(ts[0], torch.Tensor) and ts[0].requires_grad]
 
-    def to_numpy(self, grads: bool = False) -> Dict[str, Any]:
-        """The parameter tree back, with numpy leaves (inverse of
-        :meth:`from_numpy`).  ``grads``: the tree of the trainable leaves'
-        ``.grad`` instead, the shape of ``tpulab``'s gradient tree (the
-        adapter subtree alone under LoRA)."""
+    def to_tree(self, grads: bool = False) -> Dict[str, Any]:
+        """The parameter tree with CPU tensor leaves (detached copies), the
+        shape of :meth:`from_numpy`'s input.  ``grads``: the tree of the
+        trainable leaves' ``.grad`` instead, the shape of ``tpulab``'s
+        gradient tree (the adapter subtree alone under LoRA)."""
         def conv(leaf):
             if isinstance(leaf, QTensor):
-                return QTensor(_to_numpy(leaf.q), _to_numpy(leaf.s))
-            return _to_numpy(leaf)
+                return QTensor(leaf.q.detach().cpu(), leaf.s.detach().cpu())
+            return leaf.detach().cpu()
 
         def stack(leaves):
             if isinstance(leaves[0], QTensor):
@@ -339,6 +354,32 @@ class Labformer(nn.Module):
                 for name in self.blocks[0].names
             }
         return out
+
+    def to_numpy(self, grads: bool = False) -> Dict[str, Any]:
+        """:meth:`to_tree` with numpy leaves (inverse of :meth:`from_numpy`;
+        bfloat16 needs ``ml_dtypes``)."""
+        def conv(leaf):
+            if isinstance(leaf, QTensor):
+                return QTensor(_to_numpy(leaf.q), _to_numpy(leaf.s))
+            return _to_numpy(leaf)
+
+        tree = self.to_tree(grads)
+        out = {k: conv(v) for k, v in tree.items() if k != "blocks"}
+        out["blocks"] = {k: conv(v) for k, v in tree["blocks"].items()}
+        return out
+
+    @torch.no_grad()
+    def assign(self, tree: Dict[str, Any]) -> None:
+        """Copy ``tree``'s leaves (``init_params``' nesting, per-layer leaves
+        stacked) into the matching parameters, in place; a leaf the tree
+        lacks keeps its value."""
+        for name, leaf in tree.items():
+            if name != "blocks":
+                getattr(self.top, name).copy_(_to_torch(leaf))
+        for name, leaf in tree.get("blocks", {}).items():
+            leaf = _to_torch(leaf)
+            for i, blk in enumerate(self.blocks):
+                getattr(blk, name).copy_(leaf[i])
 
     @property
     def device(self) -> torch.device:

@@ -143,10 +143,13 @@ def _run_all(commands: Sequence[List[str]], log) -> None:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
-def build() -> Path:
-    """Path of the built library, building it first if its hash is new."""
-    target_dir = BUILD_ROOT / source_hash()
-    library = target_dir / LIBRARY_NAME
+def build_once(target_dir: Path, artifact: str, make) -> Path:
+    """``target_dir/artifact``, made first by ``make(tmp_dir)`` (which
+    writes ``artifact`` into ``tmp_dir``) unless it is there.  A file lock
+    under ``BUILD_ROOT`` keeps two processes from building at once; the
+    finished directory is renamed into place, so a partial build is never
+    loaded."""
+    library = target_dir / artifact
     if library.is_file():
         return library
     BUILD_ROOT.mkdir(parents=True, exist_ok=True)
@@ -154,17 +157,24 @@ def build() -> Path:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if library.is_file():  # another process built it while we waited
             return library
-        nvcc = find_nvcc()
         tmp = BUILD_ROOT / f"{target_dir.name}.tmp{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir()
-        compiles, link = compile_commands(nvcc, tmp)
-        with open(tmp / "build.log", "w") as log:
-            _run_all(compiles, log)
-            _run_all([link], log)
+        make(tmp)
         shutil.rmtree(target_dir, ignore_errors=True)  # a partial earlier build
         os.replace(tmp, target_dir)
     return library
+
+
+def build() -> Path:
+    """Path of the built library, building it first if its hash is new."""
+    def make(tmp: Path) -> None:
+        compiles, link = compile_commands(find_nvcc(), tmp)
+        with open(tmp / "build.log", "w") as log:
+            _run_all(compiles, log)
+            _run_all([link], log)
+
+    return build_once(BUILD_ROOT / source_hash(), LIBRARY_NAME, make)
 
 
 @functools.lru_cache(maxsize=1)
