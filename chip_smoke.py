@@ -240,7 +240,45 @@ failure:
     e. ``tpulab_torch train --data-dir ... --seq 1024 --ckpt-dir ...
        --save-every 2 --steps 4``, then ``--resume --steps 6``: the resumed
        ``[train]`` lines equal a straight 6-step run's.
-12. One ``{"model": {...}}`` line with phases 5 to 7's and 9 to 11's
+12. The serving daemon (``tpulab_torch.daemon``): ``serve()`` on a thread
+    of this process, so the launch counters see its work:
+
+    a. the serving labformer (d512, 8 heads, 8 layers, d_ff 2048, bf16,
+       seed-0 weights, ``attn_impl="flash"``) saved as a port snapshot with
+       its sidecar, and the native client built from
+       ``native/client/tpulab_client.cpp`` with ``g++`` into
+       ``build/tpulab_torch/``;
+    b. lab1, lab2 and lab3 (float64 and float32) through the native client,
+       whose fallback cannot run (an empty ``PATH``): stdout past the timing
+       line and the output files byte-equal to phase 2's CLI runs, each
+       call raised the daemon's served count by one, and with every launch
+       count set to 0 just before and read just after, B1-B3 launched as
+       often as on phase 2's CLI runs and no model kernel launched;
+    c. ``generate`` over the snapshot from 8 concurrent clients (48-200 byte
+       prompts, 32 tokens; one warm-up request first builds the fleet) on
+       ``attn="pallas"`` (whole-prompt prefill) and on
+       gather (the default chunked prefill), each with native and int8 KV,
+       every launch count set to 0 just before and read just after: each
+       response equals an in-process engine built by the daemon's recipe
+       at the same knobs; on the pallas requests B4 launches once per layer
+       of each prefill and B7 once per layer of each tick, on gather
+       neither; the gather/native clients stream and their chunks
+       reassemble;
+    d. two replicas with a crash scheduled on replica 1's fifth tick (its
+       requests migrate), then a rolling restart (drain, rebuilt, undrain,
+       each replica) under load: every request completes with the
+       fault-free bytes, nothing is shed;
+    e. the port's load generator replays the seeded ``fast`` trace (its
+       36-request CI tier) against the demo model (d128, L4, float32): a
+       smoke check that the replay client, the histograms and the shed
+       contract work on the card, with goodput, SLO attainment, and TTFT
+       and ITL p50/p99 from the histograms' deltas.  These are not the
+       daemon's serving latency at full width: that waits for a benchmark
+       cell replaying ``steady`` against the serving snapshot;
+    f. ``python -m tpulab_torch.daemon`` as a process of its own answers
+       ``platform`` with ``cuda``;
+    g. the phase's seconds.
+13. One ``{"model": {...}}`` line with phases 5 to 7's and 9 to 12's
     numbers, one ``{"lab_suite": {...}}`` line with phase 8's, one
     ``{"kernels": [...]}`` line, the card line again, and last ``{"ok":
     true, "device": {...}}``.
@@ -2144,8 +2182,9 @@ SMALL = dict(d_model=32, n_heads=4, n_layers=2, d_ff=64, max_seq=128)
 #: bench groups of phase 9c: each a ``--only`` substring (``labformer_decode``
 #: runs its int8 and gqa2 rows, ``flash_attention`` its 8k row too)
 BENCH_GROUPS = ("labformer_fwd", "labformer_train", "labformer_decode", "speculative_decode",
-                "paged_engine", "paged_tick_overhead", "prefill_interleave", "spill_overhead",
-                "handoff_overhead", "prefix_lookup", "flash_attention")
+                "paged_engine", "paged_tick_overhead", "prefill_interleave", "obs_overhead",
+                "journey_overhead", "fault_overhead", "spill_overhead", "handoff_overhead",
+                "prefix_lookup", "flash_attention")
 
 
 def cycle(n: int, offset: int = 0) -> np.ndarray:
@@ -3111,6 +3150,397 @@ def run_lifecycle_path(sizes: dict, device, backend: str, card: str,
     return out
 
 
+# ------------------------------------------------------- phase 12: the daemon
+
+#: the generate knob sets of phase 12c: (attn, kv_dtype, prefill_chunk; None
+#: is the daemon's default, 32)
+DAEMON_KNOBS = (("pallas", "native", 0), ("pallas", "int8", 0), ("gather", "native", None),
+                ("gather", "int8", None))
+
+
+def daemon_socket(name: str) -> str:
+    """A socket path under ``WORK`` that fits ``sun_path`` (relative to the
+    checkout's root, where this script runs, when the absolute one is long)."""
+    WORK.mkdir(parents=True, exist_ok=True)
+    path = WORK / name
+    if path.exists():
+        path.unlink()
+    return str(path) if len(str(path)) < 100 else os.path.relpath(path)
+
+
+@contextlib.contextmanager
+def serving(backend: str, sock: str):
+    """``tpulab_torch.daemon.serve`` on a thread of this process (so the
+    kernels' launch counters see its work); yields the served-connection
+    count (a one-element list) and stops the server on exit."""
+    import threading
+
+    from tpulab_torch import daemon as td
+
+    td.BACKEND = backend
+    stop, served = threading.Event(), [0]
+    th = threading.Thread(target=td.serve, args=(sock,),
+                          kwargs={"stop_event": stop, "served_counter": served}, daemon=True)
+    th.start()
+    for _ in range(600):
+        if os.path.exists(sock):
+            break
+        time.sleep(0.05)
+    check(os.path.exists(sock), "the daemon's socket never appeared")
+    try:
+        yield served
+    finally:
+        stop.set()
+        th.join(timeout=60)
+        check(not th.is_alive(), "the daemon's accept loop did not stop")
+
+
+def wait_served(served: list, want: int) -> None:
+    """The served count reaches ``want`` (a handler counts after it sent
+    its response, so shortly after the client returned)."""
+    for _ in range(500):
+        if served[0] >= want:
+            break
+        time.sleep(0.01)
+    check(served[0] == want, f"daemon served {served[0]} connections, want {want}")
+
+
+def native_lab_runs(exe: Path, sock: str, inp: dict, main: dict, served: list) -> dict:
+    """Phase 12b: lab1, lab2 and lab3 (float64 and float32) through the
+    native client: stdout past the timing line and the output files equal
+    phase 2's CLI runs, each call raised the daemon's served count by one
+    (the client's fallback, ``python -m tpulab run``, cannot run here), and
+    B1-B3 launched as often as on phase 2's CLI runs (the daemon serves
+    them on a thread of this process, so the counters see them), no model
+    kernel at all; (the timing lines, the launches per kernel)."""
+    empty = WORK / "nobin"
+    empty.mkdir(parents=True, exist_ok=True)
+    env = {"TPULAB_DAEMON_SOCKET": sock, "PATH": str(empty)}
+    runs = (("lab1", [], inp["lab1_text"], None),
+            ("lab2", [], inp["lab2_text"], "lab2_out.data"),
+            ("lab3_float64", [], inp["lab3_text_float64"], "lab3_out_float64.data"),
+            ("lab3_float32", ["--compute_dtype", "float32"], inp["lab3_text_float32"],
+             "lab3_out_float32.data"))
+    times = {}
+    wrappers = zero_counts()
+    for name, extra, text, out_file in runs:
+        before = served[0]
+        lab = name.split("_")[0]
+        res = subprocess.run([str(exe), lab, "--backend", main["backend"], *extra],
+                             input=text, capture_output=True, text=True, cwd=ROOT, env=env,
+                             timeout=300)
+        check(res.returncode == 0, f"native client {name}: rc {res.returncode} "
+              f"{res.stderr[-1500:]}")
+        wait_served(served, before + 1)
+        want = main["outs"][name]
+        check(timing_word(res.stdout) == timing_word(want),
+              f"native client {name}: timing line {res.stdout.splitlines()[0]!r}")
+        check(res.stdout.split("\n", 1)[1] == want.split("\n", 1)[1],
+              f"native client {name}: stdout differs from the CLI's")
+        if out_file:
+            check((WORK / out_file).read_bytes() == main["files"][out_file],
+                  f"native client {name}: {out_file} differs from the CLI's")
+        times[name] = res.stdout.splitlines()[0]
+    launches = {name: w.launches for name, w in wrappers.items()}
+    for name in LAB_KERNELS:
+        check(launches[name] == main["launches"][name],
+              f"{name} launches {launches[name]} on the daemon's lab runs, "
+              f"want {main['launches'][name]} as on the CLI's")
+    check(all(launches[k] == 0 for k in COUNTED_KERNELS),
+          f"a model kernel ran on the daemon's lab runs: {launches}")
+    print(f"daemon lab runs: {json.dumps(launches)} launches", flush=True)
+    return {"timing": times, "launches": launches}
+
+
+def daemon_prompts(sizes: dict, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    lo, hi = sizes["daemon_prompt_len"]
+    return [bytes(rng.integers(0, 256, int(n)).astype(np.uint8))
+            for n in rng.integers(lo, hi + 1, sizes["daemon_clients"])]
+
+
+def concurrent_generate(sock: str, prompts: list, config: dict, stream: bool = False) -> list:
+    """Every prompt as its own client thread (``tpulab_torch.client``), all
+    at once; the responses in prompt order.  Streamed requests' chunks must
+    reassemble into the terminal frame."""
+    import threading
+
+    from tpulab_torch import client
+
+    out, errors = [None] * len(prompts), []
+
+    def one(i: int) -> None:
+        chunks: list = []
+        try:
+            got = client.request(sock, "generate", {**config, "tag": f"smoke:{i}",
+                                                    **({"stream": True} if stream else {})},
+                                 prompts[i], on_chunk=chunks.append if stream else None)
+            if stream and b"".join(chunks) != got:
+                errors.append(f"request {i}: streamed chunks do not reassemble")
+            out[i] = got
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"request {i}: {e}")
+
+    threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    check(not any(th.is_alive() for th in threads), "a generate client hung")
+    check(not errors, f"generate clients failed: {errors[:3]}")
+    return out
+
+
+def reference_bytes(path: str, attn: str, kv: str, chunk, prompts: list, steps: int) -> list:
+    """The same prompts through an in-process engine built by the daemon's
+    own recipe at the same knobs, all submitted at once."""
+    from tpulab_torch import daemon as td
+
+    eng, _ = td._build_engine(path, attn, kv, td.PREFILL_CHUNK if chunk is None else chunk)
+    ids = [eng.submit(np.frombuffer(p, np.uint8).astype(np.int32), max_new=steps)
+           for p in prompts]
+    done = eng.run()
+    check_no_leak(eng, f"reference engine {attn}/{kv}")
+    return [bytes(int(t) & 0xFF for t in done[i]) for i in ids]
+
+
+def fleet_ticks(path: str, attn: str, kv: str, chunk) -> int:
+    from tpulab_torch import daemon as td
+
+    cfg = {"ckpt_dir": path, "attn": attn, "kv_dtype": kv}
+    if chunk is not None:
+        cfg["prefill_chunk"] = chunk
+    return json.loads(td.handle_request({"lab": "generate_stats", "config": cfg},
+                                        b"")).get("ticks", 0)
+
+
+def serving_snapshot(sizes: dict, device, work: Path) -> tuple:
+    """The serving labformer (bf16, seed-0 weights, ``attn_impl="flash"`` so
+    a dense prefill runs B4) saved as a port snapshot with its sidecar."""
+    import torch
+
+    from tpulab_torch import ckpt
+    from tpulab_torch.models.labformer import Labformer, LabformerConfig, init_params
+
+    cfg = LabformerConfig(**sizes["daemon_serving"], dtype=torch.bfloat16, attn_impl="flash")
+    model = Labformer.from_numpy(init_params(cfg, seed=0), cfg, device)
+    path = work / "serving_ckpt"
+    if path.exists():
+        import shutil
+
+        shutil.rmtree(path)
+    nbytes = ckpt.save(str(path), 0, model)
+    ckpt.write_sidecar(str(path), cfg)
+    return str(path), cfg, nbytes
+
+
+def generate_runs(sizes: dict, device, sock: str, path: str, cfg, card: str) -> dict:
+    """Phase 12c: concurrent clients on each knob set, after one warm-up
+    request builds its fleet; greedy bytes equal the in-process engine's; B4
+    once per layer of each dense prefill and B7 once per layer of each tick
+    on the pallas requests, neither on gather."""
+    steps = sizes["daemon_gen_steps"]
+    out = {}
+    for attn, kv, chunk in DAEMON_KNOBS:
+        prompts = daemon_prompts(sizes, seed=len(out))
+        config = {"steps": steps, "ckpt_dir": path, "attn": attn, "kv_dtype": kv}
+        if chunk is not None:
+            config["prefill_chunk"] = chunk
+        # the fleet's cold build (snapshot load, pools) before the window
+        concurrent_generate(sock, [b"warm up"], {**config, "steps": 2})
+        ticks0 = fleet_ticks(path, attn, kv, chunk)
+
+        def drive():
+            t0 = time.perf_counter()
+            got = concurrent_generate(sock, prompts, config, stream=(attn, kv) == ("gather",
+                                                                                  "native"))
+            return got, time.perf_counter() - t0, fleet_ticks(path, attn, kv, chunk) - ticks0
+
+        def want(res):
+            if attn != "pallas":
+                return {}
+            return {"flash_fwd": cfg.n_layers * len(prompts), "paged_decode": cfg.n_layers * res[2]}
+
+        (got, wall, ticks), launches = counted(drive, device, want, f"daemon {attn}/{kv}")
+        ref = reference_bytes(path, attn, kv, chunk, prompts, steps)
+        check(got == ref, f"daemon {attn}/{kv}: greedy bytes differ from the in-process engine "
+              f"({sum(a != b for a, b in zip(got, ref))} of {len(got)})")
+        check(all(len(g) == steps for g in got), f"daemon {attn}/{kv}: short responses")
+        row = {"clients": len(prompts), "steps": steps, "ticks": ticks, "wall_s": wall,
+               "tokens_per_s": len(prompts) * steps / wall,
+               "launches": {k: launches[k] for k in ("flash_fwd", "paged_decode")}}
+        out[f"{attn}/{kv}"] = row
+        print(f"daemon generate {attn}/{kv}: {json.dumps(row)} ({card})", flush=True)
+    return out
+
+
+def fleet_runs(sizes: dict, sock: str, path: str, card: str) -> dict:
+    """Phase 12d: two replicas, a crash scheduled on replica 1 (its
+    requests migrate), then a rolling restart (drain, rebuilt, undrain,
+    each replica in turn) under load: every request completes with the
+    fault-free bytes, and nothing is shed."""
+    import threading
+
+    from tpulab_torch import client, faults
+    from tpulab_torch import daemon as td
+
+    td.REPLICAS = 2
+    chunk = sizes["daemon_fleet_chunk"]
+    keys = {"ckpt_dir": path, "attn": "gather", "kv_dtype": "native", "prefill_chunk": chunk}
+    prompts = daemon_prompts(sizes, seed=100)
+    steps = sizes["daemon_fleet_steps"]
+    ref = reference_bytes(path, "gather", "native", chunk, prompts, steps)
+    config = {**keys, "steps": steps}
+    m0, r0, s0 = td._C_MIGRATIONS.value, td._C_RESTARTS.value, td._C_SHED.value
+    t0 = time.perf_counter()
+    with faults.active([{"site": "paged.tick@replica1", "kind": "raise",
+                         "at": sizes["daemon_crash_at"]}]) as inj:
+        got = concurrent_generate(sock, prompts, config)
+        fired = inj.fired()
+    crash_s = time.perf_counter() - t0
+    check(fired == {"paged.tick@replica1": 1}, f"the crash did not fire once: {fired}")
+    check(got == ref, "crash run: bytes differ from the fault-free engine")
+    migrations = td._C_MIGRATIONS.value - m0
+    check(migrations >= 1 and td._C_RESTARTS.value == r0 + 1,
+          f"crash run: {migrations} migrations, {td._C_RESTARTS.value - r0} restarts")
+
+    def fleet():
+        return json.loads(client.request(sock, "fleet", keys))
+
+    def settle(i: int, generation: int):
+        for _ in range(3000):
+            row = fleet()["replica"][i]
+            if row["generation"] >= generation and row["health"] == "healthy":
+                return row
+            time.sleep(0.02)
+        fail(f"replica {i} never reached generation {generation}")
+
+    settle(1, 1)
+    load: dict = {}
+    th = threading.Thread(target=lambda: load.update(got=concurrent_generate(sock, prompts,
+                                                                             config)))
+    t1 = time.perf_counter()
+    th.start()
+    for i in (0, 1):
+        gen0 = fleet()["replica"][i]["generation"]
+        client.request(sock, "drain", {**keys, "replica": i})
+        settle_row = None
+        for _ in range(3000):
+            settle_row = fleet()["replica"][i]
+            if settle_row["generation"] > gen0:
+                break
+            time.sleep(0.02)
+        check(settle_row["generation"] == gen0 + 1, f"drained replica {i} was not rebuilt")
+        client.request(sock, "undrain", {**keys, "replica": i})
+    th.join(timeout=600)
+    check(not th.is_alive() and load.get("got") == ref,
+          "rolling restart: a request failed or its bytes differ")
+    roll_s = time.perf_counter() - t1
+    sheds = td._C_SHED.value - s0
+    check(sheds == 0, f"{sheds} requests shed in the fleet runs")
+    status = fleet()
+    td.REPLICAS = 1
+    row = {"replicas": 2, "clients": len(prompts), "steps": steps,
+           "migrations": migrations, "restarts": td._C_RESTARTS.value - r0,
+           "drains": 2, "sheds": sheds, "crash_run_s": crash_s, "rolling_restart_s": roll_s,
+           "generations": [r["generation"] for r in status["replica"]]}
+    print(f"daemon fleet: {json.dumps(row)} ({card})", flush=True)
+    return row
+
+
+def hist_window(before: dict, after: dict, name: str) -> dict:
+    """Count, p50 and p99 (ms) of one histogram's observations between two
+    registry snapshots."""
+    from tpulab_torch.obs import percentile_from_buckets
+
+    b, a = before[name], after[name]
+    counts = [x - y for x, y in zip(a["counts"], b["counts"])]
+    return {"count": sum(counts),
+            "p50_ms": percentile_from_buckets(a["bounds"], counts, 0.5) * 1e3,
+            "p99_ms": percentile_from_buckets(a["bounds"], counts, 0.99) * 1e3}
+
+
+def loadgen_run(sizes: dict, sock: str, card: str) -> dict:
+    """Phase 12e: the port's load generator replays the seeded ``fast``
+    trace (the demo model, the daemon's default knobs): goodput, SLO
+    attainment, and TTFT/ITL p50/p99 from the histograms' deltas, a smoke
+    check at demo size and not the serving latency at full width."""
+    from tpulab_torch import loadgen
+    from tpulab_torch.obs import REGISTRY
+
+    trace = loadgen.build_trace(loadgen.built_in_spec("fast"))
+    client_warm = concurrent_generate(sock, [b"warm up the demo fleet"], {"steps": 4})
+    check(len(client_warm[0]) == 4, "demo fleet warm-up")
+    before = REGISTRY.snapshot()
+    results, wall = loadgen.replay(trace, sock, time_scale=sizes["daemon_time_scale"],
+                                   timeout_s=300.0)
+    after = REGISTRY.snapshot()
+    summary = loadgen.summarize(results, trace, wall)["overall"]
+    check(summary["errors"] == 0 and summary["completed"] > 0,
+          f"loadgen replay: {summary}; errors "
+          f"{[r['error'] for r in results if r.get('error')][:3]}")
+    row = {"spec": "fast", "requests": len(results), **summary,
+           "ttft": hist_window(before, after, "ttft_seconds"),
+           "itl": hist_window(before, after, "itl_seconds")}
+    print(f"daemon loadgen (demo-model smoke): {json.dumps(row)} ({card})", flush=True)
+    return row
+
+
+def platform_subprocess(backend: str, device) -> str:
+    """Phase 12f: ``python -m tpulab_torch.daemon`` as a process of its own
+    (the card by default) answers ``platform`` with the torch device type."""
+    from tpulab_torch import client
+
+    sock = daemon_socket("sub.sock")
+    env = dict(os.environ, PYTHONPATH=str(ROOT), TPULAB_POSTMORTEM_DIR=str(WORK / "pm"))
+    argv = [sys.executable, "-m", "tpulab_torch.daemon", "--socket", sock]
+    if backend == "cpu":
+        argv += ["--backend", "cpu"]
+    with open(WORK / "daemon_sub.log", "w") as log:
+        proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+        try:
+            for _ in range(1200):
+                if os.path.exists(sock) or proc.poll() is not None:
+                    break
+                time.sleep(0.05)
+            check(os.path.exists(sock), "daemon process: no socket "
+                  f"({(WORK / 'daemon_sub.log').read_text()[-1500:]})")
+            got = client.request(sock, "platform").decode()
+        finally:
+            proc.terminate()
+            proc.wait(timeout=60)
+    check(got == device.type, f"daemon process answers platform {got!r}")
+    return got
+
+
+def run_daemon_path(sizes: dict, device, backend: str, card: str, inp: dict,
+                    main: dict) -> dict:
+    """Phase 12: the daemon (``tpulab_torch.daemon``) on ``device``; the
+    docstring's 12a-12g.  ``inp`` and ``main`` are phase 2's inputs and
+    outputs (``outs``, ``files``, ``backend``)."""
+    from tpulab_torch import client
+    from tpulab_torch import daemon as td
+
+    t0 = time.perf_counter()
+    work = WORK / "daemon"
+    work.mkdir(parents=True, exist_ok=True)
+    exe = client.build_native_client()
+    path, cfg, nbytes = serving_snapshot(sizes, device, work)
+    td.REPLICAS = 1
+    sock = daemon_socket("d.sock")
+    out = {"snapshot_bytes": nbytes}
+    with serving(backend, sock) as served:
+        out["native_client"] = native_lab_runs(exe, sock, inp, main, served)
+        out["generate"] = generate_runs(sizes, device, sock, path, cfg, card)
+        out["fleet"] = fleet_runs(sizes, sock, path, card)
+        out["loadgen"] = loadgen_run(sizes, sock, card)
+        out["served"] = served[0]
+    out["platform"] = platform_subprocess(backend, device)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 12 took {out['seconds']:.1f} s ({card})", flush=True)
+    return out
+
+
 KERNEL_META = {
     "roberts": ("tpulab_torch/csrc/stencil.cu", "tpulab/ops/pallas/stencil.py:82"),
     "elementwise": ("tpulab_torch/csrc/elementwise.cu", "tpulab/ops/pallas/elementwise.py:57"),
@@ -3233,16 +3663,25 @@ FULL_SIZES = {
     "life_gen_steps": 16, "life_lora_rank": 8, "life_lora_steps": 5,
     "life_student_layers": 4, "life_distill_steps": 3, "life_distill_seq": 1024,
     "life_distill_batch": 4, "life_cli_seq": 1024, "life_cli_batch": 2,
+    # phase 12: the serving labformer behind the daemon (its engine settings,
+    # tpulab/daemon.py:2656-2680), 8 clients at once with 48-200 byte prompts
+    "daemon_serving": SERVING, "daemon_clients": 8, "daemon_prompt_len": (48, 200),
+    "daemon_gen_steps": 32, "daemon_fleet_steps": 48, "daemon_fleet_chunk": 16,
+    "daemon_crash_at": 5, "daemon_time_scale": 1.0,
 }
 
 
 def run(device, sizes: dict, backend: str, card: str = "cpu",
         parent: Path | None = None) -> dict:
-    """Phases 2 to 11 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
+    """Phases 2 to 12 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
     ``parent``: a checkout to time phases 4, 6c and 7d against (:func:`in_turns`)."""
     t0 = time.perf_counter()
     inp = make_inputs(sizes)
     outs, launches = drive_main_path(inp, backend)
+    main = {"outs": outs, "backend": backend, "files": {
+        name: (WORK / name).read_bytes()
+        for name in ("lab2_out.data", "lab3_out_float64.data", "lab3_out_float32.data")},
+        "launches": {name: launches[name] for name in LAB_KERNELS}}
     print(f"main path: {json.dumps(launches)} launches; " + "; ".join(
         f"{k}: {v.splitlines()[0]}" for k, v in outs.items()), flush=True)
     check_main_path(inp, outs, device)
@@ -3270,6 +3709,7 @@ def run(device, sizes: dict, backend: str, card: str = "cpu",
         sizes, device, backend, card)
     model["phase10"] = run_cache_path(sizes, device, card)
     model["phase11"] = run_lifecycle_path(sizes, device, backend, card)
+    model["phase12"] = run_daemon_path(sizes, device, backend, card, inp, main)
     kernels = []
     for name, row in rows.items():
         source, replaces = KERNEL_META[name]

@@ -101,6 +101,9 @@ ROW_FUNCS = {
     "paged_engine": ("bench_paged_engine", "bench_paged_engine"),
     "paged_tick_overhead": ("bench_paged_tick", "bench_paged_tick"),
     "prefill_interleave": ("bench_prefill_interleave", "bench_prefill_interleave"),
+    "obs_overhead": ("bench_obs_overhead", "bench_obs_overhead"),
+    "journey_overhead": ("bench_journey_overhead", "bench_journey_overhead"),
+    "fault_overhead": ("bench_fault_overhead", "bench_fault_overhead"),
     "spill_overhead": ("bench_spill_overhead", "bench_spill_overhead"),
     "handoff_overhead": ("bench_handoff_overhead", "bench_handoff_overhead"),
     "prefix_lookup": ("bench_prefix_lookup", "bench_prefix_lookup"),
@@ -143,14 +146,15 @@ def test_registry_holds_tpulabs_model_rows():
     assert tuple(n for n in bench.REGISTRY if n not in bench.LAB_ROWS) == (
         "labformer_fwd", "labformer_train", "labformer_decode", "labformer_decode_int8",
         "labformer_decode_gqa2", "speculative_decode", "paged_engine", "paged_tick_overhead",
-        "prefill_interleave", "spill_overhead", "handoff_overhead", "prefix_lookup",
+        "prefill_interleave", "obs_overhead", "journey_overhead", "fault_overhead",
+        "spill_overhead", "handoff_overhead", "prefix_lookup",
         "flash_attention", "flash_attention_8k")
     assert bench.REGISTRY["labformer_decode_int8"].keywords == {"int8": True}
     assert bench.REGISTRY["labformer_decode_gqa2"].keywords == {"kv_heads": 2}
     assert bench.REGISTRY["flash_attention_8k"].keywords == {"s": 8192}
     for name in bench.REGISTRY:  # none is a row tpulab does not have
         assert name in inspect.getsource(jbench.run_benchmarks)
-    for waiting in ("mesh_tick_overhead", "obs_overhead", "decode_recompiles",
+    for waiting in ("mesh_tick_overhead", "obs_history_overhead", "decode_recompiles",
                     "train_step_overhead", "labvision_train"):
         assert waiting not in bench.REGISTRY and waiting in bench.__doc__
 
@@ -231,6 +235,38 @@ def test_cache_rows_on_the_cpu(monkeypatch):
     assert len(pairs) == 2 * (1 + 3) and all(min(p) > 0 for p in pairs)
 
 
+def test_obs_and_fault_rows_on_the_cpu(monkeypatch):
+    """The obs, journey and fault rows at a tiny size with a flat clock
+    (their budgets are checked on the card, ``chip_smoke.py`` phase 9c):
+    the "on" engines record (the journey row completes its journeys), the
+    "off" ones record nothing, and the fault row leaves the injector off."""
+    from tpulab_torch import faults, obs
+
+    real, pairs = bench._paired, []
+
+    def flat_clock(first, second):
+        spent, done = real(first, second)
+        pairs.append(spent)
+        return [0.01, 0.01], done
+
+    monkeypatch.setattr(bench, "_paired", flat_clock)
+    h = obs.REGISTRY.get("ttft_seconds")
+    n0 = h.snapshot()["count"]
+    (row,) = _rows("obs_overhead", slots=2, steps=3, reps=1)
+    assert row["metric"] == "obs_overhead_2slots_ticks_per_s" and row["value"] == 300.0
+    assert row["off_ticks_per_s"] == 300.0 and row["overhead_pct_best"] == 0.0
+    # 4 pairs of one obs engine of 2 requests, each past its first token
+    assert h.snapshot()["count"] - n0 == 4 * 2
+    (row,) = _rows("journey_overhead", slots=2, steps=3, reps=1)
+    assert row["metric"] == "journey_overhead_2slots_ticks_per_s"
+    assert row["journeys_completed"] >= 2
+    (row,) = _rows("fault_overhead", slots=2, steps=3, reps=1)
+    assert row["metric"] == "fault_overhead_2slots_ticks_per_s"
+    assert row["enabled_idle_ticks_per_s"] == row["value"] == 300.0
+    assert not faults.ACTIVE and not faults.INJECTOR.enabled
+    assert len(pairs) == 3 * (1 + 3) and all(min(p) > 0 for p in pairs)
+
+
 def test_paired_runs_two_generators_in_turns(monkeypatch):
     """One step of each in turn until both end; each side is charged the
     clock time of its own steps only, and gets its generator's return."""
@@ -308,7 +344,8 @@ def test_chip_smoke_phase9_rehearses_on_the_cpu():
                                  short=256),
                 bench_groups=tuple(g for g in chip_smoke.BENCH_GROUPS
                                    if g not in ("flash_attention", "spill_overhead",
-                                                "handoff_overhead")),
+                                                "handoff_overhead", "obs_overhead",
+                                                "journey_overhead", "fault_overhead")),
                 b4_long=((256, 64), (128, 0)))
     long_rows, out = chip_smoke.run_spec_and_bench_path(tiny, torch.device("cpu"), "cpu", "cpu")
     assert [r["rows_held"] for r in long_rows] == [[192, 256], [0, 128]]

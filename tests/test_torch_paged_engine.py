@@ -265,17 +265,25 @@ def test_oversized_request_and_bad_knobs_rejected(models):
     pytest.param(dict(obs=True), "A11", id="what5-A11"),
     ("rid", "A11"), ("publish_metrics", "A11")])
 def test_unported_knobs_refused(models, what, item):
+    """Mesh serving (A12) is refused, naming its item; the A11 knobs
+    (``obs=True``, ``submit(rid=)``, ``publish_metrics``) are served since
+    the observability layer landed, and these ids now check that."""
     _, _, model = models["small"]
     geo = dict(slots=1, n_blocks=8, block_size=8, max_seq=32)
-    with pytest.raises(NotImplementedError, match=item):
-        if isinstance(what, dict):
+    if item == "A12":
+        with pytest.raises(NotImplementedError, match=item):
             tpaged.PagedEngine(model, model.cfg, **geo, **what)
-        eng = tpaged.PagedEngine(model, model.cfg, **geo)
-        calls = {
-            "rid": lambda: eng.submit(_cycle(3), max_new=2, rid=7),
-            "publish_metrics": eng.publish_metrics,
-        }
-        calls[what]()
+        return
+    eng = tpaged.PagedEngine(model, model.cfg, **geo, **(what if isinstance(what, dict) else {}))
+    assert eng.obs
+    if what == "rid":
+        rid = eng.submit(_cycle(3), max_new=2, rid=7)
+        assert eng.pending[-1].rid == 7 and eng.pending[-1].req_id == rid
+    elif what == "publish_metrics":
+        eng.submit(_cycle(3), max_new=2)
+        eng.run()
+        st = eng.publish_metrics()
+        assert st == eng.stats() and st["requests_done"] == 1
 
 
 # ------------------------------------------------------------ the programs

@@ -34,9 +34,8 @@ asks for the host) and, on the card, the card's name and power limit as
 
 Rows of ``tpulab``'s registry that wait for a module of their own are not
 registered (``run_benchmarks`` raises rather than turning an error into a
-row): ``mesh_tick_overhead`` (ROADMAP A12); ``obs_overhead``,
-``journey_overhead``, ``obs_history_overhead``, ``fault_overhead``,
-``journal_overhead`` and ``autoscale_overhead`` (A11); ``decode_recompiles``
+row): ``mesh_tick_overhead`` (ROADMAP A12); ``obs_history_overhead``,
+``journal_overhead`` and ``autoscale_overhead`` (A11.2); ``decode_recompiles``
 and ``train_step_overhead`` (A13, A8.6); ``labvision_train`` (A8.8).
 """
 
@@ -530,6 +529,175 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _overhead_engines(backend, slots: int, steps: int):
+    """The d64 L2 f32 model, ``slots`` 8-token prompts and a builder of
+    engines warmed into mid-generation: the window of ``tpulab``'s
+    obs/journey/fault overhead rows (admission and release outside it)."""
+    from tpulab_torch.models.paged import PagedEngine
+
+    device = resolve_device(backend)
+    cfg = _small_cfg(256)
+    model = _model(cfg, device)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, (8,)).astype(np.int32) for _ in range(slots)]
+    warm = 6
+
+    def warmed(**kw):
+        eng = PagedEngine(model, cfg, slots=slots, n_blocks=64, block_size=16, max_seq=256,
+                          **kw)
+        for p in prompts:  # the budget outlives warm-up and window
+            eng.submit(p, max_new=warm + steps + 4)
+        for _ in range(warm):
+            eng.step()
+        return eng
+
+    return device, warmed
+
+
+def _obs_pair(device, warmed, steps: int, finish: bool):
+    """``pair(on_first)`` for the observability rows: an ``obs=True`` and
+    an ``obs=False`` engine stepped in turns (each engine binds the live
+    or the disabled tracer and journey store at construction, so the two
+    sides share the process).  ``finish`` runs both to the end after the
+    window, untimed, so the journeys complete."""
+    def pair(on_first: bool) -> Dict[bool, float]:
+        order = (True, False) if on_first else (False, True)
+        engs = {on: warmed(obs=on) for on in order}
+        _sync(device)
+        spent, _ = _paired(*(_steps(engs[on], steps) for on in order))
+        _sync(device)
+        if finish:
+            for eng in engs.values():
+                eng.run()
+        return dict(zip(order, spent))
+
+    return pair
+
+
+def bench_obs_overhead(slots: int = 4, steps: int = 96, reps: int = 5,
+                       backend: Optional[str] = None) -> Dict[str, Any]:
+    """The observability layer's tax on steady decode (d64, L2, f32):
+    engine ticks/s with ``obs=True`` (latency histograms, tracer events,
+    journey marks) against ``obs=False``, over ``steps`` mid-generation
+    ``step()`` calls after admission and 6 warm-up steps, the tracer ring
+    at its default capacity.  The two engines step in turns (:func:`_paired`;
+    ``tpulab`` times the two windows one after the other).  Budget: the
+    best "on" window within 3 % of the best "off" one (best-of-reps,
+    retried as ``tpulab`` retries it).  The value is the "on" ticks/s."""
+    from tpulab_torch import obs
+
+    device, warmed = _overhead_engines(backend, slots, steps)
+    prior = obs.TRACER.capacity
+    obs.configure_tracer(obs.DEFAULT_CAPACITY)
+    try:
+        pair = _obs_pair(device, warmed, steps, finish=False)
+        pair(False)
+        times = _best_of_reps(pair, reps, 0.03)
+    finally:
+        obs.configure_tracer(prior)
+    t_on, t_off = float(np.median(times[True])), float(np.median(times[False]))
+    return {
+        "metric": f"obs_overhead_{slots}slots_ticks_per_s",
+        "value": round(steps / t_on, 1),
+        "unit": "ticks/s",
+        "vs_baseline": None,
+        "off_ticks_per_s": round(steps / t_off, 1),
+        **_overhead_fields(times),
+        **card_fields(device.type),
+        **variance_fields([t * 1e3 for t in times[True]]),
+    }
+
+
+def bench_journey_overhead(slots: int = 4, steps: int = 96, reps: int = 5,
+                           backend: Optional[str] = None) -> Dict[str, Any]:
+    """The journey tier's tax, :func:`bench_obs_overhead`'s window with the
+    journey store armed at its default capacity beside the tracer (the
+    histograms write a rid exemplar on every observation, the journey a
+    mark at each lifecycle edge) against everything off.  Each pair's
+    engines run to the end after the window, untimed, so its journeys
+    complete (``journeys_completed``).  Budget 3 %, as ``tpulab``'s."""
+    from tpulab_torch import obs
+    from tpulab_torch.obs import journey as _journey
+
+    device, warmed = _overhead_engines(backend, slots, steps)
+    prior_tr, prior_j = obs.TRACER.capacity, obs.JOURNEY.capacity
+    obs.configure_tracer(obs.DEFAULT_CAPACITY)
+    obs.configure_journey(_journey.DEFAULT_CAPACITY)
+    try:
+        pair = _obs_pair(device, warmed, steps, finish=True)
+        pair(False)
+        times = _best_of_reps(pair, reps, 0.03)
+        completed = obs.JOURNEY.stats()["completed"]
+    finally:
+        obs.configure_tracer(prior_tr)
+        obs.configure_journey(prior_j)
+    t_on, t_off = float(np.median(times[True])), float(np.median(times[False]))
+    return {
+        "metric": f"journey_overhead_{slots}slots_ticks_per_s",
+        "value": round(steps / t_on, 1),
+        "unit": "ticks/s",
+        "vs_baseline": None,
+        "off_ticks_per_s": round(steps / t_off, 1),
+        **_overhead_fields(times),
+        "journeys_completed": completed,
+        **card_fields(device.type),
+        **variance_fields([t * 1e3 for t in times[True]]),
+    }
+
+
+def _fault_steps(eng, n: int, active: bool):
+    """``n`` engine steps, one a turn, with the injector's hot-path flag
+    set to ``active`` before each (one global store on either side)."""
+    from tpulab_torch import faults
+
+    for _ in range(n):
+        faults._set_active(active)
+        eng.step()
+        yield
+
+
+def bench_fault_overhead(slots: int = 4, steps: int = 96, reps: int = 5,
+                         backend: Optional[str] = None) -> Dict[str, Any]:
+    """The fault injector's tax on steady decode (d64, L2, f32,
+    ``obs=False``): engine ticks/s with the injector disabled (the
+    production default: one global read a site) against enabled with a
+    schedule that never matches (every site's locked hit counting).  The
+    enabled-idle side bounds the disabled one from above.  The engines
+    step in turns (:func:`_paired`), each step setting the injector's flag
+    for its side.  Budget: the best enabled window within 1 % of the best
+    disabled one (best-of-reps, retried as ``tpulab`` retries it).  The
+    value is the disabled ticks/s."""
+    from tpulab_torch import faults
+
+    device, warmed = _overhead_engines(backend, slots, steps)
+
+    def pair(on_first: bool) -> Dict[bool, float]:
+        order = (True, False) if on_first else (False, True)
+        engs = {on: warmed(obs=False) for on in order}
+        _sync(device)
+        spent, _ = _paired(*(_fault_steps(engs[on], steps, on) for on in order))
+        _sync(device)
+        return dict(zip(order, spent))
+
+    faults.configure([{"site": "bench.never", "kind": "raise", "at": 1}])
+    try:
+        pair(False)
+        times = _best_of_reps(pair, reps, 0.01)
+    finally:
+        faults.disable()
+    t_on, t_off = float(np.median(times[True])), float(np.median(times[False]))
+    return {
+        "metric": f"fault_overhead_{slots}slots_ticks_per_s",
+        "value": round(steps / t_off, 1),
+        "unit": "ticks/s",
+        "vs_baseline": None,
+        "enabled_idle_ticks_per_s": round(steps / t_on, 1),
+        **_overhead_fields(times),
+        **card_fields(device.type),
+        **variance_fields([t * 1e3 for t in times[False]]),
+    }
+
+
 def bench_spill_overhead(slots: int = 4, steps: int = 96, reps: int = 5,
                          backend: Optional[str] = None) -> Dict[str, Any]:
     """The cache tier's tax on steady decode (d64, L2, f32): engine ticks/s
@@ -733,6 +901,9 @@ REGISTRY = {
     "paged_engine": bench_paged_engine,
     "paged_tick_overhead": bench_paged_tick,
     "prefill_interleave": bench_prefill_interleave,
+    "obs_overhead": bench_obs_overhead,
+    "journey_overhead": bench_journey_overhead,
+    "fault_overhead": bench_fault_overhead,
     "spill_overhead": bench_spill_overhead,
     "handoff_overhead": bench_handoff_overhead,
     "prefix_lookup": bench_prefix_lookup,

@@ -104,16 +104,30 @@ back to the host, and a decode engine with a spill tier takes them in
 with :meth:`PagedEngine.import_handoff` and resumes the request with
 ``resubmit(req, fresh_id=True)``, its admission restoring the blocks.
 
-Not ported yet, each refused with ``NotImplementedError`` naming its
-ROADMAP item: mesh serving (A12), and observability (histograms, tracer,
-journeys, slow log, fault sites, request ids and tags, published metrics:
-A11).
+Observability (``obs=True``, the default, as in ``tpulab``): the
+queue-wait, prefill, TTFT, ITL and e2e histograms of
+:mod:`tpulab_torch.obs.registry`, tracer events and prefill-chunk spans
+carrying each request's process-unique ``rid`` (``submit(rid=, tag=)``),
+journey marks at each lifecycle edge, and a slow-log span summary at
+retirement; all host timestamps taken where the engine already touches the
+request, so no device wait is added.  ``obs=False`` records none of it.
+The fault sites ``paged.step``, ``paged.tick`` and ``paged.drain``
+(:mod:`tpulab_torch.faults`, scoped by ``fault_scope``) carry the
+``corrupt_table`` and ``nan_tokens`` tripwires, and each step is
+bracketed by the compile ledger's recompile tripwire
+(:mod:`tpulab_torch.obs.compilestats`; the eager engine builds nothing
+per shape, so ``recompiles`` stays 0 unless a kernel build lands inside a
+steady step).
+
+Not ported yet, refused with ``NotImplementedError`` naming its ROADMAP
+item: mesh serving (A12).
 """
 
 from __future__ import annotations
 
 import hashlib
 import math
+import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
@@ -121,6 +135,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from tpulab_torch import faults as _faults
 from tpulab_torch.kvcache.radix import RadixPrefixIndex
 from tpulab_torch.kvcache.spill import SPILL_DTYPES, HostSpillTier, SpillPolicy
 from tpulab_torch.models import generate as _gen
@@ -135,6 +150,13 @@ from tpulab_torch.models.labformer import (
 )
 from tpulab_torch.models.quant import embed_lookup, qmat, unembed
 from tpulab_torch.models.speculative import _draft_propose_slots, _lookup_propose
+from tpulab_torch.obs import compilestats as _cstats
+from tpulab_torch.obs import journey as _obs_journey
+from tpulab_torch.obs import tracer as _obs_tracer
+from tpulab_torch.obs.registry import gauge as _obs_gauge
+from tpulab_torch.obs.registry import histogram as _obs_histogram
+from tpulab_torch.obs.roofline import per_token_flops
+from tpulab_torch.obs.slowlog import SLOWLOG as _SLOWLOG
 from tpulab_torch.ops.cuda.paged import Pool, paged_attend_kernel
 from tpulab_torch.ops.cuda.paged import pool_gather as _pool_gather
 from tpulab_torch.parallel.ring import NEG_INF
@@ -161,6 +183,30 @@ def _unported(what: str, item: str) -> NotImplementedError:
 
 
 # ------------------------------------------------------------ the pools
+
+
+# Per-request serving latency histograms (the process-global registry; the
+# daemon's ``metrics`` request renders them).  Each observation is a
+# ``time.monotonic()`` read and a bucket add at a host boundary where the
+# engine already touches the request; ``PagedEngine(obs=False)`` skips them.
+_H_QUEUE_WAIT = _obs_histogram(
+    "queue_wait_seconds", "submit -> admission wait per request")
+_H_PREFILL = _obs_histogram(
+    "prefill_seconds", "admission -> prefill complete per request")
+_H_TTFT = _obs_histogram(
+    "ttft_seconds", "submit -> first generated token drained (TTFT)")
+_H_ITL = _obs_histogram(
+    "itl_seconds", "inter-token latency between drained tokens (ITL)")
+_H_E2E = _obs_histogram(
+    "e2e_seconds", "submit -> request retired, end to end")
+
+
+def publish_engine_stats(st: Dict[str, int], suffix: str = "") -> None:
+    """Write one engine's :meth:`PagedEngine.stats` (or a key-wise sum
+    across engines) into the registry as ``engine_<key><suffix>`` gauges;
+    ``suffix`` names a per-replica or per-shard breakdown."""
+    for k, v in st.items():
+        _obs_gauge("engine_" + k + suffix).set(int(v))
 
 
 def init_pools(cfg: LabformerConfig, n_blocks: int, block_size: int,
@@ -591,6 +637,24 @@ class _Request:
     # monotonic reads tie)
     admit_seq: int = 0
     hops: List[int] = field(default_factory=list)  # replicas placed on
+    first_replica: Optional[int] = None  # replica that served the first token
+    migrations: int = 0         # moves to a healthy peer after a failure
+    # latency timestamps (time.monotonic seconds), set while obs is on
+    t_submit: float = field(default_factory=time.monotonic)
+    t_admit: float = 0.0
+    t_last: float = 0.0         # previous drained token (ITL)
+    t_first: float = 0.0        # first drained token (TTFT end)
+    t_prefill_done: float = 0.0
+    itl_max: float = 0.0        # worst inter-token gap (seconds)...
+    itl_max_at: int = 0         # ...and the token index it ended at
+    pf_chunks: int = 0          # prefill windows dispatched (draft included)
+    # the process-unique request id every tracer event carries, and the
+    # caller's label, echoed in the slow log
+    rid: int = 0
+    tag: str = ""
+    # a cross-pool handoff's wall time and payload bytes, set by a daemon
+    handoff_ms: Optional[float] = None
+    handoff_bytes: int = 0
     # interleaved admission: "prefill" while chunks are owed (device slot
     # inactive, no tokens yet), "decode" once live, "handoff" parked for
     # export at the end of its prefill
@@ -604,6 +668,39 @@ class _Request:
         left.  A resumed prompt holds the tokens ``out`` already counts, so
         every sizing site (submit, admission, release) uses this."""
         return len(self.prompt) + self.max_new - self.n_resumed
+
+
+def _span_summary(req: _Request, now: float, pool: Optional[str] = None) -> Dict:
+    """The slow log's entry for a retiring request (milliseconds; a span
+    that never happened is None); ``tpulab``'s keys."""
+    ms = 1e3
+    return {
+        "rid": req.rid,
+        "tag": req.tag,
+        "e2e_ms": round((now - req.t_submit) * ms, 3),
+        "queue_wait_ms": (round((req.t_admit - req.t_submit) * ms, 3)
+                          if req.t_admit else None),
+        "prefill_ms": (round((req.t_prefill_done - req.t_admit) * ms, 3)
+                       if req.t_prefill_done else None),
+        "ttft_ms": (round((req.t_first - req.t_submit) * ms, 3)
+                    if req.t_first else None),
+        "itl_max_ms": round(req.itl_max * ms, 3),
+        "itl_max_at_token": req.itl_max_at,
+        # the original prompt's length, stable across resumes
+        "prompt_len": int(len(req.prompt) - req.n_resumed),
+        "tokens": len(req.out),
+        "prefill_chunks": req.pf_chunks,
+        "preemptions": req.preemptions,
+        "resubmits": req.resubmits,
+        "replica_first_token": req.first_replica,
+        "replica_hops": list(req.hops),
+        "migrations": req.migrations,
+        "pool": pool,
+        "handoff_ms": req.handoff_ms,
+        "handoff_bytes": req.handoff_bytes,
+        "priority": req.priority,
+        "cancelled": bool(req.cancelled),
+    }
 
 
 # ------------------------------------------------------------ the engine
@@ -625,22 +722,19 @@ class PagedEngine:
     lies) or ``tpulab``'s parameter tree, then placed on ``device`` (the
     card unless ``"cpu"``).  ``interleave``, ``overlap``, ``prefill_chunk``,
     ``attn``, ``kv_dtype``, ``spec_k``, ``spec_ngram``, ``draft_params``,
-    ``draft_cfg``, ``max_pending``, ``prefix_index``, ``spill_blocks`` and
-    ``spill_dtype`` are ``tpulab``'s knobs."""
+    ``draft_cfg``, ``max_pending``, ``prefix_index``, ``spill_blocks``,
+    ``spill_dtype`` and ``obs`` are ``tpulab``'s knobs."""
 
     def __init__(self, model, cfg: LabformerConfig, *, slots: int = 4,
                  n_blocks: int = 64, block_size: int = 16, max_seq: int = 256,
                  prefill_chunk: int = 0, mesh=None, attn: str = "gather",
                  kv_dtype: str = "native", spec_k: int = 0, spec_ngram: int = 3,
                  draft_params=None, draft_cfg=None, overlap: int = 1,
-                 interleave: bool = True, obs: bool = False, max_pending: int = 0,
+                 interleave: bool = True, obs: bool = True, max_pending: int = 0,
                  prefix_index: str = "dict", spill_blocks: int = 0,
                  spill_dtype: str = "native", device=None):
         if mesh is not None:
             raise _unported("mesh serving", "A12")
-        if obs:
-            raise _unported("engine observability (histograms, tracer, journeys, slow log)",
-                            "A11")
         if max_seq % block_size:
             raise ValueError("max_seq must be a multiple of block_size")
         if prefill_chunk < 0:
@@ -730,7 +824,7 @@ class PagedEngine:
             "host_syncs": 0, "h2d_ticks": 0,
             "admissions": 0, "prefill_chunks": 0, "stall_ticks": 0,
             # preemptions = slots released under KV pressure and requeued;
-            # recompiles: always 0 here (no jit)
+            # recompiles = builds inside a steady step (0 on the eager path)
             "preemptions": 0, "recompiles": 0,
             # spill_spilled = cold blocks handed to the host tier;
             # spill_prefetched = blocks restored at admission; spill_hits =
@@ -745,9 +839,21 @@ class PagedEngine:
         self._h2d = False
         # per slot: first logical block not yet window-retired
         self._retire_from = [0] * slots
-        # fleet identity, set by a serving daemon (None for a bare engine)
+        # fleet identity, set by a serving daemon (None for a bare engine);
+        # fault_scope scopes this engine's fault sites (paged.step@replica<i>)
         self.replica_index: Optional[int] = None
         self.pool_role: Optional[str] = None
+        self.fault_scope: Optional[str] = None
+        # observability: obs=False binds the disabled tracer and journey
+        # store, so the hot paths never branch on the flag for spans
+        self.obs = bool(obs)
+        self._trace = _obs_tracer.TRACER if self.obs else _obs_tracer.NULL
+        self._journey = _obs_journey.JOURNEY if self.obs else _obs_journey.NULL
+        # steady once a step dispatched device work without a build: a
+        # later build inside a step is a recompile
+        self._steady = False
+        self._dev_bytes_est: Optional[int] = None
+        _cstats.COMPILESTATS.set_model_flops("paged_tick", float(slots * per_token_flops(cfg)))
         # disaggregated serving: a prefill engine parks each request at the
         # end of its prefill; export_handoff drains handoff_ready
         self.handoff_at_boundary = False
@@ -866,7 +972,12 @@ class PagedEngine:
 
         ``priority`` ranks the request under KV pressure: a head request
         that cannot be admitted preempts an active one of strictly lower
-        priority, which later resumes where it stopped."""
+        priority, which later resumes where it stopped.
+
+        ``rid`` is the process-unique request id its tracer events, journey
+        and slow-log entry carry (a daemon allocates it before submitting,
+        so its own events share it; allocated here otherwise); ``tag`` is
+        the caller's label, echoed in the slow log."""
         if spec not in ("off", "lookup", "draft"):
             raise ValueError(f"spec={spec!r}; expected 'off', 'lookup' or 'draft'")
         if spec != "off":
@@ -880,8 +991,6 @@ class PagedEngine:
                 f"spec_k must be in [0, {self.spec_k}] (engine verify window), got {spec_k}")
         if spec_ngram < 0:
             raise ValueError(f"spec_ngram must be >= 0, got {spec_ngram}")
-        if rid is not None or tag:
-            raise _unported("request tracing ids and tags", "A11")
         if self.max_pending and len(self.pending) >= self.max_pending:
             raise QueueFullError(
                 f"admission queue at max_pending={self.max_pending}; retry later")
@@ -909,8 +1018,14 @@ class PagedEngine:
                        int(spec_k) or self.spec_k, int(spec_ngram) or self.spec_ngram,
                        int(priority))
         self._next_id += 1
+        req.rid = int(rid) if rid is not None else _obs_tracer.next_rid()
+        req.tag = str(tag)
         if self.replica_index is not None:
             req.hops.append(self.replica_index)
+        if self.obs:
+            self._trace.event("engine.submit", req.rid)
+            self._journey.mark(req.rid, "submit", t=req.t_submit,
+                               replica=self.replica_index, pool=self.pool_role, tag=req.tag)
         self.pending.append(req)
         return req.req_id
 
@@ -976,10 +1091,11 @@ class PagedEngine:
         list, but nothing writes to them before the read: the read is
         queued now, ahead of any later dispatch."""
         kparts, vparts = self._read_blocks([b for b, _ in evicted])
-        for (_, path), kblk, vblk in zip(evicted, kparts, vparts):
+        for (block, path), kblk, vblk in zip(evicted, kparts, vparts):
             key = _chain_digests(np.asarray(path, np.int32).tobytes(), self.block_size * 4)[-1]
             self._spill.put(key, kblk, vblk)
             self.counters["spill_spilled"] += 1
+            self._trace.event("kv.spill", int(block))
 
     def _evict_prefixes(self, want_free: int):
         """Drop least-recently-used cached prefixes until ``want_free``
@@ -997,6 +1113,7 @@ class PagedEngine:
                     break
                 block, path = got
                 self.counters["evictions"] += 1
+                self._trace.event("engine.evict", 1)
                 if self._spill is not None and self.block_refs[block] == 1:
                     evicted.append((block, path))
                 self._deref(block)
@@ -1009,6 +1126,7 @@ class PagedEngine:
             if d is not None and self._pc_by_digest.get(d) == key:
                 del self._pc_by_digest[d]
             self.counters["evictions"] += 1
+            self._trace.event("engine.evict", len(blocks))
             for b in blocks:
                 self._deref(b)
 
@@ -1069,6 +1187,7 @@ class PagedEngine:
             shared.append(b)
             got += 1
             self.counters["spill_prefetched"] += 1
+            self._trace.event("kv.prefetch", int(b))
         if restored:
             self._h2d = True
             self._write_blocks(restored, kparts, vparts)
@@ -1111,6 +1230,12 @@ class PagedEngine:
             self.counters["admissions"] += 1
             req.admit_seq = self._admit_seq
             self._admit_seq += 1
+            req.t_admit = time.monotonic()
+            if self.obs:
+                _H_QUEUE_WAIT.observe(req.t_admit - req.t_submit, rid=req.rid)
+                self._trace.event("engine.admit", req.rid)
+                self._journey.mark(req.rid, "admit", t=req.t_admit,
+                                   replica=self.replica_index, pool=self.pool_role)
             fresh = [self.free.pop() for _ in range(need_new)]
             for b in fresh:
                 self.block_refs[b] += 1
@@ -1151,6 +1276,8 @@ class PagedEngine:
                     self._park_handoff(s, req)
                     continue
                 req.phase = "decode"
+                if self.obs:
+                    self._note_prefill_done(req)
                 self._push_slot(s, True)
 
     def _register_prefix(self, prompt: np.ndarray, row: np.ndarray):
@@ -1189,7 +1316,8 @@ class PagedEngine:
                 start = shared_pos
                 chunk = self.prefill_chunk or (p - shared_pos)
                 while start < p:
-                    start = self._extend_window(s, req.prompt, start, chunk, p)
+                    start = self._extend_window(s, req.prompt, start, chunk, p, req.rid)
+                    req.pf_chunks += 1
                 self._stall_prefill_credit += 1
             else:
                 bucket = _bucket(p)
@@ -1200,6 +1328,7 @@ class PagedEngine:
                 _scatter_prefill(self.kpool, self.vpool, kc[:, 0], vc[:, 0],
                                  self._upload(row), shared_pos, p, bucket, self.block_size)
                 self.counters["prefill_chunks"] += 1
+                req.pf_chunks += 1
                 self._stall_prefill_dispatches += 1
                 self._stall_prefill_credit += 1
         self.lengths[s] = p
@@ -1223,19 +1352,24 @@ class PagedEngine:
         self._stall_prefill_credit += 1
 
     def _extend_window(self, s: int, prompt: np.ndarray, start: int, chunk: int,
-                       end: int) -> int:
+                       end: int, rid: int = 0) -> int:
         """Dispatch one ``paged_extend`` window for slot ``s`` (positions
         ``start .. min(start + chunk, end)``), bucketed by the chunk; the
-        new cursor."""
+        new cursor.  The window is a tracer span carrying the request's
+        ``rid``."""
         tail = prompt[start:min(start + chunk, end)]
         bucket = _bucket(chunk)
         if not self.prefill_chunk:
             self._note_dense_bucket(bucket, "extend")
         padded = np.zeros((1, bucket), np.int64)
         padded[0, :len(tail)] = tail
-        paged_extend(self.model, self._upload(padded), self.kpool, self.vpool,
-                     self._upload(self.tables[s]), start, len(tail), self.cfg,
-                     self.block_size, bucket)
+        self._trace.begin("engine.prefill_chunk", rid or None)
+        try:
+            paged_extend(self.model, self._upload(padded), self.kpool, self.vpool,
+                         self._upload(self.tables[s]), start, len(tail), self.cfg,
+                         self.block_size, bucket)
+        finally:
+            self._trace.end("engine.prefill_chunk")
         self.counters["prefill_chunks"] += 1
         self._stall_prefill_dispatches += 1
         return start + len(tail)
@@ -1252,7 +1386,8 @@ class PagedEngine:
         p = req.pf_end
         if req.pf_pos < p:
             chunk = self.prefill_chunk or (p - req.pf_pos)
-            req.pf_pos = self._extend_window(s, req.prompt, req.pf_pos, chunk, p)
+            req.pf_pos = self._extend_window(s, req.prompt, req.pf_pos, chunk, p, req.rid)
+            req.pf_chunks += 1
             self._stall_prefill_credit += 1
             self._h2d = True
         if req.spec == "draft" and req.d_pf_pos < p:
@@ -1261,10 +1396,15 @@ class PagedEngine:
             n = min(self.prefill_chunk, p - req.d_pf_pos)
             padded = np.zeros((1, _bucket(self.prefill_chunk)), np.int64)
             padded[0, :n] = req.prompt[req.d_pf_pos:req.d_pf_pos + n]
-            _draft_extend(self.draft, self._upload(padded), self.d_kc, self.d_vc, s,
-                          req.d_pf_pos)
+            self._trace.begin("engine.prefill_chunk", req.rid or None)
+            try:
+                _draft_extend(self.draft, self._upload(padded), self.d_kc, self.d_vc, s,
+                              req.d_pf_pos)
+            finally:
+                self._trace.end("engine.prefill_chunk")
             req.d_pf_pos += n
             self.counters["prefill_chunks"] += 1
+            req.pf_chunks += 1
             self._stall_prefill_dispatches += 1
             self._stall_prefill_credit += 1
             self._h2d = True
@@ -1282,7 +1422,17 @@ class PagedEngine:
             self._park_handoff(s, req)
             return
         req.phase = "decode"
+        if self.obs:
+            self._note_prefill_done(req)
         self._push_slot(s, True)
+
+    def _note_prefill_done(self, req: _Request):
+        """The prefill histogram and journey mark at the end of a
+        request's prefill (dispatch side: the chunks ride the stream)."""
+        req.t_prefill_done = time.monotonic()
+        _H_PREFILL.observe(req.t_prefill_done - req.t_admit, rid=req.rid)
+        self._journey.mark(req.rid, "prefill_done", t=req.t_prefill_done,
+                           replica=self.replica_index, pool=self.pool_role)
 
     def _prefill_tick(self) -> List[int]:
         """One admission tick for every prefilling slot: cancelled requests
@@ -1319,8 +1469,26 @@ class PagedEngine:
     # ---------------------------------------------------------------- decode
     def _emit(self, s: int, req: _Request, tok: int) -> bool:
         """Append one committed token to slot ``s``; True when the request
-        is done (stop byte, cancel or budget)."""
+        is done (stop byte, cancel or budget).  With obs on, the first token
+        observes TTFT and later ones ITL (host-observed: under ``overlap=1``
+        it includes the one-tick drain delay a streaming client sees); only
+        a new worst gap earns a trace event."""
         tok = int(tok)
+        if self.obs:
+            now = time.monotonic()
+            if not req.out:
+                req.t_first = now
+                req.first_replica = self.replica_index
+                _H_TTFT.observe(now - req.t_submit, rid=req.rid)
+                self._trace.event("engine.first_token", req.rid)
+            elif req.t_last:
+                itl = now - req.t_last
+                _H_ITL.observe(itl, rid=req.rid)
+                if itl > req.itl_max:
+                    req.itl_max = itl
+                    req.itl_max_at = len(req.out)
+                    self._trace.event("engine.token", req.rid)
+            req.t_last = now
         self.counters["tokens_out"] += 1
         req.out.append(tok)
         self.lengths[s] += 1
@@ -1330,7 +1498,16 @@ class PagedEngine:
         return stopped or req.cancelled or len(req.out) >= req.max_new
 
     def _release_slot(self, s: int, req: _Request):
-        """Retire a finished request: release what admission allocated."""
+        """Retire a finished request: release what admission allocated.
+        With obs on: the e2e histogram, the slow-log entry and the journey's
+        retire mark, all at one ``now``."""
+        if self.obs:
+            now = time.monotonic()
+            _H_E2E.observe(now - req.t_submit, rid=req.rid)
+            self._trace.event("engine.retire", req.rid)
+            _SLOWLOG.record(_span_summary(req, now, self.pool_role))
+            self._journey.mark(req.rid, "retire", t=now,
+                               replica=self.replica_index, pool=self.pool_role)
         self._release_blocks(s, req)
         self._clear_slot(s)
         self._done[req.req_id] = np.asarray(req.out, np.int32)
@@ -1398,6 +1575,8 @@ class PagedEngine:
         if self.replica_index is not None and (not req.hops
                                                or req.hops[-1] != self.replica_index):
             req.hops.append(self.replica_index)
+        if self.obs:
+            self._trace.event("engine.resubmit", req.rid)
         if fresh_id:
             req.req_id = self._next_id
         self._next_id = max(self._next_id, req.req_id + 1)
@@ -1431,6 +1610,7 @@ class PagedEngine:
             return True  # the drain retired the victim
         self.counters["preemptions"] += 1
         req.preemptions += 1
+        self._trace.event("engine.preempt", req.rid)
         self._release_blocks(s, req)
         self._clear_slot(s)
         self.resubmit(req)
@@ -1444,6 +1624,12 @@ class PagedEngine:
         a parked slot (each filters on the phase) and its device slot stays
         inactive, but ``active[s]`` holds it until :meth:`export_handoff`."""
         req.phase = "handoff"
+        if self.obs:
+            req.t_prefill_done = time.monotonic()
+            _H_PREFILL.observe(req.t_prefill_done - req.t_admit, rid=req.rid)
+            self._trace.event("engine.handoff_ready", req.rid)
+            self._journey.mark(req.rid, "handoff_ready", t=req.t_prefill_done,
+                               replica=self.replica_index, pool=self.pool_role)
         self.handoff_ready.append((s, req))
 
     def export_handoff(self) -> List[Tuple[_Request, List[tuple]]]:
@@ -1475,8 +1661,13 @@ class PagedEngine:
             n = len(blocks)
             out.append((req, list(zip(digs, kparts[at:at + n], vparts[at:at + n]))))
             at += n
+            if blocks:
+                self._trace.event("engine.handoff_export", req.rid)
             self._release_blocks(s, req)
             self._clear_slot(s)
+            if self.obs:
+                self._journey.mark(req.rid, "handoff_export",
+                                   replica=self.replica_index, pool=self.pool_role)
         return out
 
     def import_handoff(self, payload: List[tuple]) -> int:
@@ -1489,8 +1680,39 @@ class PagedEngine:
             raise EngineConfigError("import_handoff requires spill_blocks > 0")
         return sum(self._spill.put(key, kblk, vblk) for key, kblk, vblk in payload)
 
-    def publish_metrics(self):
-        raise _unported("published engine metrics", "A11")
+    def device_bytes_estimate(self) -> int:
+        """Device bytes this engine holds: weights, KV pools, draft caches
+        and per-slot state (static per engine, computed once).  The memory
+        gauge falls back to it where the allocator cannot be read."""
+        if self._dev_bytes_est is None:
+            tensors = list(self.model.parameters()) + list(self._dev.values())
+            if self.draft is not None:
+                tensors += list(self.draft.parameters()) + [self.d_kc, self.d_vc]
+            self._dev_bytes_est = self._kv_pool_bytes + int(sum(
+                t.numel() * t.element_size() for t in tensors if t is not None))
+        return self._dev_bytes_est
+
+    def shard_stats(self) -> Dict[int, Dict[str, int]]:
+        """Per-shard bytes, ``{0: {...}}`` off a mesh (the only case here)."""
+        return {0: {"hbm_bytes_in_use": self.device_bytes_estimate(),
+                    "kv_pool_bytes": self._kv_pool_bytes}}
+
+    def publish_metrics(self) -> Dict[str, int]:
+        """Mirror :meth:`stats` into the registry as ``engine_<key>``
+        gauges (and the ``_shard0`` breakdown), refresh the memory and MFU
+        gauges, and return the stats.  Scrape path only; a process serving
+        several engines sums their stats and calls
+        :func:`publish_engine_stats` once instead."""
+        from tpulab_torch.obs import roofline as _roofline
+
+        st = self.stats()
+        publish_engine_stats(st)
+        for i, srow in self.shard_stats().items():
+            publish_engine_stats(srow, suffix=f"_shard{i}")
+        _roofline.update_device_memory_gauges(self.device_bytes_estimate(),
+                                              device=self.device)
+        _roofline.update_mfu_gauges()
+        return st
 
     def _head_admittable(self) -> bool:
         """Whether the head request could be admitted now (a free slot
@@ -1530,6 +1752,12 @@ class PagedEngine:
         if event is not None:
             event.synchronize()
         nxt = host.numpy()
+        if _faults.ACTIVE:
+            rule = _faults.fire("paged.drain", self.fault_scope)
+            if rule is not None and rule.kind == "nan_tokens":
+                # the non-finite logits signature: an out-of-vocab id the
+                # validity check below trips on
+                nxt = np.full_like(nxt, -1)
         if ((nxt < 0) | (nxt >= self.cfg.vocab)).any():
             raise EngineIntegrityError(
                 f"drained tick carries out-of-vocab tokens {nxt.tolist()} "
@@ -1548,10 +1776,10 @@ class PagedEngine:
         if not self._inflight:
             return
         self.counters["host_syncs"] += 1
-        while self._inflight:
-            self._drain_one(finished)
+        with self._trace.span("engine.host_sync"):
+            while self._inflight:
+                self._drain_one(finished)
 
-    @torch.no_grad()
     def step(self) -> List[int]:
         """One engine tick; the req_ids finished in it (under ``overlap=1``
         a request finishes the tick after its last token was computed).
@@ -1559,8 +1787,39 @@ class PagedEngine:
         Admission does bookkeeping only and never drains the async window
         under ``interleave``; the one admission sync left is block
         reclamation, when the head request needs blocks held by a request
-        that finishes inside the window; preemption drains it too."""
+        that finishes inside the window; preemption drains it too.
+
+        The recompile tripwire: the step is bracketed by the compile
+        ledger.  The engine turns steady at the first step that dispatched
+        device work without a build on this thread; a later step that
+        builds adds to ``recompiles`` and, under
+        ``compilestats.strict()``, raises ``RecompileError``."""
+        cs = _cstats.COMPILESTATS
+        c0 = cs.seq()
+        t0 = self.counters["ticks"]
+        p0 = self.counters["prefill_chunks"]
+        finished = self._step_inner()
+        names = cs.names_since(c0) if cs.seq() != c0 else ()
+        if names:
+            if self._steady:
+                self.counters["recompiles"] += len(names)
+                cs.note_steady_recompile(names)
+        elif self.counters["ticks"] != t0 or self.counters["prefill_chunks"] != p0:
+            self._steady = True
+        return finished
+
+    @torch.no_grad()
+    def _step_inner(self) -> List[int]:
         finished: List[int] = []
+        if _faults.ACTIVE:
+            rule = _faults.fire("paged.step", self.fault_scope)
+            if rule is not None and rule.kind == "corrupt_table":
+                # damage the first occupied slot's host table: the
+                # release-time integrity check must catch it before a deref
+                for cs, cr in enumerate(self.active):
+                    if cr is not None:
+                        self.tables[cs, 0] = len(self.block_refs) + 7
+                        break
         self._h2d = False
         self._stall_prefill_dispatches = 0
         self._stall_prefill_credit = 0
@@ -1624,6 +1883,8 @@ class PagedEngine:
                 # drain never emits this tick's token to a later occupant
                 snap = [r if (r is not None and r.phase == "decode") else None
                         for r in self.active]
+                if _faults.ACTIVE:
+                    _faults.fire("paged.tick", self.fault_scope)
                 toks = paged_tick(self.model, self._dev, self.kpool, self.vpool, self.cfg,
                                   self.block_size, self.attn,
                                   sampled=bool((self.temps > 0).any()))

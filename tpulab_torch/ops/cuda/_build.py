@@ -29,11 +29,13 @@ import os
 import re
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 
+from tpulab_torch.obs.compilestats import note_build
 from tpulab_torch.runtime.device import LAUNCH_LIMITS
 
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
@@ -148,7 +150,8 @@ def build_once(target_dir: Path, artifact: str, make) -> Path:
     writes ``artifact`` into ``tmp_dir``) unless it is there.  A file lock
     under ``BUILD_ROOT`` keeps two processes from building at once; the
     finished directory is renamed into place, so a partial build is never
-    loaded."""
+    loaded.  The build's seconds land in the compile ledger under
+    ``artifact`` (:mod:`tpulab_torch.obs.compilestats`)."""
     library = target_dir / artifact
     if library.is_file():
         return library
@@ -160,7 +163,9 @@ def build_once(target_dir: Path, artifact: str, make) -> Path:
         tmp = BUILD_ROOT / f"{target_dir.name}.tmp{os.getpid()}"
         shutil.rmtree(tmp, ignore_errors=True)
         tmp.mkdir()
+        t0 = time.perf_counter()
         make(tmp)
+        note_build(artifact, time.perf_counter() - t0)
         shutil.rmtree(target_dir, ignore_errors=True)  # a partial earlier build
         os.replace(tmp, target_dir)
     return library
