@@ -184,8 +184,10 @@ failure:
       group at a time, ``BENCH_GROUPS``), each printed with the card's
       name, power limit and, where it counts flops, MFU against the H100's
       bf16 peak; ``labformer_train`` must launch B4, B5 and B6, the flash
-      rows B4; ``spill_overhead`` and ``handoff_overhead`` hold their 1 %
-      and 3 % budgets.  Then B4 at (1, s, 8, 64) bf16 against its plain
+      rows B4; the overhead rows (``obs_overhead``, ``journey_overhead``,
+      ``obs_history_overhead``, ``fault_overhead``, ``journal_overhead``,
+      ``autoscale_overhead``, ``spill_overhead``, ``handoff_overhead``)
+      hold their 3 % or 1 % budgets, each pair's sides in turns.  Then B4 at (1, s, 8, 64) bf16 against its plain
       version within ``o_tolerance``: at s=32768 on the last 256 query rows
       (every key; the whole score matrix would take 34 GB), at 8192 whole.
 10. The cache tier and scheduler of the ``PagedEngine`` (the radix index,
@@ -245,15 +247,20 @@ failure:
 
     a. the serving labformer (d512, 8 heads, 8 layers, d_ff 2048, bf16,
        seed-0 weights, ``attn_impl="flash"``) saved as a port snapshot with
-       its sidecar, and the native client built from
-       ``native/client/tpulab_client.cpp`` with ``g++`` into
-       ``build/tpulab_torch/``;
-    b. lab1, lab2 and lab3 (float64 and float32) through the native client,
-       whose fallback cannot run (an empty ``PATH``): stdout past the timing
-       line and the output files byte-equal to phase 2's CLI runs, each
-       call raised the daemon's served count by one, and with every launch
-       count set to 0 just before and read just after, B1-B3 launched as
-       often as on phase 2's CLI runs and no model kernel launched;
+       its sidecar, and the native client built from the port's copy,
+       ``tpulab_torch/csrc/client/tpulab_client.cpp``, with ``g++`` into
+       ``build/tpulab_torch/``; the daemon's history sampler runs at its
+       default 1 s cadence from here on;
+    b. lab1, lab2 and lab3 (float64 and float32) through the native client
+       with the daemon up: stdout past the timing line and the output files
+       byte-equal to phase 2's CLI runs, each call raised the daemon's
+       served count by one (so the daemon answered, not the client's
+       fallback), and with every launch count set to 0 just before and
+       read just after, B1-B3 launched as often as on phase 2's CLI runs
+       and no model kernel launched; then the same runs with no
+       daemon at the client's socket (after 12i, the in-process daemon
+       stopped): its fallback, ``python3 -m tpulab_torch run``, gives phase
+       2's bytes;
     c. ``generate`` over the snapshot from 8 concurrent clients (48-200 byte
        prompts, 32 tokens; one warm-up request first builds the fleet) on
        ``attn="pallas"`` (whole-prompt prefill) and on
@@ -275,9 +282,36 @@ failure:
        and ITL p50/p99 from the histograms' deltas.  These are not the
        daemon's serving latency at full width: that waits for a benchmark
        cell replaying ``steady`` against the serving snapshot;
-    f. ``python -m tpulab_torch.daemon`` as a process of its own answers
-       ``platform`` with ``cuda``;
-    g. the phase's seconds.
+    f. history and alerts on a fresh two-replica fleet (whole-prompt
+       gather prefill): a ``slow_ms`` fault (250 ms) on replica 1's ticks
+       drives its ``replica_degraded`` rule to firing and the replica to
+       SUSPECT, with no crash; a later burst's tokens, integrated from the
+       ``history`` request's rate series, equal the registry's
+       ``engine_tokens_out`` delta; the rule resolves after the fault and
+       the alerts table is printed;
+    g. ``python3 -m tpulab_torch daemon --journal J`` as a process of its
+       own: 8 streaming clients (48 tokens, pallas whole-prompt), the
+       process killed (SIGKILL) once 4 streams have bytes, restarted on the
+       same journal, every client resuming its rid from the bytes it holds:
+       the reassembled streams equal the in-process engine's fault-free
+       bytes (a stream resumed from a prefill of its prefix may part from
+       them only past the first near tie of the plain stream's logits,
+       phase 9a's rule, with the token and its margin printed); the records, replayed and resumed counts and the seconds from
+       the restart to the first resumed byte are printed, and the process
+       answers ``platform`` with ``cuda``.  Its kernels run in that process,
+       whose launches this one's counters cannot see (run last, after the
+       in-process daemon has stopped);
+    h. a fleet armed with ``--autoscale-min 1 --autoscale-max 2``: a
+       24-client wave overloads its one replica, the sampler's control loop
+       scales it out, an 8-client wave lands on the new replica, and idle
+       it scales back in; 0 sheds, every stream equal to the single
+       engine's, the brownout ladder back at level 0;
+    i. ``--pool-spec prefill=1,decode=1`` (radix index, 64 spill blocks) on
+       the pallas whole-prompt knobs: the clients' streams equal the
+       unified fleet's just before (or part only past a near tie, as in
+       12g), one handoff a request, B4 and B7 ran,
+       no block leaked in either pool;
+    j. the phase's seconds, by step.
 13. One ``{"model": {...}}`` line with phases 5 to 7's and 9 to 12's
     numbers, one ``{"lab_suite": {...}}`` line with phase 8's, one
     ``{"kernels": [...]}`` line, the card line again, and last ``{"ok":
@@ -2183,7 +2217,8 @@ SMALL = dict(d_model=32, n_heads=4, n_layers=2, d_ff=64, max_seq=128)
 #: runs its int8 and gqa2 rows, ``flash_attention`` its 8k row too)
 BENCH_GROUPS = ("labformer_fwd", "labformer_train", "labformer_decode", "speculative_decode",
                 "paged_engine", "paged_tick_overhead", "prefill_interleave", "obs_overhead",
-                "journey_overhead", "fault_overhead", "spill_overhead", "handoff_overhead",
+                "journey_overhead", "obs_history_overhead", "fault_overhead",
+                "journal_overhead", "autoscale_overhead", "spill_overhead", "handoff_overhead",
                 "prefix_lookup", "flash_attention")
 
 
@@ -3205,42 +3240,51 @@ def wait_served(served: list, want: int) -> None:
     check(served[0] == want, f"daemon served {served[0]} connections, want {want}")
 
 
+#: phase 12b's lab runs: (name, extra argv, phase 2's input key, output file)
+NATIVE_RUNS = (("lab1", [], "lab1_text", None),
+               ("lab2", [], "lab2_text", "lab2_out.data"),
+               ("lab3_float64", [], "lab3_text_float64", "lab3_out_float64.data"),
+               ("lab3_float32", ["--compute_dtype", "float32"], "lab3_text_float32",
+                "lab3_out_float32.data"))
+
+
+def native_client_run(exe: Path, sock: str, inp: dict, main: dict, name: str, extra: list,
+                      key: str, out_file) -> str:
+    """One lab run of the native client against ``sock`` (the caller's
+    ``PATH``, so the client's fallback could run): stdout past the timing
+    line and the output file equal phase 2's CLI run; the timing line."""
+    env = dict(os.environ, TPULAB_DAEMON_SOCKET=sock, PYTHONPATH=str(ROOT))
+    res = subprocess.run([str(exe), name.split("_")[0], "--backend", main["backend"], *extra],
+                         input=inp[key], capture_output=True, text=True, cwd=ROOT, env=env,
+                         timeout=300)
+    check(res.returncode == 0, f"native client {name}: rc {res.returncode} "
+          f"{res.stderr[-1500:]}")
+    want = main["outs"][name]
+    check(timing_word(res.stdout) == timing_word(want),
+          f"native client {name}: timing line {res.stdout.splitlines()[0]!r}")
+    check(res.stdout.split("\n", 1)[1] == want.split("\n", 1)[1],
+          f"native client {name}: stdout differs from the CLI's")
+    if out_file:
+        check((WORK / out_file).read_bytes() == main["files"][out_file],
+              f"native client {name}: {out_file} differs from the CLI's")
+    return res.stdout.splitlines()[0]
+
+
 def native_lab_runs(exe: Path, sock: str, inp: dict, main: dict, served: list) -> dict:
-    """Phase 12b: lab1, lab2 and lab3 (float64 and float32) through the
-    native client: stdout past the timing line and the output files equal
-    phase 2's CLI runs, each call raised the daemon's served count by one
-    (the client's fallback, ``python -m tpulab run``, cannot run here), and
-    B1-B3 launched as often as on phase 2's CLI runs (the daemon serves
-    them on a thread of this process, so the counters see them), no model
-    kernel at all; (the timing lines, the launches per kernel)."""
-    empty = WORK / "nobin"
-    empty.mkdir(parents=True, exist_ok=True)
-    env = {"TPULAB_DAEMON_SOCKET": sock, "PATH": str(empty)}
-    runs = (("lab1", [], inp["lab1_text"], None),
-            ("lab2", [], inp["lab2_text"], "lab2_out.data"),
-            ("lab3_float64", [], inp["lab3_text_float64"], "lab3_out_float64.data"),
-            ("lab3_float32", ["--compute_dtype", "float32"], inp["lab3_text_float32"],
-             "lab3_out_float32.data"))
+    """Phase 12b with the daemon up: lab1, lab2 and lab3 (float64 and
+    float32) through the native client: stdout past the timing line and
+    the output files equal phase 2's CLI runs, each call raised the
+    daemon's served count by one (so the daemon, not the client's
+    fallback, answered), and B1-B3 launched as often as on phase 2's CLI
+    runs (the daemon serves them on a thread of this process, so the
+    counters see them), no model kernel at all; (the timing lines, the
+    launches per kernel)."""
     times = {}
     wrappers = zero_counts()
-    for name, extra, text, out_file in runs:
+    for name, extra, key, out_file in NATIVE_RUNS:
         before = served[0]
-        lab = name.split("_")[0]
-        res = subprocess.run([str(exe), lab, "--backend", main["backend"], *extra],
-                             input=text, capture_output=True, text=True, cwd=ROOT, env=env,
-                             timeout=300)
-        check(res.returncode == 0, f"native client {name}: rc {res.returncode} "
-              f"{res.stderr[-1500:]}")
+        times[name] = native_client_run(exe, sock, inp, main, name, extra, key, out_file)
         wait_served(served, before + 1)
-        want = main["outs"][name]
-        check(timing_word(res.stdout) == timing_word(want),
-              f"native client {name}: timing line {res.stdout.splitlines()[0]!r}")
-        check(res.stdout.split("\n", 1)[1] == want.split("\n", 1)[1],
-              f"native client {name}: stdout differs from the CLI's")
-        if out_file:
-            check((WORK / out_file).read_bytes() == main["files"][out_file],
-                  f"native client {name}: {out_file} differs from the CLI's")
-        times[name] = res.stdout.splitlines()[0]
     launches = {name: w.launches for name, w in wrappers.items()}
     for name in LAB_KERNELS:
         check(launches[name] == main["launches"][name],
@@ -3250,6 +3294,33 @@ def native_lab_runs(exe: Path, sock: str, inp: dict, main: dict, served: list) -
           f"a model kernel ran on the daemon's lab runs: {launches}")
     print(f"daemon lab runs: {json.dumps(launches)} launches", flush=True)
     return {"timing": times, "launches": launches}
+
+
+def cold_lab_runs(exe: Path, inp: dict, main: dict) -> dict:
+    """Phase 12b with no daemon at the client's socket: the client's
+    fallback execs ``python3 -m tpulab_torch run`` (ROADMAP C11), whose
+    stdout past the timing line and output files equal phase 2's; (the
+    timing lines, the seconds of each run).  Those runs launch their
+    kernels in a process of their own, which this one's counters cannot
+    see."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    sock = daemon_socket("nobody.sock")
+    check(not os.path.exists(sock), "a socket is left where no daemon should answer")
+
+    def one(run):
+        t0 = time.perf_counter()
+        return native_client_run(exe, sock, inp, main, *run), time.perf_counter() - t0
+
+    # the four cold starts at once: each is mostly a fresh interpreter's
+    # torch import and CUDA init, and they write four different files
+    with ThreadPoolExecutor(len(NATIVE_RUNS)) as pool:
+        done = dict(zip((r[0] for r in NATIVE_RUNS), pool.map(one, NATIVE_RUNS)))
+    times = {name: line for name, (line, _) in done.items()}
+    seconds = {name: s for name, (_, s) in done.items()}
+    print(f"native client with no daemon (4 at once): {json.dumps(seconds)} s a run",
+          flush=True)
+    return {"timing": times, "seconds": seconds}
 
 
 def daemon_prompts(sizes: dict, seed: int) -> list:
@@ -3316,7 +3387,8 @@ def fleet_ticks(path: str, attn: str, kv: str, chunk) -> int:
 
 def serving_snapshot(sizes: dict, device, work: Path) -> tuple:
     """The serving labformer (bf16, seed-0 weights, ``attn_impl="flash"`` so
-    a dense prefill runs B4) saved as a port snapshot with its sidecar."""
+    a dense prefill runs B4) saved as a port snapshot with its sidecar;
+    (its path, config, bytes, and the model itself)."""
     import torch
 
     from tpulab_torch import ckpt
@@ -3331,7 +3403,7 @@ def serving_snapshot(sizes: dict, device, work: Path) -> tuple:
         shutil.rmtree(path)
     nbytes = ckpt.save(str(path), 0, model)
     ckpt.write_sidecar(str(path), cfg)
-    return str(path), cfg, nbytes
+    return str(path), cfg, nbytes, model
 
 
 def generate_runs(sizes: dict, device, sock: str, path: str, cfg, card: str) -> dict:
@@ -3486,37 +3558,446 @@ def loadgen_run(sizes: dict, sock: str, card: str) -> dict:
     return row
 
 
-def platform_subprocess(backend: str, device) -> str:
-    """Phase 12f: ``python -m tpulab_torch.daemon`` as a process of its own
-    (the card by default) answers ``platform`` with the torch device type."""
-    from tpulab_torch import client
+def fleet_of(config: dict):
+    """The warm fleet a request's engine-selection config names."""
+    from tpulab_torch import daemon as td
 
-    sock = daemon_socket("sub.sock")
+    with td._FLEET_SERVICE.lock:
+        hit = td._FLEETS.get(td._fleet_key(config))
+    check(hit is not None, f"no warm fleet for {config}")
+    return hit[1]
+
+
+def wait_idle(fleet, timeout_s: float = 120.0) -> None:
+    """Until no replica of ``fleet`` holds work or a running stepper (each
+    read under its own condition)."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        busy = False
+        for r in fleet.replicas:
+            with r.cond:
+                eng = r.engine
+                busy |= r.stepper_alive or (eng is not None and bool(
+                    eng.pending or eng.inflight_depth or any(a is not None for a in eng.active)))
+        if not busy:
+            return
+        time.sleep(0.02)
+    fail("a fleet never went idle")
+
+
+def fresh_sample(timeout_s: float = 10.0) -> tuple:
+    """The next sample the daemon's history sampler appends: (t, snapshot)."""
+    from tpulab_torch import obs
+
+    n0 = obs.HISTORY.total_samples
+    deadline = time.monotonic() + timeout_s
+    while obs.HISTORY.total_samples == n0:
+        check(time.monotonic() < deadline, "the history sampler stopped sampling")
+        time.sleep(0.02)
+    return obs.HISTORY.latest()
+
+
+def history_alerts_run(sizes: dict, sock: str, path: str, card: str) -> dict:
+    """Phase 12f: the history sampler the daemon started at its default
+    1 s cadence has sampled across 12c-12e.  A ``slow_ms`` fault on the
+    ticks of replica 1 of a fresh two-replica fleet drives its
+    ``replica_degraded`` rule to firing and the replica to SUSPECT (the
+    alert's hold) before any crash; the ``history`` request's token rate,
+    integrated over a later burst's window, equals the registry's
+    ``engine_tokens_out`` delta across it; after the fault the rule
+    resolves; the alerts table is printed."""
+    import threading
+
+    from tpulab_torch import client, faults, obs
+    from tpulab_torch import daemon as td
+    from tpulab_torch.obs import alerts as A
+    from tpulab_torch.obs import render as R
+
+    s = td._SAMPLER
+    check(s is not None and s.running and s.interval_s == 1.0 and td.METRICS_INTERVAL_S == 1.0,
+          "the daemon's history sampler does not run at its default 1 s cadence")
+    sampled = obs.HISTORY.total_samples
+    check(sampled >= 3 and s.errors == 0, f"sampler: {sampled} samples, {s.errors} errors")
+    steps = sizes["daemon_alert_steps"]
+    keys = {"ckpt_dir": path, "attn": "gather", "kv_dtype": "native", "prefill_chunk": 0}
+    td.REPLICAS = 2
+    concurrent_generate(sock, [b"warm up", b"and the second replica"], {**keys, "steps": 2})
+    td.REPLICAS = 1
+    fleet = fleet_of(keys)
+    check(len(fleet.replicas) == 2, "phase 12f's fleet has not two replicas")
+    prompts = daemon_prompts({**sizes, "daemon_clients": 4}, seed=200)
+    ref = reference_bytes(path, "gather", "native", 0, prompts, steps)
+    name = f"fleet{fleet.fid}_replica1_degraded"
+    wait_idle(fleet)
+    fired, holder = {}, {}
+    with faults.active([{"site": "paged.tick@replica1", "kind": "slow_ms", "at": 1,
+                         "count": sizes["daemon_alert_slow_ticks"], "arg": 250.0}]) as inj:
+        th = threading.Thread(target=lambda: holder.update(got=concurrent_generate(
+            sock, prompts, {**keys, "steps": steps})))
+        t0 = time.monotonic()
+        th.start()
+        while time.monotonic() - t0 < 60 and not fired:
+            st = A.ALERTS.get_state(name)
+            if st is not None and st.state == A.FIRING:
+                with fleet.cv:
+                    h = fleet.replicas[1].health
+                    fired = {"after_s": time.monotonic() - t0, "health": h.state,
+                             "alert_hold": h.alert_firing, "crashes": h.crashes,
+                             "slow_fraction": st.value}
+            time.sleep(0.05)
+        th.join(timeout=300)
+        slow = inj.fired()
+    check(bool(fired), f"{name} never fired ({slow})")
+    check(fired["health"] == "suspect" and fired["alert_hold"] and fired["crashes"] == 0,
+          f"replica 1 at the alert: {fired}")
+    check(holder.get("got") == ref, "phase 12f slow burst: bytes differ from the fault-free engine")
+    # the token rate: a burst of other prompts (no prefix of theirs is
+    # cached) between two samples, the registry read at each
+    prompts = daemon_prompts({**sizes, "daemon_clients": 4}, seed=201)
+    ref = reference_bytes(path, "gather", "native", 0, prompts, steps)
+    wait_idle(fleet)
+    t_a, _ = fresh_sample()
+    v_a = obs.REGISTRY.get("engine_tokens_out").value
+    got = concurrent_generate(sock, prompts, {**keys, "steps": steps})
+    check(got == ref, "phase 12f burst: bytes differ from the fault-free engine")
+    wait_idle(fleet)
+    fresh_sample()
+    t_b, _ = fresh_sample()
+    v_b = obs.REGISTRY.get("engine_tokens_out").value
+    t_req = time.monotonic()
+    rep = json.loads(client.request(sock, "history", {
+        "seconds": t_req - t_a + 3.0, "series": ["engine_tokens_out"]}))
+    t_new = t_req - rep["age_s"]
+    points = [(t_new + age, rate) for age, rate in rep["series"]["engine_tokens_out"]]
+    tokens = sum(rate * (t1 - t0) for (t0, _), (t1, rate) in zip(points, points[1:])
+                 if t0 > t_a - 0.5)
+    check(v_b - v_a == len(prompts) * steps, f"registry delta {v_b - v_a}, want "
+          f"{len(prompts) * steps}")
+    check(abs(tokens - (v_b - v_a)) <= max(1.0, 0.005 * (v_b - v_a)),
+          f"history token rate integrates to {tokens}, the registry's delta is {v_b - v_a}")
+    t0 = time.monotonic()
+    while A.ALERTS.get_state(name).state != A.RESOLVED:
+        check(time.monotonic() - t0 < 90, f"{name} never resolved after the fault")
+        time.sleep(0.1)
+    resolved_s = time.monotonic() - t0
+    with fleet.cv:
+        check(not fleet.replicas[1].health.alert_firing, "replica 1 still held by the alert")
+    table = json.loads(client.request(sock, "alerts", {}))
+    print("alerts table (12f):\n" + R.format_alerts(table, all_rules=True), flush=True)
+    out = {"samples_before_12f": sampled, "interval_s": s.interval_s, "alert": fired,
+           "slow_ticks": slow, "resolved_after_s": resolved_s,
+           "history_tokens": tokens, "registry_tokens": v_b - v_a, "window_s": t_b - t_a,
+           "alert_states": {a["rule"]: a["state"] for a in table["alerts"]}}
+    print(f"daemon history and alerts: {json.dumps(out)} ({card})", flush=True)
+    return out
+
+
+def autoscale_run(sizes: dict, sock: str, path: str, card: str) -> dict:
+    """Phase 12h: a fleet armed with ``--autoscale-min 1 --autoscale-max 2``
+    (the daemon's globals, read when the fleet is built) takes a burst on
+    one replica: the sampler's control loop scales it out, a second wave
+    lands on the new replica, and once idle it scales back in; 0 sheds,
+    every stream equal to the single engine's (the fixed fleet's recipe),
+    and the brownout ladder back at level 0.  The controller reads its
+    signals over ``daemon_autoscale_window_s`` (the daemon's
+    ``TPULAB_DAEMON_AUTOSCALE_WINDOW_S``, 15 s by default), so the idle
+    fleet's queue-wait window clears sooner."""
+    import threading
+
+    from tpulab_torch import client
+    from tpulab_torch import daemon as td
+
+    keys = {"ckpt_dir": path, "attn": "gather", "kv_dtype": "native",
+            "prefill_chunk": sizes["daemon_autoscale_chunk"]}
+    steps = sizes["daemon_autoscale_steps"]
+    waves = [daemon_prompts({**sizes, "daemon_clients": n}, seed=400 + i)
+             for i, n in enumerate(sizes["daemon_autoscale_waves"])]
+    refs = [reference_bytes(path, "gather", "native", keys["prefill_chunk"], w, steps)
+            for w in waves]
+    prior = (td.AUTOSCALE_MIN, td.AUTOSCALE_MAX, td.AUTOSCALE_WINDOW_S)
+    td.AUTOSCALE_MIN, td.AUTOSCALE_MAX = 1, 2
+    td.AUTOSCALE_WINDOW_S = sizes["daemon_autoscale_window_s"]
+    concurrent_generate(sock, [b"warm up"], {**keys, "steps": 2})
+    fleet = fleet_of(keys)
+    check(fleet.autoscaler is not None and fleet.brownout is not None, "fleet not armed")
+    o0, i0, s0 = td._C_SCALE_OUTS.value, td._C_SCALE_INS.value, td._C_SHED.value
+    e0 = td._C_BROWNOUT_STEPS.value
+    t0 = time.perf_counter()
+    results: dict = {}
+    first = threading.Thread(target=lambda: results.update(
+        first=concurrent_generate(sock, waves[0], {**keys, "steps": steps})))
+    first.start()
+    while td._C_SCALE_OUTS.value == o0:
+        check(time.perf_counter() - t0 < 120, "the autoscaler never scaled out")
+        time.sleep(0.05)
+    out_s = time.perf_counter() - t0
+    deadline = time.monotonic() + 120
+    while json.loads(client.request(sock, "fleet", keys))["active"] < 2:
+        check(time.monotonic() < deadline, "the scaled-out replica never served")
+        time.sleep(0.05)
+    results["second"] = concurrent_generate(sock, waves[1], {**keys, "steps": steps})
+    first.join(timeout=600)
+    check(results.get("first") == refs[0] and results["second"] == refs[1],
+          "autoscale: bytes differ from the fixed fleet's engine")
+    served_by = [r["requests_done"] for r in json.loads(
+        client.request(sock, "fleet", keys))["replica"]]
+    while td._C_SCALE_INS.value == i0:
+        check(time.perf_counter() - t0 < 240, "the autoscaler never scaled in")
+        time.sleep(0.1)
+    in_s = time.perf_counter() - t0
+    while True:
+        status = json.loads(client.request(sock, "fleet", keys))
+        if status["brownout"]["level"] == 0:
+            break
+        check(time.perf_counter() - t0 < 300, f"brownout level stuck: {status['brownout']}")
+        time.sleep(0.1)
+    sheds = td._C_SHED.value - s0
+    check(sheds == 0, f"{sheds} requests shed in the autoscale burst")
+    row = {"waves": [len(w) for w in waves], "steps": steps,
+           "signal_window_s": td.AUTOSCALE_WINDOW_S,
+           "scale_outs": td._C_SCALE_OUTS.value - o0, "scale_ins": td._C_SCALE_INS.value - i0,
+           "brownout_steps": td._C_BROWNOUT_STEPS.value - e0, "sheds": sheds,
+           "scale_out_after_s": out_s, "scale_in_after_s": in_s,
+           "requests_done_per_replica": served_by, "active_after": status["active"],
+           "autoscale": status["autoscale"], "brownout": status["brownout"]}
+    check(row["scale_outs"] >= 1 and row["scale_ins"] >= 1 and status["active"] == 1,
+          f"autoscale: {row}")
+    td.AUTOSCALE_MIN, td.AUTOSCALE_MAX, td.AUTOSCALE_WINDOW_S = prior
+    print(f"daemon autoscale: {json.dumps(row)} ({card})", flush=True)
+    return row
+
+
+def streams_held(model, prompts: list, ref: list, got: list, what: str) -> dict:
+    """``got`` against ``ref`` stream by stream (byte-LM: a byte is a
+    token): equal, or, where a stream that resumed from a prefill of its
+    prefix (a handoff, a restart) differs, equal up to the first near tie
+    of the plain stream's logits (:func:`equal_until_near_tie`, the rule
+    of ``PERF.md`` section 2), with the first differing token and its top-2
+    margin reported."""
+    import torch
+
+    diverged = []
+    for i, (p, a, b) in enumerate(zip(prompts, ref, got)):
+        check(len(a) == len(b), f"{what} stream {i}: {len(b)} bytes, want {len(a)}")
+        if a == b:
+            continue
+        weight = next(model.parameters())
+        prompt = torch.from_numpy(np.frombuffer(p, np.uint8).astype(np.int64))[None]
+        _, logits = greedy_with_logits(model, prompt.to(weight.device), len(a))
+        held = equal_until_near_tie(list(a), list(b), logits[0],
+                                    weight.dtype == torch.bfloat16, f"{what} stream {i}")
+        first = next(j for j in range(len(a)) if a[j] != b[j])
+        top2 = logits[0, first].topk(2).values
+        diverged.append({"stream": i, "first_differing_token": first, "held": held,
+                         "top2_margin": float(top2[0] - top2[1])})
+    out = {"equal": len(ref) - len(diverged), "diverged": diverged}
+    if diverged:
+        print(f"{what}: streams past a near tie: {json.dumps(diverged)}", flush=True)
+    return out
+
+
+def pools_run(sizes: dict, device, sock: str, path: str, model, card: str) -> dict:
+    """Phase 12i: the same clients on the unified fleet and then, its
+    fleet dropped, on ``--pool-spec prefill=1,decode=1`` (radix index,
+    a spill tier of 64 blocks: the two engines' pools sized by the
+    snapshot's shapes, 128 blocks of 16 each): bytes equal, one handoff
+    a request, B4 on the prefill side and B7 on the decode side, and no
+    block leaked in either pool."""
+    from tpulab_torch import daemon as td
+
+    keys = {"ckpt_dir": path, "attn": "pallas", "kv_dtype": "native", "prefill_chunk": 0}
+    steps = sizes["daemon_gen_steps"]
+    prompts = daemon_prompts(sizes, seed=500)
+    unified = concurrent_generate(sock, prompts, {**keys, "steps": steps})
+    with td._FLEET_SERVICE.lock:
+        td._FLEETS.pop(td._fleet_key(keys), None)
+    prior = (td.POOL_SPEC, td.PREFIX_INDEX, td.SPILL_BLOCKS)
+    # the daemon's --pool-spec prefill=1,decode=1 --prefix-index radix
+    # --spill-blocks 64, read by every build of this fleet's engines
+    td.POOL_SPEC, td.PREFIX_INDEX, td.SPILL_BLOCKS = "prefill=1,decode=1", "radix", 64
+    concurrent_generate(sock, [b"warm up"], {**keys, "steps": 2})
+    fleet = fleet_of(keys)
+    check([r.role for r in fleet.replicas] == ["prefill", "decode"], "pools not built")
+    wait_idle(fleet)
+    h0, b0 = td._C_HANDOFFS.value, td._C_HANDOFF_BYTES.value
+    wrappers = zero_counts()
+    t0 = time.perf_counter()
+    got = concurrent_generate(sock, prompts, {**keys, "steps": steps}, stream=True)
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    wait_idle(fleet)
+    td.POOL_SPEC, td.PREFIX_INDEX, td.SPILL_BLOCKS = prior
+    held = streams_held(model, prompts, unified, got, "pools")
+    handoffs = td._C_HANDOFFS.value - h0
+    check(handoffs == len(prompts), f"pools: {handoffs} handoffs for {len(prompts)} requests")
+    done = {}
+    for r in fleet.replicas:
+        with r.cond:
+            check_no_leak(r.engine, f"the {r.role} pool's engine")
+            done[r.role] = dict(requests_done=r.engine.counters["requests_done"],
+                                spill_prefetched=r.engine.counters["spill_prefetched"])
+    if device.type == "cuda":
+        check(launches["flash_fwd"] > 0 and launches["paged_decode"] > 0,
+              f"pools: B4 or B7 did not run: {launches}")
+    row = {"clients": len(prompts), "steps": steps, "handoffs": handoffs,
+           "handoff_bytes": td._C_HANDOFF_BYTES.value - b0, "wall_s": wall,
+           "tokens_per_s": len(prompts) * steps / wall, "per_pool": done, "streams": held,
+           "launches": {k: launches[k] for k in ("flash_fwd", "paged_decode")}}
+    print(f"daemon pools: {json.dumps(row)} ({card})", flush=True)
+    return row
+
+
+def metric_values(text: str, names) -> dict:
+    """The values of plain (unlabelled) counters in a Prometheus scrape."""
+    out = {}
+    for line in text.splitlines():
+        parts = line.split()
+        if len(parts) == 2 and parts[0] in names:
+            out[parts[0]] = int(float(parts[1]))
+    return out
+
+
+def journal_run(sizes: dict, device, backend: str, path: str, model, card: str) -> dict:
+    """Phase 12g: ``python3 -m tpulab_torch daemon --journal J`` as a process
+    of its own serves streaming clients over the snapshot (whole-prompt
+    prefill on B4, decode on B7, in that process); it is killed (SIGKILL)
+    mid-stream, restarted on the same journal, and every client resumes
+    its rid from the bytes it holds: each reassembled stream equals the
+    in-process engine's fault-free bytes.  The restarted process answers
+    ``platform`` with the device type."""
+    import signal
+    import threading
+
+    from tpulab_torch import client, durability
+
+    jpath = WORK / "daemon" / "journal.jsonl"
+    if jpath.exists():
+        jpath.unlink()
+    sock = daemon_socket("j.sock")
     env = dict(os.environ, PYTHONPATH=str(ROOT), TPULAB_POSTMORTEM_DIR=str(WORK / "pm"))
-    argv = [sys.executable, "-m", "tpulab_torch.daemon", "--socket", sock]
-    if backend == "cpu":
-        argv += ["--backend", "cpu"]
-    with open(WORK / "daemon_sub.log", "w") as log:
+    argv = [sys.executable, "-m", "tpulab_torch", "daemon", "--backend", backend,
+            "--socket", sock, "--journal", str(jpath)]
+    steps = sizes["daemon_journal_steps"]
+    config = {"ckpt_dir": path, "attn": "pallas", "kv_dtype": "native", "prefill_chunk": 0,
+              "steps": steps}
+    prompts = daemon_prompts(sizes, seed=300)
+    ref = reference_bytes(path, "pallas", "native", 0, prompts, steps)
+    log = open(WORK / "daemon_journal.log", "w")
+
+    def spawn():
         proc = subprocess.Popen(argv, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
-        try:
-            for _ in range(1200):
-                if os.path.exists(sock) or proc.poll() is not None:
-                    break
-                time.sleep(0.05)
-            check(os.path.exists(sock), "daemon process: no socket "
-                  f"({(WORK / 'daemon_sub.log').read_text()[-1500:]})")
-            got = client.request(sock, "platform").decode()
-        finally:
-            proc.terminate()
-            proc.wait(timeout=60)
-    check(got == device.type, f"daemon process answers platform {got!r}")
-    return got
+        for _ in range(2400):
+            if os.path.exists(sock) or proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        check(os.path.exists(sock), "journal daemon: no socket "
+              f"({(WORK / 'daemon_journal.log').read_text()[-1500:]})")
+        return proc
+
+    proc = spawn()
+    procs = [proc]
+    try:
+        client.request(sock, "generate", {**config, "steps": 2, "rid": "warm"}, b"warm up")
+        held = [bytearray() for _ in prompts]
+        broken = [None] * len(prompts)
+
+        def one(i):
+            try:
+                client.request(sock, "generate", {**config, "rid": f"smoke-{i}",
+                                                  "stream": True}, prompts[i],
+                               on_chunk=held[i].extend)
+            except Exception as e:  # noqa: BLE001 — the kill breaks the stream
+                broken[i] = repr(e)
+
+        threads = [threading.Thread(target=one, args=(i,)) for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        deadline = time.monotonic() + 300
+        while sum(1 for h in held if h) < min(4, len(prompts)):
+            check(time.monotonic() < deadline, "journal daemon: no stream started")
+            time.sleep(0.005)
+        os.kill(proc.pid, signal.SIGKILL)
+        proc.wait(timeout=60)
+        for th in threads:
+            th.join(timeout=60)
+        cut = [len(h) for h in held]
+        check(sum(b is not None for b in broken) > 0 and any(0 < n < steps for n in cut),
+              f"the kill cut no stream mid-way: {cut}")
+        state = durability.scan(jpath)
+        accepted = list(state.incomplete())
+        os.unlink(sock)  # the killed process left its socket file behind
+        t_restart = time.perf_counter()
+        proc = spawn()
+        procs.append(proc)
+        first_chunk: list = []
+        resumed = [None] * len(prompts)
+        fresh, errors = [], []
+
+        def resume(i):
+            def on_chunk(c):
+                if not first_chunk:
+                    first_chunk.append(time.perf_counter())
+                held[i].extend(c)
+
+            try:
+                try:
+                    got = client.request(sock, "resume", {"rid": f"smoke-{i}",
+                                                          "received": len(held[i])},
+                                         on_chunk=on_chunk)
+                except RuntimeError as e:
+                    if "resume unknown rid" not in str(e):
+                        raise
+                    # never accepted before the kill: the client submits afresh
+                    fresh.append(i)
+                    held[i].clear()
+                    got = client.request(sock, "generate", {**config, "rid": f"smoke-{i}",
+                                                            "stream": True}, prompts[i],
+                                         on_chunk=on_chunk)
+                resumed[i] = got
+            except Exception as e:  # noqa: BLE001 — reported below
+                errors.append(f"stream {i}: {e}")
+
+        threads = [threading.Thread(target=resume, args=(i,)) for i in range(len(prompts))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=600)
+        check(not errors and all(r is not None for r in resumed), f"resumes failed: {errors[:3]}")
+        streams = [bytes(h) for h in held]
+        check(streams == resumed, "reassembled streams differ from the terminal frames")
+        held = streams_held(model, prompts, ref, streams, "journal")
+        text = client.request(sock, "metrics").decode()
+        counts = metric_values(text, ("daemon_recoveries", "daemon_resumed_streams",
+                                      "daemon_journal_records"))
+        platform = client.request(sock, "platform").decode()
+        check(platform == device.type, f"journal daemon answers platform {platform!r}")
+        proc.send_signal(signal.SIGTERM)
+        check(proc.wait(timeout=120) == 0, "journal daemon: SIGTERM exit code")
+        check(durability.scan(jpath).incomplete() == {}, "journal not compacted clean")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=60)
+        log.close()
+    row = {"clients": len(prompts), "steps": steps, "bytes_at_kill": cut,
+           "records_at_kill": state.records, "accepted_at_kill": len(accepted),
+           "replayed": counts.get("daemon_recoveries"),
+           "resumed": counts.get("daemon_resumed_streams"),
+           "records_after_restart": counts.get("daemon_journal_records"),
+           "resubmitted": len(fresh), "streams": held,
+           "restart_to_first_resumed_byte_s": first_chunk[0] - t_restart if first_chunk
+           else None, "platform": platform}
+    check(row["replayed"] == len(accepted) and row["resumed"] == len(prompts) - len(fresh),
+          f"journal: {row}")
+    print(f"daemon journal: {json.dumps(row)} ({card})", flush=True)
+    return row
 
 
 def run_daemon_path(sizes: dict, device, backend: str, card: str, inp: dict,
                     main: dict) -> dict:
     """Phase 12: the daemon (``tpulab_torch.daemon``) on ``device``; the
-    docstring's 12a-12g.  ``inp`` and ``main`` are phase 2's inputs and
+    docstring's 12a-12j.  ``inp`` and ``main`` are phase 2's inputs and
     outputs (``outs``, ``files``, ``backend``)."""
     from tpulab_torch import client
     from tpulab_torch import daemon as td
@@ -3525,19 +4006,35 @@ def run_daemon_path(sizes: dict, device, backend: str, card: str, inp: dict,
     work = WORK / "daemon"
     work.mkdir(parents=True, exist_ok=True)
     exe = client.build_native_client()
-    path, cfg, nbytes = serving_snapshot(sizes, device, work)
+    path, cfg, nbytes, model = serving_snapshot(sizes, device, work)
     td.REPLICAS = 1
     sock = daemon_socket("d.sock")
     out = {"snapshot_bytes": nbytes}
+    seconds = {}
     with serving(backend, sock) as served:
-        out["native_client"] = native_lab_runs(exe, sock, inp, main, served)
-        out["generate"] = generate_runs(sizes, device, sock, path, cfg, card)
-        out["fleet"] = fleet_runs(sizes, sock, path, card)
-        out["loadgen"] = loadgen_run(sizes, sock, card)
+        for key, fn in (("native_client", lambda: native_lab_runs(exe, sock, inp, main, served)),
+                        ("generate", lambda: generate_runs(sizes, device, sock, path, cfg, card)),
+                        ("fleet", lambda: fleet_runs(sizes, sock, path, card)),
+                        ("loadgen", lambda: loadgen_run(sizes, sock, card)),
+                        ("history_alerts", lambda: history_alerts_run(sizes, sock, path, card)),
+                        ("autoscale", lambda: autoscale_run(sizes, sock, path, card)),
+                        ("pools", lambda: pools_run(sizes, device, sock, path, model, card))):
+            t1 = time.perf_counter()
+            out[key] = fn()
+            seconds[key] = time.perf_counter() - t1
         out["served"] = served[0]
-    out["platform"] = platform_subprocess(backend, device)
+    check(td._SAMPLER is None, "the daemon's sampler outlived serve()")
+    t1 = time.perf_counter()
+    out["native_client"]["no_daemon"] = cold_lab_runs(exe, inp, main)
+    seconds["no_daemon"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    out["journal"] = journal_run(sizes, device, backend, path, model, card)
+    seconds["journal"] = time.perf_counter() - t1
+    out["platform"] = out["journal"]["platform"]
     out["seconds"] = time.perf_counter() - t0
-    print(f"phase 12 took {out['seconds']:.1f} s ({card})", flush=True)
+    out["seconds_by_step"] = seconds
+    print(f"phase 12 took {out['seconds']:.1f} s ({card}); by step: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()), flush=True)
     return out
 
 
@@ -3668,6 +4165,12 @@ FULL_SIZES = {
     "daemon_serving": SERVING, "daemon_clients": 8, "daemon_prompt_len": (48, 200),
     "daemon_gen_steps": 32, "daemon_fleet_steps": 48, "daemon_fleet_chunk": 16,
     "daemon_crash_at": 5, "daemon_time_scale": 1.0,
+    # 12f-12i: 4 clients of 16 tokens with replica 1's first 40 ticks slowed
+    # by 250 ms; 8 journaled streams of 48 tokens; two waves of 24 and 8
+    # clients of 32 tokens on the autoscaled fleet (prefill chunk 24)
+    "daemon_alert_steps": 16, "daemon_alert_slow_ticks": 40, "daemon_autoscale_chunk": 24,
+    "daemon_autoscale_waves": (24, 8), "daemon_autoscale_steps": 32,
+    "daemon_autoscale_window_s": 5.0, "daemon_journal_steps": 48,
 }
 
 

@@ -104,6 +104,9 @@ ROW_FUNCS = {
     "obs_overhead": ("bench_obs_overhead", "bench_obs_overhead"),
     "journey_overhead": ("bench_journey_overhead", "bench_journey_overhead"),
     "fault_overhead": ("bench_fault_overhead", "bench_fault_overhead"),
+    "obs_history_overhead": ("bench_obs_history_overhead", "bench_obs_history_overhead"),
+    "journal_overhead": ("bench_journal_overhead", "bench_journal_overhead"),
+    "autoscale_overhead": ("bench_autoscale_overhead", "bench_autoscale_overhead"),
     "spill_overhead": ("bench_spill_overhead", "bench_spill_overhead"),
     "handoff_overhead": ("bench_handoff_overhead", "bench_handoff_overhead"),
     "prefix_lookup": ("bench_prefix_lookup", "bench_prefix_lookup"),
@@ -146,7 +149,8 @@ def test_registry_holds_tpulabs_model_rows():
     assert tuple(n for n in bench.REGISTRY if n not in bench.LAB_ROWS) == (
         "labformer_fwd", "labformer_train", "labformer_decode", "labformer_decode_int8",
         "labformer_decode_gqa2", "speculative_decode", "paged_engine", "paged_tick_overhead",
-        "prefill_interleave", "obs_overhead", "journey_overhead", "fault_overhead",
+        "prefill_interleave", "obs_overhead", "journey_overhead", "obs_history_overhead",
+        "fault_overhead", "journal_overhead", "autoscale_overhead",
         "spill_overhead", "handoff_overhead", "prefix_lookup",
         "flash_attention", "flash_attention_8k")
     assert bench.REGISTRY["labformer_decode_int8"].keywords == {"int8": True}
@@ -154,8 +158,8 @@ def test_registry_holds_tpulabs_model_rows():
     assert bench.REGISTRY["flash_attention_8k"].keywords == {"s": 8192}
     for name in bench.REGISTRY:  # none is a row tpulab does not have
         assert name in inspect.getsource(jbench.run_benchmarks)
-    for waiting in ("mesh_tick_overhead", "obs_history_overhead", "decode_recompiles",
-                    "train_step_overhead", "labvision_train"):
+    for waiting in ("mesh_tick_overhead", "decode_recompiles", "train_step_overhead",
+                    "labvision_train"):
         assert waiting not in bench.REGISTRY and waiting in bench.__doc__
 
 
@@ -217,9 +221,11 @@ def test_cache_rows_on_the_cpu(monkeypatch):
     ``chip_smoke.py`` phase 9c)."""
     real, pairs = bench._paired, []
 
-    def flat_clock(first, second):
-        spent, done = real(first, second)
+    def flat_clock(first, second, ticks):
+        spent, done = real(first, second, ticks)
         pairs.append(spent)
+        for side in ticks:  # each side's steps take 0.01 s between them
+            side[:] = [0.01 / len(side)] * len(side)
         return [0.01, 0.01], done
 
     monkeypatch.setattr(bench, "_paired", flat_clock)
@@ -244,9 +250,11 @@ def test_obs_and_fault_rows_on_the_cpu(monkeypatch):
 
     real, pairs = bench._paired, []
 
-    def flat_clock(first, second):
-        spent, done = real(first, second)
+    def flat_clock(first, second, ticks):
+        spent, done = real(first, second, ticks)
         pairs.append(spent)
+        for side in ticks:  # each side's steps take 0.01 s between them
+            side[:] = [0.01 / len(side)] * len(side)
         return [0.01, 0.01], done
 
     monkeypatch.setattr(bench, "_paired", flat_clock)
@@ -267,9 +275,46 @@ def test_obs_and_fault_rows_on_the_cpu(monkeypatch):
     assert len(pairs) == 3 * (1 + 3) and all(min(p) > 0 for p in pairs)
 
 
+def test_control_plane_rows_on_the_cpu(monkeypatch):
+    """The history, journal and autoscale rows at a tiny size with a flat
+    clock (their 3 % and 1 % budgets are checked on the card,
+    ``chip_smoke.py`` phase 9c): the history row's sampler ticks and
+    evaluates the whole catalog, the journal row writes its records in a
+    directory it removes, and no row leaves process-wide state behind."""
+    from tpulab_torch import obs
+
+    real, pairs = bench._paired, []
+
+    def flat_clock(first, second, ticks):
+        spent, done = real(first, second, ticks)
+        pairs.append(spent)
+        for side in ticks:  # each side's steps take 0.01 s between them
+            assert len(side) == 3
+            side[:] = [0.01 / 3] * 3
+        return [0.01, 0.01], done
+
+    monkeypatch.setattr(bench, "_paired", flat_clock)
+    n_hist, cap = obs.HISTORY.total_samples, obs.TRACER.capacity
+    (row,) = _rows("obs_history_overhead", slots=2, steps=3, reps=1, sampler_interval_s=1e-9)
+    assert row["metric"] == "obs_history_overhead_2slots_ticks_per_s" and row["value"] == 300.0
+    assert row["history_samples"] == 4 * 3 and row["alert_rules"] == 11
+    assert row["sampler_interval_ms"] == 1e-9 * 1e3 and row["sampler_every_ticks"] == 1
+    assert row["overhead_pct_best"] == 0.0
+    assert obs.HISTORY.total_samples == n_hist and obs.TRACER.capacity == cap
+    (row,) = _rows("journal_overhead", slots=2, steps=3, reps=1)
+    assert row["metric"] == "journal_overhead_2slots_ticks_per_s" and row["ckpt_every"] == 16
+    assert row["value"] == row["off_ticks_per_s"] == 300.0
+    (row,) = _rows("autoscale_overhead", slots=2, steps=3, reps=1)
+    assert row["metric"] == "autoscale_overhead_2slots_ticks_per_s"
+    assert row["eval_every_ticks"] == 8 and row["value"] == 300.0
+    assert len(pairs) == 3 * (1 + 3) and all(min(p) > 0 for p in pairs)
+
+
 def test_paired_runs_two_generators_in_turns(monkeypatch):
-    """One step of each in turn until both end; each side is charged the
-    clock time of its own steps only, and gets its generator's return."""
+    """One step of each in turn until both end, the side that goes first
+    swapping every round; each side is charged the clock time of its own
+    steps only (each step's, in ``ticks``), and gets its generator's
+    return."""
     log, ticks = [], iter(range(1000))
 
     class Clock:
@@ -287,23 +332,52 @@ def test_paired_runs_two_generators_in_turns(monkeypatch):
     spent, done = bench._paired(gen("a", 3), gen("b", 1))
     assert log == ["a0", "b0", "a1", "a2"] and done == ["a", "b"]
     assert spent == [4.0, 2.0]  # one clock tick a resumption, the last one ends it
+    log.clear()
+    steps = ([], [])
+    bench._paired(gen("a", 3), gen("b", 3), steps)
+    assert log == ["a0", "b0", "b1", "a1", "a2", "b2"]
+    assert steps == ([1.0] * 3, [1.0] * 3)  # the ending resumptions are not steps
+
+
+def test_step_overhead_takes_each_steps_median():
+    """The overhead sums each step's median over the pairs of the pair's
+    difference at that step: a hiccup on one step of a pair spoils
+    nothing, a step slower in every pair is kept in full; sides that take
+    different steps are held step by step on their own medians; the
+    windows' medians are reported beside it."""
+    off = [[1.0, 1.0, 9.0], [1.0, 9.0, 1.0], [9.0, 1.0, 1.0]]
+    on = [[1.5, 1.0, 9.0], [1.5, 9.0, 1.0], [9.0, 1.0, 1.0]]
+    assert bench._step_overhead(on, off) == pytest.approx((0.5 / 3.0, 3.5, 3.0))
+    assert bench._step_overhead([[1.0] * 4] * 3, off) == pytest.approx((1 / 3, 4.0, 3.0))
+    samples = iter(zip(off, on))
+    times, best = bench._best_of_reps(lambda on_first: dict(zip((False, True), next(samples))),
+                                      3, 1.0)
+    assert times == {False: [11.0] * 3, True: [11.5, 11.5, 11.0]}
+    assert best == pytest.approx(0.5 / 3.0)
+    assert bench._overhead_fields({False: [11.0, 11.0, 11.0], True: [11.5, 11.5, 11.0]},
+                                  0.5 / 3.0) == {"overhead_pct_median": 4.55,
+                                                 "overhead_pct_best": 16.67}
 
 
 @pytest.mark.parametrize("budget,slower,passes", [
     (0.01, 1.005, True), (0.01, 1.02, False), (0.03, 1.02, True), (0.03, 1.04, False)])
 def test_overhead_budget_is_best_of_reps(budget, slower, passes):
-    """The budget holds the best "on" sample against the best "off" one, over
-    retried rounds, and raises past it: a row cannot pass a slower side."""
+    """The budget holds the "on" side against the "off" one over every pair
+    of retried rounds, and raises past it: a row cannot pass a slower side."""
     firsts = []
 
     def pair(on_first):
         firsts.append(on_first)
-        # the k-th pair's samples are 1.0x, 1.1x or 1.2x their floors: the best is the floor
+        # the k-th pair's second step is 1.0x, 1.1x or 1.2x its floor on both
+        # sides (the host's drift: the pair's difference cancels it); every
+        # third pair's "on" side has a hiccup on its first step (the median drops it)
         extra = 0.1 * (len(firsts) % 3)
-        return {False: 1.0 + extra, True: slower + extra}
+        hiccup = 5.0 if len(firsts) % 3 == 1 else 0.0
+        return {False: [0.5, 0.5 + extra], True: [0.5 + hiccup, slower - 0.5 + extra]}
     if passes:
-        times = bench._best_of_reps(pair, 3, budget)
+        times, best = bench._best_of_reps(pair, 3, budget)
         assert len(times[True]) == len(times[False]) == 3
+        assert best == pytest.approx((slower - 1.0) / 1.1)  # off: 0.5 + median(0.6, 0.7, 0.5)
     else:
         with pytest.raises(RuntimeError, match="budget"):
             bench._best_of_reps(pair, 3, budget)
@@ -345,7 +419,9 @@ def test_chip_smoke_phase9_rehearses_on_the_cpu():
                 bench_groups=tuple(g for g in chip_smoke.BENCH_GROUPS
                                    if g not in ("flash_attention", "spill_overhead",
                                                 "handoff_overhead", "obs_overhead",
-                                                "journey_overhead", "fault_overhead")),
+                                                "journey_overhead", "fault_overhead",
+                                                "obs_history_overhead", "journal_overhead",
+                                                "autoscale_overhead")),
                 b4_long=((256, 64), (128, 0)))
     long_rows, out = chip_smoke.run_spec_and_bench_path(tiny, torch.device("cpu"), "cpu", "cpu")
     assert [r["rows_held"] for r in long_rows] == [[192, 256], [0, 128]]
@@ -356,3 +432,18 @@ def test_chip_smoke_phase9_rehearses_on_the_cpu():
     assert {r["metric"].split("_b")[0] for r in out["bench"]["rows"]} >= {
         "labformer_fwd", "labformer_train", "labformer_decode", "speculative_decode"}
     assert len(out["bench"]["rows"]) == 10  # every model row but the two flash rows
+
+
+def test_gate_noise_runs_every_round_on_the_cpu():
+    """``bench_gate_noise`` runs all five rounds of a row and of the fault
+    row's A/A pair, both estimates after each, and puts the gate back."""
+    from tpulab_torch import bench_gate_noise, faults
+
+    gate = bench._best_of_reps
+    lines = list(bench_gate_noise.run(rows=("autoscale_overhead",), repeat=1, backend="cpu",
+                                      slots=2, steps=3, reps=1))
+    assert [(x["row"], x["aa"]) for x in lines] == [("fault_overhead", True),
+                                                     ("autoscale_overhead", False)]
+    assert all(len(x["paired_median_pct_by_round"]) == len(x["least_pct_by_round"]) == 5
+               for x in lines)
+    assert bench._best_of_reps is gate and not faults.ACTIVE

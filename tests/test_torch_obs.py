@@ -253,7 +253,8 @@ def test_roofline_rows_and_gauges():
 
 
 def test_exports_are_the_ported_subset():
-    missing = {"ALERTS", "HISTORY", "AlertManager", "MetricsHistory", "Sampler", "Window",
-               "instrument"}
+    # the history ring and the alert engine are ported; ``instrument`` wraps
+    # a jitted program (XLA compile events) and has no counterpart in the
+    # eager port, whose builds go through ``note_build``
     assert set(tobs.__all__) - set(jobs.__all__) == {"note_build"}
-    assert set(jobs.__all__) - set(tobs.__all__) >= missing
+    assert set(jobs.__all__) - set(tobs.__all__) == {"instrument"}

@@ -19,8 +19,12 @@ the reference suite's RTX A6000 median (``BASELINE.md``) by this row's.
 The model rows: ``labformer_fwd``, ``labformer_train``,
 ``labformer_decode`` (and its ``_int8`` and ``_gqa2`` variants),
 ``speculative_decode``, ``paged_engine``, ``paged_tick_overhead``,
-``prefill_interleave``, ``spill_overhead``, ``handoff_overhead``,
-``prefix_lookup``, ``flash_attention`` and ``flash_attention_8k``.  Their MFU fields come from
+``prefill_interleave``, the serving layer's overhead rows
+(``obs_overhead``, ``journey_overhead``, ``obs_history_overhead``,
+``fault_overhead``, ``journal_overhead``, ``autoscale_overhead``,
+``spill_overhead``, ``handoff_overhead``: the two sides of each step in
+turns, :func:`_paired`), ``prefix_lookup``, ``flash_attention`` and
+``flash_attention_8k``.  Their MFU fields come from
 :mod:`tpulab_torch.obs.roofline` (H100 peaks; none on the CPU).
 ``tpulab`` times a jitted program by enqueueing many calls; the port's
 model loops are eager, so each row's docstring says how it is timed: CUDA
@@ -34,9 +38,8 @@ asks for the host) and, on the card, the card's name and power limit as
 
 Rows of ``tpulab``'s registry that wait for a module of their own are not
 registered (``run_benchmarks`` raises rather than turning an error into a
-row): ``mesh_tick_overhead`` (ROADMAP A12); ``obs_history_overhead``,
-``journal_overhead`` and ``autoscale_overhead`` (A11.2); ``decode_recompiles``
-and ``train_step_overhead`` (A13, A8.6); ``labvision_train`` (A8.8).
+row): ``mesh_tick_overhead`` (ROADMAP A12); ``decode_recompiles`` and
+``train_step_overhead`` (A13, A8.6); ``labvision_train`` (A8.8).
 """
 
 from __future__ import annotations
@@ -451,16 +454,20 @@ def bench_prefill_interleave(slots: int = 4, reps: int = 5,
         host_syncs=stats["interleave"]["host_syncs"])
 
 
-def _paired(first, second) -> tuple:
+def _paired(first, second, ticks: Optional[tuple] = None) -> tuple:
     """Advance two generators in turns, one step of each, until both end:
     (the seconds each spent inside its own steps, what each returned).
     Run so, the two sides of a comparison share the host's moment: on the
     card's machine the same Python loop's time moves by more than these
     rows' budgets from one second to the next (``chip_smoke.py`` phase 9c
-    times one)."""
+    times one).  The side that steps first swaps every round (a, b, b, a,
+    ...): on the card the first of a round's two steps ran slower.
+    ``ticks``, two lists, receives each side's seconds step by step."""
     gens, spent, results, live = (first, second), [0.0, 0.0], [None, None], [True, True]
+    rounds = 0
     while any(live):
-        for i in (0, 1):
+        rounds += 1
+        for i in ((0, 1) if rounds % 2 else (1, 0)):
             if not live[i]:
                 continue
             t0 = time.perf_counter()
@@ -468,7 +475,10 @@ def _paired(first, second) -> tuple:
                 next(gens[i])
             except StopIteration as stop:
                 live[i], results[i] = False, stop.value
-            spent[i] += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            spent[i] += dt
+            if ticks is not None and live[i]:
+                ticks[i].append(dt)
     return spent, results
 
 
@@ -490,17 +500,43 @@ def _served(eng):
     raise RuntimeError("engine did not converge")
 
 
-def _best_of_reps(pair, reps: int, budget: float) -> Dict[bool, list]:
+def _step_overhead(on: list, off: list) -> tuple:
+    """The "on" side's extra seconds over the "off" side's, as a fraction
+    of the "off" side's, from each pair's step seconds (a list a pair):
+    each step's median over the pairs, summed over the steps.  Where the
+    two sides take as many steps, the median at step k is of each pair's
+    difference at step k, two steps taken next to each other, so the
+    host's drift cancels; else (the handoff row) of each side's own step.
+    Every pair warms its engines to the same state, so step k does the
+    same work in every pair: a cost paid at some steps of every pair (a
+    ``ckpt`` record, a sampler tick) is counted in full, a hiccup in a
+    few pairs is not.  (On an H100's host, over the five rounds of one
+    row, a sum of each step's least over the pairs ranged over up to 3.3
+    points, this over under 0.8: ``bench_gate_noise``.)  Gives (the
+    fraction, "on" seconds, "off" seconds)."""
+    n_on, n_off = min(map(len, on)), min(map(len, off))
+    a = np.array([s[:n_on] for s in on])
+    b = np.array([s[:n_off] for s in off])
+    base = float(np.median(b, axis=0).sum())
+    if n_on == n_off:
+        extra = float(np.median(a - b, axis=0).sum())
+    else:
+        extra = float(np.median(a, axis=0).sum()) - base
+    return extra / base, base + extra, base
+
+
+def _best_of_reps(pair, reps: int, budget: float) -> tuple:
     """``tpulab``'s best-of-reps retry-merge: ``max(reps, 3)`` pairs a
-    round, until the best "on" time is within ``budget`` of the best "off"
-    time (5 rounds at most), else raise.  The seconds per side.
+    round, until the "on" side is within ``budget`` of the "off" side
+    over every pair so far (:func:`_step_overhead`; 5 rounds at most),
+    else raise.  (The window seconds per side, the overhead.)
 
     ``pair(on_first)`` times one "off" and one "on" sample together
-    (:func:`_paired`) and gives ``{False: s, True: s}``; each pair swaps
-    which side steps first, and the cyclic garbage collector is off inside
-    a pair (run beforehand instead), so neither side pays for the other's
-    garbage."""
-    times: Dict[bool, list] = {False: [], True: []}
+    (:func:`_paired`) and gives ``{False: steps, True: steps}``, each side's
+    steps' seconds; each pair swaps which side steps first, and the cyclic
+    garbage collector is off inside a pair (run beforehand instead), so
+    neither side pays for the other's garbage."""
+    steps: Dict[bool, list] = {False: [], True: []}
     for _ in range(5):
         for i in range(max(reps, 3)):
             gc.collect()
@@ -510,18 +546,21 @@ def _best_of_reps(pair, reps: int, budget: float) -> Dict[bool, list]:
             finally:
                 gc.enable()
             for on in (False, True):
-                times[on].append(got[on])
-        best = min(times[True]) / min(times[False]) - 1.0
-        if best < budget:
-            return times
-    raise RuntimeError(f"overhead {best * 100:.2f}% over the {budget * 100:g}% budget "
-                       f"(on={min(times[True]):.4f}s off={min(times[False]):.4f}s)")
+                steps[on].append(got[on])
+        over, t_on, t_off = _step_overhead(steps[True], steps[False])
+        if over < budget:
+            return {on: [sum(x) for x in steps[on]] for on in (False, True)}, over
+    raise RuntimeError(f"overhead {over * 100:.2f}% over the {budget * 100:g}% budget "
+                       f"(on={t_on:.4f}s off={t_off:.4f}s, steps' medians over "
+                       f"{len(steps[True])} pairs)")
 
 
-def _overhead_fields(times: Dict[bool, list]) -> Dict[str, Any]:
+def _overhead_fields(times: Dict[bool, list], best: float) -> Dict[str, Any]:
+    """The windows' median overhead, and the one the budget held
+    (:func:`_best_of_reps`) under ``tpulab``'s name for it."""
     t_on, t_off = float(np.median(times[True])), float(np.median(times[False]))
     return {"overhead_pct_median": round((t_on / t_off - 1.0) * 100, 2),
-            "overhead_pct_best": round((min(times[True]) / min(times[False]) - 1.0) * 100, 2)}
+            "overhead_pct_best": round(best * 100, 2)}
 
 
 def _sync(device: torch.device) -> None:
@@ -531,8 +570,9 @@ def _sync(device: torch.device) -> None:
 
 def _overhead_engines(backend, slots: int, steps: int):
     """The d64 L2 f32 model, ``slots`` 8-token prompts and a builder of
-    engines warmed into mid-generation: the window of ``tpulab``'s
-    obs/journey/fault overhead rows (admission and release outside it)."""
+    engines warmed into mid-generation, with a token budget that outlives
+    ``steps`` more steps: the window of ``tpulab``'s overhead rows
+    (admission and release outside it)."""
     from tpulab_torch.models.paged import PagedEngine
 
     device = resolve_device(backend)
@@ -560,16 +600,17 @@ def _obs_pair(device, warmed, steps: int, finish: bool):
     or the disabled tracer and journey store at construction, so the two
     sides share the process).  ``finish`` runs both to the end after the
     window, untimed, so the journeys complete."""
-    def pair(on_first: bool) -> Dict[bool, float]:
+    def pair(on_first: bool) -> Dict[bool, list]:
         order = (True, False) if on_first else (False, True)
         engs = {on: warmed(obs=on) for on in order}
+        ticks: tuple = ([], [])
         _sync(device)
-        spent, _ = _paired(*(_steps(engs[on], steps) for on in order))
+        _paired(*(_steps(engs[on], steps) for on in order), ticks)
         _sync(device)
         if finish:
             for eng in engs.values():
                 eng.run()
-        return dict(zip(order, spent))
+        return dict(zip(order, ticks))
 
     return pair
 
@@ -582,8 +623,9 @@ def bench_obs_overhead(slots: int = 4, steps: int = 96, reps: int = 5,
     ``step()`` calls after admission and 6 warm-up steps, the tracer ring
     at its default capacity.  The two engines step in turns (:func:`_paired`;
     ``tpulab`` times the two windows one after the other).  Budget: the
-    best "on" window within 3 % of the best "off" one (best-of-reps,
-    retried as ``tpulab`` retries it).  The value is the "on" ticks/s."""
+    "on" side within 3 % of the "off" one (:func:`_step_overhead`,
+    best-of-reps, retried as ``tpulab`` retries it).  The value is the "on"
+    ticks/s."""
     from tpulab_torch import obs
 
     device, warmed = _overhead_engines(backend, slots, steps)
@@ -592,7 +634,7 @@ def bench_obs_overhead(slots: int = 4, steps: int = 96, reps: int = 5,
     try:
         pair = _obs_pair(device, warmed, steps, finish=False)
         pair(False)
-        times = _best_of_reps(pair, reps, 0.03)
+        times, best = _best_of_reps(pair, reps, 0.03)
     finally:
         obs.configure_tracer(prior)
     t_on, t_off = float(np.median(times[True])), float(np.median(times[False]))
@@ -602,7 +644,7 @@ def bench_obs_overhead(slots: int = 4, steps: int = 96, reps: int = 5,
         "unit": "ticks/s",
         "vs_baseline": None,
         "off_ticks_per_s": round(steps / t_off, 1),
-        **_overhead_fields(times),
+        **_overhead_fields(times, best),
         **card_fields(device.type),
         **variance_fields([t * 1e3 for t in times[True]]),
     }
@@ -626,7 +668,7 @@ def bench_journey_overhead(slots: int = 4, steps: int = 96, reps: int = 5,
     try:
         pair = _obs_pair(device, warmed, steps, finish=True)
         pair(False)
-        times = _best_of_reps(pair, reps, 0.03)
+        times, best = _best_of_reps(pair, reps, 0.03)
         completed = obs.JOURNEY.stats()["completed"]
     finally:
         obs.configure_tracer(prior_tr)
@@ -638,8 +680,78 @@ def bench_journey_overhead(slots: int = 4, steps: int = 96, reps: int = 5,
         "unit": "ticks/s",
         "vs_baseline": None,
         "off_ticks_per_s": round(steps / t_off, 1),
-        **_overhead_fields(times),
+        **_overhead_fields(times, best),
         "journeys_completed": completed,
+        **card_fields(device.type),
+        **variance_fields([t * 1e3 for t in times[True]]),
+    }
+
+
+def bench_obs_history_overhead(slots: int = 4, steps: int = 96, reps: int = 5,
+                               sampler_interval_s: float = 0.05,
+                               backend: Optional[str] = None) -> Dict[str, Any]:
+    """The telemetry-over-time tax: :func:`bench_obs_overhead`'s window
+    with everything on — latency histograms and the tracer, plus a
+    history sampler (a private ring of 256 samples) evaluating the full
+    default alert catalog every ``sampler_interval_s`` (50 ms, 20x the
+    daemon's 1 s cadence, as ``tpulab``'s) — against everything off.  The
+    two engines step in turns (:func:`_paired`); the "on" side runs each
+    sampler tick (sample + evaluate) itself, before every ``every``-th of
+    its steps, so the whole tick is charged to it (``tpulab``'s sampler is
+    a thread whose time partly overlaps the engine's; this bounds it from
+    above).  ``every`` is the interval in steps of the "off" engine's
+    warm-up window (``sampler_every_ticks``), so the ticks fall on the
+    same steps in every pair (:func:`_step_overhead`).  Budget 3 %, best-of-reps,
+    retried as ``tpulab`` retries it.  The value is the everything-on
+    ticks/s."""
+    from tpulab_torch import obs
+    from tpulab_torch.obs import alerts as _alerts
+    from tpulab_torch.obs import history as _history
+
+    device, warmed = _overhead_engines(backend, slots, steps)
+    # a private ring and rule set: the row must not write the process-wide
+    # ones a daemon in the same process owns
+    hist = _history.MetricsHistory(256)
+    mgr = _alerts.AlertManager(_alerts.default_rules())
+    sampler = _history.Sampler(hist, sampler_interval_s, on_sample=lambda: mgr.evaluate(hist))
+    every = [1]
+
+    def sampled_steps(eng, n: int):
+        for i in range(n):
+            if i % every[0] == 0:
+                sampler.tick()
+            eng.step()
+            yield
+
+    def pair(on_first: bool) -> Dict[bool, list]:
+        order = (True, False) if on_first else (False, True)
+        engs = {on: warmed(obs=on) for on in order}
+        ticks: tuple = ([], [])
+        _sync(device)
+        _paired(*((sampled_steps if on else _steps)(engs[on], steps) for on in order), ticks)
+        _sync(device)
+        return dict(zip(order, ticks))
+
+    prior = obs.TRACER.capacity
+    obs.configure_tracer(obs.DEFAULT_CAPACITY)
+    try:
+        step_s = sum(pair(False)[False]) / steps
+        every[0] = max(1, round(sampler_interval_s / step_s))
+        times, best = _best_of_reps(pair, reps, 0.03)
+    finally:
+        obs.configure_tracer(prior)
+    t_on, t_off = float(np.median(times[True])), float(np.median(times[False]))
+    return {
+        "metric": f"obs_history_overhead_{slots}slots_ticks_per_s",
+        "value": round(steps / t_on, 1),
+        "unit": "ticks/s",
+        "vs_baseline": None,
+        "off_ticks_per_s": round(steps / t_off, 1),
+        **_overhead_fields(times, best),
+        "sampler_interval_ms": sampler_interval_s * 1e3,
+        "sampler_every_ticks": every[0],
+        "history_samples": hist.total_samples,
+        "alert_rules": len(mgr.rules),
         **card_fields(device.type),
         **variance_fields([t * 1e3 for t in times[True]]),
     }
@@ -662,27 +774,30 @@ def bench_fault_overhead(slots: int = 4, steps: int = 96, reps: int = 5,
     ``obs=False``): engine ticks/s with the injector disabled (the
     production default: one global read a site) against enabled with a
     schedule that never matches (every site's locked hit counting).  The
-    enabled-idle side bounds the disabled one from above.  The engines
-    step in turns (:func:`_paired`), each step setting the injector's flag
-    for its side.  Budget: the best enabled window within 1 % of the best
-    disabled one (best-of-reps, retried as ``tpulab`` retries it).  The
-    value is the disabled ticks/s."""
+    enabled-idle side bounds the disabled one from above.  Each step sets
+    the injector's flag for its side, so the two sides share one engine,
+    a tick each in turns (:func:`_paired`; two engines' ticks differ by
+    about the budget with the same work on the card's host).  Budget: the
+    enabled side within 1 % of the disabled one
+    (:func:`_step_overhead`, best-of-reps, retried as ``tpulab`` retries
+    it).  The value is the disabled ticks/s."""
     from tpulab_torch import faults
 
-    device, warmed = _overhead_engines(backend, slots, steps)
+    device, warmed = _overhead_engines(backend, slots, 2 * steps)
 
-    def pair(on_first: bool) -> Dict[bool, float]:
+    def pair(on_first: bool) -> Dict[bool, list]:
         order = (True, False) if on_first else (False, True)
-        engs = {on: warmed(obs=False) for on in order}
+        eng = warmed(obs=False)
+        ticks: tuple = ([], [])
         _sync(device)
-        spent, _ = _paired(*(_fault_steps(engs[on], steps, on) for on in order))
+        _paired(*(_fault_steps(eng, steps, on) for on in order), ticks)
         _sync(device)
-        return dict(zip(order, spent))
+        return dict(zip(order, ticks))
 
     faults.configure([{"site": "bench.never", "kind": "raise", "at": 1}])
     try:
         pair(False)
-        times = _best_of_reps(pair, reps, 0.01)
+        times, best = _best_of_reps(pair, reps, 0.01)
     finally:
         faults.disable()
     t_on, t_off = float(np.median(times[True])), float(np.median(times[False]))
@@ -692,7 +807,7 @@ def bench_fault_overhead(slots: int = 4, steps: int = 96, reps: int = 5,
         "unit": "ticks/s",
         "vs_baseline": None,
         "enabled_idle_ticks_per_s": round(steps / t_on, 1),
-        **_overhead_fields(times),
+        **_overhead_fields(times, best),
         **card_fields(device.type),
         **variance_fields([t * 1e3 for t in times[False]]),
     }
@@ -708,9 +823,9 @@ def bench_spill_overhead(slots: int = 4, steps: int = 96, reps: int = 5,
     ``step()`` calls after admission and 6 warm-up steps.  ``tpulab`` times
     the two windows of a pair one after the other; here they run in turns,
     one step each (:func:`_paired`), each side timed over its own steps,
-    between two synchronizes.  Budget: the best armed window within 1 % of
-    the best plain one (best-of-reps, retried as ``tpulab`` retries it).
-    The value is the armed ticks/s."""
+    between two synchronizes.  Budget: the armed side within 1 % of
+    the plain one (:func:`_step_overhead`, best-of-reps, retried as
+    ``tpulab`` retries it).  The value is the armed ticks/s."""
     from tpulab_torch.models.paged import PagedEngine
 
     device = resolve_device(backend)
@@ -730,18 +845,19 @@ def bench_spill_overhead(slots: int = 4, steps: int = 96, reps: int = 5,
             eng.step()
         return eng
 
-    def pair(on_first: bool) -> Dict[bool, float]:
+    def pair(on_first: bool) -> Dict[bool, list]:
         order = (True, False) if on_first else (False, True)
         engs = {on: warmed(on) for on in order}
+        ticks: tuple = ([], [])
         _sync(device)
-        spent, _ = _paired(*(_steps(engs[on], steps) for on in order))
+        _paired(*(_steps(engs[on], steps) for on in order), ticks)
         _sync(device)
         if engs[True].counters["spill_spilled"]:
             raise RuntimeError("spill fired inside the cold window")
-        return dict(zip(order, spent))
+        return dict(zip(order, ticks))
 
     pair(False)
-    times = _best_of_reps(pair, reps, 0.01)
+    times, best = _best_of_reps(pair, reps, 0.01)
     t_on, t_off = float(np.median(times[True])), float(np.median(times[False]))
     return {
         "metric": f"spill_overhead_{slots}slots_ticks_per_s",
@@ -749,7 +865,7 @@ def bench_spill_overhead(slots: int = 4, steps: int = 96, reps: int = 5,
         "unit": "ticks/s",
         "vs_baseline": None,
         "off_ticks_per_s": round(steps / t_off, 1),
-        **_overhead_fields(times),
+        **_overhead_fields(times, best),
         "spill_blocks": 64,
         **card_fields(device.type),
         **variance_fields([t * 1e3 for t in times[True]]),
@@ -770,9 +886,9 @@ def bench_handoff_overhead(prompt_len: int = 241, steps: int = 48, reps: int = 5
     engines are built beforehand; the two requests of a pair run in turns,
     one engine step (or the export and import) each (:func:`_paired`),
     each timed over its own steps, between two synchronizes (``tpulab``
-    times them one after the other).  Budget: the best handoff within 3 %
-    of the best unified run (best-of-reps, retried as ``tpulab`` retries
-    it).  The value is the handoff's tokens/s."""
+    times them one after the other).  Budget: the handoff within 3 %
+    of the unified run (:func:`_step_overhead`, best-of-reps, retried
+    as ``tpulab`` retries it).  The value is the handoff's tokens/s."""
     from tpulab_torch.models.paged import PagedEngine
 
     device = resolve_device(backend)
@@ -800,21 +916,22 @@ def bench_handoff_overhead(prompt_len: int = 241, steps: int = 48, reps: int = 5
         yield
         return (yield from _served(eng_d))
 
-    def pair(on_first: bool) -> Dict[bool, float]:
+    def pair(on_first: bool) -> Dict[bool, list]:
         runs = {False: unified(mk()), True: handed_off(mk(), mk())}
         order = (True, False) if on_first else (False, True)
+        ticks: tuple = ([], [])
         _sync(device)
-        spent, done = _paired(*(runs[on] for on in order))
+        _, done = _paired(*(runs[on] for on in order), ticks)
         _sync(device)
         streams = dict(zip(order, done))
         (ref,), (hand,) = streams[False].values(), streams[True].values()
         if not np.array_equal(ref, hand):
             raise RuntimeError(f"handoff stream diverged from unified serving: {ref[:8]}... "
                                f"vs {hand[:8]}...")
-        return dict(zip(order, spent))
+        return dict(zip(order, ticks))
 
     pair(False)
-    times = _best_of_reps(pair, reps, 0.03)
+    times, best = _best_of_reps(pair, reps, 0.03)
     t_on, t_off = float(np.median(times[True])), float(np.median(times[False]))
     return {
         "metric": "handoff_overhead_e2e_tokens_per_s",
@@ -822,7 +939,7 @@ def bench_handoff_overhead(prompt_len: int = 241, steps: int = 48, reps: int = 5
         "unit": "tokens/s",
         "vs_baseline": None,
         "unified_tokens_per_s": round(steps / t_off, 1),
-        **_overhead_fields(times),
+        **_overhead_fields(times, best),
         "prompt_len": prompt_len,
         **card_fields(device.type),
         **variance_fields([t * 1e3 for t in times[True]]),
@@ -889,6 +1006,122 @@ def bench_flash_attention(s: int = 32768, reps: int = 5,
             **mfu_fields(flops, ms, device), **variance_fields(samples)}
 
 
+def bench_journal_overhead(slots: int = 4, steps: int = 96, reps: int = 5,
+                           backend: Optional[str] = None) -> Dict[str, Any]:
+    """The write-ahead journal's tax on steady decode (d64, L2, f32,
+    ``obs=False``): engine ticks/s with no journal (the daemon's default)
+    against a live :class:`~tpulab_torch.durability.Journal` fed as the
+    daemon's progress callback feeds it — one ``note_tokens`` per slot a
+    tick carrying the full committed prefix, a ``ckpt`` record per slot
+    every 16 tokens.  The accept records (fsynced at admission) are
+    written before the window, as admission sits outside the decode loop.
+    The two sides differ only in host work after each tick, so they share
+    one engine, one tick each in turns (:func:`_paired`); the ``ckpt``
+    records fall on the same ticks in every pair (:func:`_step_overhead`).
+    Budget 1 %, best-of-reps, retried as ``tpulab`` retries it.  The value
+    is the journal-on ticks/s."""
+    import tempfile
+
+    from tpulab_torch.durability import Journal
+
+    device, warmed = _overhead_engines(backend, slots, 2 * steps)
+
+    def journaled_steps(eng, jnl, n: int):
+        toks = [[] for _ in range(slots)]
+        for _ in range(n):
+            eng.step()
+            for i in range(slots):
+                toks[i].append(7)
+                jnl.note_tokens(f"bench-{i}", toks[i])
+            yield
+
+    def pair(on_first: bool) -> Dict[bool, list]:
+        order = (True, False) if on_first else (False, True)
+        ticks: tuple = ([], [])
+        with tempfile.TemporaryDirectory() as d:
+            jnl = Journal(f"{d}/bench.journal.jsonl", ckpt_every=16)
+            try:
+                for i in range(slots):
+                    jnl.append_accept(f"bench-{i}", "bench", bytes([i]), {"steps": steps})
+                eng = warmed(obs=False)
+                _sync(device)
+                _paired(*(journaled_steps(eng, jnl, steps) if on else _steps(eng, steps)
+                          for on in order), ticks)
+                _sync(device)
+            finally:
+                jnl.close()
+        return dict(zip(order, ticks))
+
+    pair(False)
+    times, best = _best_of_reps(pair, reps, 0.01)
+    t_on, t_off = float(np.median(times[True])), float(np.median(times[False]))
+    return {
+        "metric": f"journal_overhead_{slots}slots_ticks_per_s",
+        "value": round(steps / t_on, 1),
+        "unit": "ticks/s",
+        "vs_baseline": None,
+        "off_ticks_per_s": round(steps / t_off, 1),
+        **_overhead_fields(times, best),
+        "ckpt_every": 16,
+        **card_fields(device.type),
+        **variance_fields([t * 1e3 for t in times[True]]),
+    }
+
+
+def bench_autoscale_overhead(slots: int = 4, steps: int = 96, reps: int = 5, every: int = 8,
+                             backend: Optional[str] = None) -> Dict[str, Any]:
+    """The elastic fleet's control-loop tax on steady decode (d64, L2,
+    f32, ``obs=False``): engine ticks/s with no autoscaler (the daemon's
+    default) against a live :class:`~tpulab_torch.autoscale.AutoscalePolicy`
+    and :class:`~tpulab_torch.autoscale.BrownoutLadder` each observing a
+    fresh idle :class:`~tpulab_torch.autoscale.Signals` every ``every``
+    ticks (far above the daemon's once a ``--metrics-interval``).  As in
+    :func:`bench_journal_overhead`, the two sides share one engine, one
+    tick each in turns (:func:`_paired`).  Budget 1 %, best-of-reps,
+    retried as ``tpulab`` retries it.  The value is the controller-on
+    ticks/s."""
+    from tpulab_torch import autoscale
+
+    device, warmed = _overhead_engines(backend, slots, 2 * steps)
+
+    def controlled_steps(eng, n: int):
+        pol, ladder = autoscale.AutoscalePolicy(1, 3), autoscale.BrownoutLadder()
+        for i in range(n):
+            eng.step()
+            if i % every == 0:
+                now = time.monotonic()
+                sig = autoscale.Signals(active_replicas=1, load_per_replica=float(slots),
+                                        queue_wait_p99_s=0.01, shed_rate=0.0,
+                                        alerts_firing=0)
+                pol.observe(now, sig)
+                ladder.observe(now, pol.overloaded(sig))
+            yield
+
+    def pair(on_first: bool) -> Dict[bool, list]:
+        order = (True, False) if on_first else (False, True)
+        eng = warmed(obs=False)
+        ticks: tuple = ([], [])
+        _sync(device)
+        _paired(*((controlled_steps if on else _steps)(eng, steps) for on in order), ticks)
+        _sync(device)
+        return dict(zip(order, ticks))
+
+    pair(False)
+    times, best = _best_of_reps(pair, reps, 0.01)
+    t_on, t_off = float(np.median(times[True])), float(np.median(times[False]))
+    return {
+        "metric": f"autoscale_overhead_{slots}slots_ticks_per_s",
+        "value": round(steps / t_on, 1),
+        "unit": "ticks/s",
+        "vs_baseline": None,
+        "off_ticks_per_s": round(steps / t_off, 1),
+        **_overhead_fields(times, best),
+        "eval_every_ticks": every,
+        **card_fields(device.type),
+        **variance_fields([t * 1e3 for t in times[True]]),
+    }
+
+
 REGISTRY = {
     "lab1_n1000": functools.partial(bench_lab1, 1000),
     "lab1_f32_1m": functools.partial(bench_lab1, 1 << 20, dtype="float32"),
@@ -903,7 +1136,10 @@ REGISTRY = {
     "prefill_interleave": bench_prefill_interleave,
     "obs_overhead": bench_obs_overhead,
     "journey_overhead": bench_journey_overhead,
+    "obs_history_overhead": bench_obs_history_overhead,
     "fault_overhead": bench_fault_overhead,
+    "journal_overhead": bench_journal_overhead,
+    "autoscale_overhead": bench_autoscale_overhead,
     "spill_overhead": bench_spill_overhead,
     "handoff_overhead": bench_handoff_overhead,
     "prefix_lookup": bench_prefix_lookup,

@@ -4,6 +4,7 @@ Subcommands:
     tpulab_torch info              device introspection (gpu_info)
     tpulab_torch run <workload>    run a workload over the stdin/stdout protocol
     tpulab_torch generate          sample from the labformer (demo weights or --ckpt-dir)
+    tpulab_torch daemon            the warm-runtime serving daemon (tpulab_torch.daemon)
     tpulab_torch train             train the labformer (flash backward: kernels B5, B6),
                                    with checkpoints, resume, recover and --init-from
     tpulab_torch tokenizer         train / inspect a BPE tokenizer
@@ -41,6 +42,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     sub.add_parser("generate", help="sample from the labformer", add_help=False)
     sub.add_parser("train", help="train the labformer (checkpoint/resume)", add_help=False)
+    sub.add_parser("daemon", help="start the warm-runtime daemon", add_help=False)
     sub.add_parser("tokenizer", help="train/inspect a BPE tokenizer", add_help=False)
     sub.add_parser("eval", help="held-out loss/perplexity/bits-per-byte of a checkpoint",
                    add_help=False)
@@ -73,6 +75,11 @@ def main(argv: Optional[List[str]] = None) -> int:
         from tpulab_torch.train import main as train_main
 
         return train_main(extra)
+
+    if args.command == "daemon":
+        from tpulab_torch.daemon import main as daemon_main
+
+        return daemon_main(extra)
 
     if args.command == "tokenizer":
         from tpulab_torch.io.bpe import main as tok_main

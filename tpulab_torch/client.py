@@ -2,15 +2,17 @@
 
 * :func:`request`: one round trip over the wire protocol, in Python;
 * :func:`build_native_client`: the native thin client
-  (``native/client/tpulab_client.cpp``, the reference suite's
-  stdin/stdout contract forwarded over the socket), built from the source
-  in the checkout with ``g++`` and ``tools/build_native.py``'s flags into
+  (``tpulab_torch/csrc/client/tpulab_client.cpp``, the port's copy of
+  ``native/client/tpulab_client.cpp``: the reference suite's stdin/stdout
+  contract forwarded over the socket), built from the source in the
+  checkout with ``g++`` and ``tools/build_native.py``'s flags into
   ``build/tpulab_torch/client-<hash>/``, never into ``native/bin/``.
 
-When the daemon is unreachable the native client execs ``python -m
-tpulab run``, the JAX package's CLI; a caller that must know the daemon
-served the run checks the daemon's served count (``serve``'s
-``served_counter``) rather than the client's exit code.
+When the daemon is unreachable the native client execs ``python3 -m
+tpulab_torch run`` (the port's CLI; ``native/``'s copy execs the JAX
+package's), so a lab run gives its bytes either way.  A caller that must
+know the daemon served the run checks the daemon's served count
+(``serve``'s ``served_counter``) rather than the client's exit code.
 """
 
 from __future__ import annotations
@@ -24,8 +26,7 @@ import struct
 import subprocess
 from typing import Callable, Optional
 
-SOURCE = (pathlib.Path(__file__).resolve().parents[1] / "native" / "client"
-          / "tpulab_client.cpp")
+SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "client" / "tpulab_client.cpp"
 CLIENT_NAME = "tpulab_client"
 CXX_FLAGS = ["-std=c++17", "-O2", "-Wall"]
 #: the bound on each socket operation of a round trip

@@ -27,10 +27,13 @@ text: the ttft/itl/e2e/queue-wait/prefill histograms and the
 breakdown), ``trace_dump`` (Chrome trace-event JSON of the tracer
 ring), ``compile_stats`` (the build ledger, peaks and MFU gauges),
 ``postmortem`` (the newest flight-recorder bundle), ``slowlog`` (the
-worst requests by e2e latency) and ``journey`` (a request's stitched
-phase waterfall), and the fleet's ``fleet``, ``drain`` and ``undrain``.
+worst requests by e2e latency), ``journey`` (a request's stitched
+phase waterfall), ``history`` (windowed rates and percentiles from the
+sampler's ring) and ``alerts`` (the rule engine's state table), the
+fleet's ``fleet``, ``drain`` and ``undrain``, and ``resume`` (continue
+a journaled stream by rid).
 
-Every ``generate`` goes through a fixed-size fleet of ``--replicas N``
+Every ``generate`` goes through a fleet of ``--replicas N``
 ``PagedEngine`` replicas behind the router (:mod:`tpulab_torch.router`):
 least-loaded plus prefix-affinity placement over health-checked
 replicas; a crashed replica is quarantined, its in-flight requests
@@ -41,14 +44,20 @@ zero-shed rolling restart; ``--hedge-ms`` duplicates a request with no
 first token inside the budget; a ``replica.preempt`` fault is a spot
 preemption notice.  ``deadline_ms`` sheds with the parseable
 ``shed retry_after_ms=N`` line once the recent queue-wait p99 blows
-the budget; the port has no history sampler yet, so that p99 comes
-from two rolling snapshots of the histogram (``tpulab``'s no-sampler
-branch) and ``--metrics-interval`` defaults to 0.
+the budget.
 
-Refused, naming the ROADMAP item: ``--journal`` and ``resume``, a
-``--metrics-interval`` above 0 and the ``history``/``alerts`` requests,
-``--autoscale-max`` of 1 or more, ``--autoscale-min``, ``--pool-spec``
-(A11.2); ``--mesh``, ``tp`` above 1 (A12); ``beams`` (A9).
+The control plane, ``tpulab``'s: every ``--metrics-interval`` seconds
+(default 1) the sampler appends a registry snapshot to the history
+ring, evaluates the alert catalog and maps each replica's
+``replica_degraded`` alert onto its health (SUSPECT while firing);
+``--journal PATH`` fsyncs each request's accept record before admission
+and replays incomplete requests on restart, resumable by rid;
+``--autoscale-min/--autoscale-max`` arm the autoscaler and the brownout
+ladder on the sampler tick; ``--pool-spec prefill=N,decode=M`` splits
+the fleet into prefill and decode pools joined by the KV handoff.
+
+Refused, naming the ROADMAP item: ``--mesh``, ``tp`` above 1 (A12);
+``beams`` (A9).
 
 Run: ``python -m tpulab_torch.daemon --socket /tmp/tpulab.sock``
 (``--backend cpu`` to serve on the host; the card otherwise, with no
@@ -206,6 +215,58 @@ REBUILD_PARK_S = float(os.environ.get("TPULAB_DAEMON_REBUILD_PARK_S", "30"))
 QUEUE_WAIT_WINDOW_S = float(
     os.environ.get("TPULAB_DAEMON_QUEUE_WAIT_WINDOW_S", "60"))
 
+#: history sampler cadence: every interval the daemon refreshes the
+#: engine gauge mirror, appends one registry snapshot to the history
+#: ring (tpulab_torch.obs.history — the ``history`` request), and
+#: evaluates the alert rule catalog (tpulab_torch.obs.alerts — the
+#: ``alerts`` request).  ``--metrics-interval`` overrides; 0 disables the
+#: sampler (history/alerts requests still answer, from whatever was
+#: sampled).
+METRICS_INTERVAL_S = float(
+    os.environ.get("TPULAB_DAEMON_METRICS_INTERVAL_S", "1.0"))
+
+#: history ring capacity in samples (15 min at the 1 s default cadence)
+HISTORY_CAPACITY = int(os.environ.get("TPULAB_DAEMON_HISTORY", "900"))
+
+#: elastic fleet: autoscale bounds.  ``--autoscale-max N`` (N >= 1) arms
+#: the telemetry-driven controller (tpulab_torch/autoscale.py) riding the
+#: history sampler tick: the fleet grows toward AUTOSCALE_MAX under
+#: sustained pressure and shrinks back to the AUTOSCALE_MIN floor as it
+#: decays, one replica per decision, with per-direction cooldowns and
+#: flap hysteresis.  0 (the default) disables the controller entirely —
+#: the fleet stays the fixed ``--replicas N``.
+AUTOSCALE_MIN = int(os.environ.get("TPULAB_DAEMON_AUTOSCALE_MIN", "1"))
+AUTOSCALE_MAX = int(os.environ.get("TPULAB_DAEMON_AUTOSCALE_MAX", "0"))
+
+#: brownout rung 3 (``token_cap``): new admissions' max output tokens
+#: are capped here while the ladder holds level >= 3
+BROWNOUT_TOKEN_CAP = int(
+    os.environ.get("TPULAB_DAEMON_BROWNOUT_TOKEN_CAP", "64"))
+
+#: signal window the autoscale controller reads (queue-wait p99, shed
+#: rate) — shorter than the shed check's QUEUE_WAIT_WINDOW_S so the
+#: controller reacts to the ramp edge, not the hour
+AUTOSCALE_WINDOW_S = float(
+    os.environ.get("TPULAB_DAEMON_AUTOSCALE_WINDOW_S", "15"))
+
+#: disaggregated serving: ``--pool-spec`` / this env assigns pool ROLES
+#: to the fleet's replicas instead of the uniform unified fleet.
+#: Syntax: comma-separated ``role=N`` (fixed) or ``role=MIN..MAX``
+#: (independently autoscaled pool) with role in {prefill, decode,
+#: unified}, e.g. ``prefill=1..2,decode=1``.  A prefill replica admits
+#: new requests and exports their KV at the PREFILLING->DECODING edge; a
+#: decode replica imports those blocks through its spill tier's
+#: admission prefetch and serves the decode.  Requires ``--prefix-index
+#: radix --spill-blocks > 0`` (the handoff rides the digest-keyed
+#: host-block wire format); "" (default) keeps the unified fleet.
+POOL_SPEC = os.environ.get("TPULAB_DAEMON_POOL_SPEC", "")
+
+#: decode-pool ITL burn mark (seconds): the decode pool's autoscale
+#: policy treats a window ITL p99 at/above this as overload evidence
+#: (queue-wait burn stays the prefill/unified pools' signal)
+POOL_ITL_HIGH_S = float(
+    os.environ.get("TPULAB_DAEMON_POOL_ITL_HIGH_S", "0.5"))
+
 #: the device the daemon serves on: "cuda" unless ``--backend cpu``
 BACKEND = "cuda"
 
@@ -240,10 +301,83 @@ _C_POSTMORTEMS = _obs.counter(
     "daemon_postmortems",
     "crash post-mortem bundles persisted by the flight recorder "
     "(engine quarantines + replica failures)")
+#: crash-durability counters: the write-ahead request journal
+#: (tpulab_torch/durability.py) and the restart-recovery machinery
+#: built on it
+_C_JOURNAL_RECORDS = _obs.counter(
+    "daemon_journal_records",
+    "write-ahead journal records appended (accepts fsynced before "
+    "admission + committed-prefix checkpoints + completion records)")
+_C_RECOVERIES = _obs.counter(
+    "daemon_recoveries",
+    "incomplete journaled requests replayed to completion after a "
+    "daemon process restart")
+_C_RESUMED_STREAMS = _obs.counter(
+    "daemon_resumed_streams",
+    "client streams continued by rid after a reconnect (resume "
+    "requests answered from the journal-backed stream table)")
+#: elastic-fleet counters/gauges: the autoscale controller's
+#: reconciliations, the brownout ladder's rung transitions, and the
+#: spot-preemption drill — every fleet-shape change is counted, and the
+#: two gauges make the CURRENT control state scrapeable (target vs
+#: actual replicas, ladder level)
+_C_SCALE_OUTS = _obs.counter(
+    "daemon_scale_outs",
+    "replicas added by the autoscaler (fresh spawns + retired-slot "
+    "revivals, each warmed and placed into service)")
+_C_SCALE_INS = _obs.counter(
+    "daemon_scale_ins",
+    "replicas retired by the autoscaler (drained, in-flight requests "
+    "migrated to peers, engine released)")
 _C_SPOT_PREEMPTIONS = _obs.counter(
     "daemon_spot_preemptions",
     "spot-preemption notices delivered to replicas (replica.preempt "
     "drills: deadline-bounded drain-and-migrate, then release)")
+_C_BROWNOUT_STEPS = _obs.counter(
+    "daemon_brownout_steps",
+    "brownout ladder rungs engaged under sustained pressure "
+    "(hedging_off -> spec_off -> token_cap -> deadline_tight)")
+_C_BROWNOUT_REVERSALS = _obs.counter(
+    "daemon_brownout_reversals",
+    "brownout ladder rungs released (reverse order) as pressure "
+    "decayed")
+_G_TARGET_REPLICAS = _obs.gauge(
+    "fleet_target_replicas",
+    "the autoscale controller's current target replica count, summed "
+    "across armed fleets (0 = autoscaling disabled)")
+_G_BROWNOUT_LEVEL = _obs.gauge(
+    "daemon_brownout_level",
+    "current brownout ladder level (0 = healthy, 4 = every rung "
+    "engaged), worst across armed fleets")
+#: disaggregated-serving counters/gauges: every cross-engine KV handoff
+#: is counted with its wire bytes, and the per-pool gauges make each
+#: pool's serving vs target replica count scrapeable
+_C_HANDOFFS = _obs.counter(
+    "daemon_handoffs",
+    "requests handed off prefill-engine -> decode-engine at the "
+    "PREFILLING->DECODING edge (KV blocks exported, imported through "
+    "the peer's spill tier, stream resumed there)")
+_C_HANDOFF_BYTES = _obs.counter(
+    "handoff_bytes",
+    "encoded KV payload bytes accepted by decode-side spill tiers "
+    "across all handoffs (the wire size in the configured spill "
+    "dtype, quantization included)")
+_G_POOL_PREFILL_REPLICAS = _obs.gauge(
+    "pool_prefill_replicas",
+    "serving (non-retired) replicas currently in the prefill pool "
+    "(0 = no disaggregated fleet armed)")
+_G_POOL_PREFILL_TARGET = _obs.gauge(
+    "pool_prefill_target",
+    "the prefill pool's autoscale target replica count (its floor "
+    "when the pool is fixed-size)")
+_G_POOL_DECODE_REPLICAS = _obs.gauge(
+    "pool_decode_replicas",
+    "serving (non-retired) replicas currently in the decode pool "
+    "(0 = no disaggregated fleet armed)")
+_G_POOL_DECODE_TARGET = _obs.gauge(
+    "pool_decode_target",
+    "the decode pool's autoscale target replica count (its floor "
+    "when the pool is fixed-size)")
 
 
 def _record_postmortem(reason: str, engine, err) -> None:
@@ -287,6 +421,24 @@ class RebuildingError(ShedError):
             self, f"rebuilding retry_after_ms={self.retry_after_ms} ({why})")
 
 
+class PoolRebuildingError(RebuildingError):
+    """Pool-scoped park timed out (disaggregated serving): the fleet
+    has placeable replicas, but every replica of the POOL the request's
+    phase needs (e.g. the prefill pool for a new admission) is
+    draining/quarantined/rebuilding.  Rendered as ``rebuilding
+    pool=<role> retry_after_ms=<int>`` — the same retry-after contract
+    (tpulab_torch.loadgen.SHED_RE tolerates the pool tag), with the
+    starved pool named so a client/operator can tell a one-pool
+    brownout from a whole-fleet park."""
+
+    def __init__(self, retry_after_ms: int, role: str, why: str):
+        self.retry_after_ms = int(retry_after_ms)
+        self.role = role
+        RuntimeError.__init__(
+            self, f"rebuilding pool={role} "
+                  f"retry_after_ms={self.retry_after_ms} ({why})")
+
+
 #: engine -> int8 draft parameter tree, built lazily on the first
 #: speculative request a replica serves; weak keys die with the engine
 _DRAFTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
@@ -312,6 +464,85 @@ class _StreamBroken(ConnectionError):
     no longer carry ANY further frame for this request — the connection
     must close without a terminal frame."""
 
+
+#: write-ahead request journal (tpulab_torch/durability.py), armed by
+#: --journal / TPULAB_DAEMON_JOURNAL.  None (the default) keeps the
+#: serving path without record appends, resume table or extra
+#: on_progress work.
+_JOURNAL = None
+
+#: resume-by-rid stream table: durable rid -> _ResumeEntry.  Fed by
+#: the journal-armed generate path and by restart recovery; read by
+#: the ``resume`` request.  Bounded: once past the cap, the oldest
+#: FINISHED entries are evicted (an in-flight stream is never dropped).
+_RESUME: "dict" = {}
+_RESUME_LOCK = threading.Lock()
+_RESUME_CAP = int(os.environ.get("TPULAB_DAEMON_RESUME_CAP", "512"))
+
+#: resume stall bound: a resume handler waiting on a stream that makes
+#: no progress for this long gives up with an error frame instead of
+#: pinning its connection slot forever
+_RESUME_STALL_S = float(
+    os.environ.get("TPULAB_DAEMON_RESUME_STALL_S", "600"))
+
+
+class _ResumeEntry:
+    """One request's resumable byte stream: the bytes committed so far
+    (the SAME bytes the original connection's chunk frames carried),
+    completion state, and the condition resume readers park on.  All
+    fields are guarded by ``cond``."""
+
+    __slots__ = ("cond", "buf", "done", "error")
+
+    def __init__(self):
+        self.cond = threading.Condition()
+        self.buf = bytearray()
+        self.done = False
+        self.error = None
+
+    def feed(self, chunk: bytes) -> None:
+        with self.cond:
+            self.buf += chunk
+            self.cond.notify_all()
+
+    def finish(self, data: bytes) -> None:
+        """Terminal: pin the buffer to the FULL output (byte-equal to
+        what incremental feeds accumulated — asserting that equality is
+        the durability tests' job, not a hot-path invariant check)."""
+        with self.cond:
+            self.buf[:] = data
+            self.done = True
+            self.cond.notify_all()
+
+    def fail(self, why: str) -> None:
+        with self.cond:
+            self.error = str(why)
+            self.done = True
+            self.cond.notify_all()
+
+
+def _resume_register(rid: str) -> _ResumeEntry:
+    """Fresh resume entry for ``rid`` (a re-submission under the same
+    rid resets the stream — the new run IS the stream now), evicting
+    the oldest finished entries past the table cap."""
+    entry = _ResumeEntry()
+    with _RESUME_LOCK:
+        _RESUME[rid] = entry
+        if len(_RESUME) > _RESUME_CAP:
+            for old_rid, old in list(_RESUME.items()):
+                if len(_RESUME) <= _RESUME_CAP:
+                    break
+                if old is entry:
+                    continue
+                with old.cond:
+                    if old.done:
+                        _RESUME.pop(old_rid, None)
+    return entry
+
+
+def _resume_lookup(rid: str):
+    with _RESUME_LOCK:
+        return _RESUME.get(rid)
 
 
 class _AdmissionControl:
@@ -343,12 +574,30 @@ class _AdmissionControl:
         """Queue-wait p99 over (roughly) the last
         ``QUEUE_WAIT_WINDOW_S``, so the estimate decays: a congestion
         spell long past cannot shed deadline traffic against an idle
-        daemon forever.  Two rolling marks of the histogram's bucket
-        counts, one per window boundary (``tpulab``'s branch for a
-        daemon without the history sampler, which is not ported)."""
+        daemon forever.
+
+        With the history sampler running, the window is a live-ending
+        ``Window`` over the history ring (newest edge = a fresh
+        snapshot taken HERE, so requests recorded since the last
+        sampler tick count), histogram-bucket differencing with reset
+        handling included.  Without a sampler (``--metrics-interval 0``,
+        direct-service tests, or a sampler gone stale) two rolling
+        marks of the histogram's bucket counts, one per window
+        boundary, give the same roughly-one-window estimate."""
         h = _obs.REGISTRY.get("queue_wait_seconds")
         if h is None:
             return 0.0
+        if _sampler_active():
+            # the live end sample carries ONLY this one histogram —
+            # this runs under the engine admission condition per
+            # deadline-carrying request, and a full Registry.snapshot
+            # here would copy every metric in the process per submit
+            w = _obs.HISTORY.window(
+                QUEUE_WAIT_WINDOW_S,
+                end=(time.monotonic(),
+                     {"queue_wait_seconds": h.snapshot()}))
+            if w is not None:
+                return w.percentile("queue_wait_seconds", 0.99) * 1e3
         snap = h.snapshot()
         now = time.monotonic()
         with self.lock:
@@ -465,22 +714,28 @@ class _Replica:
 
     ``cond``-guarded: engine, tickets, stepper_alive, dead.
     ``fleet.cv``-guarded: health, draining, drain_pending, generation,
-    restarts, parked.  ``role`` is the router's: every replica of a
-    fixed-size fleet serves both phases (the pools are A11.2)."""
+    restarts, parked.  ``role`` is fixed at slot creation and survives
+    rebuild/retire/revive — a slot never changes pools."""
 
-    def __init__(self, fleet, index, engine, tok):
+    def __init__(self, fleet, index, engine, tok,
+                 role: str = _router.ROLE_UNIFIED):
         self.fleet = fleet
         self.index = index
         self.scope = f"replica{index}"
-        self.role = _router.ROLE_UNIFIED
+        self.role = role
         self.cond = threading.Condition()
         self.engine = engine
         self.tok = tok
         engine.replica_index = index
         engine.fault_scope = self.scope
         # the engine stamps its pool role onto journey marks and
-        # slow-log entries
-        engine.pool_role = self.role
+        # slow-log entries — the fleet is the only party that knows
+        # which pool a slot serves
+        engine.pool_role = role
+        if role == _router.ROLE_PREFILL:
+            # a prefill-pool engine parks finished prefills for export
+            # instead of decoding them (the handoff)
+            engine.handoff_at_boundary = True
         self.tickets: dict = {}       # engine req_id -> _Ticket
         self.stepper_alive = False
         #: True between a failure harvest and the rebuild's engine
@@ -496,10 +751,13 @@ class _Replica:
         #: the slot holds no engine (a spot preemption released it) —
         #: fleet.cv-guarded like the rest of the placement state
         self.retired = False
-        # per-replica health evidence: the stepper counts every tick and
-        # every slow or stalled tick.  Keyed by the fleet's process-unique
-        # fid and the replica index (up to four warm fleets coexist); a
-        # rebuilt replica keeps its slot's counters.
+        # per-replica windowed health evidence: the stepper counts every
+        # tick and every slow or stalled tick, and the alert engine's
+        # ReplicaStallRule differences them over its window — the
+        # telemetry the alert-wired SUSPECT transition
+        # (ReplicaHealth.note_alert) consumes.  Keyed by the fleet's
+        # process-unique fid and the replica index (up to four warm
+        # fleets coexist); a rebuilt replica keeps its slot's counters.
         self.c_ticks = _obs.counter(
             f"fleet{fleet.fid}_replica{index}_ticks",
             f"stepper ticks completed by replica {index} of fleet "
@@ -508,7 +766,7 @@ class _Replica:
             f"fleet{fleet.fid}_replica{index}_slow_ticks",
             f"fleet {fleet.fid} replica {index} stepper ticks that "
             f"were slow or stalled (the router's degradation "
-            f"evidence)")
+            f"evidence, windowed by the replica_degraded alert rule)")
 
 
 #: process-unique fleet ids: the per-replica health counters are keyed
@@ -521,8 +779,7 @@ class _Fleet:
     """N replicas serving one config, plus the fleet condition every
     waiter parks on.  ``builder`` is the cold-build recipe shared by
     all replicas (``_build_engine`` closure for daemon fleets; tests
-    inject their own).  The fleet has a fixed size: autoscaling and the
-    disaggregated pools are not ported (ROADMAP A11.2)."""
+    inject their own)."""
 
     def __init__(self, builder, key=None, stamp=None):
         self.builder = builder
@@ -532,17 +789,122 @@ class _Fleet:
         self.cv = threading.Condition()
         self.replicas: list = []
         self.tok = None
+        # the elastic fleet: the telemetry-driven controller + brownout
+        # ladder, armed only when --autoscale-max >= 1 — a disarmed
+        # fleet is the fixed-size fleet (the sampler hook and the
+        # admission hooks all guard on None)
+        self.autoscaler = None
+        self.brownout = None
+        self.scaling = False          # one reconcile op in flight (cv)
+        # disaggregated serving: pool table keyed by role —
+        # {"min": int, "max": int, "policy": AutoscalePolicy|None} per
+        # role from --pool-spec.  Empty on a unified fleet: placement
+        # stays phase-blind and all the handoff machinery stays inert.
+        self.pools: dict = {}
+        if AUTOSCALE_MAX >= 1:
+            from tpulab_torch import autoscale as _autoscale
 
-    def add(self, engine, tok) -> "_Replica":
-        r = _Replica(self, len(self.replicas), engine, tok)
+            self.autoscaler = _autoscale.AutoscalePolicy(
+                AUTOSCALE_MIN, AUTOSCALE_MAX)
+            self.brownout = _autoscale.BrownoutLadder(
+                token_cap=BROWNOUT_TOKEN_CAP)
+
+    def add(self, engine, tok,
+            role: str = _router.ROLE_UNIFIED) -> "_Replica":
+        r = _Replica(self, len(self.replicas), engine, tok, role=role)
         self.replicas.append(r)
         if self.tok is None:
             self.tok = tok
         return r
 
+    # the elastic surface: thin delegations so the policy loop (and
+    # tests) drive fleet shape through the fleet object; the mechanics
+    # (locking, migration, release) live on _FleetService.
+    def add_replica(self, role: Optional[str] = None) -> int:
+        """Scale-out: spawn + warm a fresh replica (or revive a
+        retired slot through the rebuild lifecycle, replaying any
+        stragglers a preemption parked there) and place it into
+        service.  ``role`` pins the new capacity to one pool on a
+        disaggregated fleet.  Blocking — run it from a reconcile
+        thread."""
+        return _FLEET_SERVICE.scale_out(self, role=role)
 
-def _make_fleet(builder, n: int, key=None, stamp=None) -> _Fleet:
+    def retire_replica(self, index: Optional[int] = None,
+                       deadline_s: Optional[float] = None,
+                       role: Optional[str] = None):
+        """Scale-in: drain the least-loaded replica (or ``index``),
+        migrate its in-flight requests to peers (greedy streams
+        bit-identical), release its engine.  Returns the retired
+        index, or None when nothing is retirable (floor of one
+        serving replica)."""
+        return _FLEET_SERVICE.scale_in(self, index,
+                                       deadline_s=deadline_s,
+                                       role=role)
+
+
+def _parse_pool_spec(spec: str) -> list:
+    """Parse a ``--pool-spec`` string into ``[(role, min, max), ...]``.
+
+    Syntax: comma-separated ``role=N`` (fixed size) or ``role=MIN..MAX``
+    (independently autoscaled between the bounds), roles from
+    ``router.ROLES`` — e.g. ``prefill=1..2,decode=1``.  Order is the
+    replica-index assignment order.  Raises ValueError on an unknown
+    role, a duplicate role, or a non-positive/inverted range."""
+    pools = []
+    for part in spec.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        role, eq, rng = part.partition("=")
+        role = role.strip()
+        if not eq or role not in _router.ROLES:
+            raise ValueError(
+                f"pool spec {part!r}: expected role=N or role=MIN..MAX "
+                f"with role in {_router.ROLES}")
+        if any(r == role for r, _, _ in pools):
+            raise ValueError(f"pool spec: duplicate role {role!r}")
+        try:
+            if ".." in rng:
+                lo, hi = rng.split("..", 1)
+                mn, mx = int(lo), int(hi)
+            else:
+                mn = mx = int(rng)
+        except ValueError:
+            raise ValueError(
+                f"pool spec {part!r}: bounds must be integers") from None
+        if mn < 1 or mx < mn:
+            raise ValueError(
+                f"pool spec {part!r}: need 1 <= MIN <= MAX")
+        pools.append((role, mn, mx))
+    if not pools:
+        raise ValueError("pool spec is empty")
+    return pools
+
+
+def _make_fleet(builder, n: int, key=None, stamp=None,
+                pools=None) -> _Fleet:
     fleet = _Fleet(builder, key=key, stamp=stamp)
+    if pools is None and POOL_SPEC:
+        pools = _parse_pool_spec(POOL_SPEC)
+    if pools:
+        # disaggregated fleet: MIN replicas per pool in spec order;
+        # each ranged pool gets its OWN policy off its own burn signal
+        # (queue-wait p99 for prefill — admission pressure; ITL p99
+        # for decode — the latency the pool exists to protect)
+        from tpulab_torch import autoscale as _autoscale
+        for role, mn, mx in pools:
+            pol = None
+            if mx > mn:
+                pol = _autoscale.AutoscalePolicy(
+                    mn, mx,
+                    latency_high_s=(POOL_ITL_HIGH_S
+                                    if role == _router.ROLE_DECODE
+                                    else None))
+            fleet.pools[role] = {"min": mn, "max": mx, "policy": pol}
+            for _ in range(mn):
+                eng, tok = builder()
+                fleet.add(eng, tok, role=role)
+        return fleet
     for _ in range(max(1, int(n))):
         eng, tok = builder()
         fleet.add(eng, tok)
@@ -588,9 +950,21 @@ class _FleetService:
                 r.index, True, suspect, load, affinity, role=role))
         return views
 
-    def _place(self, fleet: _Fleet, prompt, exclude=frozenset()) -> Optional[_Replica]:
-        idx = _router.choose_replica(self._views(fleet, prompt, exclude))
+    def _place(self, fleet: _Fleet, prompt, exclude=frozenset(),
+               phase: Optional[str] = None) -> Optional[_Replica]:
+        idx = _router.choose_replica(
+            self._views(fleet, prompt, exclude), phase=phase)
         return None if idx is None else fleet.replicas[idx]
+
+    @staticmethod
+    def _entry_phase(fleet: _Fleet) -> Optional[str]:
+        """Placement phase for a request ENTERING the fleet — a fresh
+        submit or any replay/migration, both of which start with a
+        prefill: the prefill pool on a disaggregated fleet (the work
+        hands off at the phase boundary like any other admission, so
+        decode replicas never run long prefills), phase-blind
+        otherwise."""
+        return _router.ROLE_PREFILL if fleet.pools else None
 
     # ---------------------------------------------------------- submission
     def _ensure_stepper_locked(self, replica: _Replica) -> None:
@@ -653,13 +1027,21 @@ class _FleetService:
         a fleet with NO placeable replica (rolling restart's worst
         case) parks up to ``REBUILD_PARK_S`` on the fleet condition,
         then answers the parseable ``rebuilding retry_after_ms=N``
-        frame clients retry on."""
+        frame clients retry on.  On a disaggregated fleet admissions
+        place into the PREFILL pool, and a park that times out with
+        the fleet's OTHER pools still placeable answers the
+        pool-scoped ``rebuilding pool=<role> retry_after_ms=N``
+        frame instead — same client retry contract, sharper
+        operator signal."""
         deadline = time.monotonic() + REBUILD_PARK_S
+        phase = self._entry_phase(fleet)
         full: set = set()
         while True:
-            replica = self._place(fleet, prompt, exclude | full)
+            replica = self._place(fleet, prompt, exclude | full,
+                                  phase=phase)
             if replica is None:
-                if self._place(fleet, prompt, exclude) is not None:
+                if self._place(fleet, prompt, exclude,
+                               phase=phase) is not None:
                     # placeable replicas exist but every queue is at
                     # its bound: backpressure, exactly like the
                     # single-engine QueueFullError shed
@@ -669,12 +1051,25 @@ class _FleetService:
                     raise ShedError(
                         _ADMISSION._retry_after_ms(),
                         "every placeable replica is at max_pending")
+                # pool-scoped starvation: the needed pool has zero
+                # placeable replicas while the rest of the fleet is
+                # fine (phase-blind placement would still land)
+                pool_only = (phase is not None and self._place(
+                    fleet, prompt, exclude) is not None)
                 if not park:
+                    if pool_only:
+                        raise PoolRebuildingError(
+                            _ADMISSION._retry_after_ms(), phase,
+                            "no placeable replica in pool")
                     raise RebuildingError(
                         _ADMISSION._retry_after_ms(),
                         "no placeable replica")
                 remaining = deadline - time.monotonic()
                 if remaining <= 0:
+                    if pool_only:
+                        raise PoolRebuildingError(
+                            _ADMISSION._retry_after_ms(), phase,
+                            "pool draining/rebuilding")
                     raise RebuildingError(
                         _ADMISSION._retry_after_ms(),
                         "no placeable replica (fleet "
@@ -729,6 +1124,7 @@ class _FleetService:
                             replica, rule.arg or 2000.0)
                         return
                 published = []
+                handoffs = []
                 with replica.cond:
                     if _faults.ACTIVE:
                         _faults.fire("daemon.step", replica.scope)
@@ -748,6 +1144,18 @@ class _FleetService:
                         tkt = replica.tickets.pop(rid_e, None)
                         if tkt is not None:
                             published.append((tkt, out))
+                    if getattr(eng, "handoff_ready", None):
+                        # the tick parked finished prefills for export —
+                        # pull the KV payloads (d2h) and detach the
+                        # tickets while the engine mutex is held; the
+                        # decode-side placement/import runs OUTSIDE it
+                        # (fleet.cv is a leaf, and the import takes the
+                        # TARGET replica's condition)
+                        for hreq, payload in eng.export_handoff():
+                            htkt = replica.tickets.pop(
+                                hreq.req_id, None)
+                            if htkt is not None:
+                                handoffs.append((htkt, payload))
                     dt = time.monotonic() - t0
                     stall = eng.counters["stall_ticks"]
                     stalled = stall != last_stall
@@ -771,6 +1179,8 @@ class _FleetService:
                     for tkt, out in published:
                         self._finish_locked(tkt, out)
                     fleet.cv.notify_all()
+                for htkt, payload in handoffs:
+                    self._handoff_one(fleet, replica, htkt, payload)
             print(f"[serve] replica{replica.index} wave done: "
                   + _counters_line(row), flush=True)
             self._maybe_drain_rebuild(replica)
@@ -807,6 +1217,10 @@ class _FleetService:
             eng.pending.clear()
             eng.active = [None] * eng.slots
             eng._inflight.clear()  # dead device buffers
+            if getattr(eng, "handoff_ready", None):
+                # parked handoff slots are harvested as survivors via
+                # active above — the export queue entries are stale
+                eng.handoff_ready.clear()
             tickets = dict(replica.tickets)
             replica.tickets = {}
             replica.stepper_alive = False
@@ -871,10 +1285,16 @@ class _FleetService:
 
     def _migrate(self, fleet: _Fleet, tkt: _Ticket, exclude) -> bool:
         """Resubmit one harvested request on the best healthy peer;
-        False when no peer is placeable (caller parks)."""
+        False when no peer is placeable (caller parks).  On a
+        disaggregated fleet every migration re-enters at the PREFILL
+        pool (a migrated request starts with a re-prefill of its
+        committed prefix, and that work belongs to the prefill pool —
+        it hands off at the boundary like any fresh admission)."""
         tried = set(exclude)
+        phase = self._entry_phase(fleet)
         while True:
-            target = self._place(fleet, tkt.req.prompt, tried)
+            target = self._place(fleet, tkt.req.prompt, tried,
+                                 phase=phase)
             if target is None:
                 return False
             if self._resubmit_on(target, tkt, migrated=True):
@@ -882,14 +1302,23 @@ class _FleetService:
             tried.add(target.index)
 
     def _resubmit_on(self, replica: _Replica, tkt: _Ticket,
-                     migrated: bool) -> bool:
+                     migrated: bool, handoff: bool = False,
+                     payload=None) -> bool:
         """Resume a harvested request on ``replica`` via
         ``PagedEngine.resubmit(fresh_id=True)`` (the peer's id space is
         independent of the failed engine's).  Greedy streams stay
         bit-identical to a fault-free run and sampled streams resume
         their per-slot key chain — resubmit's own contract, now applied
         across engines.  Returns False if the replica can't take it
-        (died/unplaceable in the meantime)."""
+        (died/unplaceable in the meantime).
+
+        ``handoff=True`` marks the prefill→decode handoff (the
+        request's NORMAL path on a disaggregated fleet, not a failure:
+        counted under ``daemon_handoffs``, no replay/migrate charge);
+        ``payload`` is the exported digest-keyed KV block list, seeded
+        into the target's host-spill tier under its condition right
+        before the resubmit so admission's spill prefetch restores the
+        prefix instead of recomputing it."""
         import numpy as np
 
         fleet = replica.fleet
@@ -926,6 +1355,32 @@ class _FleetService:
                 # peer without spec capability: degrade to plain ticks
                 # — greedy streams are identical either way
                 req.spec = "off"
+            nbytes = 0
+            if handoff:
+                # journey: the cross-pool transfer window closes when
+                # the decode engine starts importing; the import phase
+                # closes when the spill puts return.  The payload size
+                # is measured ONCE here — the same nbytes the
+                # handoff_bytes counter ingests below — so journey
+                # bytes and the counter can be compared exactly.
+                _obs.JOURNEY.mark(req.rid, "handoff_import_begin",
+                                  replica=replica.index,
+                                  pool=replica.role)
+                if payload:
+                    nbytes = eng.import_handoff(payload)
+                t_imp = time.monotonic()
+                _obs.JOURNEY.mark(req.rid, "handoff_import", t=t_imp,
+                                  replica=replica.index,
+                                  pool=replica.role, nbytes=nbytes)
+                req.handoff_bytes += nbytes
+                if req.t_prefill_done:
+                    # park -> import-complete wall time: the slow-log
+                    # handoff_ms field, and by construction the sum of
+                    # the journey's three handoff phases
+                    req.handoff_ms = round(
+                        (t_imp - req.t_prefill_done) * 1e3, 3)
+            elif payload:
+                nbytes = eng.import_handoff(payload)
             try:
                 rid_e = eng.resubmit(req, fresh_id=True)
             except ValueError:
@@ -947,7 +1402,12 @@ class _FleetService:
         with fleet.cv:
             tkt.replica = replica
             tkt.parked = False
-            if migrated:
+            if handoff:
+                _C_HANDOFFS.inc()
+                if nbytes:
+                    _C_HANDOFF_BYTES.inc(nbytes)
+                _obs.event("daemon.handoff", tkt.req.rid)
+            elif migrated:
                 tkt.req.migrations += 1
                 _C_MIGRATIONS.inc()
                 _obs.event("daemon.migrate", tkt.req.rid)
@@ -963,6 +1423,82 @@ class _FleetService:
             fleet.cv.notify_all()
         return True
 
+    def _handoff_one(self, fleet: _Fleet, replica: _Replica,
+                     tkt: _Ticket, payload) -> None:
+        """Complete one prefill→decode handoff collected from
+        ``replica``'s stepper: fire the ``daemon.handoff`` chaos site,
+        seed the exported KV payload into the best decode-pool
+        replica's host-spill tier, and resume the stream there through
+        the resubmit path (no replay-budget charge — a handoff is the
+        request's normal path on a disaggregated fleet).
+
+        On an injected crash — or a decode pool with no importable
+        target — the payload is DROPPED and the request replays from
+        its journaled prompt through the ordinary migration path,
+        charging the replay budget exactly like a replica failure:
+        zero leaked blocks on either engine (the export already
+        released the prefill side's blocks; the import never
+        landed)."""
+        import numpy as np
+
+        req = tkt.req
+        with fleet.cv:
+            if tkt.cancelled:
+                return
+            if req.cancelled:
+                # early-stopped between park and export: complete with
+                # the tokens it has (the export skipped the d2h)
+                self._finish_locked(tkt, np.asarray(req.out, np.int32))
+                fleet.cv.notify_all()
+                return
+        try:
+            if _faults.ACTIVE:
+                _faults.fire("daemon.handoff", replica.scope)
+            # the payload left the prefill engine (export released its
+            # blocks) and is now in flight toward a decode placement
+            _obs.event("handoff.transfer", req.rid)
+            tried = {replica.index}
+            while True:
+                target = self._place(fleet, req.prompt, tried,
+                                     phase=_router.ROLE_DECODE)
+                if target is None:
+                    break
+                try:
+                    ok = self._resubmit_on(target, tkt, migrated=False,
+                                           handoff=True,
+                                           payload=payload)
+                except Exception:  # noqa: BLE001 — a bad import on
+                    # one target must not crash the PREFILL stepper
+                    # that collected the handoff: try the next peer,
+                    # fall through to the replay path when none take
+                    traceback.print_exc()
+                    ok = False
+                if ok:
+                    return
+                tried.add(target.index)
+        except _faults.InjectedFault as err:
+            print(f"[serve] handoff of rid={req.rid} crashed ({err}); "
+                  f"replaying from the journaled prompt", flush=True)
+        # the KV payload is lost (crash) or unplaceable (decode pool
+        # draining/rebuilding): replay from the prompt the ticket
+        # still journals, charging the replay budget so a flapping
+        # handoff path surfaces its failure instead of looping
+        with fleet.cv:
+            if tkt.cancelled:
+                return
+            tkt.retries += 1
+            over = tkt.retries > REPLAY_BUDGET
+            if over:
+                self._finish_error_locked(tkt, RuntimeError(
+                    f"handoff replay budget exhausted for "
+                    f"rid={req.rid}"))
+                fleet.cv.notify_all()
+                return
+        if not self._migrate(fleet, tkt, set()):
+            with fleet.cv:
+                tkt.parked = True
+                tkt.replica = None
+                replica.parked.append(tkt)
 
     def _rebuild(self, replica: _Replica) -> None:
         """Background rebuild of a quarantined/drained replica from the
@@ -987,6 +1523,8 @@ class _FleetService:
         eng.replica_index = replica.index
         eng.fault_scope = replica.scope
         eng.pool_role = replica.role        # the slot's role survives
+        if replica.role == _router.ROLE_PREFILL:
+            eng.handoff_at_boundary = True
         with replica.cond:
             replica.engine = eng
             replica.tok = tok
@@ -1017,16 +1555,104 @@ class _FleetService:
               f"{replica.generation}, {len(parked)} parked request(s) "
               f"replayed)", flush=True)
 
+    # ------------------------------------------------------- elastic fleet
+    def scale_out(self, fleet: _Fleet,
+                  role: Optional[str] = None) -> Optional[int]:
+        """Add serving capacity: revive a retired slot through the
+        rebuild lifecycle (replaying any stragglers a preemption
+        parked there) when one exists, else spawn + append a fresh
+        replica.  ``role`` pins the capacity to one pool on a
+        disaggregated fleet (only a matching retired slot revives; a
+        fresh spawn joins that pool).  Blocking (a cold build); the
+        autoscale loop runs it from a reconcile thread, never the
+        sampler tick itself."""
+        slot = None
+        with fleet.cv:
+            for r in fleet.replicas:
+                if r.retired and (role is None or r.role == role):
+                    slot = r
+                    r.retired = False
+                    r.draining = False
+                    r.drain_pending = False
+                    r.health.note_rebuild_start()
+                    break
+        if slot is not None:
+            self._rebuild(slot)  # build outside locks, swap, replay
+        else:
+            if fleet.builder is None:
+                return None
+            eng, tok = fleet.builder()
+            with fleet.cv:
+                slot = fleet.add(eng, tok,
+                                 role=role or _router.ROLE_UNIFIED)
+                fleet.cv.notify_all()
+        _C_SCALE_OUTS.inc()
+        _obs.event("daemon.scale_out", slot.index)
+        print(f"[serve] scale-out: replica{slot.index} in service",
+              flush=True)
+        return slot.index
+
+    def scale_in(self, fleet: _Fleet, index: Optional[int] = None, *,
+                 deadline_s: Optional[float] = None,
+                 role: Optional[str] = None) -> Optional[int]:
+        """Retire one replica: ``index`` when given, else the least-
+        loaded placeable one (ties to the HIGHEST index — replica 0
+        stays the fleet's stable anchor).  Refuses to drop below one
+        serving replica fleet-wide, and — with ``role`` given — below
+        the pool's configured MIN (each pool keeps its floor so the
+        other pool's idle period can never starve this one's phase).
+        Returns the retired index, or None when nothing is
+        retirable."""
+        with fleet.cv:
+            serving = [r for r in fleet.replicas if not r.retired]
+            if len(serving) <= 1:
+                return None
+            if role is not None:
+                floor = max(1, fleet.pools.get(role, {}).get("min", 1))
+                if sum(1 for r in serving if r.role == role) <= floor:
+                    return None
+            if index is not None:
+                cand = [r for r in serving if r.index == index]
+            else:
+                cand = [r for r in serving
+                        if r.health.placeable and not r.draining
+                        and (role is None or r.role == role)]
+        if index is None:
+            # loads read under each replica's own condition AFTER the
+            # fleet snapshot (the fleet.cv -> replica.cond order is
+            # forbidden), exactly like placement's _views
+            scored = []
+            for r in cand:
+                with r.cond:
+                    if r.dead:
+                        continue
+                    eng = r.engine
+                    load = len(eng.pending) + sum(
+                        1 for a in eng.active if a is not None)
+                scored.append((load, -r.index, r))
+            if not scored:
+                return None
+            scored.sort(key=lambda t: (t[0], t[1]))
+            victim = scored[0][2]
+        elif cand:
+            victim = cand[0]
+        else:
+            return None
+        self._retire(fleet, victim, deadline_s=deadline_s)
+        _C_SCALE_INS.inc()
+        _obs.event("daemon.scale_in", victim.index)
+        return victim.index
 
     def _preempt_replica(self, replica: _Replica,
                          deadline_ms: float) -> None:
         """A spot-preemption NOTICE landed on this replica (the
         ``replica.preempt`` fault site, fired from its own stepper
         thread): migrate what the drain deadline allows, park the
-        stragglers, release the engine.  There is no serving floor:
-        the cloud does not ask.  The fleet has a fixed size here, so
-        the slot stays retired (its revival is the autoscaler's,
-        ROADMAP A11.2) and stragglers park there."""
+        stragglers, release the engine.  Unlike scale-in there is no
+        serving floor — the cloud does not ask; with the autoscaler
+        armed the next reconcile revives the slot (replaying the
+        parked set), and with the journal armed the client resume
+        path covers a straggler either way."""
         _C_SPOT_PREEMPTIONS.inc()
         _obs.event("daemon.preempt", replica.index)
         print(f"[serve] replica{replica.index} spot-preemption "
@@ -1065,6 +1691,8 @@ class _FleetService:
             eng.active = [None] * eng.slots
             eng._inflight.clear()  # in-flight device work: recomputed
             # on the peer from the committed prefix (bit-identical)
+            if getattr(eng, "handoff_ready", None):
+                eng.handoff_ready.clear()  # harvested via active above
             tickets = dict(replica.tickets)
             replica.tickets = {}
             replica.dead = True
@@ -1216,10 +1844,24 @@ class _FleetService:
     def fleet_status(self, fleet: _Fleet) -> dict:
         with fleet.cv:
             active = sum(1 for r in fleet.replicas if not r.retired)
-        return {"replicas": len(fleet.replicas),
-                "active": active,
-                "replica": [self.replica_status(r)
-                            for r in fleet.replicas]}
+        out = {"replicas": len(fleet.replicas),
+               "active": active,
+               "replica": [self.replica_status(r)
+                           for r in fleet.replicas]}
+        # the elastic surface, when armed (snapshot() reads are
+        # sampler-thread-written ints/lists — same tolerance as the
+        # admission-path ladder reads)
+        if fleet.autoscaler is not None:
+            out["autoscale"] = fleet.autoscaler.snapshot()
+        if fleet.brownout is not None:
+            out["brownout"] = fleet.brownout.snapshot()
+        if fleet.pools:
+            out["pools"] = {
+                role: {"min": p["min"], "max": p["max"],
+                       "autoscale": (None if p["policy"] is None
+                                     else p["policy"].snapshot())}
+                for role, p in fleet.pools.items()}
+        return out
 
     # -------------------------------------------------------------- hedging
     def _decide_winner_locked(self, tkt: _Ticket):
@@ -1654,9 +2296,26 @@ def _handle_generate(header: dict, payload: bytes,
         else:
             spec_mode = "draft"
     fleet = _fleet_for(config.get("ckpt_dir"), attn, kv_dtype, prefill_chunk)
+    # brownout ladder: degrade NEW admissions by the currently-engaged
+    # rungs.  All four apply after parse/validation (a browned-out
+    # request still had to be well-formed) and before any engine work.
+    # Reads are lock-free on purpose: the ladder's level is a single int
+    # mutated only by the sampler tick, and an admission racing a rung
+    # transition is equivalent to arriving one tick earlier/later.
+    ladder = fleet.brownout
+    if ladder is not None and ladder.level > 0:
+        if ladder.hedging_disabled:
+            hedge_ms = 0.0
+        if ladder.spec_disabled:
+            spec_mode = "off"
+            spec_k = 0
+            spec_ngram = 0
+        steps = ladder.cap_steps(steps)
+        deadline_ms = ladder.tighten_deadline_ms(deadline_ms)
     tok = fleet.tok
     # config reads only: every replica shares the one build recipe, so
-    # any live replica's config speaks for the fleet
+    # any live replica's config speaks for the fleet (replica 0 can be a
+    # retired slot once the fleet is elastic)
     engine = next((r.engine for r in fleet.replicas
                    if r.engine is not None), None)
     if engine is None:
@@ -1674,15 +2333,46 @@ def _handle_generate(header: dict, payload: bytes,
             "speculative decoding needs an int8 draft; MoE "
             "checkpoints are not quantizable (models/quant.py)")
 
+    # crash durability: with the journal armed, the accept record —
+    # rid, tag, prompt payload, the FULL config (which carries the
+    # engine build recipe: ckpt_dir/attn/kv_dtype/prefill_chunk) — is
+    # fsynced BEFORE admission, so a process death at any later point
+    # leaves a replayable request, never a lost one.  The durable rid is
+    # the CLIENT's (``config["rid"]`` — the resume-by-rid key it
+    # reconnects with); a client that sent none gets a server-generated
+    # fallback (journaled for replay, but not client-resumable).
+    jnl = _JOURNAL
+    entry = None
+    drid = None
+    if jnl is not None:
+        drid = config.get("rid")
+        if drid is not None:
+            drid = str(drid)
+            if not 0 < len(drid) <= 256:
+                raise ValueError(
+                    "rid must be a non-empty string of at most 256 chars")
+        else:
+            drid = f"srv-{os.getpid()}-{req_rid}"
+        jnl.append_accept(drid, tag, payload, config)
+        if _faults.ACTIVE:
+            # deterministic process death AFTER the accept record is
+            # durable and BEFORE admission — the exact window the
+            # journal exists for (kind "kill": os._exit, no cleanup)
+            _faults.fire("daemon.kill")
+        entry = _resume_register(drid)
+
     # streaming: each tick's new tokens go out as a status-2 chunk
     # frame (BPE-decoded per increment — token expansions are
     # independent, so chunk boundaries are byte-exact).  Once the stop
     # byte has been streamed on the BPE path (the engine cannot see
-    # it) the request is cancelled through the return value.
+    # it) the request is cancelled through the return value.  With the
+    # journal armed the SAME closure also runs for non-streaming
+    # clients: it feeds the resume entry's byte stream and checkpoints
+    # the committed token prefix at the journal's bounded cadence.
     streaming = send_chunk is not None and bool(config.get("stream"))
     on_progress = None
-    if streaming:
-        state = {"done": False}
+    if streaming or entry is not None:
+        state = {"done": False, "toks": []}
 
         def on_progress(new_tokens):
             if state["done"]:
@@ -1696,22 +2386,282 @@ def _handle_generate(header: dict, payload: bytes,
                 if cut >= 0:
                     chunk = chunk[: cut + 1]
                     state["done"] = True
-            if chunk:
+            if entry is not None:
+                state["toks"].extend(int(t) for t in new_tokens)
+                jnl.note_tokens(drid, state["toks"])
+                if chunk:
+                    entry.feed(chunk)
+            if chunk and streaming:
                 send_chunk(chunk)
             return state["done"]
 
-    out = _FLEET_SERVICE.generate(
-        fleet, prompt, steps,
+    try:
+        out = _FLEET_SERVICE.generate(
+            fleet, prompt, steps,
+            temperature=float(config.get("temperature", 0.0)),
+            seed=int(config.get("seed", 0)),
+            repetition_penalty=float(config.get("repetition_penalty", 1.0)),
+            stop_byte=eng_stop,
+            spec=spec_mode, spec_k=spec_k, spec_ngram=spec_ngram,
+            deadline_ms=deadline_ms, priority=priority,
+            req_rid=req_rid, tag=tag, hedge_ms=hedge_ms,
+            on_progress=on_progress,
+        )
+    except ShedError:
+        if jnl is not None:
+            jnl.append_done(drid, "shed")
+            entry.fail("shed before admission")
+        raise
+    except _StreamBroken:
+        # the CLIENT died mid-stream while this process stayed healthy:
+        # the request was cancelled engine-side, so the journal records
+        # a cancellation (recovery must not replay it)
+        if jnl is not None:
+            jnl.append_done(drid, "cancelled")
+            entry.fail("client hung up mid-stream")
+        raise
+    except BaseException as e:
+        if jnl is not None:
+            jnl.append_done(drid, "error")
+            entry.fail(f"{type(e).__name__}: {e}")
+        raise
+    data = _decode_out(tok, out, stop_byte)
+    if jnl is not None:
+        jnl.append_done(drid, "ok", tokens=[int(t) for t in out])
+        entry.finish(data)
+    return data
+
+
+def _handle_resume(header: dict, send_chunk=None) -> bytes:
+    """``resume`` pseudo-lab: continue a journaled stream by rid.
+
+    Config: ``rid`` (the durable id the client submitted its generate
+    with) and ``received`` (how many stream BYTES the client already
+    holds).  The daemon streams ``bytes[received:]`` as status-2 chunk
+    frames — skipping EXACTLY the acknowledged prefix, so the client
+    sees no duplicate and no gap — and answers the terminal frame with
+    the FULL output, same shape as a streamed generate.  A recovering
+    stream that has not yet regenerated past ``received`` simply waits:
+    regeneration is bit-identical (the resubmit contract), so the byte
+    offset is stable across the crash.  Unknown rids get a parseable
+    error body (``resume unknown rid=...``) — the client's signal to
+    fall back to a fresh submission."""
+    config = header.get("config") or {}
+    rid = config.get("rid")
+    if not rid:
+        raise ValueError("resume needs config['rid']")
+    rid = str(rid)
+    received = int(config.get("received", 0))
+    if received < 0:
+        raise ValueError(f"received must be >= 0, got {received}")
+    entry = _resume_lookup(rid)
+    if entry is None:
+        raise ValueError(f"resume unknown rid={rid}")
+    _C_RESUMED_STREAMS.inc()
+    _obs.event("daemon.resume", _obs.next_rid())
+    stream = send_chunk is not None and bool(config.get("stream", True))
+    sent = received
+    stall_at = time.monotonic() + _RESUME_STALL_S
+    while True:
+        with entry.cond:
+            while (not entry.done and len(entry.buf) <= sent
+                   and time.monotonic() < stall_at):
+                entry.cond.wait(0.25)
+            chunk = bytes(entry.buf[sent:])
+            done = entry.done
+            error = entry.error
+        if error is not None:
+            raise RuntimeError(f"resume rid={rid} failed: {error}")
+        if chunk:
+            stall_at = time.monotonic() + _RESUME_STALL_S
+            if stream:
+                send_chunk(chunk)
+            sent += len(chunk)
+        if done:
+            with entry.cond:
+                return bytes(entry.buf)
+        if not chunk and time.monotonic() >= stall_at:
+            raise RuntimeError(
+                f"resume rid={rid} stalled: no stream progress in "
+                f"{_RESUME_STALL_S:g}s")
+
+
+def _recovery_params(config: dict) -> dict:
+    """The replay-relevant generate knobs, decoded from a journaled
+    accept record's config with the SAME defaults ``_handle_generate``
+    applies — recovery must re-derive exactly the engine request the
+    original admission would have built.  The recipe's ``ckpt_dir``
+    names a checkpoint in the port's format (``tpulab_torch-ckpt-v1``,
+    :mod:`tpulab_torch.ckpt`)."""
+    return dict(
+        steps=int(config.get("steps", 64)),
+        stop_byte=int(config.get("stop_byte", -1)),
+        attn=str(config.get("attn", "gather")),
+        kv_dtype=str(config.get("kv_dtype", "native")),
+        prefill_chunk=int(config.get("prefill_chunk", PREFILL_CHUNK)),
         temperature=float(config.get("temperature", 0.0)),
         seed=int(config.get("seed", 0)),
         repetition_penalty=float(config.get("repetition_penalty", 1.0)),
-        stop_byte=eng_stop,
-        spec=spec_mode, spec_k=spec_k, spec_ngram=spec_ngram,
-        deadline_ms=deadline_ms, priority=priority,
-        req_rid=req_rid, tag=tag, hedge_ms=hedge_ms,
-        on_progress=on_progress,
+        priority=int(config.get("priority", 0)),
+        ckpt_dir=config.get("ckpt_dir"),
     )
-    return _decode_out(tok, out, stop_byte)
+
+
+def _refinish_completed(e, entry) -> None:
+    """A rid that RETIRED before the crash (done record with tokens)
+    but whose client may never have read the terminal frame: rebuild
+    the response bytes from the journaled token stream so a
+    reconnecting client's resume is answered instead of bounced into a
+    duplicate submission."""
+    try:
+        p = _recovery_params(e.accept.get("config") or {})
+        fleet = _fleet_for(p["ckpt_dir"], p["attn"], p["kv_dtype"],
+                           p["prefill_chunk"])
+        entry.finish(_decode_out(fleet.tok, e.done.get("tokens") or [],
+                                 p["stop_byte"]))
+    except Exception as err:  # noqa: BLE001 — a failed refinish must
+        # surface through the entry, not kill the recovery thread
+        entry.fail(f"{type(err).__name__}: {err}")
+
+
+def _recover_one(journal, rid: str, e, entry) -> None:
+    """Replay ONE incomplete journaled request to completion: rebuild
+    (or reuse) its fleet from the recorded recipe, seed an engine
+    request with the checkpointed committed prefix, and resume through
+    ``_resubmit_on`` — the same fold-tokens-into-prompt path the
+    supervisor replay and fleet migration run on, so greedy streams are
+    bit-identical to an uninterrupted run and sampled streams continue
+    their per-slot draw counter."""
+    import numpy as np
+
+    from tpulab_torch import durability
+    from tpulab_torch.models.paged import _Request
+
+    try:
+        config = e.accept.get("config") or {}
+        p = _recovery_params(config)
+        payload = durability.decode_payload(e.accept.get("payload", ""))
+        tag = str(e.accept.get("tag", ""))
+        fleet = _fleet_for(p["ckpt_dir"], p["attn"], p["kv_dtype"],
+                           p["prefill_chunk"])
+        tok = fleet.tok
+        if tok is None:
+            prompt = np.frombuffer(payload, np.uint8).astype(np.int32)
+            eng_stop = p["stop_byte"]
+        else:
+            prompt = tok.encode(bytes(payload))
+            eng_stop = -1
+        req = _Request(
+            req_id=-1,
+            prompt=np.asarray(prompt, np.int32).reshape(-1),
+            max_new=p["steps"], temperature=p["temperature"],
+            seed=p["seed"],
+            repetition_penalty=p["repetition_penalty"],
+            stop_byte=eng_stop,
+            # spec degrades to plain ticks on recovery: speculative
+            # decode is lossless, so the stream is bit-identical either
+            # way (the same degrade _resubmit_on applies on a spec-less
+            # peer)
+            spec="off", spec_k=0,
+            priority=p["priority"], rid=_obs.next_rid(), tag=tag)
+        req.out = [int(t) for t in (e.ckpt or [])]
+        tkt = _Ticket(req, None)
+        tkt.parked = True
+        deadline = time.monotonic() + 600.0
+        while True:
+            target = _FLEET_SERVICE._place(fleet, req.prompt, frozenset())
+            if target is not None and _FLEET_SERVICE._resubmit_on(
+                    target, tkt, migrated=False):
+                break
+            if time.monotonic() > deadline:
+                raise RuntimeError(
+                    "no placeable replica for journal recovery")
+            with fleet.cv:
+                fleet.cv.wait(0.25)
+        # stream the replay into the resume entry from token 0: the
+        # checkpointed prefix regenerates the SAME bytes the original
+        # connection already sent, which is exactly what lets a
+        # reconnecting client's received-count skip them
+        sent = 0
+        toks: list = []
+        stopped = False
+        while True:
+            with fleet.cv:
+                while not tkt.done and len(req.out) <= sent:
+                    fleet.cv.wait(0.5)
+                done = tkt.done
+                result = tkt.result
+                inc = list(req.out[sent:])
+                sent = len(req.out)
+            if inc and not stopped:
+                toks.extend(inc)
+                if tok is None:
+                    chunk = bytes(int(t) & 0xFF for t in inc)
+                else:
+                    chunk = tok.decode([int(t) for t in inc])
+                if tok is not None and p["stop_byte"] >= 0:
+                    cut = chunk.find(bytes([p["stop_byte"]]))
+                    if cut >= 0:
+                        chunk = chunk[: cut + 1]
+                        stopped = True
+                if chunk:
+                    entry.feed(chunk)
+                journal.note_tokens(rid, toks)
+                if stopped:
+                    _FLEET_SERVICE._engine_cancel(fleet, tkt, mark=False)
+            if done:
+                if isinstance(result, Exception):
+                    raise RuntimeError(
+                        f"recovery replay failed: {result!r}"
+                    ) from result
+                out = result
+                break
+        journal.append_done(rid, "ok", tokens=[int(t) for t in out])
+        entry.finish(_decode_out(tok, out, p["stop_byte"]))
+        _C_RECOVERIES.inc()
+        _obs.event("daemon.recover", req.rid)
+        print(f"[tpulab_torch.daemon] recovered rid={rid} "
+              f"({len(out)} token(s))", flush=True)
+    except Exception as err:  # noqa: BLE001 — one unrecoverable rid
+        # must not kill the thread silently: the entry carries the
+        # error to any resuming client, and the journal records it so
+        # the NEXT restart does not replay a poisoned request forever
+        try:
+            journal.append_done(rid, "error")
+        except Exception:
+            pass
+        entry.fail(f"{type(err).__name__}: {err}")
+        print(f"[tpulab_torch.daemon] recovery FAILED for rid={rid}: {err}",
+              flush=True)
+
+
+def _recover_from_journal(journal) -> int:
+    """Scan the journal (torn final record tolerated), compact it, and
+    launch the recovery threads: completed-ok rids re-register their
+    finished streams (resume-by-rid answered from the journaled
+    tokens); incomplete rids replay to completion.  Registration is
+    SYNCHRONOUS — by the time the daemon accepts its first resume
+    request every journaled rid is in the table, waiting on its
+    recovery thread.  Returns the incomplete count."""
+    state = journal.scan()
+    if state.torn:
+        print("[tpulab_torch.daemon] journal: torn final record ignored",
+              flush=True)
+    # compact BEFORE the recovery threads start appending fresh
+    # records — compaction rewrites from the scanned state, and a
+    # concurrent append would be lost in the rewrite
+    journal.compact(state)
+    for rid, e in state.completed_ok().items():
+        entry = _resume_register(rid)
+        threading.Thread(target=_refinish_completed, args=(e, entry),
+                         daemon=True).start()
+    incomplete = state.incomplete()
+    for rid, e in incomplete.items():
+        entry = _resume_register(rid)
+        threading.Thread(target=_recover_one,
+                         args=(journal, rid, e, entry),
+                         daemon=True).start()
+    return len(incomplete)
 
 
 def _handle_generate_stats(header: dict) -> bytes:
@@ -1959,6 +2909,342 @@ def _handle_journey(header: dict) -> bytes:
     }).encode("utf-8")
 
 
+# ---------------------------------------------------------------- sampler
+#
+# The TIME dimension.  One background sampler per daemon
+# process drives the whole telemetry-over-time layer — every
+# ``METRICS_INTERVAL_S`` it (1) refreshes the engine gauge mirror so
+# the snapshot carries live stats, (2) appends one registry snapshot to
+# the history ring, (3) evaluates the alert catalog over the ring's
+# windows, and (4) maps each replica's ``replica_degraded`` alert state
+# onto the router's health machine — closing the telemetry->control
+# loop: a degraded replica is steered away from BEFORE its crash path
+# runs.  The sampler never touches an engine condition or the device;
+# everything it reads is either the registry (per-metric locks) or the
+# fleet table under fleet.cv.
+
+#: the live sampler (serve() starts it; tests drive _sampler_tick
+#: directly for determinism)
+_SAMPLER = None
+
+
+def _sampler_active() -> bool:
+    """Whether windowed consumers (the shed check) may trust the
+    history ring: a sampler is running AND its newest sample is recent
+    enough that the window edge is meaningful (a wedged sampler thread
+    falls back to the two-mark path instead of shedding on stale data)."""
+    s = _SAMPLER
+    if s is None or not s.running:
+        return False
+    age = _obs.HISTORY.age_s()
+    return age is not None and age < max(5.0, 5.0 * s.interval_s)
+
+
+def _ensure_replica_rules() -> None:
+    """Lazily install one ``fleet<f>_replica<i>_degraded`` rule per
+    replica of every warm fleet (AlertManager.add is idempotent by
+    name; rules are fleet-id-scoped so two warm fleets' same-index
+    replicas never share a verdict).  Rules for evicted fleets stay —
+    their counters stop moving, so the rule goes inactive on its
+    own."""
+    from tpulab_torch.obs.alerts import ALERTS, ReplicaStallRule
+
+    with _FLEET_SERVICE.lock:
+        fleets = [v[1] for v in _FLEETS.values()]
+    for fleet in fleets:
+        for r in fleet.replicas:
+            ALERTS.add(ReplicaStallRule(r.index, fleet_id=fleet.fid))
+
+
+def _apply_fleet_alerts() -> None:
+    """Map each replica's ``replica_degraded`` alert state onto its
+    health machine (``ReplicaHealth.note_alert`` under fleet.cv) — the
+    alert-wired SUSPECT transition.  FIRING demotes/holds SUSPECT so
+    placement steers off the replica; resolution releases the hold and
+    the normal clean-tick hysteresis finishes recovery."""
+    from tpulab_torch.obs import alerts as _alerts
+
+    with _FLEET_SERVICE.lock:
+        fleets = [v[1] for v in _FLEETS.values()]
+    for fleet in fleets:
+        for r in fleet.replicas:
+            st = _alerts.ALERTS.get_state(
+                f"fleet{fleet.fid}_replica{r.index}_degraded")
+            firing = st is not None and st.state == _alerts.FIRING
+            with fleet.cv:
+                r.health.note_alert(firing)
+
+
+#: the FIRING states the autoscaler counts as pressure evidence — the
+#: burn-rate rules install_default_rules() always installs
+_PRESSURE_ALERTS = ("queue_wait_burn_fast", "ttft_burn_fast",
+                    "itl_burn_fast", "e2e_burn_fast",
+                    "goodput_shed_burn")
+
+
+def _fleet_signals(fleet: _Fleet,
+                   role: Optional[str] = None) -> "object":
+    """Snapshot one :class:`tpulab_torch.autoscale.Signals` for a fleet:
+    serving-replica count + summed load under the proper lock order
+    (fleet snapshot under fleet.cv, THEN loads under each replica's own
+    condition), plus the history-window pressure evidence shared by
+    every fleet (the ring is process-global).
+
+    ``role`` scopes the snapshot to one pool of a disaggregated fleet
+    and selects that pool's OWN burn signal: the prefill
+    pool scales on queue-wait p99 (admission pressure is prefill
+    work), the decode pool on ITL p99 (the latency the pool exists to
+    protect) — each pool is blind to the other's signal so a prefill
+    burst can never scale the decode pool or vice versa."""
+    from tpulab_torch import autoscale as _autoscale
+    from tpulab_torch.obs import alerts as _alerts
+
+    with fleet.cv:
+        live = [r for r in fleet.replicas if not r.retired
+                and (role is None or r.role == role)]
+        n = len(live)
+    load = 0
+    for r in live:
+        with r.cond:
+            if r.dead:
+                continue
+            eng = r.engine
+            load += len(eng.pending) + sum(
+                1 for a in eng.active if a is not None)
+    qp99 = None
+    itl99 = None
+    shed_rate = 0.0
+    if _sampler_active():
+        w = _obs.HISTORY.window(AUTOSCALE_WINDOW_S)
+        if w is not None:
+            if (role != _router.ROLE_DECODE
+                    and w.count("queue_wait_seconds") > 0):
+                qp99 = w.percentile("queue_wait_seconds", 0.99)
+            if (role == _router.ROLE_DECODE
+                    and w.count("itl_seconds") > 0):
+                itl99 = w.percentile("itl_seconds", 0.99)
+            shed_rate = w.rate("daemon_shed_requests")
+    firing = 0
+    for name in _PRESSURE_ALERTS:
+        st = _alerts.ALERTS.get_state(name)
+        if st is not None and st.state == _alerts.FIRING:
+            firing += 1
+    return _autoscale.Signals(
+        active_replicas=max(1, n),
+        load_per_replica=load / max(1, n),
+        queue_wait_p99_s=qp99,
+        shed_rate=shed_rate,
+        alerts_firing=firing,
+        latency_p99_s=itl99)
+
+
+def _reconcile_fleet(fleet: _Fleet, target: int,
+                     role: Optional[str] = None) -> None:
+    """One reconcile step toward ``target`` (a daemon thread, one op
+    in flight per fleet): scale OUT when provisioned < target — a
+    preempted slot revives this way too, since preemption drops the
+    provisioned count below target with no cooldown in the way — and
+    scale IN when above.  ``role`` scopes both the count and the op
+    to one pool of a disaggregated fleet."""
+    try:
+        with fleet.cv:
+            provisioned = sum(
+                1 for r in fleet.replicas if not r.retired
+                and (role is None or r.role == role))
+        if provisioned < target:
+            fleet.add_replica(role=role)
+        elif provisioned > target:
+            fleet.retire_replica(role=role)
+    except Exception:
+        traceback.print_exc()
+    finally:
+        with fleet.cv:
+            fleet.scaling = False
+            fleet.cv.notify_all()
+
+
+def _pool_autoscale_tick(fleet: _Fleet, now: float) -> None:
+    """One sampler tick of the per-pool control loop: refresh
+    the ``pool_*`` gauges, fold each ranged pool's Signals into ITS
+    policy, and kick at most one reconcile op for the fleet (the
+    ``fleet.scaling`` latch is fleet-wide — pools take turns, which is
+    fine: a reconcile is one add/retire and the next tick re-checks).
+    Fixed-size pools (``role=N``) publish gauges but never scale."""
+    for role, pool in fleet.pools.items():
+        with fleet.cv:
+            n_live = sum(1 for r in fleet.replicas
+                         if not r.retired and r.role == role)
+        if role == _router.ROLE_PREFILL:
+            _G_POOL_PREFILL_REPLICAS.set(float(n_live))
+        elif role == _router.ROLE_DECODE:
+            _G_POOL_DECODE_REPLICAS.set(float(n_live))
+        pol = pool["policy"]
+        if pol is None:
+            continue
+        sig = _fleet_signals(fleet, role=role)
+        target = pol.observe(now, sig)
+        if role == _router.ROLE_PREFILL:
+            _G_POOL_PREFILL_TARGET.set(float(target))
+        elif role == _router.ROLE_DECODE:
+            _G_POOL_DECODE_TARGET.set(float(target))
+        with fleet.cv:
+            provisioned = sum(1 for r in fleet.replicas
+                              if not r.retired and r.role == role)
+            if not fleet.scaling and provisioned != target:
+                fleet.scaling = True
+                threading.Thread(
+                    target=_reconcile_fleet,
+                    args=(fleet, target, role),
+                    daemon=True).start()
+
+
+def _autoscale_tick() -> None:
+    """The elastic-fleet control loop, riding the sampler tick: per warm
+    fleet, fold one Signals snapshot into the fleet's AutoscalePolicy
+    and BrownoutLadder, then kick ONE reconcile op (a background
+    thread — the cold build must never run on the sampler thread)
+    whenever provisioned != target and no op is already in flight."""
+    with _FLEET_SERVICE.lock:
+        fleets = [v[1] for v in _FLEETS.values()]
+    now = time.monotonic()
+    total_target = 0
+    max_level = 0
+    armed = False
+    for fleet in fleets:
+        if fleet.pools:
+            # a disaggregated fleet's pools scale
+            # INDEPENDENTLY, each off its own policy + burn signal
+            # (queue-wait for prefill, ITL for decode); the fleet-wide
+            # autoscaler/brownout ladder is never armed alongside
+            # pools (--pool-spec and --autoscale-max are exclusive)
+            _pool_autoscale_tick(fleet, now)
+            continue
+        pol = fleet.autoscaler
+        if pol is None:
+            continue
+        armed = True
+        sig = _fleet_signals(fleet)
+        target = pol.observe(now, sig)
+        total_target += target
+        ladder = fleet.brownout
+        if ladder is not None:
+            transition = ladder.observe(now, pol.overloaded(sig))
+            if transition is not None:
+                direction, rung = transition.split(":", 1)
+                if direction == "engage":
+                    _C_BROWNOUT_STEPS.inc()
+                else:
+                    _C_BROWNOUT_REVERSALS.inc()
+                _obs.event(f"daemon.brownout.{direction}", rung)
+                print(f"[serve] brownout {direction}: {rung} "
+                      f"(level {ladder.level})", flush=True)
+            max_level = max(max_level, ladder.level)
+        with fleet.cv:
+            provisioned = sum(
+                1 for r in fleet.replicas if not r.retired)
+            busy = fleet.scaling
+            if not busy and provisioned != target:
+                fleet.scaling = True
+                threading.Thread(
+                    target=_reconcile_fleet, args=(fleet, target),
+                    daemon=True).start()
+    if armed:
+        _G_TARGET_REPLICAS.set(float(total_target))
+        _G_BROWNOUT_LEVEL.set(float(max_level))
+
+
+def _sampler_tick() -> None:
+    """One sampler iteration's POST-sample hook (the gauge refresh runs
+    as the before-hook so the sample itself is fresh): evaluate alerts
+    over the ring, wire the verdicts into fleet health, then run the
+    elastic-fleet control loop off the same verdicts."""
+    _ensure_replica_rules()
+    _obs.ALERTS.evaluate(_obs.HISTORY)
+    _apply_fleet_alerts()
+    _autoscale_tick()
+
+
+def start_sampler(interval_s: Optional[float] = None,
+                  capacity: Optional[int] = None):
+    """Build + start the daemon's history sampler (serve() calls this;
+    exposed for benches/tests).  Installs the default alert catalog
+    with page-severity flight-recorder bundles enabled.  Returns the
+    sampler, or None when the interval is 0 (disabled)."""
+    global _SAMPLER
+    from tpulab_torch.obs import alerts as _alerts
+    from tpulab_torch.obs import history as _history
+
+    iv = METRICS_INTERVAL_S if interval_s is None else float(interval_s)
+    if iv <= 0:
+        return None
+    cap = max(1, int(capacity if capacity is not None
+                     else HISTORY_CAPACITY))  # a misconfigured env
+    # (TPULAB_DAEMON_HISTORY=0) degrades to the smallest ring instead
+    # of killing the daemon before it binds its socket
+    if _obs.HISTORY.capacity != cap:
+        _obs.configure_history(cap)
+    _alerts.install_default_rules()
+    _alerts.ALERTS.page_postmortems = True
+    if _SAMPLER is not None:
+        _SAMPLER.stop()
+    _SAMPLER = _history.Sampler(
+        _obs.HISTORY, iv, on_sample=_sampler_tick,
+        before_sample=_refresh_engine_gauges).start()
+    return _SAMPLER
+
+
+def stop_sampler() -> None:
+    global _SAMPLER
+    if _SAMPLER is not None:
+        _SAMPLER.stop()
+        _SAMPLER = None
+
+
+def _handle_history(header: dict) -> bytes:
+    """``history`` request: the metrics-over-time report from the ring
+    (tpulab_torch.obs.history) as JSON — ring occupancy, one windowed summary
+    (per-counter rates, per-histogram windowed counts + percentiles),
+    and optional per-metric rate series for sparklines.  Config:
+    ``seconds`` (window, default 30), ``series`` (metric names to
+    return rate series for), ``series_seconds`` (series span; defaults
+    to ``seconds``).  ``python -m tpulab_torch.obs.console`` renders
+    it live."""
+    config = header.get("config") or {}
+    seconds = float(config.get("seconds", 30.0))
+    if seconds <= 0:
+        raise ValueError(f"seconds must be > 0, got {seconds}")
+    series = config.get("series") or ()
+    if not isinstance(series, (list, tuple)):
+        raise ValueError("series must be a list of metric names")
+    ss = config.get("series_seconds")
+    report = _obs.HISTORY.report(
+        seconds, series=[str(s) for s in series],
+        series_seconds=None if ss is None else float(ss))
+    s = _SAMPLER
+    report["sampler"] = {
+        "running": bool(s is not None and s.running),
+        "interval_s": None if s is None else s.interval_s,
+        "errors": 0 if s is None else s.errors,
+    }
+    return json.dumps(report).encode("utf-8")
+
+
+def _handle_alerts(header: dict) -> bytes:
+    """``alerts`` request: the alert engine's state table as JSON
+    (firing first).  Evaluates the catalog FIRST by default — so
+    staleness/absence rules stay live even when the sampler thread
+    itself is wedged (exactly the failure ``sampler_stale`` exists
+    for); transitions are edge-triggered, so an extra evaluation from
+    a request thread never double-counts.  Config ``{"no_evaluate":
+    true}`` returns the table as the last sampler tick left it."""
+    from tpulab_torch.obs import alerts as _alerts
+
+    config = header.get("config") or {}
+    if not config.get("no_evaluate"):
+        _alerts.ALERTS.evaluate(_obs.HISTORY)
+    return json.dumps(_alerts.ALERTS.snapshot()).encode("utf-8")
+
+
 def _resolve_fleet(config: dict) -> Optional[_Fleet]:
     """The warm fleet a ``fleet``/``drain``/``undrain`` request
     targets: by the engine-selection keys when any are given (or when
@@ -2025,18 +3311,13 @@ def _handle_drain(header: dict, undrain: bool = False) -> bytes:
 # kernels sharing the device would inflate each other's numbers.
 _LAB_LOCK = threading.Lock()
 
-#: requests of tpulab's daemon that wait for a module not ported yet
-_UNPORTED_REQUESTS = {
-    "history": ("the history request (metrics history sampler)", "A11.2"),
-    "alerts": ("the alerts request (alert rule engine)", "A11.2"),
-}
-
-
 def handle_request(header: dict, payload: bytes,
                    send_chunk=None) -> bytes:
     lab = header.get("lab")
     if lab == "generate":
         return _handle_generate(header, payload, send_chunk)
+    if lab == "resume":
+        return _handle_resume(header, send_chunk)
     if lab == "generate_stats":
         return _handle_generate_stats(header)
     if lab == "metrics":
@@ -2051,25 +3332,16 @@ def handle_request(header: dict, payload: bytes,
         return _handle_slowlog(header)
     if lab == "journey":
         return _handle_journey(header)
+    if lab == "history":
+        return _handle_history(header)
+    if lab == "alerts":
+        return _handle_alerts(header)
     if lab == "fleet":
         return _handle_fleet(header)
     if lab == "drain":
         return _handle_drain(header)
     if lab == "undrain":
         return _handle_drain(header, undrain=True)
-    if lab in _UNPORTED_REQUESTS:
-        from tpulab_torch.models.paged import _unported
-
-        raise _unported(*_UNPORTED_REQUESTS[lab])
-    if lab == "resume":
-        from tpulab_torch.models.paged import _unported
-
-        # no journal holds any stream: the body starts as tpulab's daemon
-        # without a journal answers (``resume unknown rid=``), the replay
-        # client's signal to submit afresh when nothing had streamed
-        rid = (header.get("config") or {}).get("rid")
-        raise _unported(f"resume unknown rid={rid}: the resume request (write-ahead "
-                        f"journal)", "A11.2")
     from tpulab_torch.runtime.device import resolve_device
 
     if lab == "platform":
@@ -2123,8 +3395,13 @@ def serve(socket_path: str, *, max_requests: Optional[int] = None,
     from tpulab_torch.runtime.device import resolve_device
 
     device = resolve_device(BACKEND)
-    print(f"[tpulab_torch.daemon] serving on {socket_path} ({device})",
-          flush=True)
+    # the telemetry-over-time layer: gauge refresh + history sample +
+    # alert evaluation + fleet-health application, every
+    # METRICS_INTERVAL_S (0 = disabled)
+    sampler = start_sampler()
+    print(f"[tpulab_torch.daemon] serving on {socket_path} ({device})"
+          + (f" (metrics sampler @ {sampler.interval_s:g}s)"
+             if sampler is not None else ""), flush=True)
 
     served = {"n": 0}
     served_lock = threading.Lock()
@@ -2269,25 +3546,34 @@ def serve(socket_path: str, *, max_requests: Optional[int] = None,
         pass
     finally:
         if stop["flag"]:
-            # graceful SIGTERM: drain in-flight handlers (bounded), and
-            # persist a shutdown flight-recorder bundle, symmetric with
-            # the crash bundles the supervisor records
+            # graceful SIGTERM: drain in-flight handlers (bounded), flush
+            # + compact the journal so a restart recovers from a minimal
+            # file, and persist a shutdown flight-recorder bundle,
+            # symmetric with the crash bundles the supervisor records
             for _ in range(150):
                 with served_lock:
                     if served["n"] >= accepted:
                         break
                 time.sleep(0.1)
+            if _JOURNAL is not None:
+                try:
+                    _JOURNAL.flush()
+                    _JOURNAL.compact()
+                except Exception:
+                    traceback.print_exc()
             with served_lock:
                 n_served = served["n"]
             from tpulab_torch.obs import flightrec
 
             if flightrec.record_postmortem(
                     "shutdown",
-                    extra={"accepted": accepted, "served": n_served},
+                    extra={"accepted": accepted, "served": n_served,
+                           "journal": getattr(_JOURNAL, "path", None)},
             ) is not None:
                 _C_POSTMORTEMS.inc()
             print(f"[tpulab_torch.daemon] graceful shutdown: accepted="
                   f"{accepted} served={n_served}", flush=True)
+        stop_sampler()
         srv.close()
         try:
             os.unlink(socket_path)
@@ -2297,7 +3583,8 @@ def serve(socket_path: str, *, max_requests: Optional[int] = None,
 
 def main(argv=None) -> int:
     global PREFILL_CHUNK, REPLICAS, HEDGE_MS, PREFIX_INDEX, SPILL_BLOCKS, \
-        SPILL_DTYPE, BACKEND
+        SPILL_DTYPE, BACKEND, METRICS_INTERVAL_S, _JOURNAL, AUTOSCALE_MIN, \
+        AUTOSCALE_MAX, POOL_SPEC
     from tpulab_torch.models.paged import _unported
 
     ap = argparse.ArgumentParser(description=__doc__,
@@ -2321,24 +3608,58 @@ def main(argv=None) -> int:
                     help="default prefill window for the serving engines "
                          "(chunked+interleaved admission; 0 = whole-prompt "
                          "dense prefill)")
-    ap.add_argument("--metrics-interval", type=float, default=0.0, metavar="S",
-                    help="history sampler cadence; only 0 (off, the default) "
-                         "is served: the sampler is ROADMAP A11.2")
+    ap.add_argument("--metrics-interval", type=float,
+                    default=METRICS_INTERVAL_S, metavar="S",
+                    help="history sampler cadence in seconds (default "
+                         "1.0; 0 disables): every tick appends one "
+                         "registry snapshot to the history ring "
+                         "('history' request — windowed rates and "
+                         "percentiles), evaluates the alert rule "
+                         "catalog ('alerts' request), and wires "
+                         "replica-degradation alerts into fleet "
+                         "placement")
     ap.add_argument("--trace-buffer", type=int, default=None, metavar="N",
                     help="ring-buffer tracer capacity in events (default "
                          "32768; 0 disables tracing); dump it with a "
                          "'trace_dump' request")
     ap.add_argument("--journal", default=os.environ.get("TPULAB_DAEMON_JOURNAL"),
                     metavar="PATH",
-                    help="write-ahead request journal: not ported (A11.2)")
-    ap.add_argument("--autoscale-min", type=int, default=None, metavar="N",
-                    help="elastic-fleet floor: not ported (A11.2)")
-    ap.add_argument("--autoscale-max", type=int, default=0, metavar="N",
-                    help="elastic-fleet ceiling: 1 or more is not ported "
-                         "(A11.2); 0 keeps the fixed --replicas fleet")
-    ap.add_argument("--pool-spec", default=os.environ.get("TPULAB_DAEMON_POOL_SPEC", ""),
-                    metavar="SPEC",
-                    help="disaggregated prefill/decode pools: not ported (A11.2)")
+                    help="write-ahead request journal (crash "
+                         "durability): accepts fsynced before "
+                         "admission, committed prefixes checkpointed, "
+                         "incomplete requests replayed on restart and "
+                         "client streams resumable by rid (default "
+                         "TPULAB_DAEMON_JOURNAL env; unset = off, "
+                         "streams bit-identical either way)")
+    ap.add_argument("--autoscale-min", type=int, default=AUTOSCALE_MIN,
+                    metavar="N",
+                    help="elastic-fleet floor: the autoscaler never "
+                         "retires below N serving replicas (default "
+                         "TPULAB_DAEMON_AUTOSCALE_MIN or 1; only "
+                         "meaningful with --autoscale-max >= 1)")
+    ap.add_argument("--autoscale-max", type=int, default=AUTOSCALE_MAX,
+                    metavar="N",
+                    help="elastic-fleet ceiling: arm the telemetry-"
+                         "driven autoscaler + brownout ladder, scaling "
+                         "each warm fleet between --autoscale-min and N "
+                         "replicas (default TPULAB_DAEMON_AUTOSCALE_MAX "
+                         "or 0 = disarmed, fixed --replicas fleet)")
+    ap.add_argument("--pool-spec", default=POOL_SPEC, metavar="SPEC",
+                    help="disaggregated serving pools: comma-separated "
+                         "role=N or role=MIN..MAX with roles "
+                         "prefill/decode/unified, e.g. "
+                         "'prefill=1..2,decode=1'.  Admissions place "
+                         "into the prefill pool; at the prefill/decode "
+                         "boundary the KV blocks hand off to a decode "
+                         "replica through the digest-keyed host-spill "
+                         "format (streams bit-identical to unified "
+                         "serving); ranged pools autoscale "
+                         "independently (queue-wait burn for prefill, "
+                         "ITL burn for decode).  Requires "
+                         "--prefix-index radix and --spill-blocks > 0; "
+                         "exclusive with --autoscale-max; overrides "
+                         "--replicas (default TPULAB_DAEMON_POOL_SPEC "
+                         "or '' = unified fleet)")
     ap.add_argument("--prefix-index", choices=("dict", "radix"), default=PREFIX_INDEX,
                     help="prefix-cache structure for the serving engines")
     ap.add_argument("--spill-blocks", type=int, default=SPILL_BLOCKS, metavar="N",
@@ -2357,16 +3678,6 @@ def main(argv=None) -> int:
                          "requests' phase waterfalls (default 256; 0 "
                          "disables)")
     args = ap.parse_args(argv)
-    if args.journal:
-        raise _unported("the write-ahead request journal (--journal)", "A11.2")
-    if args.metrics_interval > 0:
-        raise _unported("the metrics history sampler (--metrics-interval > 0)", "A11.2")
-    if args.autoscale_max >= 1:
-        raise _unported("the autoscaler (--autoscale-max >= 1)", "A11.2")
-    if args.autoscale_min is not None:
-        raise _unported("the autoscaler's floor (--autoscale-min)", "A11.2")
-    if args.pool_spec:
-        raise _unported("disaggregated serving pools (--pool-spec)", "A11.2")
     if args.mesh:
         raise _unported("mesh serving (--mesh)", "A12")
     if args.replicas < 1:
@@ -2390,6 +3701,45 @@ def main(argv=None) -> int:
     if args.spill_blocks and args.prefix_index != "radix":
         ap.error("--spill-blocks > 0 requires --prefix-index radix "
                  "(the spill tier keys host payloads by radix paths)")
+    if args.autoscale_max >= 1:
+        # elastic-fleet misconfiguration is rejected HERE with a
+        # parseable argparse error, before any engine build
+        if args.autoscale_min < 1:
+            ap.error("--autoscale-min must be >= 1")
+        if args.autoscale_min > args.autoscale_max:
+            ap.error(
+                f"--autoscale-min ({args.autoscale_min}) must be <= "
+                f"--autoscale-max ({args.autoscale_max})")
+        if not (args.autoscale_min <= args.replicas
+                <= args.autoscale_max):
+            ap.error(
+                f"--replicas ({args.replicas}) must start inside "
+                f"[--autoscale-min, --autoscale-max] = "
+                f"[{args.autoscale_min}, {args.autoscale_max}]")
+        if args.metrics_interval == 0:
+            ap.error("--autoscale-max requires the sampler: "
+                     "--metrics-interval must be > 0")
+    if args.pool_spec:
+        # disaggregated-fleet misconfiguration rejected HERE with a
+        # parseable argparse error, same discipline as the elastic
+        # bounds above
+        try:
+            pools = _parse_pool_spec(args.pool_spec)
+        except ValueError as e:
+            ap.error(f"--pool-spec: {e}")
+        if args.autoscale_max >= 1:
+            ap.error("--pool-spec and --autoscale-max are exclusive "
+                     "(each pool carries its own autoscale bounds)")
+        if args.prefix_index != "radix" or not args.spill_blocks:
+            ap.error("--pool-spec requires --prefix-index radix and "
+                     "--spill-blocks > 0 (the prefill→decode KV "
+                     "handoff rides the digest-keyed host-spill "
+                     "format)")
+        if (any(mx > mn for _, mn, mx in pools)
+                and args.metrics_interval == 0):
+            ap.error("--pool-spec with ranged pools requires the "
+                     "sampler: --metrics-interval must be > 0")
+        args.replicas = sum(mn for _, mn, _ in pools)
     BACKEND = args.backend
     PREFILL_CHUNK = args.prefill_chunk
     REPLICAS = args.replicas
@@ -2397,6 +3747,10 @@ def main(argv=None) -> int:
     PREFIX_INDEX = args.prefix_index
     SPILL_BLOCKS = args.spill_blocks
     SPILL_DTYPE = args.spill_dtype
+    POOL_SPEC = args.pool_spec
+    METRICS_INTERVAL_S = args.metrics_interval
+    AUTOSCALE_MIN = args.autoscale_min
+    AUTOSCALE_MAX = args.autoscale_max
     if args.trace_buffer is not None:
         _obs.configure_tracer(args.trace_buffer)
     if args.slowlog is not None:
@@ -2408,6 +3762,14 @@ def main(argv=None) -> int:
         # TPULAB_FAULTS (JSON schedule); absent means inert
         print("[tpulab_torch.daemon] fault injector ARMED from TPULAB_FAULTS",
               flush=True)
+    if args.journal:
+        from tpulab_torch.durability import Journal
+
+        _JOURNAL = Journal(args.journal,
+                           on_record=_C_JOURNAL_RECORDS.inc)
+        n = _recover_from_journal(_JOURNAL)
+        print(f"[tpulab_torch.daemon] journal {args.journal}: "
+              f"{n} incomplete request(s) recovering", flush=True)
     serve(args.socket, max_requests=args.max_requests)
     return 0
 

@@ -256,7 +256,7 @@ class FaultInjector:
             # instant process death: os._exit skips every finally,
             # atexit hook, and flush — the closest in-process stand-in
             # for SIGKILL/OOM/preemption, which is exactly what the
-            # write-ahead journal (ROADMAP A11.2) must survive.
+            # write-ahead journal (tpulab_torch/durability.py) must survive.
             # ``arg`` is the exit status (default 1).  Subprocess-based
             # tests only: firing this in-process kills the test runner.
             import os

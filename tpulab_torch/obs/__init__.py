@@ -19,16 +19,26 @@ trainer record into.
 * :mod:`~tpulab_torch.obs.flightrec`: one JSON post-mortem bundle per
   engine or replica failure (the daemon's ``postmortem`` request);
 * :mod:`~tpulab_torch.obs.profiler`: ``torch.profiler`` traces and the
-  ``[tag]`` event log.
-
-``tpulab``'s history sampler, alert engine and terminal renderers
-(``history``, ``alerts``, ``render``) are not ported yet (ROADMAP A11.2).
+  ``[tag]`` event log;
+* :mod:`~tpulab_torch.obs.history`: a fixed-capacity ring of registry
+  snapshots with windowed rates and percentiles (the daemon's sampler and
+  ``history`` request);
+* :mod:`~tpulab_torch.obs.alerts`: the rule engine the sampler evaluates
+  each tick (the daemon's ``alerts`` request);
+* :mod:`~tpulab_torch.obs.render`: the terminal renderers of the live
+  console (``python -m tpulab_torch.obs.console``).
 """
 
+from tpulab_torch.obs.alerts import (ALERTS, AlertManager, BurnRateRule, Rule,
+                                     ThresholdRule, default_rules,
+                                     install_default_rules)
 from tpulab_torch.obs.compilestats import (COMPILESTATS, CompileStats,
                                            RecompileError, note_build, strict)
 from tpulab_torch.obs.flightrec import (configure_flightrec, latest_postmortem,
                                         record_postmortem)
+from tpulab_torch.obs.history import (HISTORY, MetricsHistory, Sampler, Window,
+                                      configure_history, counts_delta,
+                                      fraction_le)
 from tpulab_torch.obs.journey import (HANDOFF_PHASES, JOURNEY, PHASES, JourneyStore,
                                       configure_journey)
 from tpulab_torch.obs.profiler import EventLog, annotate, maybe_trace
@@ -41,6 +51,9 @@ from tpulab_torch.obs.tracer import (DEFAULT_CAPACITY, NULL, TRACER, Tracer,
                                      configure_tracer, event, next_rid, span)
 
 __all__ = [
+    "ALERTS", "AlertManager", "BurnRateRule", "HISTORY", "MetricsHistory",
+    "Rule", "Sampler", "ThresholdRule", "Window", "configure_history",
+    "counts_delta", "default_rules", "fraction_le", "install_default_rules",
     "COMPILESTATS", "DEFAULT_BUCKETS", "DEFAULT_CAPACITY", "HANDOFF_PHASES",
     "JOURNEY", "PHASES", "REGISTRY", "SLOWLOG", "CompileStats", "Counter",
     "EventLog", "Gauge", "Histogram", "JourneyStore", "NULL", "RecompileError",

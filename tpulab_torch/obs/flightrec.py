@@ -150,9 +150,17 @@ def record_postmortem(reason: str, *, engine=None, err=None,
 
         dump = TRACER.chrome_trace()
         events = dump["traceEvents"][-int(trace_events):]
-        # the alert engine is not ported (ROADMAP A11.2): no alert fires,
-        # and the key stays so the bundle keeps tpulab's schema
-        firing: List[Dict[str, Any]] = []
+        try:
+            # the firing-alert set at the time of death: a crash that
+            # happened UNDER an already-burning SLO reads differently
+            # from one out of a clear sky (import is lazy + guarded —
+            # alerts itself records bundles on page fires, and a broken
+            # alert engine must not break crash recording)
+            from tpulab_torch.obs.alerts import ALERTS
+
+            firing = ALERTS.firing()
+        except Exception:
+            firing = []
         bundle = {
             "schema": 1,
             "reason": str(reason),
