@@ -63,7 +63,18 @@ failure:
       must reject the plain version with one key tile skipped.  Its time
       stands beside its bound and beside ``scaled_dot_product_attention``
       (``is_causal``, or the window's band as a boolean mask) wherever
-      that computes the same function.
+      that computes the same function;
+   e. beam search (``tpulab_torch.models.beam``) on the serving labformer
+      over a seeded 1024-token prompt, 4 beams, 64 steps: in bfloat16 its
+      ms (CUDA events, median of 3), B4 once per layer of each search's
+      prefill and none of B5-B7; in float32 on the card and on the CPU,
+      with the seed-0 weights and with their embedding scaled by 4 (sharper
+      logits, fewer near ties), each step's beams (tokens and parents)
+      equal and their totals within ``BEAM_SCORE_TOL`` until the first
+      step whose CPU gap between the last kept and the best dropped total
+      is below ``BEAM_GAP``; with
+      ``beams=1``, ``generate``'s greedy stream on the card, token for
+      token.
 6. The training path.  Each run of it is made with every launch count set
    to 0 just before and read just after, and must launch B4 (flash
    forward), B5 (flash dq) and B6 (flash dk, dv) once per layer of each
@@ -95,7 +106,29 @@ failure:
       stand beside their bounds, their plain versions and the backward of
       ``scaled_dot_product_attention`` (``torch.autograd.grad`` of its
       output alone; dq, dk and dv together), wherever that computes the
-      same function.
+      same function;
+   e. the rest of training on the flagship config: lion and adafactor, 3
+      float32 steps at b1 s1024 on the card against the CPU within
+      ``TRAIN_LOSS_RTOL``; in bfloat16 at b8 s2048 a fresh model each with
+      remat off, ``"none"`` and ``"dots"`` (B4 twice per layer of a
+      rematerialized step, B5 and B6 once), one warm-up and 3 timed steps
+      whose losses are bit-equal across the three, with step ms, peak
+      device memory and its rise over the train state, and the same for
+      lion and adafactor; ``tpulab_torch train --trace-dir`` through the
+      CLI (a Chrome trace holding CUDA kernel events, a ``[train]
+      metrics`` line with ``train_mfu_pct`` above 0), ``--sanitize
+      --init-from`` a snapshot with a NaN planted in block 2's MLP weight
+      (``FloatingPointError`` naming ``blocks.2``), and a sanitized run
+      with no NaN printing the unsanitized run's losses;
+   f. labvision (``tpulab_torch.models.labvision``), which launches none
+      of B1-B7: ``tpulab_torch train --model labvision`` through the CLI,
+      100 steps of 32 images (the loss falls; its snapshot classifies
+      fresh ``synth_batch`` images above 0.9, as ``tests/test_labvision.py``
+      asks of ``tpulab``); the bench's config (8 classes, 64x64, channels
+      64/128/256) in float32, 3 steps of 32 images on the card against the
+      CPU within ``TRAIN_LOSS_RTOL``; the ``labvision_train`` row of
+      ``bench`` in bfloat16 (batch 256, images/s, MFU from the analytic
+      flops, the card's name and power limit).
 7. The paged serving path (``tpulab_torch.models.paged.PagedEngine``).
    Each run of it is made with every launch count set to 0 just before
    and read just after, and must launch the paged-decode kernel (B7) once
@@ -283,7 +316,8 @@ failure:
        daemon's serving latency at full width: that waits for a benchmark
        cell replaying ``steady`` against the serving snapshot;
     f. history and alerts on a fresh two-replica fleet (whole-prompt
-       gather prefill): a ``slow_ms`` fault (250 ms) on replica 1's ticks
+       gather prefill): with replica 0 out of placement for the burst, a
+       ``slow_ms`` fault (250 ms) on replica 1's ticks, which must fire,
        drives its ``replica_degraded`` rule to firing and the replica to
        SUSPECT, with no crash; a later burst's tokens, integrated from the
        ``history`` request's rate series, equal the registry's
@@ -311,9 +345,13 @@ failure:
        unified fleet's just before (or part only past a near tie, as in
        12g), one handoff a request, B4 and B7 ran,
        no block leaked in either pool;
-    j. the phase's seconds, by step.
-13. One ``{"model": {...}}`` line with phases 5 to 7's and 9 to 12's
-    numbers, one ``{"lab_suite": {...}}`` line with phase 8's, one
+    j. a ``beams: 2`` and a ``beams: 1`` request of 32 tokens over the
+       snapshot: the bytes equal the in-process ``beam_search``, ``beams:
+       1`` equals greedy decoding, the daemon's served count rose by two,
+       and each ran B4 once per layer of its prefill and no B7;
+    k. the phase's seconds, by step.
+13. One ``{"model": {...}}`` line with phases 5 to 7's (5e, 6e and 6f
+    included) and 9 to 12's numbers, one ``{"lab_suite": {...}}`` line with phase 8's, one
     ``{"kernels": [...]}`` line, the card line again, and last ``{"ok":
     true, "device": {...}}``.
 
@@ -1608,6 +1646,354 @@ def run_train_path(sizes: dict, device, backend: str, card: str,
     dq, dkv = bwd_kernel_rows(sizes, device)
     print(f"phase 6 took {time.perf_counter() - t0:.1f} s", flush=True)
     return dq, dkv, launches, training
+
+
+# ------------------------------------- phases 5e, 6e, 6f: the rest of the model path
+
+#: phase 5e's f32 check: card and CPU tokens stay equal until the first
+#: step whose CPU gap between the kept and the best dropped total is below
+#: this, and their kept totals agree within BEAM_SCORE_TOL until then
+BEAM_GAP = 1e-2
+BEAM_SCORE_TOL = 1e-3
+
+
+def beam_equal_until_gap(cpu: dict, dev: dict, what: str) -> int:
+    """The steps before the CPU trace's first near tie (``BEAM_GAP``):
+    chosen tokens and parents equal, kept totals within ``BEAM_SCORE_TOL``."""
+    steps = len(cpu["gap"])
+    near = [i for i in range(steps) if cpu["gap"][i] < BEAM_GAP]
+    upto = near[0] if near else steps
+    for i in range(upto):
+        check(np.array_equal(cpu["tokens"][i], dev["tokens"][i])
+              and np.array_equal(cpu["parents"][i], dev["parents"][i]),
+              f"{what}: step {i}'s beams differ from the CPU's (CPU gap {cpu['gap'][i]:.6f})")
+        err = float(np.abs(cpu["scores"][i] - dev["scores"][i]).max())
+        check(err <= BEAM_SCORE_TOL, f"{what}: step {i}'s totals differ from the CPU's by {err}")
+    return upto
+
+
+def beam_run(sizes: dict, device, card: str) -> dict:
+    """Phase 5e: beam search on the serving labformer over a seeded prompt
+    of ``beam_prompt`` tokens, ``beam_width`` beams for ``beam_steps``
+    steps: in bf16 timed (CUDA events, median of ``beam_reps``), B4 once per
+    layer of each search's prefill and none of B5-B7; in f32 on the card
+    and on the CPU, equal until the first near tie; ``beams=1`` equal to
+    ``generate``'s greedy stream on the card."""
+    import torch
+
+    from tpulab_torch.models import generate as tgen
+    from tpulab_torch.models.beam import beam_search
+    from tpulab_torch.models.labformer import Labformer, LabformerConfig, init_params
+
+    t0 = time.perf_counter()
+    p, steps, beams = sizes["beam_prompt"], sizes["beam_steps"], sizes["beam_width"]
+    reps = sizes["beam_reps"]
+    prompt = np.random.default_rng(9).integers(0, 256, p).astype(np.int32)
+    cfg = LabformerConfig(**sizes["serving"], dtype=torch.bfloat16)
+    L = cfg.n_layers
+    flash = L if use_flash_at(cfg, p) else 0
+    model = Labformer.from_numpy(init_params(cfg, seed=0), cfg, device)
+    seq, score = beam_search(model, prompt, steps=steps, beams=beams)  # warm-up
+    check(seq.shape == (steps,) and np.isfinite(score) and score < 0,
+          f"bf16 beam search gave {seq.shape}, score {score}")
+    ms, launches = counted(
+        lambda: event_ms(lambda: beam_search(model, prompt, steps=steps, beams=beams),
+                         device, reps),
+        device, {"flash_fwd": reps * flash}, f"bf16 beam search ({reps} timed calls)")
+    greedy1, _ = beam_search(model, prompt, steps=steps, beams=1)
+    greedy = tgen.generate(model, prompt[None, :], steps=steps, temperature=0.0)[0]
+    check(np.array_equal(greedy1, greedy), "beams=1 differs from generate's greedy stream")
+    f32 = LabformerConfig(**sizes["serving"], dtype=torch.float32)
+    params = init_params(f32, seed=0)
+    # a random model's candidates lie within BEAM_GAP of each other at many
+    # steps, so the rule may stop at once; the same weights with the
+    # embedding (the tied head) scaled by 4 give sharper logits, over
+    # which it covers the search
+    sharp = {**params, "embed": params["embed"] * 4}
+    upto = {}
+    for name, weights in (("seed0", params), ("seed0_embed_x4", sharp)):
+        traces = {}
+        for where in ("cpu", device):
+            traces[str(where)] = {}
+            beam_search(Labformer.from_numpy(weights, f32, where), prompt, steps=steps,
+                        beams=beams, trace=traces[str(where)])
+        upto[name] = {"steps_equal": beam_equal_until_gap(traces["cpu"], traces[str(device)],
+                                                          f"f32 beam search ({name})"),
+                      "min_cpu_gap": float(traces["cpu"]["gap"].min())}
+    out = {"ms": ms, "prompt": p, "steps": steps, "beams": beams, "score": score,
+           "launches_per_search": {k: v // reps for k, v in launches.items()},
+           "f32": upto, "beams1_equals_greedy": True, "seconds": time.perf_counter() - t0}
+    print(f"beam search bf16 p{p} {beams} beams {steps} steps: {ms:.6f} ms, median of {reps} "
+          f"({card}); f32 card = CPU through "
+          + ", ".join(f"{v['steps_equal']} of {steps} steps ({k})" for k, v in upto.items())
+          + f"; {json.dumps(out)}", flush=True)
+    return out
+
+
+def use_flash_at(cfg, n_tokens: int) -> bool:
+    from tpulab_torch.parallel.ring import use_flash
+
+    return use_flash(cfg.attn_impl, n_tokens)
+
+
+def optimizer_f32(sizes: dict, device, name: str) -> dict:
+    """Phase 6e: the flagship in f32 at ``train_f32_batch`` x
+    ``train_f32_seq`` under ``name`` for ``train_f32_steps`` steps, on the
+    card and on the CPU: losses within ``TRAIN_LOSS_RTOL``."""
+    import torch
+
+    from tpulab_torch.models.labformer import LabformerConfig, init_train_state
+    from tpulab_torch.train import batches, build_optimizer
+
+    b, s, steps = sizes["train_f32_batch"], sizes["train_f32_seq"], sizes["train_f32_steps"]
+    cfg = LabformerConfig(**sizes["train"], max_seq=s, dtype=torch.float32)
+    batch_at = batches(cfg.vocab, b, s, 0)
+
+    def run(dev):
+        opt = build_optimizer(lr=3e-4, steps=steps, optimizer=name)
+        model, state, step = init_train_state(cfg, None, seed=0, optimizer=opt, device=dev)
+        return [float(step(model, state, batch_at(i))[2]) for i in range(steps)]
+
+    cpu = run("cpu")
+    n = steps * cfg.n_layers if use_flash_at(cfg, s) else 0
+    losses, launches = counted(lambda: run(device), device, dict.fromkeys(TRAIN_KERNELS, n),
+                               f"f32 {name} training run")
+    err = max(abs(a - w) / abs(w) for a, w in zip(losses, cpu))
+    check(all(np.isfinite(losses)) and err <= TRAIN_LOSS_RTOL,
+          f"f32 {name} losses {losses} differ from the CPU's {cpu}")
+    return {"losses": losses, "cpu_losses": cpu, "loss_max_rel_err": err, "launches": launches}
+
+
+def remat_runs(sizes: dict, device, card: str) -> dict:
+    """Phase 6e: the flagship in bf16 at ``train_batch`` x ``train_seq``
+    with remat off, ``"none"`` and ``"dots"``, each a fresh model from seed
+    0: one warm-up step and ``remat_steps`` timed (CUDA events), the losses
+    of all bit-equal across the three; step ms, peak device memory and its
+    rise over the train state.  Remat runs B4 again in each block's
+    recomputation; B5 and B6 once per layer as without it.  Then adamw,
+    lion and adafactor step ms on the same config (no remat)."""
+    import statistics
+
+    import torch
+
+    from tpulab_torch.models.labformer import LabformerConfig, init_train_state
+    from tpulab_torch.train import batches, build_optimizer
+
+    b, s, n = sizes["train_batch"], sizes["train_seq"], sizes["remat_steps"]
+    batch_at = batches(256, b, s, 0)
+    out = {}
+
+    def timed(name, cfg, opt=None, remat_factor=1):
+        model, state, step = init_train_state(cfg, None, seed=0, optimizer=opt, device=device)
+        tokens = [model.tokens(batch_at(i)) for i in range(n + 1)]
+        losses = [float(step(model, state, tokens[0])[2])]  # warm-up
+        base = peak = None
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            base = torch.cuda.memory_allocated(device)
+            torch.cuda.reset_peak_memory_stats(device)
+
+        def steps():
+            samples = []
+            for i in range(n):
+                samples.append(event_ms(lambda: losses.append(
+                    float(step(model, state, tokens[1 + i])[2])), device, reps=1))
+            return samples
+
+        L = cfg.n_layers
+        samples, launches = counted(
+            steps, device, {"flash_fwd": n * L * remat_factor, "flash_dq": n * L,
+                            "flash_dkv": n * L}, f"bf16 training ({name})")
+        if device.type == "cuda":
+            peak = torch.cuda.max_memory_allocated(device)
+        check(all(np.isfinite(losses)), f"bf16 {name} losses {losses}")
+        row = {"step_ms": statistics.median(samples), "step_ms_runs": samples,
+               "losses": losses, "peak_memory_bytes": peak,
+               "peak_over_state_bytes": None if peak is None else peak - base,
+               "launches": launches}
+        del model, state, step, tokens
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        print(f"training bf16 b{b} s{s} {name}: step {row['step_ms']:.6f} ms, median of {n}; "
+              f"peak memory {peak} bytes ({row['peak_over_state_bytes']} over the train "
+              f"state) ({card}); losses {losses}", flush=True)
+        return row
+
+    base_cfg = dict(**sizes["train"], max_seq=s, dtype=torch.bfloat16)
+    out["remat_off"] = timed("remat off", LabformerConfig(**base_cfg))
+    out["remat_none"] = timed("remat none", LabformerConfig(**base_cfg, remat=True),
+                              remat_factor=2)
+    out["remat_dots"] = timed("remat dots", LabformerConfig(**base_cfg, remat=True,
+                                                            remat_policy="dots"),
+                              remat_factor=2)
+    for key in ("remat_none", "remat_dots"):
+        check(out[key]["losses"] == out["remat_off"]["losses"],
+              f"bf16 {key} losses {out[key]['losses']} differ from remat off's "
+              f"{out['remat_off']['losses']}")
+    for name in ("lion", "adafactor"):
+        out[name] = timed(name, LabformerConfig(**base_cfg),
+                          build_optimizer(lr=3e-4, steps=n + 1, optimizer=name))
+    return out
+
+
+def cli_raises(argv, exc) -> str:
+    """The CLI entry point must raise ``exc``: its message."""
+    from tpulab_torch.cli.main import main as cli_main
+
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_main(argv)
+    except exc as e:
+        return str(e)
+    fail(f"{argv} did not raise {exc.__name__}")
+
+
+def train_tools_runs(sizes: dict, device, backend: str, work: Path) -> dict:
+    """Phase 6e through the CLI at the CLI's width (``--seq
+    train_cli_seq``): ``--trace-dir`` writes a Chrome trace holding CUDA
+    kernel events, and the ``[train] metrics`` line has ``train_mfu_pct``
+    above 0 on the card; ``--sanitize --init-from`` a snapshot with a NaN
+    planted in one block's weight raises ``FloatingPointError`` naming that
+    block; a sanitized run with no NaN prints the unsanitized run's losses."""
+    import shutil
+
+    import torch
+
+    from tpulab_torch import ckpt
+    from tpulab_torch.models.labformer import Labformer, LabformerConfig, init_params
+
+    seq, batch, steps = sizes["train_cli_seq"], sizes["train_cli_batch"], 2
+    base = ["train", "--backend", backend, "--seq", str(seq), "--batch", str(batch)]
+    trace = work / "trace"
+    shutil.rmtree(trace, ignore_errors=True)
+    n = steps * TRAIN_CLI_LAYERS if seq >= 1024 else 0
+    out, launches = counted(
+        lambda: cli([*base, "--steps", str(steps), "--trace-dir", str(trace)], ""), device,
+        dict.fromkeys(TRAIN_KERNELS, n), "train --trace-dir")
+    files = list(trace.glob("*.json"))
+    check(len(files) == 1, f"--trace-dir wrote {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    check(device.type != "cuda" or kernels, "the --trace-dir trace holds no CUDA kernel event")
+    metrics = [ln for ln in out.splitlines() if ln.startswith("[train] metrics")]
+    check(bool(metrics), f"train printed no [train] metrics line: {out[-400:]!r}")
+    mfu = float(metrics[-1].rsplit("train_mfu_pct=", 1)[1])
+    check(device.type != "cuda" or mfu > 0, f"train_mfu_pct {mfu} on the card")
+    # a snapshot of the CLI's labformer with a NaN in one block's MLP weight
+    cfg = LabformerConfig(d_model=128, n_heads=8, n_layers=TRAIN_CLI_LAYERS, d_ff=512,
+                          max_seq=seq)
+    bad = 2
+    model = Labformer.from_numpy(init_params(cfg, seed=0), cfg, "cpu")
+    with torch.no_grad():
+        model.blocks[bad].w1[0, 0] = float("nan")
+    poisoned = work / "poisoned"
+    shutil.rmtree(poisoned, ignore_errors=True)
+    ckpt.save(str(poisoned), 0, model)
+    ckpt.write_sidecar(str(poisoned), cfg)
+    msg = cli_raises([*base, "--steps", "1", "--sanitize", "--init-from", str(poisoned)],
+                     FloatingPointError)
+    check(f"blocks.{bad} " in msg and "step 0" in msg, f"--sanitize said {msg!r}")
+    runs = {}
+    for flag in ([], ["--sanitize"]):
+        text = cli([*base, "--steps", str(steps), "--seed", "1", *flag], "")
+        runs[bool(flag)] = ([ln.split(" (")[0] for ln in text.splitlines()
+                             if ln.startswith("[train] step")],
+                            json.loads(text.splitlines()[-1])["loss"])
+    check(runs[True] == runs[False], f"a sanitized run's losses {runs[True]} differ from "
+                                     f"the unsanitized run's {runs[False]}")
+    shutil.rmtree(poisoned, ignore_errors=True)
+    return {"trace_events": len(events), "trace_kernel_events": len(kernels),
+            "metrics_line": metrics[-1], "train_mfu_pct": mfu, "launches": launches,
+            "sanitize_message": msg, "sanitized_losses": runs[True][0]}
+
+
+def run_train_rest(sizes: dict, device, backend: str, card: str) -> dict:
+    """Phase 6e: lion and adafactor card against CPU, remat "none" and
+    "dots" against no remat in bf16, ``--trace-dir``, the ``[train]
+    metrics`` line and ``--sanitize``."""
+    t0 = time.perf_counter()
+    work = WORK / "train_rest"
+    work.mkdir(parents=True, exist_ok=True)
+    out = {name: optimizer_f32(sizes, device, name) for name in ("lion", "adafactor")}
+    for name, row in out.items():
+        print(f"training f32 {name}: losses {row['losses']} (CPU {row['cpu_losses']}, worst "
+              f"relative difference {row['loss_max_rel_err']:.3e})", flush=True)
+    out["bf16"] = remat_runs(sizes, device, card)
+    out["tools"] = train_tools_runs(sizes, device, backend, work)
+    print(f"train tools: {json.dumps(out['tools'])}", flush=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 6e took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+def vision_tree(flat: dict, n_convs: int) -> dict:
+    """A labvision snapshot's path-keyed leaves as ``tpulab``'s tree."""
+    return {"convs": [{"w": flat[f"convs/{i}/w"], "b": flat[f"convs/{i}/b"]}
+                      for i in range(n_convs)],
+            "head": {"w": flat["head/w"], "b": flat["head/b"]}}
+
+
+def run_labvision(sizes: dict, device, backend: str, card: str) -> dict:
+    """Phase 6f: ``tpulab_torch train --model labvision`` through the CLI
+    (the loss falls; the snapshot's accuracy on fresh ``synth_batch`` data
+    is above 0.9); the bench's config in f32 on the card against the CPU
+    (losses within ``TRAIN_LOSS_RTOL``); the ``labvision_train`` row in
+    bf16.  No run launches any of B1-B7."""
+    import shutil
+
+    import torch
+
+    from tpulab_torch import bench, ckpt
+    from tpulab_torch.models import labvision as tlv
+
+    t0 = time.perf_counter()
+    work = WORK / "labvision"
+    shutil.rmtree(work, ignore_errors=True)
+    steps = sizes["vision_cli_steps"]
+    text, launches = counted(
+        lambda: cli(["train", "--backend", backend, "--model", "labvision", "--steps",
+                     str(steps), "--batch", str(sizes["vision_cli_batch"]), "--ckpt-dir",
+                     str(work), "--save-every", str(steps), "--log-every", "10"], ""),
+        device, {}, "train --model labvision")
+    losses = [float(ln.split()[4]) for ln in text.splitlines() if ln.startswith("[train] step")]
+    check(len(losses) >= 2 and all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"labvision CLI losses {losses}")
+    cfg = tlv.LabvisionConfig()
+    model = tlv.Labvision.from_numpy(
+        vision_tree(ckpt.read_params(str(work), steps), len(cfg.channels)), cfg, device)
+    imgs, labels = tlv.synth_batch(cfg, 512, np.random.default_rng(2024))
+    acc = tlv.accuracy(model, imgs, labels)
+    check(acc > 0.9, f"labvision accuracy {acc} on fresh data")
+    shutil.rmtree(work, ignore_errors=True)
+    # f32, card against CPU, at the bench's config
+    f32 = tlv.LabvisionConfig(n_classes=8, img_size=64, channels=(64, 128, 256),
+                              dtype=torch.float32)
+    batch, n = sizes["vision_f32_batch"], sizes["vision_f32_steps"]
+
+    def run(dev):
+        model, state, step = tlv.init_train_state(f32, seed=0, device=dev)
+        rng = np.random.default_rng(7)
+        return [float(step(model, state, *tlv.synth_batch(f32, batch, rng))[2])
+                for _ in range(n)]
+
+    cpu = run("cpu")
+    dev, f32_launches = counted(lambda: run(device), device, {}, "labvision f32")
+    err = max(abs(a - w) / abs(w) for a, w in zip(dev, cpu))
+    check(err <= TRAIN_LOSS_RTOL, f"labvision f32 losses {dev} differ from the CPU's {cpu}")
+    row, row_launches = counted(
+        lambda: bench.bench_labvision_train(b=sizes["vision_bench_batch"],
+                                            reps=sizes["vision_bench_reps"],
+                                            backend=backend), device, {}, "labvision_train")
+    check(row["value"] > 0, f"labvision_train row {row}")
+    out = {"cli_losses": losses, "accuracy": acc, "cli_launches": launches,
+           "f32_losses": dev, "f32_cpu_losses": cpu, "f32_loss_max_rel_err": err,
+           "bench_row": row, "bench_launches": row_launches,
+           "seconds": time.perf_counter() - t0}
+    print(f"labvision: CLI losses {losses[0]} -> {losses[-1]}, accuracy {acc}; f32 card vs "
+          f"CPU worst relative difference {err:.3e}; bench row {json.dumps(row)} ({card})",
+          flush=True)
+    print(f"phase 6f took {out['seconds']:.1f} s", flush=True)
+    return out
 
 
 # ---------------------------------------------------------------- paged path
@@ -3600,7 +3986,8 @@ def fresh_sample(timeout_s: float = 10.0) -> tuple:
 def history_alerts_run(sizes: dict, sock: str, path: str, card: str) -> dict:
     """Phase 12f: the history sampler the daemon started at its default
     1 s cadence has sampled across 12c-12e.  A ``slow_ms`` fault on the
-    ticks of replica 1 of a fresh two-replica fleet drives its
+    ticks of replica 1 of a fresh two-replica fleet (replica 0 held out of
+    placement for the burst; the phase fails if the fault never fires) drives its
     ``replica_degraded`` rule to firing and the replica to SUSPECT (the
     alert's hold) before any crash; the ``history`` request's token rate,
     integrated over a later burst's window, equals the registry's
@@ -3630,12 +4017,26 @@ def history_alerts_run(sizes: dict, sock: str, path: str, card: str) -> dict:
     name = f"fleet{fleet.fid}_replica1_degraded"
     wait_idle(fleet)
     fired, holder = {}, {}
+    # replica 0 takes no placement during the slow burst (cordoned: no
+    # drain-owed rebuild), so every request of it runs on replica 1's slowed
+    # ticks however fast the host finishes each one; placement breaks ties
+    # to the lowest index, and on a fast host each client could otherwise
+    # finish on replica 0 before the next one connects
+    with fleet.cv:
+        fleet.replicas[0].draining = True
     with faults.active([{"site": "paged.tick@replica1", "kind": "slow_ms", "at": 1,
                          "count": sizes["daemon_alert_slow_ticks"], "arg": 250.0}]) as inj:
         th = threading.Thread(target=lambda: holder.update(got=concurrent_generate(
             sock, prompts, {**keys, "steps": steps})))
         t0 = time.monotonic()
         th.start()
+        while not inj.fired():
+            if time.monotonic() - t0 > 60 or not th.is_alive():
+                th.join(timeout=300)
+                td._FLEET_SERVICE.undrain(fleet, 0)
+                fail(f"phase 12f: the slow_ms fault on replica 1's ticks never fired "
+                     f"(fired {inj.fired()}); the burst ran no tick on replica 1")
+            time.sleep(0.02)
         while time.monotonic() - t0 < 60 and not fired:
             st = A.ALERTS.get_state(name)
             if st is not None and st.state == A.FIRING:
@@ -3647,6 +4048,7 @@ def history_alerts_run(sizes: dict, sock: str, path: str, card: str) -> dict:
             time.sleep(0.05)
         th.join(timeout=300)
         slow = inj.fired()
+    td._FLEET_SERVICE.undrain(fleet, 0)
     check(bool(fired), f"{name} never fired ({slow})")
     check(fired["health"] == "suspect" and fired["alert_hold"] and fired["crashes"] == 0,
           f"replica 1 at the alert: {fired}")
@@ -3994,10 +4396,49 @@ def journal_run(sizes: dict, device, backend: str, path: str, model, card: str) 
     return row
 
 
+def daemon_beams_run(sizes: dict, device, sock: str, path: str, model, card: str,
+                     served: list) -> dict:
+    """Phase 12j: a ``beams: 2`` and a ``beams: 1`` request over the
+    snapshot (gather knobs, the default prefill chunk): the bytes equal the
+    in-process ``beam_search`` on the same weights, ``beams: 1`` equals
+    greedy decoding, each raised the daemon's served count, and each ran
+    B4 once per layer of its prefill (the snapshot's ``attn_impl`` is
+    "flash") and no B7 (beam search decodes from the dense cache)."""
+    from tpulab_torch import client
+    from tpulab_torch import daemon as td
+    from tpulab_torch.models import generate as tgen
+    from tpulab_torch.models.beam import beam_search
+
+    steps, prompt = sizes["daemon_beam_steps"], daemon_prompts(sizes, seed=300)[0]
+    ids = np.frombuffer(prompt, np.uint8).astype(np.int32)
+    config = {"ckpt_dir": path, "steps": steps}
+    before = served[0]
+    concurrent_generate(sock, [b"warm up"], {**config, "steps": 2})  # the fleet's build
+    served0 = before + 1
+    wait_served(served, served0)
+    out = {}
+    for beams in (sizes["daemon_beam_width"], 1):
+        got, launches = counted(
+            lambda: client.request(sock, "generate", {**config, "beams": beams}, prompt),
+            device, {"flash_fwd": model.cfg.n_layers}, f"daemon beams {beams}")
+        seq, score = beam_search(model, ids, steps=steps, beams=beams)
+        check(got == bytes(int(t) & 0xFF for t in seq),
+              f"daemon beams {beams}: bytes differ from the in-process beam_search")
+        if beams == 1:
+            greedy = tgen.generate(model, ids[None, :], steps=steps, temperature=0.0)[0]
+            check(got == bytes(int(t) & 0xFF for t in greedy),
+                  "daemon beams 1: bytes differ from greedy decoding")
+        out[f"beams{beams}"] = {"bytes": len(got), "score": score, "launches": launches}
+    wait_served(served, served0 + 2)
+    out["prompt"], out["steps"] = len(prompt), steps
+    print(f"daemon beams: {json.dumps(out)} ({card})", flush=True)
+    return out
+
+
 def run_daemon_path(sizes: dict, device, backend: str, card: str, inp: dict,
                     main: dict) -> dict:
     """Phase 12: the daemon (``tpulab_torch.daemon``) on ``device``; the
-    docstring's 12a-12j.  ``inp`` and ``main`` are phase 2's inputs and
+    docstring's 12a-12k.  ``inp`` and ``main`` are phase 2's inputs and
     outputs (``outs``, ``files``, ``backend``)."""
     from tpulab_torch import client
     from tpulab_torch import daemon as td
@@ -4018,7 +4459,9 @@ def run_daemon_path(sizes: dict, device, backend: str, card: str, inp: dict,
                         ("loadgen", lambda: loadgen_run(sizes, sock, card)),
                         ("history_alerts", lambda: history_alerts_run(sizes, sock, path, card)),
                         ("autoscale", lambda: autoscale_run(sizes, sock, path, card)),
-                        ("pools", lambda: pools_run(sizes, device, sock, path, model, card))):
+                        ("pools", lambda: pools_run(sizes, device, sock, path, model, card)),
+                        ("beams", lambda: daemon_beams_run(sizes, device, sock, path, model,
+                                                           card, served))):
             t1 = time.perf_counter()
             out[key] = fn()
             seconds[key] = time.perf_counter() - t1
@@ -4171,6 +4614,17 @@ FULL_SIZES = {
     "daemon_alert_steps": 16, "daemon_alert_slow_ticks": 40, "daemon_autoscale_chunk": 24,
     "daemon_autoscale_waves": (24, 8), "daemon_autoscale_steps": 32,
     "daemon_autoscale_window_s": 5.0, "daemon_journal_steps": 48,
+    # 12j: a beams-2 and a beams-1 request of 32 tokens
+    "daemon_beam_steps": 32, "daemon_beam_width": 2,
+    # 5e: the serving labformer's beam search over a 1024-token prompt; 6e:
+    # 3 timed bf16 steps a remat policy and optimizer at the training
+    # shape; 6f: the labvision CLI (the default config, 100 steps of 32
+    # images), the bench's config in f32 at batch 32, the bench row
+    # (tpulab/bench.py:178-215) at its batch and reps
+    "beam_prompt": 1024, "beam_steps": 64, "beam_width": 4, "beam_reps": 3,
+    "remat_steps": 3, "vision_cli_steps": 100, "vision_cli_batch": 32,
+    "vision_f32_batch": 32, "vision_f32_steps": 3, "vision_bench_batch": 256,
+    "vision_bench_reps": 10,
 }
 
 
@@ -4201,8 +4655,11 @@ def run(device, sizes: dict, backend: str, card: str = "cpu",
     print(f"phases 2-4 took {time.perf_counter() - t0:.1f} s", flush=True)
     rows["flash_fwd"], model_launches, model = run_model_path(sizes, device, backend, card)
     launches["flash_fwd"] = model_launches["flash_fwd"]
+    model["beam"] = beam_run(sizes, device, card)
     rows["flash_dq"], rows["flash_dkv"], train_launches, model["training"] = run_train_path(
         sizes, device, backend, card, parent)
+    model["training"]["rest"] = run_train_rest(sizes, device, backend, card)
+    model["labvision"] = run_labvision(sizes, device, backend, card)
     launches["flash_dq"] = train_launches["flash_dq"]
     launches["flash_dkv"] = train_launches["flash_dkv"]
     rows["paged_decode"], launches["paged_decode"], model["paged"] = run_paged_path(

@@ -96,6 +96,7 @@ def test_mfu_fields_empty_without_peak_or_flops(monkeypatch):
 ROW_FUNCS = {
     "labformer_fwd": ("bench_labformer", "bench_labformer"),
     "labformer_train": ("bench_labformer_train", "bench_labformer_train"),
+    "labvision_train": ("bench_labvision_train", "bench_labvision_train"),
     "labformer_decode": ("bench_labformer_decode", "bench_labformer_decode"),
     "speculative_decode": ("bench_speculative_decode", "bench_speculative_decode"),
     "paged_engine": ("bench_paged_engine", "bench_paged_engine"),
@@ -151,15 +152,14 @@ def test_registry_holds_tpulabs_model_rows():
         "labformer_decode_gqa2", "speculative_decode", "paged_engine", "paged_tick_overhead",
         "prefill_interleave", "obs_overhead", "journey_overhead", "obs_history_overhead",
         "fault_overhead", "journal_overhead", "autoscale_overhead",
-        "spill_overhead", "handoff_overhead", "prefix_lookup",
+        "spill_overhead", "handoff_overhead", "prefix_lookup", "labvision_train",
         "flash_attention", "flash_attention_8k")
     assert bench.REGISTRY["labformer_decode_int8"].keywords == {"int8": True}
     assert bench.REGISTRY["labformer_decode_gqa2"].keywords == {"kv_heads": 2}
     assert bench.REGISTRY["flash_attention_8k"].keywords == {"s": 8192}
     for name in bench.REGISTRY:  # none is a row tpulab does not have
         assert name in inspect.getsource(jbench.run_benchmarks)
-    for waiting in ("mesh_tick_overhead", "decode_recompiles", "train_step_overhead",
-                    "labvision_train"):
+    for waiting in ("mesh_tick_overhead", "decode_recompiles", "train_step_overhead"):
         assert waiting not in bench.REGISTRY and waiting in bench.__doc__
 
 
@@ -180,6 +180,9 @@ def test_forward_and_train_rows_on_the_cpu():
     assert fwd["unit"] == "tokens/s" and fwd["n_trials"] == 1
     (train,) = _rows("labformer_train", b=1, s=16, reps=1, dtype="float32")
     assert train["metric"] == "labformer_train_b1_s16_float32_tokens_per_s"
+    (vision,) = _rows("labvision_train", b=2, reps=1)
+    assert vision["metric"] == "labvision_train_b2_64x64_images_per_s"
+    assert vision["unit"] == "images/s" and "analytic" in vision["flops_convention"]
 
 
 def test_decode_rows_on_the_cpu():

@@ -995,3 +995,123 @@ def test_generate_ckpt_dir_with_a_bpe_sidecar_launches_b4(cuda_device, tmp_path)
         {"life_gen_steps": 4}, cuda_device, "cuda", tmp_path / "ck", prompt,
         len(tok.encode(prompt.encode())), cfg.n_layers, "test")
     assert "[generate] loaded checkpoint step 5" in out and launches["flash_fwd"] == 2
+
+
+# ------------------------------------------------------------ the rest of training and generation
+
+
+def _beam_model(device, dtype):
+    from tpulab_torch.models.labformer import Labformer, LabformerConfig, init_params
+
+    cfg = LabformerConfig(d_model=128, n_heads=4, n_layers=2, d_ff=256, max_seq=2048,
+                          dtype=dtype)
+    return Labformer.from_numpy(init_params(cfg, seed=0), cfg, device)
+
+
+@pytest.mark.cuda
+def test_beam_search_on_card_matches_the_cpu(cuda_device):
+    """f32 beam search over a 1024-token prompt on the card (B4 once per
+    layer of its prefill) against the port's CPU run: equal beams and
+    totals within chip_smoke's limit until the CPU's first near tie."""
+    from tpulab_torch.models.beam import beam_search
+
+    prompt = np.random.default_rng(3).integers(0, 256, 1024).astype(np.int32)
+    traces = {"cpu": {}, "cuda": {}}
+    beam_search(_beam_model("cpu", torch.float32), prompt, steps=16, beams=4,
+                trace=traces["cpu"])
+    before = flash_attention_with_lse.launches
+    seq, score = beam_search(_beam_model(cuda_device, torch.float32), prompt, steps=16,
+                             beams=4, trace=traces["cuda"])
+    assert flash_attention_with_lse.launches - before == 2
+    assert chip_smoke.beam_equal_until_gap(traces["cpu"], traces["cuda"], "test") >= 1
+    assert seq.shape == (16,) and np.isfinite(score)
+
+
+@pytest.mark.cuda
+def test_beam_search_width_one_is_greedy_on_card(cuda_device):
+    from tpulab_torch.models.beam import beam_search
+    from tpulab_torch.models.generate import generate
+
+    model = _beam_model(cuda_device, torch.bfloat16)
+    prompt = np.random.default_rng(4).integers(0, 256, 1024).astype(np.int32)
+    seq, _ = beam_search(model, prompt, steps=24, beams=1)
+    want = generate(model, prompt[None, :], steps=24, temperature=0.0)[0]
+    np.testing.assert_array_equal(seq, want)
+
+
+@pytest.mark.cuda
+def test_labvision_step_on_card_matches_the_cpu(cuda_device):
+    """Three f32 labvision steps (cuDNN convolutions, none of B1-B7) within
+    chip_smoke's loss limit of the CPU's."""
+    from tpulab_torch.models import labvision as tlv
+
+    cfg = tlv.LabvisionConfig(n_classes=8, img_size=32, channels=(16, 32, 64),
+                              dtype=torch.float32)
+    losses = {}
+    for dev in ("cpu", cuda_device):
+        model, state, step = tlv.init_train_state(cfg, seed=0, device=dev)
+        rng = np.random.default_rng(1)
+        losses[str(dev)] = [float(step(model, state, *tlv.synth_batch(cfg, 16, rng))[2])
+                            for _ in range(3)]
+    np.testing.assert_allclose(losses[str(cuda_device)], losses["cpu"],
+                               rtol=chip_smoke.TRAIN_LOSS_RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["lion", "adafactor"])
+def test_lion_and_adafactor_on_card_match_the_cpu(cuda_device, name):
+    from tpulab_torch.models.labformer import LabformerConfig, init_train_state
+    from tpulab_torch.train import batches, build_optimizer
+
+    cfg = LabformerConfig(d_model=128, n_heads=4, n_layers=2, d_ff=256, max_seq=1024,
+                          dtype=torch.float32)
+    batch_at = batches(256, 1, 1024, 0)
+    losses = {}
+    for dev in ("cpu", cuda_device):
+        opt = build_optimizer(lr=3e-4, steps=3, optimizer=name)
+        model, state, step = init_train_state(cfg, None, seed=0, optimizer=opt, device=dev)
+        losses[str(dev)] = [float(step(model, state, batch_at(i))[2]) for i in range(3)]
+    np.testing.assert_allclose(losses[str(cuda_device)], losses["cpu"],
+                               rtol=chip_smoke.TRAIN_LOSS_RTOL)
+
+
+@pytest.mark.cuda
+def test_remat_dots_is_bit_equal_to_none_on_card(cuda_device):
+    """bf16 at s1024 (B4-B6): remat "dots" and "none" give the losses and
+    gradients of no remat, bit for bit; both run B4 again in the backward."""
+    from tpulab_torch.models.labformer import LabformerConfig, init_train_state
+    from tpulab_torch.train import batches
+
+    tokens = batches(256, 2, 1024, 0)(0)
+    runs = {}
+    for name, kw in (("off", {}), ("none", dict(remat=True)),
+                     ("dots", dict(remat=True, remat_policy="dots"))):
+        cfg = LabformerConfig(d_model=128, n_heads=4, n_layers=2, d_ff=256, max_seq=1024,
+                              dtype=torch.bfloat16, **kw)
+        model, _, _ = init_train_state(cfg, None, seed=0, device=cuda_device)
+        before = flash_attention_with_lse.launches
+        loss = model.loss_fn(tokens)
+        loss.backward()
+        b4 = flash_attention_with_lse.launches - before
+        runs[name] = (loss.detach(), [p.grad.clone() for _, ts in model.trainable_leaves()
+                                      for p in ts], b4)
+    assert runs["off"][2] == 2 and runs["none"][2] == runs["dots"][2] == 4
+    for name in ("none", "dots"):
+        assert torch.equal(runs[name][0], runs["off"][0])
+        assert all(torch.equal(a, b) for a, b in zip(runs[name][1], runs["off"][1])), name
+
+
+@pytest.mark.cuda
+def test_beam_search_loop_does_not_sync(cuda_device):
+    """The search's prefill and step loop run without a host read (the
+    backtrack reads once, after it): no call the CUDA runtime flags as
+    synchronizing."""
+    from tpulab_torch.models.beam import _search
+
+    model = _beam_model(cuda_device, torch.bfloat16)
+    prompt = model.tokens(np.random.default_rng(5).integers(0, 256, (1, 1024)))
+    _search(model, prompt, 8, 4)  # warm-up: the first call builds and caches
+    torch.cuda.synchronize()
+    with chip_smoke.watch_syncs(cuda_device) as syncs:
+        _search(model, prompt, 16, 4)
+    assert not syncs, syncs[0]

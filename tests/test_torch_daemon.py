@@ -309,7 +309,6 @@ def test_drain_undrain_and_hedge(daemons, monkeypatch):
 # ------------------------------------------------------------------ refusals
 
 @pytest.mark.parametrize("header,item", [
-    ({"lab": "generate", "config": {"beams": 2}}, "A9"),
     ({"lab": "generate", "config": {"tp": 2}}, "A12"),
     ({"lab": "generate", "config": {"mesh": "2x1"}}, "A12")])
 def test_unported_requests_name_their_item(header, item):

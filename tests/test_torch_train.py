@@ -161,9 +161,8 @@ def test_remat_equals_no_remat():
 
 
 def test_optimizer_refusals_and_schedules():
-    for name in ("lion", "adafactor"):
-        with pytest.raises(NotImplementedError, match="A8"):
-            ttrain.build_optimizer(lr=1e-3, steps=5, optimizer=name)
+    with pytest.raises(ValueError, match="unknown optimizer"):
+        ttrain.build_optimizer(lr=1e-3, steps=5, optimizer="adam")
     with pytest.raises(ValueError):
         ttrain.build_optimizer(lr=1e-3, steps=5, schedule="linear")
     import optax
@@ -184,8 +183,6 @@ def test_mesh_options_refuse():
     for kw in (dict(zero1=True), dict(zero2=True), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="A12"):
             tlf.make_train_step(cfg, **kw)
-    with pytest.raises(NotImplementedError, match="A8"):
-        tlf.make_train_step(tlf.LabformerConfig(**BASE, remat=True, remat_policy="dots"))
 
 
 # ------------------------------------------------------------ the loop and the CLI
@@ -194,10 +191,11 @@ LOOP = dict(steps=4, batch=2, seq=32, eval_every=2, seed=5)
 
 
 def _lines(text):
-    """The comparable lines: [train] step/[eval]/counters and the JSON
-    (``tpulab``'s ``[train] metrics`` lines wait for the obs port)."""
+    """The comparable lines: [train] step/[eval]/counters/metrics and the
+    JSON."""
     return [ln for ln in text.splitlines()
-            if ln.startswith(("[train] step", "[eval]", "[train] counters", "{"))]
+            if ln.startswith(("[train] step", "[eval]", "[train] counters",
+                              "[train] metrics", "{"))]
 
 
 def _numbers(line):
@@ -210,6 +208,8 @@ def _numbers(line):
         return words[:4], [float(words[4])]
     if line.startswith("[eval]"):
         return words[:4], [float(words[4])]
+    if line.startswith("[train] metrics"):  # host times: the field names only
+        return [w.split("=")[0] for w in words], []
     return words, []
 
 
@@ -251,11 +251,12 @@ def test_train_loop_matches_tpulab_and_overlap_is_equal():
     np.testing.assert_allclose(logs[1][1], jloss, rtol=LOSS_RTOL)
     # overlap only moves when losses are read: the same values, bit for bit
     assert logs[0][1] == logs[1][1]
-    strip = [[ln.split(" (")[0] for ln in logs[o][0] if not ln.startswith("[train] counters")]
-             for o in (0, 1)]
+    strip = [[ln.split(" (")[0] for ln in logs[o][0]
+              if not ln.startswith(("[train] counters", "[train] metrics"))] for o in (0, 1)]
     assert strip[0] == strip[1]
-    assert logs[0][0][-1].endswith("host_syncs=0 steps_per_call=1 overlap=0")
-    assert logs[1][0][-1].endswith("host_syncs=2 steps_per_call=1 overlap=1")
+    counters = [[ln for ln in logs[o][0] if ln.startswith("[train] counters")] for o in (0, 1)]
+    assert counters[0][-1].endswith("host_syncs=0 steps_per_call=1 overlap=0")
+    assert counters[1][-1].endswith("host_syncs=2 steps_per_call=1 overlap=1")
 
 
 def test_inject_fault_fails_fast():
@@ -267,9 +268,7 @@ def test_inject_fault_fails_fast():
 
 UNPORTED = [
     dict(mesh_devices=4), dict(zero1=True), dict(zero2=True), dict(steps_per_call=4),
-    dict(remat=True, remat_policy="dots"), dict(model="labvision"),
-    dict(moe_impl="dispatch", experts=4), dict(trace_dir="trace"), dict(sanitize=True),
-    dict(opt_name="lion"), dict(opt_name="adafactor"),
+    dict(moe_impl="dispatch", experts=4),
 ]
 
 

@@ -19,7 +19,7 @@ the reference suite's RTX A6000 median (``BASELINE.md``) by this row's.
 The model rows: ``labformer_fwd``, ``labformer_train``,
 ``labformer_decode`` (and its ``_int8`` and ``_gqa2`` variants),
 ``speculative_decode``, ``paged_engine``, ``paged_tick_overhead``,
-``prefill_interleave``, the serving layer's overhead rows
+``prefill_interleave``, ``labvision_train``, the serving layer's overhead rows
 (``obs_overhead``, ``journey_overhead``, ``obs_history_overhead``,
 ``fault_overhead``, ``journal_overhead``, ``autoscale_overhead``,
 ``spill_overhead``, ``handoff_overhead``: the two sides of each step in
@@ -36,10 +36,14 @@ Every row says ``"device": "cuda"`` (or ``"cpu"`` where ``backend="cpu"``
 asks for the host) and, on the card, the card's name and power limit as
 ``nvidia-smi --query-gpu=name,power.limit`` gives them.
 
+``labvision_train`` trains the vision model (cuDNN convolutions; none of
+kernels B1-B7) and counts its flops analytically where ``tpulab`` reads
+XLA's cost model.
+
 Rows of ``tpulab``'s registry that wait for a module of their own are not
 registered (``run_benchmarks`` raises rather than turning an error into a
 row): ``mesh_tick_overhead`` (ROADMAP A12); ``decode_recompiles`` and
-``train_step_overhead`` (A13, A8.6); ``labvision_train`` (A8.8).
+``train_step_overhead`` (A13, A8.6).
 """
 
 from __future__ import annotations
@@ -54,7 +58,7 @@ from typing import Any, Dict, Iterator, Optional
 import numpy as np
 import torch
 
-from tpulab_torch.obs.roofline import labformer_fwd_flops, mfu_fields
+from tpulab_torch.obs.roofline import labformer_fwd_flops, labvision_fwd_flops, mfu_fields
 from tpulab_torch.runtime.device import resolve_device
 from tpulab_torch.runtime.timing import measure_call_ms, measure_kernel_ms, summarize_samples
 
@@ -258,6 +262,30 @@ def bench_labformer_train(b: int = 8, s: int = 2048, reps: int = 10, dtype: str 
     return _model_row(f"labformer_train_b{b}_s{s}_{dtype}_tokens_per_s",
                       round(b * s / (ms / 1e3), 1), "tokens/s", device, samples,
                       **mfu_fields(3 * labformer_fwd_flops(cfg, b, s), ms, device))
+
+
+def bench_labvision_train(b: int = 256, reps: int = 10,
+                          backend: Optional[str] = None) -> Dict[str, Any]:
+    """The vision model family's train step (adamw): images/s and MFU.
+    ``LabvisionConfig(n_classes=8, img_size=64, channels=(64, 128, 256))``
+    at batch ``b``, bf16 on the card.  ``tpulab`` takes its flops from
+    XLA's cost model; the port counts them analytically (``flops_convention``):
+    3x the forward's convolution and head flops.  CUDA events around each
+    step (3 warm-up steps), the median; the batch is staged once."""
+    from tpulab_torch.models.labvision import LabvisionConfig, init_train_state, synth_batch
+
+    device = resolve_device(backend)
+    cfg = LabvisionConfig(n_classes=8, img_size=64, channels=(64, 128, 256))
+    model, opt_state, step = init_train_state(cfg, seed=0, device=device)
+    imgs, labels = synth_batch(cfg, b, np.random.default_rng(0))
+    imgs, labels = torch.from_numpy(imgs).to(device), torch.from_numpy(labels).to(device)
+    samples: list = []
+    ms, _ = measure_call_ms(lambda: step(model, opt_state, imgs, labels)[2], device=device,
+                            reps=reps, warmup=3, collect=samples)
+    return _model_row(f"labvision_train_b{b}_64x64_images_per_s",
+                      round(b / (ms / 1e3), 1), "images/s", device, samples,
+                      flops_convention="analytic: 3x the forward's convolutions and head",
+                      **mfu_fields(3 * labvision_fwd_flops(cfg, b), ms, device))
 
 
 def bench_labformer_decode(b: int = 8, steps: int = 128, reps: int = 3, dtype: str = "bfloat16",
@@ -1143,6 +1171,7 @@ REGISTRY = {
     "spill_overhead": bench_spill_overhead,
     "handoff_overhead": bench_handoff_overhead,
     "prefix_lookup": bench_prefix_lookup,
+    "labvision_train": bench_labvision_train,
     "lab2_roberts_1024": bench_lab2,
     "lab3_classify_1024": bench_lab3,
     "hw2_sort": bench_sort,

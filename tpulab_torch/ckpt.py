@@ -16,10 +16,12 @@ Layout of a checkpoint directory::
 ``state.pt`` is read with ``torch.load(weights_only=True)``.  Parameters are
 keyed by ``tpulab``'s parameter-tree paths (``embed``, ``final_norm``,
 ``blocks/wq``, ...; a per-layer leaf stacked on axis 0, as
-:meth:`Labformer.to_tree` gives it), never by a leaf's position.  The
+:meth:`Labformer.to_tree` gives it; labvision's ``convs/0/w``, ``head/b``,
+... with HWIO conv weights), never by a leaf's position.  The
 optimizer state keeps its nesting (``optim.chain``'s lists, each
 transform's dict); every per-leaf list in it (adam's ``mu`` and ``nu``,
-the momentum trace) becomes a dict keyed by the same paths, and the host
+the momentum trace, lion's ``mu``) becomes a dict keyed by the same paths
+(adafactor keys its statistics by path already), and the host
 counters (``count`` of ``scale_by_adam`` and ``scale_by_learning_rate``)
 go in as they are, so a resumed schedule carries on where it stopped.
 
@@ -87,12 +89,6 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 
 # ------------------------------------------------------------ encoding
-
-
-def param_keys(model) -> List[Tuple[str, int]]:
-    """``(path, tensor count)`` of each trainable leaf, in ``_flat(model)``'s
-    order: a per-layer leaf holds one tensor per layer."""
-    return [(name, len(ts)) for name, ts in model.trainable_leaves()]
 
 
 def _tree_paths(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -187,9 +183,9 @@ def save(ckpt_dir: str, step: int, model, opt_state=None,
     """Write ``<ckpt_dir>/<step>/`` from the model's parameters (all of
     them, frozen base leaves included) and ``opt_state``; keep the newest
     ``max_to_keep`` snapshots.  Returns the bytes written."""
-    from tpulab_torch.models.labformer import _flat
+    from tpulab_torch.models.labformer import _flat, _leaf_sizes
 
-    layout = param_keys(model)
+    layout = _leaf_sizes(model)
     state = {"params": _tree_paths(model.to_tree()), "step": int(step)}
     if opt_state is not None:
         state["opt_state"] = _encode(opt_state, layout, len(_flat(model)))
@@ -227,27 +223,24 @@ def restore(ckpt_dir: str, step: int, model, opt_state=None) -> None:
     """Load snapshot ``step`` into the live model's parameters and into
     ``opt_state``, in place: the parameters keep their identity (and the
     ``train_step`` closure its model), the state its lists and dicts."""
-    from tpulab_torch.models.labformer import _flat
+    from tpulab_torch.models.labformer import _flat, _leaf_sizes
 
     state = _load(ckpt_dir, step)
     saved = state["params"]
-    live = {*model.top.names, *(f"blocks/{n}" for n in model.blocks[0].names)}
-    if set(saved) != live:
+    live = dict(model.named_leaves())
+    if set(saved) != set(live):
         raise ValueError(f"snapshot {step} holds leaves {sorted(saved)}; the model has "
                          f"{sorted(live)}")
     with torch.no_grad():
-        for name in model.top.names:
-            p = getattr(model.top, name)
-            p.copy_(_take(saved[name], p, name))
-        for name in model.blocks[0].names:
-            stacked = saved[f"blocks/{name}"]
-            for i, blk in enumerate(model.blocks):
-                p = getattr(blk, name)
-                p.copy_(_take(stacked[i], p, f"blocks/{name}"))
+        for name, ts in live.items():
+            for i, p in enumerate(ts):
+                p.copy_(_take(saved[name][i] if name.startswith("blocks/") else saved[name],
+                              p, name))
     if opt_state is not None:
         if "opt_state" not in state:
             raise ValueError(f"snapshot {step} in {ckpt_dir} holds no optimizer state")
-        _decode_into(opt_state, state["opt_state"], param_keys(model), len(_flat(model)), "")
+        _decode_into(opt_state, state["opt_state"], _leaf_sizes(model), len(_flat(model)),
+                     "")
 
 
 def read_params(ckpt_dir: str, step: int) -> Dict[str, Any]:

@@ -3,10 +3,12 @@
 Subcommands:
     tpulab_torch info              device introspection (gpu_info)
     tpulab_torch run <workload>    run a workload over the stdin/stdout protocol
-    tpulab_torch generate          sample from the labformer (demo weights or --ckpt-dir)
+    tpulab_torch generate          sample or beam-search the labformer (demo weights or
+                                   --ckpt-dir)
     tpulab_torch daemon            the warm-runtime serving daemon (tpulab_torch.daemon)
-    tpulab_torch train             train the labformer (flash backward: kernels B5, B6),
-                                   with checkpoints, resume, recover and --init-from
+    tpulab_torch train             train the labformer (flash backward: kernels B5, B6)
+                                   or labvision (--model), with checkpoints, resume,
+                                   recover and --init-from
     tpulab_torch tokenizer         train / inspect a BPE tokenizer
     tpulab_torch eval              held-out loss, perplexity and bits per byte of a checkpoint
     tpulab_torch distill           compress a checkpoint into a smaller servable student

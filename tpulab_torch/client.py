@@ -24,6 +24,7 @@ import shutil
 import socket
 import struct
 import subprocess
+import time
 from typing import Callable, Optional
 
 SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "client" / "tpulab_client.cpp"
@@ -43,7 +44,18 @@ def request(sock_path: str, lab: str, config: Optional[dict] = None, payload: by
                          "config": config or {}}).encode()
     with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
         s.settimeout(TIMEOUT_S)
-        s.connect(sock_path)
+        deadline = time.monotonic() + TIMEOUT_S
+        while True:
+            try:
+                s.connect(sock_path)
+                break
+            except BlockingIOError:
+                # the daemon's listen backlog is full (a burst of clients
+                # ahead of its accept loop): a socket with a timeout is
+                # non-blocking, so wait for room as a blocking connect would
+                if time.monotonic() > deadline:
+                    raise
+                time.sleep(0.01)
         s.sendall(struct.pack("<I", len(header)) + header
                   + struct.pack("<Q", len(payload)) + bytes(payload))
 

@@ -56,8 +56,10 @@ and replays incomplete requests on restart, resumable by rid;
 ladder on the sampler tick; ``--pool-spec prefill=N,decode=M`` splits
 the fleet into prefill and decode pools joined by the KV handoff.
 
-Refused, naming the ROADMAP item: ``--mesh``, ``tp`` above 1 (A12);
-``beams`` (A9).
+A ``beams`` request runs beam search on a replica's model outside the
+batching engine, one at a time (``_SPEC_LOCK``), and answers unstreamed.
+
+Refused, naming the ROADMAP item: ``--mesh``, ``tp`` above 1 (A12).
 
 Run: ``python -m tpulab_torch.daemon --socket /tmp/tpulab.sock``
 (``--backend cpu`` to serve on the host; the card otherwise, with no
@@ -443,6 +445,11 @@ class PoolRebuildingError(RebuildingError):
 #: speculative request a replica serves; weak keys die with the engine
 _DRAFTS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 _DRAFT_BUILD_LOCK = threading.Lock()
+
+#: serializes beam search, the one host-orchestrated single-stream
+#: strategy left (many small dispatches; two at once thrash the card's
+#: queue); speculative decoding rides the engine's batched verify ticks
+_SPEC_LOCK = threading.Lock()
 
 
 def _draft_for(engine):
@@ -2202,7 +2209,8 @@ def _handle_generate(header: dict, payload: bytes,
     through the shared engine's verify ticks — ``deadline_ms``
     (queue-wait shedding: a ``shed retry_after_ms=N`` error frame),
     ``priority`` (KV-pressure preemption rank), ``tag`` (echoed in the
-    slow log) and ``hedge_ms``.  ``beams`` (ROADMAP A9), ``tp`` above 1
+    slow log), ``hedge_ms`` and ``beams`` (beam search of that width,
+    outside the engine under ``_SPEC_LOCK``, unstreamed).  ``tp`` above 1
     and ``mesh`` (A12) raise, naming their item."""
     import numpy as np
 
@@ -2257,8 +2265,12 @@ def _handle_generate(header: dict, payload: bytes,
         raise ValueError(
             f"prefill_chunk must be >= 0 (0 = whole-prompt dense "
             f"oracle path), got {prefill_chunk}")
-    if int(config.get("beams", 0)):
-        raise _unported("beam search (beams)", "A9")
+    beams = int(config.get("beams", 0))
+    deterministic_combo = (
+        float(config.get("temperature", 0.0)) != 0.0
+        or float(config.get("repetition_penalty", 1.0)) != 1.0
+        or bool(config.get("stream"))
+    )
     # config-only errors: reject before a cold engine build is paid.
     # Speculation rides the engine's verify ticks; sampling refuses it
     # (a sampled slot would silently fall back to single-token ticks)
@@ -2272,6 +2284,14 @@ def _handle_generate(header: dict, payload: bytes,
         raise ValueError(
             "prompt_lookup decoding is greedy: drop "
             "temperature/speculative")
+    if beams and (deterministic_combo or bool(config.get("speculative"))
+                  or bool(config.get("prompt_lookup")) or stop_byte >= 0):
+        raise ValueError(
+            "beam search is deterministic and unstreamed: drop "
+            "temperature/repetition_penalty/stream/speculative/"
+            "prompt_lookup/stop_byte")
+    if beams < 0:
+        raise ValueError(f"beams must be >= 0, got {beams}")
     spec_mode = "off"
     spec_k = 0
     spec_ngram = 0
@@ -2328,6 +2348,25 @@ def _handle_generate(header: dict, payload: bytes,
         # tokens, and the stop byte is found in the decoded stream
         prompt = np.asarray(tok.encode(bytes(payload)), np.int32)
         eng_stop = -1
+    if beams:
+        # beam search: a cache-reordering loop with a host backtrack,
+        # served outside the batching engine on the engine's model,
+        # serialized on its own lock; beams=1 is exactly greedy
+        if beams > engine.cfg.vocab:
+            raise ValueError(
+                f"beams={beams} > vocab {engine.cfg.vocab}")
+        if len(prompt) + steps > _SERVE_MAX_SEQ:
+            raise ValueError(
+                f"prompt + steps = {len(prompt) + steps} exceeds the "
+                f"daemon serving cap {_SERVE_MAX_SEQ}")
+        from tpulab_torch.models.beam import beam_search
+
+        with _SPEC_LOCK:
+            seq, _ = beam_search(engine.model, prompt, steps=steps, beams=beams)
+        toks = [int(t) for t in seq]
+        if tok is None:
+            return bytes(t & 0xFF for t in toks)
+        return tok.decode(toks)
     if spec_mode == "draft" and engine.cfg.n_experts:
         raise ValueError(
             "speculative decoding needs an int8 draft; MoE "

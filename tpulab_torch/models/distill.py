@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from tpulab_torch import optim
-from tpulab_torch.models.labformer import Labformer, LabformerConfig, _flat, init_params
+from tpulab_torch.models.labformer import (Labformer, LabformerConfig, _flat, _leaf_sizes,
+                                            init_params)
 
 
 def distill_loss_fn(student: Labformer, tokens: torch.Tensor, teacher_logits: torch.Tensor,
@@ -89,7 +90,7 @@ def distill(teacher_params, teacher_cfg: LabformerConfig, student_cfg: Labformer
                                            temperature=temperature, alpha=alpha)
     student = Labformer.from_numpy(init_params(student_cfg, seed=seed), student_cfg,
                                    teacher.device, trainable=True)
-    opt_state = optimizer.init(_flat(student))
+    opt_state = optimizer.init(_flat(student), _leaf_sizes(student))
     batch_at = batch_at or batches(student_cfg.vocab, batch, seq, seed)
     loss = float("nan")
     for i in range(steps):

@@ -363,6 +363,9 @@ def main(argv=None) -> int:
                          "proposals from the committed sequence (lossless)")
     ap.add_argument("--lookup-ngram", type=int, default=3,
                     help="n-gram length the lookup proposer matches")
+    ap.add_argument("--beams", type=int, default=0,
+                    help="beam search width (0 = off; deterministic, exclusive with "
+                         "sampling, --speculative and --prompt-lookup)")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.backend)
@@ -422,7 +425,17 @@ def main(argv=None) -> int:
     raw = args.prompt.encode("utf-8")
     prompt = (tok.encode(raw)[None, :] if tok is not None
               else np.frombuffer(raw, np.uint8)[None, :]).astype(np.int32)
-    if args.prompt_lookup:
+    if args.beams:
+        refuse_sampling_flags("--beams", "speculative", "prompt-lookup")
+        if not 1 <= args.beams <= cfg.vocab:
+            raise SystemExit(
+                f"--beams must be in [1, {cfg.vocab}] (vocab size), got {args.beams}")
+        from tpulab_torch.models.beam import beam_search
+
+        seq, score = beam_search(model, prompt[0], steps=args.steps, beams=args.beams)
+        print(f"[beam] width {args.beams}, total log-prob {score:.3f}", file=sys.stderr)
+        out = seq[None, :]
+    elif args.prompt_lookup:
         refuse_sampling_flags("--prompt-lookup", "speculative")
         if args.draft_k < 1:
             raise SystemExit(f"--draft-k must be >= 1, got {args.draft_k}")

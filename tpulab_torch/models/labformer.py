@@ -19,7 +19,9 @@ Flash's gradient is kernels B5 and B6 (``ops/cuda/attention.py``).
 Training (:func:`make_train_step`, :func:`init_train_state`) follows
 ``tpulab``'s: the loss's gradient (averaged over ``accum`` microbatches),
 then the optimizer stack of :mod:`tpulab_torch.optim`, which reproduces
-optax.  The port updates the module's parameters and the optimizer state
+optax.  ``cfg.remat`` recomputes each block in the backward
+(``torch.utils.checkpoint``); policy ``"dots"`` keeps the block's weight
+products (:func:`_remat_context`).  The port updates the module's parameters and the optimizer state
 in place where ``tpulab`` returns new trees.
 
 What needs a mesh (sequence parallelism, the all_to_all MoE dispatch,
@@ -313,14 +315,17 @@ class Labformer(nn.Module):
         ``"cpu"``)."""
         return cls(params, cfg, device, trainable)
 
-    def trainable_leaves(self) -> List[Tuple[str, List[torch.Tensor]]]:
-        """``(name, tensors)`` of every leaf that requires grad, in the
-        order of ``tpulab``'s flattened tree (blocks by name, then the top
-        leaves); a per-layer leaf holds one tensor per layer."""
+    def named_leaves(self) -> List[Tuple[str, list]]:
+        """``(name, tensors)`` of every leaf, in the order of ``tpulab``'s
+        flattened tree (blocks by name, then the top leaves); a per-layer
+        leaf holds one tensor per layer."""
         leaves = [(f"blocks/{name}", [getattr(blk, name) for blk in self.blocks])
                   for name in sorted(self.blocks[0].names)]
-        leaves += [(name, [getattr(self.top, name)]) for name in sorted(self.top.names)]
-        return [(name, ts) for name, ts in leaves
+        return leaves + [(name, [getattr(self.top, name)]) for name in sorted(self.top.names)]
+
+    def trainable_leaves(self) -> List[Tuple[str, List[torch.Tensor]]]:
+        """:meth:`named_leaves` that require grad."""
+        return [(name, ts) for name, ts in self.named_leaves()
                 if isinstance(ts[0], torch.Tensor) and ts[0].requires_grad]
 
     def to_tree(self, grads: bool = False) -> Dict[str, Any]:
@@ -398,8 +403,9 @@ class Labformer(nn.Module):
         auxes, loads = [], []
         remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            if remat:  # keep only the block's input; recompute the rest in the backward
-                x, (aux, load) = checkpoint(blk, x, self.cfg, positions, use_reentrant=False)
+            if remat:  # keep the block's input (and its products under "dots"); recompute the rest
+                x, (aux, load) = checkpoint(blk, x, self.cfg, positions, use_reentrant=False,
+                                            **_remat_context(self.cfg.remat_policy))
             else:
                 x, (aux, load) = blk(x, self.cfg, positions)
             auxes.append(aux)
@@ -442,14 +448,44 @@ def _refuse_mesh_options(cfg: LabformerConfig, mesh, zero1: bool, zero2: bool) -
         raise NotImplementedError(
             "mesh training (sp, ZeRO-1/2, dispatch MoE) waits for the port's "
             "multi-device tier (ROADMAP A12); train on one device with mesh=None")
-    if cfg.remat and cfg.remat_policy == "dots":
-        raise NotImplementedError(
-            "remat_policy='dots' (keep the matmul outputs, recompute the rest) is "
-            "queued in ROADMAP A8.7; the port rematerializes with policy 'none'")
 
 
-def _flat(model: Labformer) -> List[torch.Tensor]:
+#: the products remat "dots" keeps: 2-D matmuls, which is what the block's
+#: weight products (``x @ w``, ``qmat``) dispatch to.  A batched product
+#: (``bmm``: the dense path's scores) is recomputed, as
+#: ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable`` leaves it
+_DOTS_SAVED = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS_SAVED
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_context(policy: str) -> Dict[str, Any]:
+    """``checkpoint``'s keyword for a remat policy: none for ``"none"``
+    (only the block's input is kept); under ``"dots"`` a selective
+    checkpoint that keeps the weight products' outputs and recomputes the
+    rest, attention (kernel B4) included, as ``tpulab``'s
+    ``jax.checkpoint(policy=dots_with_no_batch_dims_saveable)`` does."""
+    if policy != "dots":
+        return {}
+    from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+    return {"context_fn": functools.partial(create_selective_checkpoint_contexts,
+                                            _dots_policy)}
+
+
+def _flat(model) -> List[torch.Tensor]:
     return [t for _, ts in model.trainable_leaves() for t in ts]
+
+
+def _leaf_sizes(model) -> List[Tuple[str, int]]:
+    """``(path, tensor count)`` of each trainable leaf: the optimizer's
+    ``leaves`` (a per-layer leaf is one block of statistics)."""
+    return [(name, len(ts)) for name, ts in model.trainable_leaves()]
 
 
 def _accum_backward(model: Labformer, tokens: torch.Tensor, accum: int,
@@ -514,7 +550,7 @@ def init_train_state(cfg: LabformerConfig, mesh=None, seed: int = 0,
     step of :func:`make_train_step`."""
     optimizer, step = make_train_step(cfg, mesh, optimizer, accum, zero1, zero2)
     model = Labformer.from_numpy(init_params(cfg, seed), cfg, device, trainable=True)
-    return model, optimizer.init(_flat(model)), step
+    return model, optimizer.init(_flat(model), _leaf_sizes(model)), step
 
 
 # ------------------------------------------------------------ layers

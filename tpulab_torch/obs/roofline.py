@@ -3,6 +3,7 @@
 * :func:`labformer_fwd_flops` / :func:`per_token_flops`: analytic matmul
   flops of the labformer (projections, MLP, logits, the attention
   contractions; a multiply-add is 2), ``tpulab``'s convention;
+  :func:`labvision_fwd_flops`: the labvision CNN's convolutions and head;
 * :func:`device_peaks`: the peak bf16 rate and memory rate of the card,
   keyed on its name.  Only the H100 SXM (its name holds "H100" and
   "HBM3") has figures here: 989 TFLOP/s dense bf16 on the tensor cores
@@ -60,6 +61,18 @@ def labformer_fwd_flops(cfg, b: int, s: int, causal: bool = True) -> int:
     if causal:
         attn //= 2
     return b * (s * per_tok + attn)
+
+
+def labvision_fwd_flops(cfg, b: int) -> int:
+    """Analytic flops of one labvision forward over ``b`` images: the 3x3
+    stride-2 convolutions at their SAME output sides and the head (a
+    multiply-add is 2).  ``tpulab`` reads XLA's cost model instead."""
+    flops, side, c_in = 0, cfg.img_size, 3
+    for c_out in cfg.channels:
+        side = -(-side // 2)
+        flops += 2 * side * side * 9 * c_in * c_out
+        c_in = c_out
+    return b * (flops + 2 * c_in * cfg.n_classes)
 
 
 def per_token_flops(cfg) -> int:

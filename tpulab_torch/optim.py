@@ -11,8 +11,13 @@ the norm alone); and optax's schedules start from update count 0, so a
 warmup run's first update has learning rate 0.
 
 A :class:`Transform` is optax's ``GradientTransformation`` over a list of
-tensors: ``init(params)`` makes its state, ``update(updates, state,
+tensors: ``init(params, leaves)`` makes its state, ``update(updates, state,
 params)`` returns the transformed updates and advances the state in place.
+``leaves`` is the model's ``(path, tensor count)`` list (a per-layer leaf
+holds one tensor per layer; ``None``: every tensor is a leaf of its own):
+optax takes a block's statistics over the whole leaf, so adafactor's
+factored second moment, its clipping RMS and its parameter scale are
+taken over the stacked ``(L, ...)`` leaf, as ``tpulab``'s tree holds it.
 Each operation is optax's, in its order and dtype: a Python scalar is
 rounded to the tensor's dtype first (optax's weak-typed scalars), moments
 keep the parameter's dtype (``mu_dtype=None``), bias corrections are
@@ -27,7 +32,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Any, Callable, List, NamedTuple, Union
+from typing import Any, Callable, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -36,7 +41,7 @@ Schedule = Union[float, Callable[[int], float]]
 
 
 class Transform(NamedTuple):
-    init: Callable[[List[torch.Tensor]], Any]
+    init: Callable[..., Any]  # (params, leaves=None) -> state
     update: Callable[[List[torch.Tensor], Any, List[torch.Tensor]], List[torch.Tensor]]
 
 
@@ -51,8 +56,8 @@ def _scalar(x: float, like: torch.Tensor) -> float:
 
 
 def chain(*transforms: Transform) -> Transform:
-    def init(params):
-        return [t.init(params) for t in transforms]
+    def init(params, leaves=None):
+        return [t.init(params, leaves) for t in transforms]
 
     def update(updates, state, params):
         for t, st in zip(transforms, state):
@@ -62,7 +67,7 @@ def chain(*transforms: Transform) -> Transform:
     return Transform(init, update)
 
 
-def _no_state(params):
+def _no_state(params, leaves=None):
     return None
 
 
@@ -80,7 +85,7 @@ def clip_by_global_norm(max_norm: float) -> Transform:
 
 
 def scale_by_adam(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8) -> Transform:
-    def init(params):
+    def init(params, leaves=None):
         return {"count": 0, "mu": [torch.zeros_like(p) for p in params],
                 "nu": [torch.zeros_like(p) for p in params]}
 
@@ -110,7 +115,7 @@ def add_decayed_weights(weight_decay: float) -> Transform:
 def trace(decay: float) -> Transform:
     """Momentum (``optax.trace``, not Nesterov): ``t = g + decay * t``."""
 
-    def init(params):
+    def init(params, leaves=None):
         return [torch.zeros_like(p) for p in params]
 
     def update(updates, state, params):
@@ -121,16 +126,174 @@ def trace(decay: float) -> Transform:
     return Transform(init, update)
 
 
-def scale_by_learning_rate(learning_rate: Schedule) -> Transform:
-    """Multiply by ``-lr``, a schedule evaluated at the update count from 0."""
+def scale_by_learning_rate(learning_rate: Schedule, flip_sign: bool = True) -> Transform:
+    """Multiply by ``-lr`` (``lr`` with ``flip_sign=False``), a schedule
+    evaluated at the update count from 0."""
+    sign = -1.0 if flip_sign else 1.0
 
-    def init(params):
+    def init(params, leaves=None):
         return {"count": 0}
 
     def update(updates, state, params):
         lr = learning_rate(state["count"]) if callable(learning_rate) else learning_rate
         state["count"] += 1
-        return [u * _scalar(-lr, u) for u in updates]
+        return [u * _scalar(sign * lr, u) for u in updates]
+
+    return Transform(init, update)
+
+
+def scale(step_size: float) -> Transform:
+    """``optax.scale``: multiply by a constant."""
+
+    def update(updates, state, params):
+        return [u * _scalar(step_size, u) for u in updates]
+
+    return Transform(_no_state, update)
+
+
+def scale_by_lion(b1: float = 0.9, b2: float = 0.99) -> Transform:
+    """``optax.scale_by_lion``: the sign of ``(1 - b1) g + b1 m``, then the
+    moment ``m = (1 - b2) g + b2 m``, in the parameter's dtype."""
+
+    def init(params, leaves=None):
+        return {"count": 0, "mu": [torch.zeros_like(p) for p in params]}
+
+    def update(updates, state, params):
+        state["count"] += 1
+        out = []
+        for i, g in enumerate(updates):
+            mu = state["mu"][i]
+            out.append(torch.sign(g * _scalar(1 - b1, g) + mu * _scalar(b1, g)))
+            state["mu"][i] = g * _scalar(1 - b2, g) + mu * _scalar(b2, g)
+        return out
+
+    return Transform(init, update)
+
+
+def _groups(params, leaves) -> List[Tuple[str, int, int]]:
+    """``(path, first tensor, tensor count)`` of each leaf over the flat list."""
+    if leaves is None:
+        return [(str(i), i, 1) for i in range(len(params))]
+    out, i = [], 0
+    for name, n in leaves:
+        out.append((name, i, n))
+        i += n
+    if i != len(params):
+        raise ValueError(f"leaves cover {i} tensors; the optimizer was given {len(params)}")
+    return out
+
+
+def _leaf_rms(ts: List[torch.Tensor]) -> torch.Tensor:
+    """``sqrt(mean(x * x))`` over every tensor of a leaf (a device scalar in
+    the leaf's dtype; the sum in float32, as ``jnp.mean`` sums)."""
+    total = sum((t * t).float().sum() for t in ts)
+    n = sum(t.numel() for t in ts)
+    return torch.sqrt((total / n).to(ts[0].dtype))
+
+
+def _factored_dims(shape, min_dim_size_to_factor: int) -> Optional[Tuple[int, int]]:
+    """optax's ``_factored_dims``: the two largest axes, when the smaller of
+    them is at least ``min_dim_size_to_factor``."""
+    if len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < min_dim_size_to_factor:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
+def scale_by_factored_rms(decay_rate: float = 0.8, min_dim_size_to_factor: int = 128,
+                          eps: float = 1e-30) -> Transform:
+    """``optax.scale_by_factored_rms`` (``factored=True``), on the stacked
+    leaf: a leaf whose two largest axes reach ``min_dim_size_to_factor``
+    keeps row and column means of ``g^2 + eps``, any other a full second
+    moment; the decay is ``1 - (step + 1)^-0.8`` in float32."""
+
+    def init(params, leaves=None):
+        state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
+        for name, i, n in _groups(params, leaves):
+            p = params[i]
+            shape = ((n,) if n > 1 else ()) + tuple(p.shape)
+            dims = _factored_dims(shape, min_dim_size_to_factor)
+            kw = {"dtype": p.dtype, "device": p.device}
+            if dims is not None:
+                d1, d0 = dims
+                state["v_row"][name] = torch.zeros(np.delete(shape, d0).tolist(), **kw)
+                state["v_col"][name] = torch.zeros(np.delete(shape, d1).tolist(), **kw)
+            else:
+                state["v"][name] = torch.zeros(shape, **kw)
+        state["leaves"] = [[name, n] for name, _, n in _groups(params, leaves)]
+        return state
+
+    def update(updates, state, params):
+        t = np.float32(state["count"] + 1)
+        decay = np.float32(1.0) - t ** np.float32(-decay_rate)
+        keep, take = float(decay), float(np.float32(1.0) - decay)
+        state["count"] += 1
+        out: List[torch.Tensor] = []
+        i = 0
+        for name, n in state["leaves"]:
+            # the leaf as tpulab's tree holds it: per-layer tensors stacked
+            g = torch.stack(updates[i:i + n]) if n > 1 else updates[i]
+            i += n
+            dt = g.dtype
+            g_sqr = g * g + _scalar(eps, g)
+            if name in state["v_row"]:
+                d1, d0 = _factored_dims(tuple(g.shape), min_dim_size_to_factor)
+                # float32 like the decay (optax's strongly typed scalar)
+                v_row = (state["v_row"][name].float() * keep
+                         + g_sqr.mean(dim=d0).float() * take).to(dt)
+                v_col = (state["v_col"][name].float() * keep
+                         + g_sqr.mean(dim=d1).float() * take).to(dt)
+                state["v_row"][name], state["v_col"][name] = v_row, v_col
+                reduced_d1 = d1 - 1 if d1 > d0 else d1
+                row_factor = torch.rsqrt(v_row / v_row.mean(dim=reduced_d1, keepdim=True))
+                u = g * row_factor.unsqueeze(d0) * torch.rsqrt(v_col).unsqueeze(d1)
+            else:
+                v = (state["v"][name].float() * keep + g_sqr.float() * take).to(dt)
+                state["v"][name] = v
+                u = g * torch.rsqrt(v)
+            out.extend(u.unbind(0) if n > 1 else [u])
+        return out
+
+    return Transform(init, update)
+
+
+def clip_by_block_rms(threshold: float) -> Transform:
+    """``optax.clip_by_block_rms``: divide each leaf's update by
+    ``max(1, rms / threshold)``, its RMS over the whole leaf."""
+
+    def init(params, leaves=None):
+        return {"leaves": [[name, n] for name, _, n in _groups(params, leaves)]}
+
+    def update(updates, state, params):
+        out, i = [], 0
+        for _, n in state["leaves"]:
+            ts = updates[i:i + n]
+            i += n
+            denom = torch.clamp(_leaf_rms(ts) / _scalar(threshold, ts[0]), min=1.0)
+            out.extend(u / denom for u in ts)
+        return out
+
+    return Transform(init, update)
+
+
+def scale_by_param_block_rms(min_scale: float = 1e-3) -> Transform:
+    """``optax.scale_by_param_block_rms``: times the parameter leaf's RMS,
+    floored at ``min_scale`` (``numerics.safe_root_mean_squares``)."""
+
+    def init(params, leaves=None):
+        return {"leaves": [[name, n] for name, _, n in _groups(params, leaves)]}
+
+    def update(updates, state, params):
+        out, i = [], 0
+        for _, n in state["leaves"]:
+            rms = _leaf_rms(params[i:i + n])
+            floor = _scalar(min_scale, rms)
+            factor = torch.where(rms <= floor, torch.full_like(rms, floor), rms)
+            out.extend(u * factor.to(u.dtype) for u in updates[i:i + n])
+            i += n
+        return out
 
     return Transform(init, update)
 
@@ -145,6 +308,22 @@ def adamw(learning_rate: Schedule) -> Transform:
 def sgd(learning_rate: Schedule, momentum: float) -> Transform:
     """``optax.sgd`` with (non-Nesterov) momentum."""
     return chain(trace(momentum), scale_by_learning_rate(learning_rate))
+
+
+def lion(learning_rate: Schedule) -> Transform:
+    """``optax.lion`` with its defaults: b1 0.9, b2 0.99, weight decay 1e-3."""
+    return chain(scale_by_lion(), add_decayed_weights(1e-3),
+                 scale_by_learning_rate(learning_rate))
+
+
+def adafactor(learning_rate: Schedule) -> Transform:
+    """``optax.adafactor(learning_rate=...)`` with its defaults, in optax's
+    order (``alias.py``): the factored RMS scaling, block-RMS clipping at 1,
+    the learning rate, the parameter's block RMS (floor 1e-3), then
+    ``scale(-1)``; no momentum and no weight decay."""
+    return chain(scale_by_factored_rms(), clip_by_block_rms(1.0),
+                 scale_by_learning_rate(learning_rate, flip_sign=False),
+                 scale_by_param_block_rms(), scale(-1.0))
 
 
 @torch.no_grad()

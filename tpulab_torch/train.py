@@ -1,10 +1,16 @@
-"""Training loop for the labformer on one device (the counterpart of
-``tpulab.train``).
+"""Training loop on one device (the counterpart of ``tpulab.train``).
 
-``python -m tpulab_torch train`` runs :func:`main`; the step is
+``python -m tpulab_torch train`` runs :func:`main`.  ``model="labformer"``
+(the default) trains the byte LM with
 :func:`tpulab_torch.models.labformer.make_train_step`, whose flash
 attention runs kernels B4, B5 and B6 on the card (``--backend cuda``, the
-default) and their plain versions on the host (``--backend cpu``).
+default) and their plain versions on the host (``--backend cpu``);
+``remat_policy="dots"`` keeps each block's weight products and recomputes
+the rest.  ``model="labvision"`` trains the CNN of
+:mod:`tpulab_torch.models.labvision` on its synthetic lab3 colour-class
+task (cuDNN convolutions, none of B1-B7).  The optimizers are adamw,
+lion, adafactor and sgd of :mod:`tpulab_torch.optim`, ``tpulab``'s optax
+stacks written out.
 
 Data: the same deterministic synthetic byte stream as ``tpulab``
 (:func:`batches`, a copy), so the two packages see the same batches at the
@@ -12,30 +18,41 @@ same steps; with ``data_dir``, the native loader's byte stream
 (:mod:`tpulab_torch.io.loader`), opened at the first step run so a resumed
 run replays the same tokens; with ``tokenizer`` too, random windows of the
 BPE-encoded corpus (:func:`corpus_windows`), its tail held out for
-evaluation.  A non-finite loss fails fast (``FloatingPointError``), and
-``inject_fault`` fakes one, once a step.  ``overlap`` = 1 reads each
+evaluation; labvision's images from ``synth_batch`` at ``(seed << 20) ^
+step``, its held-out batches at ``(seed << 21) ^ (7919 + j)``.  A
+non-finite loss fails fast (``FloatingPointError``), and ``inject_fault``
+fakes one, once a step; ``sanitize`` traps a non-finite value already
+where a module or a backward op makes it.  ``overlap`` = 1 reads each
 step's loss one step late, so the host enqueues the next step before it
 waits for the card; the ``[train]`` lines keep their exact step/loss
 pairing either way.
 
+Observability: each step's host dispatch time and its dispatch-to-check
+lag go into the registry (``train_dispatch_seconds``,
+``train_loss_lag_seconds``), the train-MFU window into
+``roofline.note_train_window``, and a ``[train] metrics`` line with their
+percentiles and ``train_mfu_pct`` (against the card's bf16 peak; 0 on the
+CPU) is printed at every eval and save boundary and at the end, as
+``tpulab`` prints it.  ``trace_dir`` writes a ``torch.profiler`` trace of
+the loop (:func:`tpulab_torch.obs.maybe_trace`).
+
 Checkpoints (:mod:`tpulab_torch.ckpt`, the port's own format): with
 ``ckpt_dir`` a snapshot of the parameters and the optimizer state every
-``save_every`` steps, the config sidecar ``tpulab`` writes, ``resume``
-from the newest snapshot, ``recover`` (roll back to it on a non-finite
-loss, at most that many times), and ``init_from`` (a snapshot's base
-weights into a fresh run, the optimizer clean: the pretrain to LoRA
+``save_every`` steps, the config sidecar ``tpulab`` writes (labformer),
+``resume`` from the newest snapshot, ``recover`` (roll back to it on a
+non-finite loss, at most that many times), and ``init_from`` (a snapshot's
+base weights into a fresh run, the optimizer clean: the pretrain to LoRA
 bridge).  A resumed or recovered run is bit-equal to an uninterrupted one.
 
 What the port does not have raises ``NotImplementedError`` naming its
-ROADMAP item: the mesh and ZeRO options, fused ``steps_per_call``,
-``remat_policy="dots"``, ``model="labvision"``, ``trace_dir`` and
-``sanitize``.  The ``[train] metrics`` line waits for the port of
-``tpulab.obs`` (A11).
+ROADMAP item: the mesh and ZeRO options (A12) and fused
+``steps_per_call`` (A8.6).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -46,9 +63,9 @@ from collections import deque
 from typing import Optional
 
 import numpy as np
+import torch
 
-#: optimizer names of ``tpulab.train`` (the CLI's choices); lion and
-#: adafactor are refused with a pointer to their ROADMAP item
+#: optimizer names of ``tpulab.train`` (the CLI's choices)
 _OPTIMIZERS = ("adamw", "lion", "adafactor", "sgd")
 
 
@@ -69,8 +86,8 @@ def batches(vocab: int, batch: int, seq: int, seed: int):
 def build_optimizer(lr: float, steps: int, warmup_steps: int = 0, schedule: str = "const",
                     clip_norm: float = 0.0, optimizer: str = "adamw"):
     """``tpulab.train.build_optimizer`` on :mod:`tpulab_torch.optim`:
-    optional global-norm clipping, then adamw or sgd (momentum 0.9) on a
-    constant, linear-warmup or warmup-cosine schedule."""
+    optional global-norm clipping, then adamw, lion, adafactor or sgd
+    (momentum 0.9) on a constant, linear-warmup or warmup-cosine schedule."""
     from tpulab_torch import optim
 
     if schedule == "cosine":
@@ -81,10 +98,8 @@ def build_optimizer(lr: float, steps: int, warmup_steps: int = 0, schedule: str 
         sched = optim.linear_schedule(0.0, lr, warmup_steps) if warmup_steps else lr
     else:
         raise ValueError(f"unknown schedule {schedule!r}")
-    if optimizer in ("lion", "adafactor"):
-        raise NotImplementedError(
-            f"optimizer {optimizer!r} is queued in ROADMAP A8.5; the port has adamw and sgd")
-    makers = {"adamw": optim.adamw, "sgd": lambda s: optim.sgd(s, momentum=0.9)}
+    makers = {"adamw": optim.adamw, "lion": optim.lion, "adafactor": optim.adafactor,
+              "sgd": lambda s: optim.sgd(s, momentum=0.9)}
     if optimizer not in makers:
         raise ValueError(f"unknown optimizer {optimizer!r}; expected one of {_OPTIMIZERS}")
     chain = [optim.clip_by_global_norm(clip_norm)] if clip_norm else []
@@ -110,15 +125,47 @@ def _refuse_unported(**given) -> None:
         "zero1": "ZeRO-1 shards over a mesh (ROADMAP A12)",
         "zero2": "ZeRO-2 shards over a mesh (ROADMAP A12)",
         "steps_per_call": "fused multi-step calls are CUDA-graph work (ROADMAP A8.6)",
-        "remat_policy": "remat_policy='dots' is queued in ROADMAP A8.7",
-        "model": "labvision is queued in ROADMAP A8.8",
         "moe_impl": "dispatch MoE routes over a mesh (ROADMAP A12)",
-        "trace_dir": "the profiler hook is queued in ROADMAP A8.10",
-        "sanitize": "sanitize (NaN trapping) is queued in ROADMAP A8.10",
     }
     for name, value in given.items():
         if value:
             raise NotImplementedError(f"{name}: {queued[name]}")
+
+
+def _outputs(out):
+    """The tensors of a module's output (nested tuples and lists)."""
+    if isinstance(out, torch.Tensor):
+        yield out
+    elif isinstance(out, (tuple, list)):
+        for o in out:
+            yield from _outputs(o)
+
+
+@contextlib.contextmanager
+def _sanitized(net, where: dict):
+    """``tpulab``'s ``jax_debug_nans`` on the port: a forward hook on every
+    module of ``net`` raises ``FloatingPointError`` naming the module and
+    the step at the first non-finite output, and anomaly mode
+    (``check_nan``) traps one made in the backward (turned into
+    ``FloatingPointError`` naming the backward op and the step by the
+    loop).  Each check waits for the device; no value changes."""
+    def hook(name: str):
+        def check(module, args, out):
+            for t in _outputs(out):
+                if t.is_floating_point() and not bool(torch.isfinite(t).all()):
+                    raise FloatingPointError(
+                        f"sanitize: non-finite value in the output of {name} "
+                        f"at step {where['step']}")
+        return check
+
+    handles = [m.register_forward_hook(hook(name or type(net).__name__))
+               for name, m in net.named_modules()]
+    try:
+        with torch.autograd.detect_anomaly(check_nan=True):
+            yield
+    finally:
+        for h in handles:
+            h.remove()
 
 
 def _warm_start(model, cfg, init_from: str) -> None:
@@ -209,129 +256,172 @@ def train(
     """Run the loop on ``device`` (the card unless ``"cpu"``); returns
     ``(final_step, last_loss)``.  Arguments as ``tpulab.train.train``.
 
-    ``eval_every > 0`` logs a held-out loss every that many steps, from
-    the parameters after that step's update.  ``overlap`` (>= 0) keeps that
-    many steps in flight before their losses are read; an eval, a save, a
-    rollback and the end drain the rest.  ``log_every`` emits ``[train]``
-    lines every N steps (every loss is still checked).
+    ``model``: ``"labformer"`` (the byte LM) or ``"labvision"`` (the CNN
+    on the synthetic lab3 colour-class task, lr 1e-3 by default); both
+    share the checkpoints, the fail-fast and recover path, ``sanitize``
+    and ``trace_dir``.  ``eval_every > 0`` logs a held-out loss every that
+    many steps, from the parameters after that step's update.  ``overlap``
+    (>= 0) keeps that many steps in flight before their losses are read;
+    an eval, a save, a rollback and the end drain the rest.  ``log_every``
+    emits ``[train]`` lines every N steps (every loss is still checked).
+    ``trace_dir`` writes a ``torch.profiler`` trace of the loop there;
+    ``sanitize`` traps the first non-finite value where it is made
+    (:func:`_sanitized`; ``tpulab`` also turns buffer donation off, which
+    the port never uses).
     """
-    import torch
-
     from tpulab_torch import ckpt
-    from tpulab_torch.models.labformer import LabformerConfig, init_train_state
+    from tpulab_torch.obs import TRACER, histogram, maybe_trace, roofline
     from tpulab_torch.runtime.device import resolve_device
 
     if steps_per_call < 1:
         raise ValueError(f"steps_per_call must be >= 1, got {steps_per_call}")
+    if steps_per_call > 1 and model != "labformer":
+        raise ValueError(
+            "steps_per_call > 1 scans stacked token blocks — only the "
+            "labformer trainer fuses multi-step dispatches")
     if log_every < 1:
         raise ValueError(f"log_every must be >= 1, got {log_every}")
     if overlap < 0:
         raise ValueError(f"overlap must be >= 0, got {overlap}")
-    _refuse_unported(
-        mesh_devices=mesh_devices, zero1=zero1, zero2=zero2,
-        steps_per_call=steps_per_call > 1, remat_policy=remat_policy != "none",
-        model=model != "labformer", moe_impl=moe_impl != "dense", trace_dir=trace_dir,
-        sanitize=sanitize)
     if recover and not ckpt_dir:
         raise ValueError(
             "--recover rolls back to checkpoints: give --ckpt-dir (and a "
             "save_every that snapshots often enough to bound lost work)")
+    if (zero1 or zero2) and model != "labformer":
+        raise ValueError("zero1/zero2 are implemented for the labformer trainer")
+    if lora_rank and model != "labformer":
+        raise ValueError("lora_rank applies to the labformer finetune path")
+    if init_from and model != "labformer":
+        raise ValueError("init_from warm-starts the labformer trainer")
+    if tokenizer and model != "labformer":
+        raise ValueError("tokenizer feeds the labformer byte/BPE LM")
     if init_from and resume:
         raise ValueError(
             "init_from (params-only warm start, fresh optimizer) and "
             "resume (full state restore) are mutually exclusive")
+    if data_dir and model != "labformer":
+        raise ValueError("data_dir streams byte tokens — only the labformer consumes it")
+    if model not in ("labformer", "labvision"):
+        raise ValueError(f"unknown model {model!r}")
+    _refuse_unported(
+        mesh_devices=mesh_devices, zero1=zero1, zero2=zero2,
+        steps_per_call=steps_per_call > 1, moe_impl=moe_impl != "dense")
     inject_fault = tuple(inject_fault or ())
     device = resolve_device(device) if device is None or isinstance(device, str) \
         else torch.device(device)
 
     if optimizer is None and (lr or warmup_steps or schedule != "const"
                               or clip_norm or opt_name != "adamw"):
-        optimizer = build_optimizer(lr=lr or 3e-4, steps=steps, warmup_steps=warmup_steps,
+        optimizer = build_optimizer(lr=lr or (1e-3 if model == "labvision" else 3e-4),
+                                    steps=steps, warmup_steps=warmup_steps,
                                     schedule=schedule, clip_norm=clip_norm,
                                     optimizer=opt_name)
-    tok = None
-    if tokenizer:
-        # the vocab comes from the merge table, and batches sample the
-        # encoded corpus (the byte loader streams the wrong token space)
-        if not data_dir:
-            raise ValueError("--tokenizer encodes a corpus: give --data-dir too")
-        from tpulab_torch.io.bpe import BPETokenizer
-
-        tok = BPETokenizer.load(tokenizer)
-        if cfg is not None and cfg.vocab < tok.vocab:
-            raise ValueError(
-                f"cfg.vocab={cfg.vocab} < tokenizer vocab {tok.vocab}: "
-                f"encoded ids would silently clamp in the embedding")
-    cfg = cfg or LabformerConfig(
-        vocab=tok.vocab if tok else 256, d_model=128, n_heads=8, n_layers=4, d_ff=512,
-        max_seq=seq, remat=remat, remat_policy=remat_policy, n_experts=experts,
-        moe_impl=moe_impl, moe_aux_weight=moe_aux_weight, moe_top_k=moe_top_k,
-        lora_rank=lora_rank, lora_alpha=lora_alpha)
-    net, opt_state, train_step = init_train_state(cfg, None, seed=seed, optimizer=optimizer,
-                                                  accum=accum, device=device)
-    if init_from:
-        _warm_start(net, cfg, init_from)
-
     box: dict = {}  # the open native loader, closed in the finally below
 
     def eval_of(losses) -> float:
         # every val batch enqueued, then read: the same float sum as tpulab
         return sum(float(v) for v in losses) / eval_batches
 
-    if tok is not None:
-        from tpulab_torch.io.bpe import corpus_from_dir
+    if model == "labvision":
+        from tpulab_torch.models.labvision import (LabvisionConfig, init_train_state,
+                                                   synth_batch)
 
-        ids = tok.encode(corpus_from_dir(data_dir))
-        # held-out tail for eval: ~10 %, at least eval_batches windows; the
-        # size check counts the tail it carves off
-        hold = max((seq + 1) * max(eval_batches, 1), len(ids) // 10)
-        need = (seq + 1) * max(4, batch)
-        if len(ids) < need + hold:
-            raise ValueError(
-                f"corpus encodes to {len(ids)} tokens; need >= "
-                f"{need + hold} (train windows {need} + eval tail "
-                f"{hold}) for seq={seq} batch={batch}")
-        train_ids, val_ids = ids[:-hold], ids[-hold:]
-        batch_at = corpus_windows(train_ids, batch, seq, seed)
-        val_at = corpus_windows(val_ids, batch, seq, seed + 104729)
+        cfg = cfg or LabvisionConfig()
+        net, opt_state, vstep = init_train_state(cfg, seed=seed, optimizer=optimizer,
+                                                 device=device)
+
+        def batch_at(step: int):
+            return synth_batch(cfg, batch, np.random.default_rng((seed << 20) ^ step))
+
+        def train_step(net, opt_state, data):
+            return vstep(net, opt_state, *data)
 
         def eval_loss(step: int) -> float:
-            # keyed by the train step, so a resumed run replays the windows
-            n_eval = step // eval_every if eval_every else 0
             with torch.no_grad():
-                return eval_of([net.loss_fn(val_at(n_eval * eval_batches + j))
-                                for j in range(eval_batches)])
-    elif data_dir:
-        from tpulab_torch.io.loader import TokenLoader
-
-        def batch_at(step: int) -> np.ndarray:
-            # opened at the first step run (after a restore), read in order
-            if "l" not in box:
-                box["l"] = TokenLoader.from_dir(data_dir, batch=batch, row_tokens=seq + 1,
-                                                seed=seed, start_step=step)
-            return box["l"].next()
-
-        def eval_loss(step: int) -> float:
-            # the same corpus at another seed; eval n reads val steps
-            # [n * eval_batches, ...), so a resumed run replays them
-            n_eval = step // eval_every if eval_every else 0
-            with TokenLoader.from_dir(data_dir, batch=batch, row_tokens=seq + 1,
-                                      seed=seed + 104729,
-                                      start_step=n_eval * eval_batches) as val:
-                with torch.no_grad():
-                    out = eval_of([net.loss_fn(val.next()) for _ in range(eval_batches)])
-                if val.short_reads():
-                    log(f"[eval] WARNING: {val.short_reads()} val rows "
-                        f"zero-padded by short reads (IO errors)")
-            return out
+                return eval_of([
+                    net.loss_fn(*synth_batch(cfg, batch,
+                                             np.random.default_rng((seed << 21) ^ (7919 + j))))
+                    for j in range(eval_batches)])
     else:
-        batch_at = batches(cfg.vocab, batch, seq, seed)
-        # disjoint seed space: the training stream hashes (seed<<20)^step
-        val_at = batches(cfg.vocab, batch, seq, seed + 104729)
+        from tpulab_torch.models.labformer import LabformerConfig, init_train_state
 
-        def eval_loss(step: int) -> float:
-            with torch.no_grad():
-                return eval_of([net.loss_fn(val_at(j)) for j in range(eval_batches)])
+        tok = None
+        if tokenizer:
+            # the vocab comes from the merge table, and batches sample the
+            # encoded corpus (the byte loader streams the wrong token space)
+            if not data_dir:
+                raise ValueError("--tokenizer encodes a corpus: give --data-dir too")
+            from tpulab_torch.io.bpe import BPETokenizer
+
+            tok = BPETokenizer.load(tokenizer)
+            if cfg is not None and cfg.vocab < tok.vocab:
+                raise ValueError(
+                    f"cfg.vocab={cfg.vocab} < tokenizer vocab {tok.vocab}: "
+                    f"encoded ids would silently clamp in the embedding")
+        cfg = cfg or LabformerConfig(
+            vocab=tok.vocab if tok else 256, d_model=128, n_heads=8, n_layers=4, d_ff=512,
+            max_seq=seq, remat=remat, remat_policy=remat_policy, n_experts=experts,
+            moe_impl=moe_impl, moe_aux_weight=moe_aux_weight, moe_top_k=moe_top_k,
+            lora_rank=lora_rank, lora_alpha=lora_alpha)
+        net, opt_state, train_step = init_train_state(cfg, None, seed=seed, optimizer=optimizer,
+                                                      accum=accum, device=device)
+        if init_from:
+            _warm_start(net, cfg, init_from)
+
+        if tok is not None:
+            from tpulab_torch.io.bpe import corpus_from_dir
+
+            ids = tok.encode(corpus_from_dir(data_dir))
+            # held-out tail for eval: ~10 %, at least eval_batches windows; the
+            # size check counts the tail it carves off
+            hold = max((seq + 1) * max(eval_batches, 1), len(ids) // 10)
+            need = (seq + 1) * max(4, batch)
+            if len(ids) < need + hold:
+                raise ValueError(
+                    f"corpus encodes to {len(ids)} tokens; need >= "
+                    f"{need + hold} (train windows {need} + eval tail "
+                    f"{hold}) for seq={seq} batch={batch}")
+            train_ids, val_ids = ids[:-hold], ids[-hold:]
+            batch_at = corpus_windows(train_ids, batch, seq, seed)
+            val_at = corpus_windows(val_ids, batch, seq, seed + 104729)
+
+            def eval_loss(step: int) -> float:
+                # keyed by the train step, so a resumed run replays the windows
+                n_eval = step // eval_every if eval_every else 0
+                with torch.no_grad():
+                    return eval_of([net.loss_fn(val_at(n_eval * eval_batches + j))
+                                    for j in range(eval_batches)])
+        elif data_dir:
+            from tpulab_torch.io.loader import TokenLoader
+
+            def batch_at(step: int) -> np.ndarray:
+                # opened at the first step run (after a restore), read in order
+                if "l" not in box:
+                    box["l"] = TokenLoader.from_dir(data_dir, batch=batch, row_tokens=seq + 1,
+                                                    seed=seed, start_step=step)
+                return box["l"].next()
+
+            def eval_loss(step: int) -> float:
+                # the same corpus at another seed; eval n reads val steps
+                # [n * eval_batches, ...), so a resumed run replays them
+                n_eval = step // eval_every if eval_every else 0
+                with TokenLoader.from_dir(data_dir, batch=batch, row_tokens=seq + 1,
+                                          seed=seed + 104729,
+                                          start_step=n_eval * eval_batches) as val:
+                    with torch.no_grad():
+                        out = eval_of([net.loss_fn(val.next()) for _ in range(eval_batches)])
+                    if val.short_reads():
+                        log(f"[eval] WARNING: {val.short_reads()} val rows "
+                            f"zero-padded by short reads (IO errors)")
+                return out
+        else:
+            batch_at = batches(cfg.vocab, batch, seq, seed)
+            # disjoint seed space: the training stream hashes (seed<<20)^step
+            val_at = batches(cfg.vocab, batch, seq, seed + 104729)
+
+            def eval_loss(step: int) -> float:
+                with torch.no_grad():
+                    return eval_of([net.loss_fn(val_at(j)) for j in range(eval_batches)])
 
     start_step = 0
     ckpt_path = None
@@ -341,10 +431,11 @@ def train(
             shutil.rmtree(ckpt_path)  # a fresh run never restores a stale snapshot
         os.makedirs(ckpt_path, exist_ok=True)
         sc_path = os.path.join(ckpt_path, ckpt.SIDECAR)
-        if resume and os.path.exists(sc_path):
-            _check_resume_config(sc_path, cfg)  # on resume the sidecar is authoritative
-        else:
-            ckpt.write_sidecar(ckpt_path, cfg, tokenizer)
+        if model == "labformer":  # tpulab writes no sidecar for labvision
+            if resume and os.path.exists(sc_path):
+                _check_resume_config(sc_path, cfg)  # on resume the sidecar is authoritative
+            else:
+                ckpt.write_sidecar(ckpt_path, cfg, tokenizer)
         latest = ckpt.latest_step(ckpt_path)
         if resume and latest is not None:
             start_step = latest
@@ -356,6 +447,34 @@ def train(
     recoveries = 0
     pending: deque = deque()  # (step, device loss, host time at dispatch)
     counters = {"dispatches": 0, "fused_calls": 0, "host_syncs": 0}
+    # the trainer's observability, as tpulab's: host dispatch time and the
+    # dispatch -> checked-loss lag per step in the process-global registry,
+    # and the train-MFU window (analytic labformer flops, 3x the forward,
+    # over wall time; 0 without the card's peak), printed as the
+    # "[train] metrics" line at each eval and save boundary and at the end
+    h_dispatch = histogram("train_dispatch_seconds",
+                           "host time to build + dispatch one fused train block")
+    h_loss_lag = histogram("train_loss_lag_seconds",
+                           "dispatch -> drained loss finiteness check, per block")
+    step_flops = (3.0 * roofline.labformer_fwd_flops(cfg, batch, seq)
+                  if model == "labformer" else 0.0)
+    mfu = {"t0": time.perf_counter(), "steps": 0, "pct": 0.0}
+
+    def note_mfu() -> None:
+        now = time.perf_counter()
+        roofline.note_train_window(step_flops * mfu["steps"], now - mfu["t0"])
+        mfu["t0"], mfu["steps"] = now, 0
+        mfu["pct"] = roofline.update_mfu_gauges()["train_mfu"]
+
+    def metrics_line() -> str:
+        # cumulative over the process, as the registry is
+        return ("[train] metrics "
+                f"dispatch_ms_p50={h_dispatch.percentile(0.5) * 1e3:.2f} "
+                f"dispatch_ms_p99={h_dispatch.percentile(0.99) * 1e3:.2f} "
+                f"loss_lag_ms_p50={h_loss_lag.percentile(0.5) * 1e3:.2f} "
+                f"loss_lag_ms_p99={h_loss_lag.percentile(0.99) * 1e3:.2f} "
+                f"blocks={h_dispatch.count} "
+                f"train_mfu_pct={mfu['pct']}")
 
     def drain_oldest() -> Optional[int]:
         """Read and check the oldest in-flight step's loss (waits for it).
@@ -363,8 +482,10 @@ def train(
         recover; raises when it cannot."""
         nonlocal loss, recoveries
         s, ldev, t0 = pending.popleft()
-        lv = float(ldev)
-        ms = (time.perf_counter() - t0) * 1e3
+        with TRACER.span("train.drain"):
+            lv = float(ldev)
+        lag = time.perf_counter() - t0
+        h_loss_lag.observe(lag)
         if s in inject_fault and s not in fired_faults:
             # a transient: once a step, so the replay after a rollback
             # sees the real loss
@@ -381,40 +502,59 @@ def train(
             return rollback
         loss = lv
         if s % log_every == 0:
-            log(f"[train] step {s} loss {lv:.4f} ({ms:.1f} ms)")
+            log(f"[train] step {s} loss {lv:.4f} ({lag * 1e3:.1f} ms)")
         return None
 
+    where = {"step": start_step}
     try:
-        step = start_step
-        while step < steps:
-            t0 = time.perf_counter()
-            net, opt_state, ldev = train_step(net, opt_state, batch_at(step))
-            counters["dispatches"] += 1
-            pending.append((step, ldev, t0))
-            step += 1
-            at_eval = bool(eval_every and step % eval_every == 0)
-            at_save = bool(ckpt_path is not None and step % save_every == 0)
-            barrier = at_eval or at_save or step >= steps
-            if barrier and overlap and pending:
-                counters["host_syncs"] += 1  # window closed early
-            rollback = None
-            while pending and (barrier or len(pending) > overlap):
-                rollback = drain_oldest()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(maybe_trace(trace_dir))
+            if sanitize:
+                stack.enter_context(_sanitized(net, where))
+            step = start_step
+            while step < steps:
+                t0 = time.perf_counter()
+                where["step"] = step
+                with TRACER.span("train.dispatch"):
+                    try:
+                        net, opt_state, ldev = train_step(net, opt_state, batch_at(step))
+                    except RuntimeError as e:
+                        if sanitize and "nan values" in str(e):  # anomaly mode's trap
+                            raise FloatingPointError(
+                                f"sanitize: non-finite gradient in the backward of step "
+                                f"{step}: {e}") from e
+                        raise
+                counters["dispatches"] += 1
+                mfu["steps"] += 1
+                h_dispatch.observe(time.perf_counter() - t0)
+                pending.append((step, ldev, t0))
+                step += 1
+                at_eval = bool(eval_every and step % eval_every == 0)
+                at_save = bool(ckpt_path is not None and step % save_every == 0)
+                barrier = at_eval or at_save or step >= steps
+                if barrier and overlap and pending:
+                    counters["host_syncs"] += 1  # window closed early
+                rollback = None
+                while pending and (barrier or len(pending) > overlap):
+                    rollback = drain_oldest()
+                    if rollback is not None:
+                        break
                 if rollback is not None:
-                    break
-            if rollback is not None:
-                # drop the steps in flight past the fault and replay from
-                # the snapshot: the restore is total
-                pending.clear()
-                ckpt.restore(ckpt_path, rollback, net, opt_state)
-                step = rollback
-                if "l" in box:
-                    box.pop("l").close()  # reopened at the rollback step
-                continue
-            if at_eval:
-                log(f"[eval] step {step - 1} val_loss {eval_loss(step - 1):.4f}")
-            if at_save:
-                ckpt.save(ckpt_path, step, net, opt_state)
+                    # drop the steps in flight past the fault and replay
+                    # from the snapshot: the restore is total
+                    pending.clear()
+                    ckpt.restore(ckpt_path, rollback, net, opt_state)
+                    step = rollback
+                    if "l" in box:
+                        box.pop("l").close()  # reopened at the rollback step
+                    continue
+                if at_eval:
+                    log(f"[eval] step {step - 1} val_loss {eval_loss(step - 1):.4f}")
+                if at_save:
+                    ckpt.save(ckpt_path, step, net, opt_state)
+                if at_eval or at_save:
+                    note_mfu()
+                    log(metrics_line())
     finally:
         for ld in box.values():
             # an IO failure zero-pads a row; the loader counts them
@@ -426,6 +566,8 @@ def train(
         log(f"[train] counters dispatches={counters['dispatches']} "
             f"fused_calls={counters['fused_calls']} host_syncs={counters['host_syncs']} "
             f"steps_per_call={steps_per_call} overlap={overlap}")
+        note_mfu()
+        log(metrics_line())
     return steps, loss
 
 
@@ -446,13 +588,17 @@ def main(argv=None) -> int:
                     help="restore the newest snapshot in --ckpt-dir and continue")
     ap.add_argument("--mesh", type=int, default=0, help="not ported (ROADMAP A12)")
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--sanitize", action="store_true", help="not ported (ROADMAP A8.10)")
-    ap.add_argument("--trace-dir", default=None, help="not ported (ROADMAP A8.10)")
+    ap.add_argument("--sanitize", action="store_true",
+                    help="trap the first non-finite value where a module or a backward op "
+                         "makes it (FloatingPointError naming it and the step)")
+    ap.add_argument("--trace-dir", default=None,
+                    help="write a torch.profiler trace of the loop (Chrome JSON) here")
     ap.add_argument("--accum", type=int, default=1, help="gradient-accumulation microbatches")
     ap.add_argument("--remat", action="store_true",
                     help="rematerialize each block in the backward (torch.utils.checkpoint)")
     ap.add_argument("--remat-policy", default="none", choices=("none", "dots"),
-                    help="none; dots is not ported (ROADMAP A8.7)")
+                    help="what remat keeps: none = recompute everything; dots = keep the "
+                         "weight products, recompute the rest (attention included)")
     ap.add_argument("--experts", type=int, default=0, help="MoE experts (0 = dense MLP)")
     ap.add_argument("--moe-impl", default="dense", choices=("dense", "dispatch"),
                     help="dense; dispatch is not ported (ROADMAP A12)")
@@ -461,13 +607,13 @@ def main(argv=None) -> int:
     ap.add_argument("--moe-top-k", type=int, default=1,
                     help="experts per token: 1 = switch, 2+ = renormalized combination")
     ap.add_argument("--model", default="labformer", choices=("labformer", "labvision"),
-                    help="labformer; labvision is not ported (ROADMAP A8.8)")
+                    help="model family: the byte LM or the lab3-task CNN")
     ap.add_argument("--eval-every", type=int, default=0,
                     help="held-out loss every N steps (0 = off)")
     ap.add_argument("--lr", type=float, default=0.0, help="peak learning rate")
     ap.add_argument("--optimizer", default="adamw", choices=_OPTIMIZERS,
-                    help="adamw (default) | sgd (momentum 0.9); lion and adafactor are "
-                         "not ported (ROADMAP A8.5)")
+                    help="adamw (default) | lion (1 moment, ~3-10x lower lr) | adafactor "
+                         "(factored statistics) | sgd (momentum 0.9)")
     ap.add_argument("--warmup-steps", type=int, default=0)
     ap.add_argument("--schedule", default="const", choices=("const", "cosine"))
     ap.add_argument("--clip-norm", type=float, default=0.0,
