@@ -128,7 +128,18 @@ failure:
       64/128/256) in float32, 3 steps of 32 images on the card against the
       CPU within ``TRAIN_LOSS_RTOL``; the ``labvision_train`` row of
       ``bench`` in bfloat16 (batch 256, images/s, MFU from the analytic
-      flops, the card's name and power limit).
+      flops, the card's name and power limit);
+   g. fused ``steps_per_call`` blocks on the flagship config in bfloat16
+      at batch 8, 2048 tokens: ``tpulab_torch.train.train`` for 12 steps
+      with a save every 6 and an eval every 5 with ``steps_per_call`` 1
+      and 4 (the blocks [0, 4), 4, 5, [6, 10), 10, 11: the boundaries
+      shorten them), and with 4 stopped at the step-6 snapshot and resumed
+      across the block boundary: the step and eval lines equal, the
+      step-12 snapshots bit-equal, B4 once per layer of each step and
+      eval batch, B5 and B6 once per layer of each step; then step ms of
+      K=1 (each step its own call, its loss read after) and K=4 (one
+      ``step.step_k`` call over one uploaded block) in turns (K=1, K=4,
+      K=4, K=1 a round), with B4-B6 launches a step.
 7. The paged serving path (``tpulab_torch.models.paged.PagedEngine``).
    Each run of it is made with every launch count set to 0 just before
    and read just after, and must launch the paged-decode kernel (B7) once
@@ -350,8 +361,23 @@ failure:
        1`` equals greedy decoding, the daemon's served count rose by two,
        and each ran B4 once per layer of its prefill and no B7;
     k. the phase's seconds, by step.
-13. One ``{"model": {...}}`` line with phases 5 to 7's (5e, 6e and 6f
-    included) and 9 to 12's numbers, one ``{"lab_suite": {...}}`` line with phase 8's, one
+13. The multi-device tier (``tpulab_torch.parallel``) over NCCL on
+    ``torch.cuda.device_count()`` ranks (a ``RankPool``, one GPU a rank;
+    one on a one-card machine), each run's device count and world size
+    printed: ``distributed_reduce`` of lab5's 2^24-element files (every
+    op lab5 runs on each), bit-equal for every op and dtype to the
+    single-device reduction on the card at world size 1, and above it to
+    the same shards reduced on one card (:func:`staged_reduce`);
+    ``roberts_sharded`` at 8192^2 (each rank's block through B1),
+    ``classify_sharded`` at 4096^2 with 32 classes in float64 (B3) and
+    ``distributed_sort`` of 2^20 float32, each byte-equal to the
+    single-device path on the card, with rank 0's launches a call and the
+    wall ms of its first and second call;
+    and ``lab5 --mesh 2`` through the CLI, which engages the mesh only
+    with two or more cards and otherwise runs, and prints, the
+    single-device result.
+14. One ``{"model": {...}}`` line with phases 5 to 7's (5e, 6e, 6f and
+    6g included) and 9 to 13's numbers, one ``{"lab_suite": {...}}`` line with phase 8's, one
     ``{"kernels": [...]}`` line, the card line again, and last ``{"ok":
     true, "device": {...}}``.
 
@@ -1993,6 +2019,158 @@ def run_labvision(sizes: dict, device, backend: str, card: str) -> dict:
           f"CPU worst relative difference {err:.3e}; bench row {json.dumps(row)} ({card})",
           flush=True)
     print(f"phase 6f took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
+# ------------------------------------------------ phase 6g: fused steps a call
+
+
+def fused_plan(steps: int, k: int, save_every: int, eval_every: int) -> list:
+    """The block lengths ``train`` dispatches: a block of ``k`` ends at an
+    eval or save boundary, and what cannot be a whole block runs as K=1."""
+    plan, s = [], 0
+    while s < steps:
+        n = min(k, steps - s)
+        cut = next((j + 1 for j in range(n - 1)
+                    if (s + j + 1) % eval_every == 0 or (s + j + 1) % save_every == 0), n)
+        plan.append(k if cut == k else 1)
+        s += plan[-1]
+    return plan
+
+
+def fused_runs(sizes: dict, device, cfg, work: Path) -> dict:
+    """Phase 6g's equality runs: K=1, K=4, and K=4 stopped at the first
+    snapshot and resumed; their lines, counters and step-12 snapshots."""
+    from tpulab_torch.train import train
+
+    n, k = sizes["fused_steps"], sizes["fused_k"]
+    save_every, eval_every = sizes["fused_save_every"], sizes["fused_eval_every"]
+    kw = dict(batch=sizes["train_batch"], seq=sizes["train_seq"], cfg=cfg, seed=0,
+              device=device, save_every=save_every, eval_every=eval_every, eval_batches=1)
+    big = sizes["train_seq"] >= 1024
+
+    def want(out):
+        steps = sum(ln.startswith("[train] step") for ln in out)
+        evals = sum(ln.startswith("[eval]") for ln in out)
+        return {"flash_fwd": (steps + evals) * cfg.n_layers * big,
+                "flash_dq": steps * cfg.n_layers * big, "flash_dkv": steps * cfg.n_layers * big}
+
+    def run(name, **extra):
+        out: list = []
+
+        def go():
+            train(ckpt_dir=str(work / name), log=out.append, **kw, **extra)
+            return out
+
+        _, launches = counted(go, device, want, f"phase 6g {name} run")
+        return out, launches
+
+    runs = {"k1": run("k1", steps=n), f"k{k}": run(f"k{k}", steps=n, steps_per_call=k)}
+    first, _ = run("resumed", steps=save_every, steps_per_call=k)
+    rest, _ = run("resumed", steps=n, steps_per_call=k, resume=True)
+    check(f"[train] resumed from step {save_every}" in rest, "phase 6g: the resume did not resume")
+    lines = {name: train_lines(out) for name, (out, _) in runs.items()}
+    lines["resumed"] = train_lines(first) + train_lines(rest)
+    check(lines[f"k{k}"] == lines["k1"] == lines["resumed"] and len(lines["k1"]) > n,
+          f"phase 6g: step and eval lines differ: {json.dumps(lines)}")
+    for name in (f"k{k}", "resumed"):
+        check(snapshot_equal(work / "k1", work / name, n),
+              f"phase 6g: the {name} run's step-{n} snapshot differs from K=1's")
+    counters = {name: [ln for ln in out if ln.startswith("[train] counters")][-1]
+                for name, (out, _) in runs.items()}
+    plan = fused_plan(n, k, save_every, eval_every)
+    check(f"dispatches={len(plan)} fused_calls={plan.count(k)} " in counters[f"k{k}"]
+          and 1 in plan and k in plan, f"phase 6g: {counters[f'k{k}']}, plan {plan}")
+    return {"plan": plan, "counters": counters, "lines": lines["k1"],
+            "launches": {name: launches for name, (_, launches) in runs.items()}}
+
+
+def fused_step_ms(sizes: dict, device, cfg, card: str) -> dict:
+    """Step ms of K=1 and K=4 in turns on one model: a window is ``k``
+    steps with each batch built inside it, as the trainer builds them;
+    K=1 calls the step ``k`` times and reads the losses after, K=4 stacks
+    the block, makes one ``step.step_k`` call and reads its losses."""
+    import statistics
+
+    import torch
+
+    from tpulab_torch.models.labformer import init_train_state
+    from tpulab_torch.train import batches
+
+    b, s, k, rounds = (sizes["train_batch"], sizes["train_seq"], sizes["fused_k"],
+                       sizes["fused_rounds"])
+    model, state, step = init_train_state(cfg, None, seed=0, device=device)
+    batch_at = batches(cfg.vocab, b, s, 1)
+    step.step_k(model, state, np.stack([batch_at(j) for j in range(k)]))[2].tolist()
+    float(step(model, state, batch_at(0))[2])  # both paths warm
+    samples: dict = {1: [], k: []}
+    losses: list = []
+
+    def window(fused: bool, i0: int) -> float:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+        t0 = time.perf_counter()
+        if fused:
+            vals = step.step_k(model, state, np.stack([batch_at(i0 + j)
+                                                       for j in range(k)]))[2].tolist()
+        else:
+            vals = [float(v) for v in [step(model, state, batch_at(i0 + j))[2]
+                                       for j in range(k)]]
+        losses.extend(vals)
+        if device.type == "cuda":
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / k
+        return (time.perf_counter() - t0) * 1e3 / k
+
+    def timed():
+        i0 = 0
+        for _ in range(rounds):
+            for per_call in (1, k, k, 1):
+                samples[per_call].append(window(per_call == k, i0))
+                i0 += k
+
+    n_steps = rounds * 4 * k
+    _, launches = counted(timed, device, dict.fromkeys(
+        TRAIN_KERNELS, n_steps * cfg.n_layers if s >= 1024 else 0), "phase 6g timing")
+    check(all(np.isfinite(losses)), f"phase 6g timing losses {losses}")
+    out = {f"k{n}_step_ms": statistics.median(v) for n, v in samples.items()}
+    out.update({f"k{n}_step_ms_runs": v for n, v in samples.items()})
+    out["launches_per_step"] = {name: launches[name] / n_steps for name in TRAIN_KERNELS}
+    out["card"] = card
+    print(f"fused steps bf16 b{b} s{s}: K=1 {out['k1_step_ms']:.6f} ms a step, K={k} "
+          f"{out[f'k{k}_step_ms']:.6f} (medians of {2 * rounds} windows of {k} steps in "
+          f"turns; K=1 {', '.join(f'{x:.6f}' for x in samples[1])}; K={k} "
+          f"{', '.join(f'{x:.6f}' for x in samples[k])}) ({card}); launches a step "
+          f"{json.dumps(out['launches_per_step'])}", flush=True)
+    return out
+
+
+def run_fused_steps(sizes: dict, device, card: str) -> dict:
+    """Phase 6g: fused ``steps_per_call`` blocks on the flagship config."""
+    import shutil
+
+    import torch
+
+    from tpulab_torch.models.labformer import LabformerConfig
+
+    t0 = time.perf_counter()
+    cfg = LabformerConfig(**sizes["train"], max_seq=sizes["train_seq"], dtype=torch.bfloat16)
+    work = WORK / "fused"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        out = fused_runs(sizes, device, cfg, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    print(f"fused steps: plan {out['plan']}; {json.dumps(out['counters'])}; lines and step-"
+          f"{sizes['fused_steps']} snapshots bit-equal across K=1, K={sizes['fused_k']} and "
+          f"the resumed run", flush=True)
+    out["timing"] = fused_step_ms(sizes, device, cfg, card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 6g took {out['seconds']:.1f} s", flush=True)
     return out
 
 
@@ -4040,11 +4218,19 @@ def history_alerts_run(sizes: dict, sock: str, path: str, card: str) -> dict:
         while time.monotonic() - t0 < 60 and not fired:
             st = A.ALERTS.get_state(name)
             if st is not None and st.state == A.FIRING:
-                with fleet.cv:
-                    h = fleet.replicas[1].health
-                    fired = {"after_s": time.monotonic() - t0, "health": h.state,
-                             "alert_hold": h.alert_firing, "crashes": h.crashes,
-                             "slow_fraction": st.value}
+                # one sampler tick evaluates the rules, then applies them to
+                # the replicas' health: read the health once that tick has
+                # applied what it saw, within two sampler intervals (C15)
+                t_fire = time.monotonic()
+                while True:
+                    with fleet.cv:
+                        h = fleet.replicas[1].health
+                        state = {"health": h.state, "alert_hold": h.alert_firing,
+                                 "crashes": h.crashes}
+                    if state["alert_hold"] or time.monotonic() - t_fire > 2 * s.interval_s:
+                        break
+                    time.sleep(0.01)
+                fired = {"after_s": t_fire - t0, **state, "slow_fraction": st.value}
             time.sleep(0.05)
         th.join(timeout=300)
         slow = inj.fired()
@@ -4481,6 +4667,184 @@ def run_daemon_path(sizes: dict, device, backend: str, card: str, inp: dict,
     return out
 
 
+# ------------------------------------------- phase 13: the multi-device tier
+
+
+def mesh_image(side: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).integers(0, 256, (side, side, 4), dtype=np.uint8)
+
+
+def mesh_classes(side: int, nc: int, seed: int) -> list:
+    rng = np.random.default_rng(seed + 1)
+    return [np.stack([rng.integers(0, side, 24), rng.integers(0, side, 24)], 1)
+            for _ in range(nc)]
+
+
+def digest(a: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def rank_reduce(path: str, ops: tuple) -> dict:
+    """Rank side: ``distributed_reduce`` of a lab5 file, each op."""
+    from tpulab_torch.io import load_typed_array
+    from tpulab_torch.parallel import distributed_reduce
+
+    values = load_typed_array(path)
+    return {op: distributed_reduce(values, op) for op in ops}
+
+
+def rank_sharded(what: str, side: int, nc: int, seed: int) -> dict:
+    """Rank side: one sharded image function or the sort on seeded data;
+    its result's digest, this rank's launches of B1 and B3 in one call,
+    and the wall ms after a barrier (staging, the collectives and the
+    gather) of a first call (libraries and kernels loaded on first use)
+    and of a second one."""
+    import torch
+    import torch.distributed as dist
+
+    from tpulab_torch.ops.cuda.classify import classify_u32
+    from tpulab_torch.ops.cuda.stencil import roberts_u32
+    from tpulab_torch.ops.mahalanobis import class_statistics
+    from tpulab_torch.parallel import classify_sharded, distributed_sort, roberts_sharded
+
+    if what == "sort":
+        data = np.random.default_rng(seed).normal(scale=100.0, size=side).astype(np.float32)
+        fn = lambda: distributed_sort(data)  # noqa: E731
+    else:
+        img = mesh_image(side, seed)
+        if what == "roberts":
+            fn = lambda: roberts_sharded(img)  # noqa: E731
+        else:
+            stats = class_statistics(img, mesh_classes(side, nc, seed))
+            fn = lambda: classify_sharded(img, stats, compute_dtype="float64")  # noqa: E731
+    def timed():
+        dist.barrier()
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    _, first_ms = timed()
+    before = roberts_u32.launches, classify_u32.launches
+    out, ms = timed()
+    return {"digest": digest(out), "first_ms": first_ms, "ms": ms,
+            "launches": {"roberts": roberts_u32.launches - before[0],
+                         "classify": classify_u32.launches - before[1]}}
+
+
+def staged_reduce(values: np.ndarray, op: str, world: int, device):
+    """The distributed reduction's arithmetic on one device: the values
+    widened and padded as ``distributed_reduce`` stages them for ``world``
+    ranks, each rank's shard reduced, and the partials reduced in rank
+    order."""
+    import torch
+
+    from tpulab_torch.ops.reduction import reduce_values
+    from tpulab_torch.parallel.collectives import widen_and_pad
+
+    x = torch.from_numpy(widen_and_pad(values, op, world)).to(device)
+    partials = torch.stack([reduce_values(s, op).reshape(()) for s in x.chunk(world)])
+    return reduce_values(partials, op)
+
+
+def mesh_reduce_rows(pool, sizes: dict, backend: str, work: Path) -> list:
+    """13a: lab5's files reduced over the ranks, every op held to bytes:
+    at world size 1 against the single-device reduction of the whole file
+    (the distributed path then does the same arithmetic), above it against
+    :func:`staged_reduce` on this process's device (a reduction over ranks
+    sums in another order than one over the whole; the single-device
+    float32 sum is then printed beside it)."""
+    from tpulab_torch.ops.reduction import reduce_op
+    from tpulab_torch.runtime.device import resolve_device
+
+    rows = []
+    world, device = pool.world_size, resolve_device(backend)
+    files = lab5_files({**sizes, "lab5_n": sizes["mesh_reduce_n"]}, work)
+    for name in ("int32", "uint8", "float32", "float32_prod", "zeros_min", "zeros_max"):
+        path, values = files[name]
+        ops = {"float32_prod": ("prod",), "zeros_min": ("min", "max"),
+               "zeros_max": ("min", "max")}.get(
+            name, ("sum", "min", "max") + (("prod",) if values.dtype != np.float32 else ()))
+        got = pool.run(rank_reduce, path, ops)
+        for op in ops:
+            mine, ref = got[op].numpy(), reduce_op(values, op, backend=backend).cpu().numpy()
+            want = ref if world == 1 else staged_reduce(values, op, world, device).cpu().numpy()
+            row = {"file": name, "n": int(values.size), "op": op, "world_size": world,
+                   "value": mine.item(), "single": ref.item(), "held_to": want.item()}
+            check(mine.dtype == want.dtype and mine.tobytes() == want.tobytes(),
+                  f"phase 13 distributed {op} of {name}: {row}")
+            rows.append(row)
+    return rows
+
+
+def run_mesh_path(sizes: dict, device, backend: str, card: str) -> dict:
+    """Phase 13: the multi-device tier over as many ranks as cards."""
+    import shutil
+
+    import torch
+
+    from tpulab_torch.ops.mahalanobis import class_statistics, classify
+    from tpulab_torch.ops.roberts import roberts_edges
+    from tpulab_torch.ops.sortops import sort_op
+    from tpulab_torch.parallel import RankPool
+
+    t0 = time.perf_counter()
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else sizes["mesh_cpu_ranks"]
+    work = WORK / "mesh"
+    out = {"device_count": torch.cuda.device_count(), "world_size": n_dev, "card": card}
+    print(f"phase 13: {out['device_count']} CUDA device(s); a "
+          f"{'NCCL' if backend == 'cuda' else 'gloo'} rank pool of world size {n_dev}",
+          flush=True)
+    with RankPool(n_dev, device.type) as pool:
+        out["reduce"] = mesh_reduce_rows(pool, sizes, backend, work)
+        print(f"13a distributed_reduce (world size {n_dev}): {len(out['reduce'])} reductions of "
+              f"lab5's n={sizes['mesh_reduce_n']} files bit-equal to the single-device path "
+              f"({json.dumps(out['reduce'])})", flush=True)
+        side, cside, nc = (sizes["mesh_roberts_side"], sizes["mesh_classify_side"],
+                           sizes["mesh_classify_nc"])
+        img, cimg = mesh_image(side, 3), mesh_image(cside, 4)
+        sort_data = np.random.default_rng(5).normal(scale=100.0, size=sizes["mesh_sort_n"])
+        single = {
+            "roberts": lambda: roberts_edges(img, backend=backend),
+            "classify": lambda: classify(cimg, class_statistics(cimg, mesh_classes(cside, nc, 4)),
+                                         backend=backend, compute_dtype="float64"),
+            "sort": lambda: sort_op(sort_data.astype(np.float32), backend=backend).cpu().numpy()}
+        args = {"roberts": (side, 0, 3), "classify": (cside, nc, 4),
+                "sort": (sizes["mesh_sort_n"], 0, 5)}
+        for what in ("roberts", "classify", "sort"):
+            got = pool.run(rank_sharded, what, *args[what])
+            want = digest(single[what]())
+            check(got["digest"] == want, f"phase 13 {what}: the sharded result differs from the "
+                                         f"single-device path")
+            kernel = {"roberts": "B1", "classify": "B3"}.get(what)
+            if kernel and device.type == "cuda":
+                check(got["launches"][what] >= 1, f"phase 13 {what}: rank 0 launched no {kernel}")
+            out[what] = {**got, "world_size": n_dev, "device_count": out["device_count"]}
+            print(f"13b {what} (world size {n_dev}, {out['device_count']} device(s)): byte-equal "
+                  f"to the single-device path; rank 0 {got['ms']:.3f} ms wall a call (the "
+                  f"first {got['first_ms']:.3f}), launches a call {json.dumps(got['launches'])}",
+                  flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    files = lab5_files({**sizes, "lab5_n": 1024}, work)
+    path, _ = files["int32"]
+    plain = cli(["run", "lab5", "--backend", backend], path + "\n").splitlines()
+    engages = out["device_count"] >= 2 if device.type == "cuda" else False
+    print(f"13c lab5 --mesh 2 with {out['device_count']} CUDA device(s): "
+          + ("the mesh engages (two ranks)" if engages else
+             "the mesh needs two devices, so the single-device path runs"), flush=True)
+    meshed = cli(["run", "lab5", "--mesh", "2", "--backend", backend], path + "\n").splitlines()
+    check(meshed[1] == plain[1] and timing_word(meshed[0]) == timing_word(plain[0]),
+          f"lab5 --mesh 2 printed {meshed}, the single-device run {plain}")
+    out["lab5_mesh2"] = {"engaged": engages, "stdout": meshed, "single": plain}
+    shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 13 took {out['seconds']:.1f} s", flush=True)
+    return out
+
+
 KERNEL_META = {
     "roberts": ("tpulab_torch/csrc/stencil.cu", "tpulab/ops/pallas/stencil.py:82"),
     "elementwise": ("tpulab_torch/csrc/elementwise.cu", "tpulab/ops/pallas/elementwise.py:57"),
@@ -4625,12 +4989,20 @@ FULL_SIZES = {
     "remat_steps": 3, "vision_cli_steps": 100, "vision_cli_batch": 32,
     "vision_f32_batch": 32, "vision_f32_steps": 3, "vision_bench_batch": 256,
     "vision_bench_reps": 10,
+    # 6g: 12 flagship steps, a save every 6 and an eval every 5, K=4; 3
+    # timing rounds of 4 windows of 4 steps
+    "fused_steps": 12, "fused_k": 4, "fused_save_every": 6, "fused_eval_every": 5,
+    "fused_rounds": 3,
+    # 13: lab5's 2^24 files, lab2's 8192^2, lab3's 4096^2/nc=32 f64, hw2's 2^20;
+    # the CPU rehearsal's gloo ranks
+    "mesh_reduce_n": 2**24, "mesh_roberts_side": 8192, "mesh_classify_side": 4096,
+    "mesh_classify_nc": 32, "mesh_sort_n": 2**20, "mesh_cpu_ranks": 2,
 }
 
 
 def run(device, sizes: dict, backend: str, card: str = "cpu",
         parent: Path | None = None) -> dict:
-    """Phases 2 to 12 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
+    """Phases 2 to 13 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
     ``parent``: a checkout to time phases 4, 6c and 7d against (:func:`in_turns`)."""
     t0 = time.perf_counter()
     inp = make_inputs(sizes)
@@ -4660,6 +5032,7 @@ def run(device, sizes: dict, backend: str, card: str = "cpu",
         sizes, device, backend, card, parent)
     model["training"]["rest"] = run_train_rest(sizes, device, backend, card)
     model["labvision"] = run_labvision(sizes, device, backend, card)
+    model["training"]["fused"] = run_fused_steps(sizes, device, card)
     launches["flash_dq"] = train_launches["flash_dq"]
     launches["flash_dkv"] = train_launches["flash_dkv"]
     rows["paged_decode"], launches["paged_decode"], model["paged"] = run_paged_path(
@@ -4670,6 +5043,7 @@ def run(device, sizes: dict, backend: str, card: str = "cpu",
     model["phase10"] = run_cache_path(sizes, device, card)
     model["phase11"] = run_lifecycle_path(sizes, device, backend, card)
     model["phase12"] = run_daemon_path(sizes, device, backend, card, inp, main)
+    model["phase13"] = run_mesh_path(sizes, device, backend, card)
     kernels = []
     for name, row in rows.items():
         source, replaces = KERNEL_META[name]
@@ -4720,6 +5094,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     payload = run(torch.device("cuda", 0), FULL_SIZES, "cuda", card, parent)
+    print(f"chip_smoke.py took {time.perf_counter() - t0:.1f} s, the build included", flush=True)
     for kernel in payload["kernels"]:
         if kernel["name"] in sass:
             kernel["sass_tensor_core_opcodes"] = sass[kernel["name"]]

@@ -306,7 +306,16 @@ def test_control_loop_scales_out_then_in(small, monkeypatch):
     assert td._C_SCALE_INS.value == in0 + 1 and td._C_SHED.value == shed0
     with fleet.cv:
         assert sum(1 for r in fleet.replicas if not r.retired) == 1
+    # the ladder engages whenever the cold build spans its engage streak,
+    # which depends on the host's speed; the idle fleet is calm, so tick
+    # until it has released every rung it climbed
+    deadline = time.monotonic() + 60
+    while time.monotonic() < deadline and fleet.brownout.level:
+        td._autoscale_tick()
+        time.sleep(0.02)
     assert fleet.brownout.level == 0
+    assert fleet.brownout.engages == fleet.brownout.releases
+    assert td._C_SCALE_INS.value == in0 + 1
     for i, out in enumerate(results):
         assert np.array_equal(np.asarray(out), _want(small, 5 + i % 3, 24)), i
     assert td._obs.REGISTRY.get("fleet_target_replicas").value == 1.0

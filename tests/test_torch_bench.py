@@ -111,6 +111,7 @@ ROW_FUNCS = {
     "spill_overhead": ("bench_spill_overhead", "bench_spill_overhead"),
     "handoff_overhead": ("bench_handoff_overhead", "bench_handoff_overhead"),
     "prefix_lookup": ("bench_prefix_lookup", "bench_prefix_lookup"),
+    "train_step_overhead": ("bench_train_step", "bench_train_step"),
     "flash_attention": ("bench_flash_attention", "bench_flash_attention"),
 }
 
@@ -152,14 +153,15 @@ def test_registry_holds_tpulabs_model_rows():
         "labformer_decode_gqa2", "speculative_decode", "paged_engine", "paged_tick_overhead",
         "prefill_interleave", "obs_overhead", "journey_overhead", "obs_history_overhead",
         "fault_overhead", "journal_overhead", "autoscale_overhead",
-        "spill_overhead", "handoff_overhead", "prefix_lookup", "labvision_train",
+        "spill_overhead", "handoff_overhead", "prefix_lookup", "train_step_overhead",
+        "labvision_train",
         "flash_attention", "flash_attention_8k")
     assert bench.REGISTRY["labformer_decode_int8"].keywords == {"int8": True}
     assert bench.REGISTRY["labformer_decode_gqa2"].keywords == {"kv_heads": 2}
     assert bench.REGISTRY["flash_attention_8k"].keywords == {"s": 8192}
     for name in bench.REGISTRY:  # none is a row tpulab does not have
         assert name in inspect.getsource(jbench.run_benchmarks)
-    for waiting in ("mesh_tick_overhead", "decode_recompiles", "train_step_overhead"):
+    for waiting in ("mesh_tick_overhead", "decode_recompiles"):
         assert waiting not in bench.REGISTRY and waiting in bench.__doc__
 
 
@@ -183,6 +185,15 @@ def test_forward_and_train_rows_on_the_cpu():
     (vision,) = _rows("labvision_train", b=2, reps=1)
     assert vision["metric"] == "labvision_train_b2_64x64_images_per_s"
     assert vision["unit"] == "images/s" and "analytic" in vision["flops_convention"]
+
+
+def test_train_step_overhead_row_on_the_cpu():
+    (row,) = _rows("train_step_overhead", steps=8, k=4, reps=3)
+    assert row["metric"] == "train_step_b1_s16_k4_steps_per_s" and row["unit"] == "steps/s"
+    assert row["sync_steps_per_s"] > 0 and row["speedup_vs_sync"] > 0
+    assert row["n_trials"] == 3
+    with pytest.raises(ValueError, match="multiple"):
+        bench.bench_train_step(steps=6, k=4, backend="cpu")
 
 
 def test_decode_rows_on_the_cpu():

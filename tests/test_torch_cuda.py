@@ -1115,3 +1115,98 @@ def test_beam_search_loop_does_not_sync(cuda_device):
     with chip_smoke.watch_syncs(cuda_device) as syncs:
         _search(model, prompt, 16, 4)
     assert not syncs, syncs[0]
+
+
+# ------------------------------------------- fused steps a call, the mesh
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_step_k_is_bit_equal_to_k_steps_on_card(cuda_device, dtype):
+    from tpulab_torch.models.labformer import LabformerConfig, init_train_state
+    from tpulab_torch.train import batches
+
+    cfg = LabformerConfig(d_model=64, n_heads=4, n_layers=2, d_ff=128, max_seq=128,
+                          attn_impl="flash", dtype=dtype)
+    batch_at = batches(cfg.vocab, 2, 128, 3)
+    block = np.stack([batch_at(j) for j in range(4)])
+    m1, s1, step = init_train_state(cfg, seed=1, device=cuda_device)
+    m4, s4, step4 = init_train_state(cfg, seed=1, device=cuda_device)
+    singles = torch.stack([step(m1, s1, block[j])[2] for j in range(4)])
+    flash = flash_attention_with_lse
+    flash.launches = 0
+    losses = step4.step_k(m4, s4, block)[2]
+    assert flash.launches == 4 * cfg.n_layers
+    assert torch.equal(_bits(losses), _bits(singles))
+    for (name, a), (_, b) in zip(m1.trainable_leaves(), m4.trainable_leaves()):
+        for x, y in zip(a, b):
+            assert torch.equal(_bits(x.detach()), _bits(y.detach())), name
+
+
+@pytest.fixture(scope="module")
+def nccl_of_one():
+    """This process as an NCCL group of one rank (``make_mesh`` makes it)."""
+    import torch.distributed as dist
+
+    from tpulab_torch.parallel import mesh as pmesh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    yield pmesh.make_mesh(axes=("x",), backend="cuda")
+    pmesh._MESHES.clear()
+    pmesh._IMPLICIT_GROUP = None
+    if dist.is_initialized():
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_an_nccl_group_of_one_refuses_the_cpu(cuda_device, nccl_of_one):
+    from tpulab_torch.parallel import distributed_reduce
+    from tpulab_torch.parallel.mesh import cpu_test_mesh
+
+    refused = "backend 'cpu' asks for cpu, but this process's group is nccl on cuda"
+    with pytest.raises(ValueError, match=refused):
+        cpu_test_mesh({"x": 1})
+    with pytest.raises(ValueError, match=refused):
+        distributed_reduce(np.arange(8.0), backend="cpu")
+    assert distributed_reduce(np.arange(8.0)).device.type == "cuda"
+
+
+@pytest.mark.cuda
+def test_sharded_functions_over_an_nccl_group_of_one(cuda_device, nccl_of_one):
+    import torch.distributed as dist
+
+    from tpulab_torch.ops.mahalanobis import classify
+    from tpulab_torch.ops.reduction import reduce_op
+    from tpulab_torch.ops.roberts import roberts_edges
+    from tpulab_torch.ops.sortops import sort_op
+    from tpulab_torch.parallel import (all_gather_op, classify_sharded, distributed_mean,
+                                       distributed_reduce, distributed_sort, reduce_scatter_op,
+                                       roberts_sharded)
+
+    assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+    rng = np.random.default_rng(0)
+    ints = rng.integers(-10000, 10000, 4097).astype(np.int32)
+    floats = rng.normal(scale=100.0, size=4097).astype(np.float32)
+    for vals in (ints, floats):
+        for op in ("sum", "min", "max"):
+            got = distributed_reduce(vals, op)
+            assert got.device.type == "cuda"
+            want = reduce_op(vals, op, backend="cuda")
+            assert _bits(got.reshape(1)).cpu().equal(_bits(want.reshape(1)).cpu()), op
+    np.testing.assert_allclose(float(distributed_mean(floats.astype(np.float64))),
+                               floats.astype(np.float64).mean(), rtol=1e-12)
+    assert all_gather_op(floats).cpu().numpy().tobytes() == floats.tobytes()
+    mat = floats[:4096].reshape(1, 4096)
+    assert reduce_scatter_op(mat).cpu().numpy().tobytes() == mat[0].tobytes()
+    img = rng.integers(0, 256, (257, 131, 4), dtype=np.uint8)
+    roberts_u32.launches = 0
+    assert roberts_sharded(img).tobytes() == roberts_edges(img, backend="cuda").tobytes()
+    assert roberts_u32.launches == 2  # the shard's, then the single-device path's
+    classes = [np.stack([rng.integers(0, 131, 8), rng.integers(0, 257, 8)], 1) for _ in range(5)]
+    stats = class_statistics(img, classes)
+    for dtype in ("float64", "float32"):
+        assert classify_sharded(img, stats, compute_dtype=dtype).tobytes() == classify(
+            img, stats, backend="cuda", compute_dtype=dtype).tobytes()
+    assert distributed_sort(floats).tobytes() == sort_op(floats, backend="cuda").cpu().numpy(
+    ).tobytes()

@@ -274,15 +274,24 @@ def test_harness_cli_lab1_sweep_and_lab5(tmp_path):
 
 
 def test_harness_cli_lab5_mesh_raises_where_it_would_engage(tmp_path, monkeypatch):
+    """Where ``--mesh`` engages, the harness's lab5 run goes over gloo ranks
+    and its result equals ``tpulab``'s lab5 on a mesh of the same size."""
+    # where the mesh engages (eight devices, --mesh 4) the run goes over four
+    # gloo ranks, is verified, and its result is tpulab's lab5 on a mesh of four
+    from tpulab.labs import lab5 as jax_lab5
+
     from tpulab_torch.labs import lab5
 
     monkeypatch.setattr(lab5, "device_count", lambda device: 8)
-    rc = harness_main(["--lab", "lab5", "--backend", "cpu", "--k-times", "1", "--mesh", "8",
+    rc = harness_main(["--lab", "lab5", "--backend", "cpu", "--k-times", "1", "--mesh", "4",
                        "--artifact-dir", str(tmp_path), "--workdir", str(tmp_path / "w"),
-                       "--warmup", "0", "--reps", "1"])
-    assert rc == 1
-    with open(tmp_path / "failed_tpulab_torch_lab5.csv") as f:
-        assert all("ROADMAP A12" in r["error"] for r in csv.DictReader(f))
+                       "--warmup", "0", "--reps", "1", "--return-task-res", "--return-inp"])
+    assert rc == 0
+    with open(tmp_path / "runs_tpulab_torch_lab5.csv") as f:
+        (run,) = list(csv.DictReader(f))
+    assert run["verified"] == "True" and run["device_reported"] == "CPU"
+    want = jax_lab5.run(run["input_str"], backend="cpu", mesh=4, warmup=0, reps=1)
+    assert run["task_result"] == want.splitlines()[1]
 
 
 def test_bench_rows_at_a_tiny_size():

@@ -293,13 +293,28 @@ def test_lab5_sort_of_signed_zeros_and_nan_payloads_is_byte_equal(tmp_path):
     assert Path(path + "_port").read_bytes() == Path(path + "_jax").read_bytes()
 
 
-def test_lab5_mesh_engages_only_with_the_devices_and_then_raises(fixtures, monkeypatch):
+def test_lab5_mesh_engages_only_with_the_devices_and_then_raises(fixtures, monkeypatch,
+                                                                  tmp_path):
+    """``--mesh N`` engages only where ``device_count >= N > 1``; where it
+    engages, the output equals ``tpulab``'s ``lab5.run(..., mesh=N)``."""
     text = str(fixtures / "int10") + "\n"
     # one CPU device: --mesh 2 cannot engage, and runs as tpulab's would on one device
     assert lab5.run(text, backend="cpu", mesh=2, warmup=0, reps=1).splitlines()[1] == "45"
+    # four: --mesh 2 engages two gloo ranks, and equals tpulab's lab5 on a mesh of two
+    # of its eight CPU devices (the reduction, the sorted file's bytes)
     monkeypatch.setattr(lab5, "device_count", lambda device: 4)
-    with pytest.raises(NotImplementedError, match="A12"):
-        lab5.run(text, backend="cpu", mesh=2)
+    for name, task in (("int10", "sum"), ("uchar10", "prod")):
+        text = str(fixtures / name) + "\n"
+        mine = lab5.run(text, backend="cpu", task=task, mesh=2, warmup=0, reps=1)
+        theirs = jax_lab5.run(text, backend="cpu", task=task, mesh=2, warmup=0, reps=1)
+        assert parse_timing_device(mine) == "CPU"
+        assert mine.splitlines()[1] == theirs.splitlines()[1]
+    path = str(tmp_path / "float15")
+    save_typed_array(path, _special_floats())
+    lab5.run(f"{path}\n{path}_port\n", backend="cpu", task="sort", mesh=2, warmup=0, reps=1)
+    jax_lab5.run(f"{path}\n{path}_jax\n", backend="cpu", task="sort", mesh=2, warmup=0, reps=1)
+    assert Path(path + "_port").read_bytes() == Path(path + "_jax").read_bytes()
+    text = str(fixtures / "int10") + "\n"
     assert lab5.run(text, backend="cpu", mesh=1, warmup=0, reps=1).splitlines()[1] == "45"
     assert devmod.device_count(torch.device("cpu")) == 1
 

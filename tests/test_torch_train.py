@@ -267,7 +267,7 @@ def test_inject_fault_fails_fast():
 
 
 UNPORTED = [
-    dict(mesh_devices=4), dict(zero1=True), dict(zero2=True), dict(steps_per_call=4),
+    dict(mesh_devices=4), dict(zero1=True), dict(zero2=True),
     dict(moe_impl="dispatch", experts=4),
 ]
 

@@ -40,10 +40,14 @@ asks for the host) and, on the card, the card's name and power limit as
 kernels B1-B7) and counts its flops analytically where ``tpulab`` reads
 XLA's cost model.
 
+``train_step_overhead`` steps the trainer's fused ``steps_per_call`` loop
+and the synchronous loop in turns (:func:`_paired`); it is reported, not
+gated.
+
 Rows of ``tpulab``'s registry that wait for a module of their own are not
 registered (``run_benchmarks`` raises rather than turning an error into a
-row): ``mesh_tick_overhead`` (ROADMAP A12); ``decode_recompiles`` and
-``train_step_overhead`` (A13, A8.6).
+row): ``mesh_tick_overhead`` (ROADMAP A12.4) and ``decode_recompiles``
+(A13).
 """
 
 from __future__ import annotations
@@ -262,6 +266,74 @@ def bench_labformer_train(b: int = 8, s: int = 2048, reps: int = 10, dtype: str 
     return _model_row(f"labformer_train_b{b}_s{s}_{dtype}_tokens_per_s",
                       round(b * s / (ms / 1e3), 1), "tokens/s", device, samples,
                       **mfu_fields(3 * labformer_fwd_flops(cfg, b, s), ms, device))
+
+
+def bench_train_step(steps: int = 48, k: int = 8, reps: int = 5, b: int = 1, s: int = 16,
+                     backend: Optional[str] = None) -> Dict[str, Any]:
+    """Train-step overhead (``tpulab``'s ``train_step_overhead``): optimizer
+    steps/s of the trainer's fused loop on the small labformer (d32, 4
+    heads, 2 layers, f32) against the synchronous loop on the same model.
+    The synchronous side builds each batch while the device waits and
+    reads every step's loss; the fused side uploads ``k`` steps as one
+    block, runs them with ``step.step_k`` and reads a block's losses one
+    block late.  Each window starts from a fresh model; the two sides step
+    in turns, ``k`` optimizer steps a turn (:func:`_paired`), and each
+    side's ``reps`` windows give its median.  Reported, not gated."""
+    from collections import deque
+
+    from tpulab_torch.models.labformer import LabformerConfig, init_train_state
+    from tpulab_torch.train import batches
+
+    if steps % k:
+        raise ValueError(f"steps ({steps}) must be a multiple of k ({k})")
+    device = resolve_device(backend)
+    cfg = LabformerConfig(d_model=32, n_heads=4, n_layers=2, d_ff=64, max_seq=s,
+                          dtype=torch.float32)
+    batch_at = batches(cfg.vocab, b, s, seed=0)
+
+    def window_sync():
+        model, state, step = init_train_state(cfg, seed=0, device=device)
+        float(step(model, state, batch_at(0))[2])  # warm, outside the timer
+        yield
+        for i0 in range(0, steps, k):
+            for i in range(i0, i0 + k):
+                model, state, loss = step(model, state, batch_at(i))
+                float(loss)
+            yield
+
+    def window_fused():
+        model, state, step = init_train_state(cfg, seed=0, device=device)
+        step.step_k(model, state, np.stack([batch_at(j) for j in range(k)]))[2].tolist()
+        yield
+        pending: deque = deque()
+        for i0 in range(0, steps, k):
+            block = np.stack([batch_at(i0 + j) for j in range(k)])
+            pending.append(step.step_k(model, state, block)[2])
+            while len(pending) > 1:
+                pending.popleft().tolist()
+            if i0 + k == steps:
+                pending.popleft().tolist()
+            yield
+
+    times: Dict[str, list] = {"sync": [], "fused": []}
+    for i in range(max(reps, 3)):
+        ticks: tuple = ([], [])
+        order = ("sync", "fused") if i % 2 == 0 else ("fused", "sync")
+        gens = {"sync": window_sync(), "fused": window_fused()}
+        _paired(gens[order[0]], gens[order[1]], ticks)
+        for name, t in zip(order, ticks):
+            times[name].append(sum(t[1:]))  # the first turn is the warm-up
+    t_fused, t_sync = float(np.median(times["fused"])), float(np.median(times["sync"]))
+    return {
+        "metric": f"train_step_b{b}_s{s}_k{k}_steps_per_s",
+        "value": round(steps / t_fused, 1),
+        "unit": "steps/s",
+        "vs_baseline": None,
+        "sync_steps_per_s": round(steps / t_sync, 1),
+        "speedup_vs_sync": round(t_sync / t_fused, 3),
+        **card_fields(device.type),
+        **variance_fields([t * 1e3 for t in times["fused"]]),
+    }
 
 
 def bench_labvision_train(b: int = 256, reps: int = 10,
@@ -1171,6 +1243,7 @@ REGISTRY = {
     "spill_overhead": bench_spill_overhead,
     "handoff_overhead": bench_handoff_overhead,
     "prefix_lookup": bench_prefix_lookup,
+    "train_step_overhead": bench_train_step,
     "labvision_train": bench_labvision_train,
     "lab2_roberts_1024": bench_lab2,
     "lab3_classify_1024": bench_lab3,

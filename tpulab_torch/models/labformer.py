@@ -25,7 +25,7 @@ products (:func:`_remat_context`).  The port updates the module's parameters and
 in place where ``tpulab`` returns new trees.
 
 What needs a mesh (sequence parallelism, the all_to_all MoE dispatch,
-ZeRO) waits for the multi-device tier, ROADMAP A12.
+ZeRO) waits for mesh training, ROADMAP A12.3.
 """
 
 from __future__ import annotations
@@ -292,8 +292,8 @@ class Labformer(nn.Module):
         super().__init__()
         if cfg.n_experts and cfg.moe_impl == "dispatch":
             raise NotImplementedError(
-                "moe_impl='dispatch' routes over a mesh; the port runs on one "
-                "device until the multi-device tier (ROADMAP A12)")
+                "moe_impl='dispatch' routes over a mesh; the port trains on one "
+                "device until mesh training (ROADMAP A12.3)")
         device = resolve_device(device) if device is None or isinstance(device, str) \
             else torch.device(device)
         self.cfg = cfg
@@ -446,8 +446,8 @@ class Labformer(nn.Module):
 def _refuse_mesh_options(cfg: LabformerConfig, mesh, zero1: bool, zero2: bool) -> None:
     if mesh is not None or zero1 or zero2:
         raise NotImplementedError(
-            "mesh training (sp, ZeRO-1/2, dispatch MoE) waits for the port's "
-            "multi-device tier (ROADMAP A12); train on one device with mesh=None")
+            "mesh training (sp, ZeRO-1/2, dispatch MoE) is not ported yet "
+            "(ROADMAP A12.3); train on one device with mesh=None")
 
 
 #: the products remat "dots" keeps: 2-D matmuls, which is what the block's
@@ -523,7 +523,14 @@ def make_train_step(cfg: LabformerConfig, mesh=None, optimizer: Optional[optim.T
     (default ``optim.adamw(3e-4)``, as ``tpulab``'s) to the parameters and
     ``opt_state`` in place.  Under ``cfg.lora_rank`` only the adapter
     leaves are trainable, so only they get gradients and optimizer state.
-    ``loss`` is a device scalar (reading it waits for the step)."""
+    ``loss`` is a device scalar (reading it waits for the step).
+
+    ``step.step_k(model, opt_state, block)`` runs K steps over one
+    ``(K, batch, seq+1)`` token block, uploaded once, and returns the K
+    losses as one ``(K,)`` device tensor with no host read: ``tpulab``'s
+    fused K-step program (``tpulab/models/labformer.py:654-682``), run
+    eagerly.  The K steps are the same step, in order, so the losses and
+    parameters are bit-equal to K calls of ``step``."""
     _refuse_mesh_options(cfg, mesh, zero1, zero2)
     optimizer = optimizer or optim.adamw(3e-4)
 
@@ -537,6 +544,14 @@ def make_train_step(cfg: LabformerConfig, mesh=None, optimizer: Optional[optim.T
             optim.apply_updates(leaves, optimizer.update(grads, opt_state, leaves))
         return model, opt_state, loss
 
+    def step_k(model: Labformer, opt_state, block):
+        losses = []
+        for tokens in model.tokens(block):
+            model, opt_state, loss = train_step(model, opt_state, tokens)
+            losses.append(loss)
+        return model, opt_state, torch.stack(losses)
+
+    train_step.step_k = step_k
     return optimizer, train_step
 
 

@@ -44,9 +44,16 @@ non-finite loss, at most that many times), and ``init_from`` (a snapshot's
 base weights into a fresh run, the optimizer clean: the pretrain to LoRA
 bridge).  A resumed or recovered run is bit-equal to an uninterrupted one.
 
+``steps_per_call`` K > 1 runs blocks of K steps as one call
+(``step.step_k`` of :func:`~tpulab_torch.models.labformer.make_train_step`:
+one ``(K, batch, seq+1)`` upload, the K losses read back together), planned
+as ``tpulab`` plans them: a block ends at each eval and save boundary, an
+unfired injected fault and anything shorter than K run as K=1 calls, so
+losses and parameters are bit-equal to the K=1 loop.  Under ``overlap`` = 1
+a block's losses are drained one block late and checked step by step.
+
 What the port does not have raises ``NotImplementedError`` naming its
-ROADMAP item: the mesh and ZeRO options (A12) and fused
-``steps_per_call`` (A8.6).
+ROADMAP item: the mesh and ZeRO options and dispatch MoE (A12.3).
 """
 
 from __future__ import annotations
@@ -121,11 +128,10 @@ def corpus_windows(src: np.ndarray, batch: int, seq: int, seed: int):
 def _refuse_unported(**given) -> None:
     """NotImplementedError for every argument the port does not have."""
     queued = {
-        "mesh_devices": "mesh training waits for the multi-device tier (ROADMAP A12)",
-        "zero1": "ZeRO-1 shards over a mesh (ROADMAP A12)",
-        "zero2": "ZeRO-2 shards over a mesh (ROADMAP A12)",
-        "steps_per_call": "fused multi-step calls are CUDA-graph work (ROADMAP A8.6)",
-        "moe_impl": "dispatch MoE routes over a mesh (ROADMAP A12)",
+        "mesh_devices": "mesh training is not ported yet (ROADMAP A12.3)",
+        "zero1": "ZeRO-1 shards over a mesh (ROADMAP A12.3)",
+        "zero2": "ZeRO-2 shards over a mesh (ROADMAP A12.3)",
+        "moe_impl": "dispatch MoE routes over a mesh (ROADMAP A12.3)",
     }
     for name, value in given.items():
         if value:
@@ -303,9 +309,8 @@ def train(
         raise ValueError("data_dir streams byte tokens — only the labformer consumes it")
     if model not in ("labformer", "labvision"):
         raise ValueError(f"unknown model {model!r}")
-    _refuse_unported(
-        mesh_devices=mesh_devices, zero1=zero1, zero2=zero2,
-        steps_per_call=steps_per_call > 1, moe_impl=moe_impl != "dense")
+    _refuse_unported(mesh_devices=mesh_devices, zero1=zero1, zero2=zero2,
+                     moe_impl=moe_impl != "dense")
     inject_fault = tuple(inject_fault or ())
     device = resolve_device(device) if device is None or isinstance(device, str) \
         else torch.device(device)
@@ -445,10 +450,10 @@ def train(
     loss = float("nan")
     fired_faults: set = set()
     recoveries = 0
-    pending: deque = deque()  # (step, device loss, host time at dispatch)
+    pending: deque = deque()  # (first step, k, device losses, host time at dispatch)
     counters = {"dispatches": 0, "fused_calls": 0, "host_syncs": 0}
     # the trainer's observability, as tpulab's: host dispatch time and the
-    # dispatch -> checked-loss lag per step in the process-global registry,
+    # dispatch -> checked-loss lag per block in the process-global registry,
     # and the train-MFU window (analytic labformer flops, 3x the forward,
     # over wall time; 0 without the card's peak), printed as the
     # "[train] metrics" line at each eval and save boundary and at the end
@@ -476,33 +481,54 @@ def train(
                 f"blocks={h_dispatch.count} "
                 f"train_mfu_pct={mfu['pct']}")
 
+    def block_len(s: int) -> int:
+        """``tpulab``'s ``_block_len``: the longest fused block starting at
+        step ``s``, capped at ``steps_per_call``, ending at an eval or save
+        boundary, never covering an unfired injected fault, never past
+        ``steps``; anything shorter than ``steps_per_call`` runs as K=1
+        calls."""
+        k = min(steps_per_call, steps - s)
+        for j in range(k):
+            cur = s + j
+            if cur in inject_fault and cur not in fired_faults:
+                k = j if j else 1
+                break
+            if j < k - 1 and ((eval_every and (cur + 1) % eval_every == 0)
+                              or (ckpt_path is not None and (cur + 1) % save_every == 0)):
+                k = j + 1
+                break
+        return k if k == steps_per_call else 1
+
     def drain_oldest() -> Optional[int]:
-        """Read and check the oldest in-flight step's loss (waits for it).
-        Returns the snapshot to roll back to when a non-finite loss can
-        recover; raises when it cannot."""
+        """Read and check the oldest in-flight block's losses (waits for
+        them), step by step.  Returns the snapshot to roll back to when a
+        non-finite loss can recover; raises when it cannot."""
         nonlocal loss, recoveries
-        s, ldev, t0 = pending.popleft()
+        s0, k, ldev, t0 = pending.popleft()
         with TRACER.span("train.drain"):
-            lv = float(ldev)
+            vals = ldev.reshape(-1).tolist()
         lag = time.perf_counter() - t0
         h_loss_lag.observe(lag)
-        if s in inject_fault and s not in fired_faults:
-            # a transient: once a step, so the replay after a rollback
-            # sees the real loss
-            fired_faults.add(s)
-            log(f"[fault] injected non-finite loss at step {s}")
-            lv = float("nan")
-        if not np.isfinite(lv):
-            rollback = ckpt.latest_step(ckpt_path) if ckpt_path else None
-            if not (recover > 0 and recoveries < recover and rollback is not None):
-                raise FloatingPointError(f"non-finite loss {lv} at step {s}")
-            recoveries += 1
-            log(f"[recover] non-finite loss at step {s}: "
-                f"rolling back to snapshot {rollback} ({recoveries}/{recover})")
-            return rollback
-        loss = lv
-        if s % log_every == 0:
-            log(f"[train] step {s} loss {lv:.4f} ({lag * 1e3:.1f} ms)")
+        ms = lag * 1e3 / k
+        for j, lv in enumerate(vals):
+            s = s0 + j
+            if s in inject_fault and s not in fired_faults:
+                # a transient: once a step, so the replay after a rollback
+                # sees the real loss
+                fired_faults.add(s)
+                log(f"[fault] injected non-finite loss at step {s}")
+                lv = float("nan")
+            if not np.isfinite(lv):
+                rollback = ckpt.latest_step(ckpt_path) if ckpt_path else None
+                if not (recover > 0 and recoveries < recover and rollback is not None):
+                    raise FloatingPointError(f"non-finite loss {lv} at step {s}")
+                recoveries += 1
+                log(f"[recover] non-finite loss at step {s}: "
+                    f"rolling back to snapshot {rollback} ({recoveries}/{recover})")
+                return rollback
+            loss = lv
+            if s % log_every == 0:
+                log(f"[train] step {s} loss {lv:.4f} ({ms:.1f} ms)")
         return None
 
     where = {"step": start_step}
@@ -515,9 +541,15 @@ def train(
             while step < steps:
                 t0 = time.perf_counter()
                 where["step"] = step
+                k = block_len(step)
                 with TRACER.span("train.dispatch"):
                     try:
-                        net, opt_state, ldev = train_step(net, opt_state, batch_at(step))
+                        if k == 1:
+                            net, opt_state, ldev = train_step(net, opt_state, batch_at(step))
+                        else:
+                            block = np.stack([batch_at(step + j) for j in range(k)])
+                            net, opt_state, ldev = train_step.step_k(net, opt_state, block)
+                            counters["fused_calls"] += 1
                     except RuntimeError as e:
                         if sanitize and "nan values" in str(e):  # anomaly mode's trap
                             raise FloatingPointError(
@@ -525,10 +557,10 @@ def train(
                                 f"{step}: {e}") from e
                         raise
                 counters["dispatches"] += 1
-                mfu["steps"] += 1
+                mfu["steps"] += k
                 h_dispatch.observe(time.perf_counter() - t0)
-                pending.append((step, ldev, t0))
-                step += 1
+                pending.append((step, k, ldev, t0))
+                step += k
                 at_eval = bool(eval_every and step % eval_every == 0)
                 at_save = bool(ckpt_path is not None and step % save_every == 0)
                 barrier = at_eval or at_save or step >= steps
@@ -540,7 +572,7 @@ def train(
                     if rollback is not None:
                         break
                 if rollback is not None:
-                    # drop the steps in flight past the fault and replay
+                    # drop the blocks in flight past the fault and replay
                     # from the snapshot: the restore is total
                     pending.clear()
                     ckpt.restore(ckpt_path, rollback, net, opt_state)
@@ -586,7 +618,7 @@ def main(argv=None) -> int:
     ap.add_argument("--save-every", type=int, default=20)
     ap.add_argument("--resume", action="store_true",
                     help="restore the newest snapshot in --ckpt-dir and continue")
-    ap.add_argument("--mesh", type=int, default=0, help="not ported (ROADMAP A12)")
+    ap.add_argument("--mesh", type=int, default=0, help="not ported (ROADMAP A12.3)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sanitize", action="store_true",
                     help="trap the first non-finite value where a module or a backward op "
@@ -601,7 +633,7 @@ def main(argv=None) -> int:
                          "weight products, recompute the rest (attention included)")
     ap.add_argument("--experts", type=int, default=0, help="MoE experts (0 = dense MLP)")
     ap.add_argument("--moe-impl", default="dense", choices=("dense", "dispatch"),
-                    help="dense; dispatch is not ported (ROADMAP A12)")
+                    help="dense; dispatch is not ported (ROADMAP A12.3)")
     ap.add_argument("--moe-aux-weight", type=float, default=0.01,
                     help="switch-transformer router load-balancing loss weight")
     ap.add_argument("--moe-top-k", type=int, default=1,
@@ -618,8 +650,8 @@ def main(argv=None) -> int:
     ap.add_argument("--schedule", default="const", choices=("const", "cosine"))
     ap.add_argument("--clip-norm", type=float, default=0.0,
                     help="global gradient-norm clip (0 = off)")
-    ap.add_argument("--zero1", action="store_true", help="not ported (ROADMAP A12)")
-    ap.add_argument("--zero2", action="store_true", help="not ported (ROADMAP A12)")
+    ap.add_argument("--zero1", action="store_true", help="not ported (ROADMAP A12.3)")
+    ap.add_argument("--zero2", action="store_true", help="not ported (ROADMAP A12.3)")
     ap.add_argument("--recover", type=int, default=0,
                     help="on a non-finite loss, roll back to the newest snapshot and "
                          "continue, at most N times (0 = fail fast)")
@@ -640,7 +672,8 @@ def main(argv=None) -> int:
                     help="BPE table (tpulab_torch tokenizer train): vocab from the "
                          "merges, batches from the encoded --data-dir corpus")
     ap.add_argument("--steps-per-call", type=int, default=1, metavar="K",
-                    help="1; K > 1 is not ported (ROADMAP A8.6)")
+                    help="optimizer steps per fused call (blocks end at eval/save "
+                         "boundaries; faults and the tail run as K=1 calls)")
     ap.add_argument("--overlap", type=int, default=1, choices=(0, 1),
                     help="1 (default) reads each loss one step late; 0 waits every step")
     ap.add_argument("--log-every", type=int, default=1, metavar="N",
