@@ -376,8 +376,37 @@ failure:
     and ``lab5 --mesh 2`` through the CLI, which engages the mesh only
     with two or more cards and otherwise runs, and prints, the
     single-device result.
-14. One ``{"model": {...}}`` line with phases 5 to 7's (5e, 6e, 6f and
-    6g included) and 9 to 13's numbers, one ``{"lab_suite": {...}}`` line with phase 8's, one
+14. Sequence parallelism, MoE and the pipeline (``tpulab_torch.parallel``
+    ``ring``, ``moe``, ``pipeline``) at the serving labformer's attention
+    width (8 heads, head_dim 64, bfloat16), each run with B4-B6's launch
+    counts set to 0 just before and read just after, its ms the median of
+    3 (CUDA events), each line with the card's name and power limit:
+
+    a. over NCCL on ``torch.cuda.device_count()`` ranks (a ``RankPool``;
+       one on a one-card machine): ``ring_attention``,
+       ``zigzag_ring_attention`` and ``ulysses_attention`` with
+       ``local_impl="flash"`` at (1, 32768, 8, 64), the ring and Ulysses
+       byte-equal at world size 1 to one whole-sequence B4 call (no merge
+       runs), the zigzag (three calls merged) and any result above world
+       size 1 within ``o_tolerance``; ``switch_moe`` at E=8, k=2, d512,
+       ff2048, 8192 tokens at full capacity in float32 within 1e-5
+       relative of ``switch_moe_reference``; ``pipeline_apply`` over 8
+       tanh layers at d512, M=4, batch 4096, byte-equal to the sequential
+       stack run on each microbatch (the pipeline's products, shape for
+       shape), and within 1e-5 absolute of the stack on the whole batch;
+    b. the ring bodies for p = 8 ranks in this process (the
+       ``*_in_process`` helpers): the flash ring, the zigzag, Ulysses and
+       the windowed flash ring at windows 4096 and 5000 at (1, 32768, 8,
+       64), each against one whole-sequence B4 call within
+       ``o_tolerance``; their q, k and v gradients (B5 and B6 fed the
+       merged lse's cotangents) against the whole-sequence backward at
+       (1, 8192, 8, 64): in float32 within ``grad_tolerance``, in bfloat16
+       within ``BF16_SUM_GRAD_LIMIT`` times it, with the same bfloat16 run
+       summing its B5/B6 outputs in float32 printed beside it; the ring
+       with one stale block (a visiting block dropped) must fail every
+       limit.
+15. One ``{"model": {...}}`` line with phases 5 to 7's (5e, 6e, 6f and
+    6g included) and 9 to 14's numbers, one ``{"lab_suite": {...}}`` line with phase 8's, one
     ``{"kernels": [...]}`` line, the card line again, and last ``{"ok":
     true, "device": {...}}``.
 
@@ -4845,6 +4874,318 @@ def run_mesh_path(sizes: dict, device, backend: str, card: str) -> dict:
     return out
 
 
+# ----------------------------------------------------------------- phase 14
+
+#: phase 14's launch counters: B4, B5 and B6
+SP_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
+
+
+def sp_inputs(shape, dtype, device, seed: int, n: int = 3) -> list:
+    """``n`` seeded (batch, seq, heads, head_dim) tensors on ``device``,
+    the same bits on every rank."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(shape, generator=gen, device=device).to(dtype) for _ in range(n)]
+
+
+def sp_counted(fn, device, reps: int) -> tuple:
+    """``fn()`` once with B4-B6's counts set to 0 just before and read just
+    after, then its median ms over ``reps`` more calls (CUDA events);
+    ``(result, launches, ms)``."""
+    wrappers = zero_counts()
+    out = fn()
+    launches = {name: wrappers[name].launches for name in SP_KERNELS}
+    if device.type == "cuda":
+        import torch
+
+        torch.cuda.synchronize(device)
+    return out, launches, event_ms(fn, device, reps)
+
+
+def moe_inputs(cfg: dict, device, seed: int) -> tuple:
+    """Tokens (N, d), router (d, E) and experts (E, d, ff), (E, ff, d) in
+    f32, each weight at 1/sqrt(fan-in)."""
+    import torch
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    n, d, e, ff = cfg["tokens"], cfg["d"], cfg["experts"], cfg["ff"]
+    mk = lambda *s, fan: torch.randn(s, generator=gen, device=device) / fan ** 0.5  # noqa: E731
+    return mk(n, d, fan=1), mk(d, e, fan=d), mk(e, d, ff, fan=d), mk(e, ff, d, fan=ff)
+
+
+def pipe_layer(x, layer):
+    import torch
+
+    return torch.tanh(x @ layer["w"] + layer["b"])
+
+
+def within_rel(got, want, rtol: float, atol: float) -> tuple:
+    """(every ``|got - want| <= atol + rtol * |want|``, the largest
+    ``|got - want| / (atol + rtol * |want|)``)."""
+    err = (got.float() - want.float()).abs() / (atol + rtol * want.float().abs())
+    worst = float(err.max())
+    return worst <= 1.0, worst
+
+
+def rank_sp(sizes: dict, card: str) -> dict:
+    """Rank side of 14a: ring, zigzag and Ulysses attention (flash), switch
+    MoE and the pipeline over every rank, each checked on this rank against
+    the single-device path: its launches of B4-B6 (counts set to 0 just
+    before a call, read just after) and its median ms."""
+    import torch
+    import torch.distributed as dist
+
+    from tpulab_torch.ops.cuda.attention import flash_attention_with_lse, over_tolerance
+    from tpulab_torch.parallel import (pipeline_apply, ring_attention, switch_moe,
+                                       switch_moe_reference, ulysses_attention,
+                                       zigzag_ring_attention)
+    from tpulab_torch.parallel.mesh import mesh_anchor, make_mesh
+
+    world = dist.get_world_size()
+    device = mesh_anchor(make_mesh(axes=("sp",)))
+    reps = sizes["sp_reps"]
+    q, k, v = sp_inputs(sizes["sp_shape"], torch.bfloat16, device, seed=14)
+    whole = flash_attention_with_lse(q, k, v, causal=True)[0]
+    out = {"world_size": world}
+    for name, fn in (("ring", ring_attention), ("zigzag", zigzag_ring_attention),
+                     ("ulysses", ulysses_attention)):
+        o, launches, ms = sp_counted(lambda: fn(q, k, v, local_impl="flash"), device, reps)
+        byte_equal = bool(torch.equal(o.view(torch.int16), whole.view(torch.int16)))
+        over = over_tolerance(o, whole)
+        # with one rank the ring and Ulysses run the one whole-sequence B4 call
+        check(byte_equal if world == 1 and name != "zigzag" else over <= 1.0,
+              f"phase 14a {name} at world size {world}: byte-equal {byte_equal}, "
+              f"{over:.3f} of o_tolerance")
+        out[name] = {"ms": ms, "launches": launches, "byte_equal": byte_equal,
+                     "over_tolerance": over}
+    cfg = sizes["sp_moe"]
+    x, rw, w1, w2 = moe_inputs(cfg, device, seed=15)
+    kw = dict(axis="sp", capacity_factor=float(cfg["experts"]), k=cfg["k"])
+    y, launches, ms = sp_counted(lambda: switch_moe(x, rw, w1, w2, **kw), device, reps)
+    want, _, ref_ms = sp_counted(lambda: switch_moe_reference(
+        x, rw, w1, w2, k=cfg["k"], backend=device.type), device, reps)
+    ok, worst = within_rel(y, want, 1e-5, 1e-6)
+    check(ok and bool(torch.isfinite(y).all()),
+          f"phase 14a switch_moe: {worst:.3f} of rtol 1e-5 / atol 1e-6 from the reference")
+    out["moe"] = {**cfg, "ms": ms, "reference_ms": ref_ms, "launches": launches,
+                  "over_rtol_1e-5": worst}
+    cfg = sizes["sp_pipe"]
+    gen = torch.Generator(device=device).manual_seed(16)
+    d = cfg["d"]
+    params = {"w": torch.randn((cfg["layers"], d, d), generator=gen, device=device) / d ** 0.5,
+              "b": torch.randn((cfg["layers"], d), generator=gen, device=device) * 0.1}
+    xb = torch.randn((cfg["batch"], d), generator=gen, device=device)
+    got, launches, ms = sp_counted(lambda: pipeline_apply(
+        pipe_layer, params, xb, axis="sp", n_micro=cfg["n_micro"]), device, reps)
+
+    def sequential(a):
+        for i in range(cfg["layers"]):
+            a = pipe_layer(a, {"w": params["w"][i], "b": params["b"][i]})
+        return a
+
+    # the stack on each microbatch runs the pipeline's products, shape for
+    # shape: its bytes; the stack on the whole batch sums in other orders
+    want = torch.cat([sequential(mb) for mb in xb.chunk(cfg["n_micro"])])
+    whole, _, seq_ms = sp_counted(lambda: sequential(xb), device, reps)
+    check(torch.equal(got, want), "phase 14a pipeline_apply differs from the sequential stack "
+                                  "on its microbatches")
+    whole_err = float((got - whole).abs().max())
+    check(whole_err <= 1e-5, f"phase 14a pipeline_apply is {whole_err:.3e} from the sequential "
+                             f"stack on the whole batch (limit 1e-5 absolute)")
+    out["pipeline"] = {**cfg, "ms": ms, "sequential_ms": seq_ms, "launches": launches,
+                       "byte_equal_per_microbatch": True, "whole_batch_max_abs_err": whole_err}
+    for name in ("ring", "zigzag", "ulysses", "moe", "pipeline"):
+        print(f"14a {name} (world size {world}, {torch.cuda.device_count()} device(s)): "
+              f"{json.dumps(out[name])} [{card}]", flush=True)
+    return out
+
+
+def _drop_one_block(idx: int, p: int, kv):
+    """A :class:`LocalExchange` whose last rank gets, at step 1, the block it
+    already held (a stale buffer): the visiting block is dropped and the
+    previous one merged in its place."""
+    from tpulab_torch.parallel.ring import LocalExchange
+
+    class Stale(LocalExchange):
+        def rotate(self, held, t):
+            return held if (self.idx, t) == (self.p - 1, 1) else super().rotate(held, t)
+
+    return Stale(idx, p, kv)
+
+
+# A rank's bfloat16 K/V gradient is the sum of up to p B6 outputs, each
+# rounded to bfloat16 and summed in bfloat16, as autodiff sums them; the
+# whole-sequence backward sums in float32 inside B6 and rounds once.  The
+# limit on the ring's bfloat16 gradients, in units of ``grad_tolerance``:
+# on an H100 80GB HBM3 at 700 W sound runs read 0.82-1.41 of it (0.66-1.02
+# with the sums in float32) and a stale block 1323 at its worst of q, k, v.
+BF16_SUM_GRAD_LIMIT = 3.0
+
+
+@contextlib.contextmanager
+def _partials_summed_in_f32(dtype):
+    """While it is open, the ring bodies cast their float32 q, k and v to
+    ``dtype`` at each B4 call: the kernels run in ``dtype`` as before, and
+    every sum of B5/B6 outputs (a rank's dq over its partials, each K/V
+    block's gradient over the ranks it visits) runs in float32."""
+    from tpulab_torch.parallel import ring as R
+
+    attend = R._attend
+    R._attend = lambda q, k, v, **kw: attend(q.to(dtype), k.to(dtype), v.to(dtype), **kw)
+    try:
+        yield
+    finally:
+        R._attend = attend
+
+
+def _sp_runs(sizes: dict):
+    """14b's runs: (name, in-process helper, window)."""
+    from tpulab_torch.parallel import ring as R
+
+    runs = [("ring", R.ring_attention_in_process, 0),
+            ("zigzag", R.zigzag_ring_attention_in_process, 0),
+            ("ulysses", R.ulysses_attention_in_process, 0)]
+    return runs + [(f"ring_window_{w}", R.ring_attention_in_process, w)
+                   for w in sizes["sp_windows"]]
+
+
+def _sp_call(fn, ts, p: int, window: int, **kw):
+    return fn(*ts, p, local_impl="flash", **({"window": window} if window else {}), **kw)
+
+
+def sp_in_process(sizes: dict, device, card: str) -> dict:
+    """14b: the flash ring, zigzag, Ulysses and the windowed ring with all p
+    ranks in this process on one device, in ``sp_dtype``, each against one
+    whole-sequence B4 call within ``o_tolerance``; then their gradients
+    (:func:`sp_gradients_in_process`).  A stale block must fail every
+    limit."""
+    import torch
+
+    from tpulab_torch.ops.cuda.attention import flash_attention_with_lse, over_tolerance
+    from tpulab_torch.parallel import ring as R
+
+    p, reps = sizes["sp_ranks"], sizes["sp_reps"]
+    dtype = getattr(torch, sizes["sp_dtype"])
+    out = {"ranks": p, "dtype": sizes["sp_dtype"], "forward": {}}
+    q, k, v = sp_inputs(sizes["sp_shape"], dtype, device, seed=17)
+    for name, fn, window in _sp_runs(sizes):
+        whole = flash_attention_with_lse(q, k, v, causal=True, window=window)[0]
+        o, launches, ms = sp_counted(lambda: _sp_call(fn, (q, k, v), p, window), device, reps)
+        over = over_tolerance(o, whole)
+        check(over <= 1.0, f"phase 14b {name} at p={p}: {over:.3f} of o_tolerance")
+        out["forward"][name] = {"ms": ms, "launches": launches, "over_tolerance": over}
+        print(f"14b {name} p={p} in one process {tuple(q.shape)} {sizes['sp_dtype']}: "
+              f"{ms:.3f} ms, launches {json.dumps(launches)}, {over:.3f} of o_tolerance "
+              f"against one B4 call [{card}]", flush=True)
+    whole = flash_attention_with_lse(q, k, v, causal=True)[0]
+    stale = _sp_call(R.ring_attention_in_process, (q, k, v), p, 0, exchange=_drop_one_block)
+    out["forward"]["stale_block_over_tolerance"] = over_tolerance(stale, whole)
+    check(out["forward"]["stale_block_over_tolerance"] > 1.0,
+          "phase 14b: o_tolerance took the ring with a stale block")
+    out["backward"] = sp_gradients_in_process(sizes, device, card)
+    return out
+
+
+def sp_gradients_in_process(sizes: dict, device, card: str) -> dict:
+    """14b's gradients: the q, k and v gradients of each run at
+    ``sp_grad_shape`` against the whole-sequence backward, in float32
+    within ``grad_tolerance`` and in ``sp_dtype`` within
+    ``BF16_SUM_GRAD_LIMIT`` times it, where the same run with its partials
+    summed in float32 is printed beside it.  A stale block must fail every
+    limit."""
+    import torch
+
+    from tpulab_torch.ops.cuda.attention import flash_attention_with_lse, grad_over_tolerance
+    from tpulab_torch.parallel import ring as R
+
+    p, reps = sizes["sp_ranks"], sizes["sp_reps"]
+    dtype = getattr(torch, sizes["sp_dtype"])
+    out = {}
+    for gdtype in dict.fromkeys((torch.float32, dtype)):
+        gname = str(gdtype).replace("torch.", "")
+        q, k, v, do = sp_inputs(sizes["sp_grad_shape"], gdtype, device, seed=18, n=4)
+
+        def grads(fn, window, f32_sums=False, **kw):
+            ts = [t.detach().to(torch.float32 if f32_sums else gdtype).requires_grad_()
+                  for t in (q, k, v)]
+            if fn is None:
+                o = flash_attention_with_lse(*ts, causal=True, window=window)[0]
+            elif f32_sums:
+                with _partials_summed_in_f32(gdtype):
+                    o = _sp_call(fn, ts, p, window, **kw)
+            else:
+                o = _sp_call(fn, ts, p, window, **kw)
+            (o.float() * do.float()).sum().backward()
+            return [t.grad.to(gdtype) for t in ts]
+
+        def ratios(got, want):
+            return {n: grad_over_tolerance(g, w) for n, g, w in zip("qkv", got, want)}
+
+        limit = 1.0 if gdtype == torch.float32 else BF16_SUM_GRAD_LIMIT
+        rows = out[gname] = {}
+        for name, fn, window in _sp_runs(sizes):
+            want = grads(None, window)
+            got, launches, ms = sp_counted(lambda: grads(fn, window), device, reps)
+            over = ratios(got, want)
+            check(max(over.values()) <= limit, f"phase 14b {name} {gname} gradients at p={p}: "
+                                               f"{over} of grad_tolerance (limit {limit})")
+            rows[name] = {"ms": ms, "launches": launches, "over_tolerance": over}
+            witness = ""
+            if gdtype != torch.float32 and fn is not R.ulysses_attention_in_process:
+                rows[name]["f32_sums_over_tolerance"] = ratios(grads(fn, window, True), want)
+                witness = (f"; its partials summed in float32: "
+                           f"{json.dumps(rows[name]['f32_sums_over_tolerance'])}")
+            print(f"14b {name} gradients p={p} {tuple(q.shape)} {gname}: {ms:.3f} ms forward "
+                  f"and backward, launches {json.dumps(launches)}, {json.dumps(over)} of "
+                  f"grad_tolerance (limit {limit}){witness} [{card}]", flush=True)
+        want = grads(None, 0)
+        got = grads(R.ring_attention_in_process, 0, exchange=_drop_one_block)
+        rows["stale_block_over_tolerance"] = ratios(got, want)
+        check(max(rows["stale_block_over_tolerance"].values()) > limit,
+              f"phase 14b: {limit} x grad_tolerance took the ring's {gname} gradients with a "
+              f"stale block")
+    return out
+
+
+def run_sp_path(sizes: dict, device, backend: str, card: str) -> dict:
+    """Phase 14: sequence parallelism, MoE and the pipeline over as many
+    ranks as cards (14a), then the ring bodies for p ranks in one process
+    (14b)."""
+    import torch
+
+    from tpulab_torch.parallel import RankPool
+
+    t0 = time.perf_counter()
+    n_dev = torch.cuda.device_count() if device.type == "cuda" else sizes["sp_cpu_ranks"]
+    out = {"device_count": torch.cuda.device_count(), "world_size": n_dev, "card": card}
+    print(f"phase 14: {out['device_count']} CUDA device(s); a "
+          f"{'NCCL' if backend == 'cuda' else 'gloo'} rank pool of world size {n_dev}",
+          flush=True)
+    with RankPool(n_dev, device.type) as pool:
+        out["sharded"] = pool.run(rank_sp, sizes, card)
+    for name, row in out["sharded"].items():
+        if name != "world_size" and device.type == "cuda":
+            # rank 0's: the first rank of a causal ring merges no visiting block
+            b4 = {"ring": 1, "ulysses": 1, "zigzag": 3 + 2 * (n_dev - 1)}.get(name, 0)
+            want = {"flash_fwd": b4, "flash_dq": 0, "flash_dkv": 0}
+            check(row["launches"] == want,
+                  f"phase 14a {name}: launches {row['launches']}, want {want}")
+    out["in_process"] = sp_in_process(sizes, device, card)
+    if device.type == "cuda":
+        rows = [(f"{name} forward", ("flash_fwd",), row)
+                for name, row in out["in_process"]["forward"].items()]
+        rows += [(f"{name} {dt} backward", SP_KERNELS, row)
+                 for dt, part in out["in_process"]["backward"].items()
+                 for name, row in part.items()]
+        for what, names, row in rows:
+            if isinstance(row, dict) and "launches" in row:
+                check_launched(row["launches"], names, device, f"14b {what}")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 14 took {out['seconds']:.1f} s [{card}]", flush=True)
+    return out
+
+
 KERNEL_META = {
     "roberts": ("tpulab_torch/csrc/stencil.cu", "tpulab/ops/pallas/stencil.py:82"),
     "elementwise": ("tpulab_torch/csrc/elementwise.cu", "tpulab/ops/pallas/elementwise.py:57"),
@@ -4997,12 +5338,20 @@ FULL_SIZES = {
     # the CPU rehearsal's gloo ranks
     "mesh_reduce_n": 2**24, "mesh_roberts_side": 8192, "mesh_classify_side": 4096,
     "mesh_classify_nc": 32, "mesh_sort_n": 2**20, "mesh_cpu_ranks": 2,
+    # 14: the serving labformer's attention width (8 heads, head_dim 64, bf16;
+    # tpulab/bench.py:244-247) at 32768 tokens; gradients at 8192; p = 8 in
+    # one process; switch MoE at E=8, k=2, d512, ff2048, 8192 tokens; GPipe
+    # over 8 tanh layers at d512, M=4
+    "sp_shape": (1, 32768, 8, 64), "sp_grad_shape": (1, 8192, 8, 64), "sp_ranks": 8,
+    "sp_windows": (4096, 5000), "sp_reps": 3, "sp_cpu_ranks": 2, "sp_dtype": "bfloat16",
+    "sp_moe": {"experts": 8, "k": 2, "d": 512, "ff": 2048, "tokens": 8192},
+    "sp_pipe": {"layers": 8, "d": 512, "n_micro": 4, "batch": 4096},
 }
 
 
 def run(device, sizes: dict, backend: str, card: str = "cpu",
         parent: Path | None = None) -> dict:
-    """Phases 2 to 13 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
+    """Phases 2 to 14 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
     ``parent``: a checkout to time phases 4, 6c and 7d against (:func:`in_turns`)."""
     t0 = time.perf_counter()
     inp = make_inputs(sizes)
@@ -5044,6 +5393,7 @@ def run(device, sizes: dict, backend: str, card: str = "cpu",
     model["phase11"] = run_lifecycle_path(sizes, device, backend, card)
     model["phase12"] = run_daemon_path(sizes, device, backend, card, inp, main)
     model["phase13"] = run_mesh_path(sizes, device, backend, card)
+    model["phase14"] = run_sp_path(sizes, device, backend, card)
     kernels = []
     for name, row in rows.items():
         source, replaces = KERNEL_META[name]

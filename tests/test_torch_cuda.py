@@ -1210,3 +1210,49 @@ def test_sharded_functions_over_an_nccl_group_of_one(cuda_device, nccl_of_one):
             img, stats, backend="cuda", compute_dtype=dtype).tobytes()
     assert distributed_sort(floats).tobytes() == sort_op(floats, backend="cuda").cpu().numpy(
     ).tobytes()
+
+
+@pytest.mark.cuda
+def test_sequence_parallel_flash_over_an_nccl_group_of_one(cuda_device, nccl_of_one):
+    """At world size 1 the flash ring and Ulysses run the one whole-sequence
+    B4 call, byte for byte; the zigzag merges three calls, within
+    ``o_tolerance``."""
+    from tpulab_torch.parallel import ring_attention, ulysses_attention, zigzag_ring_attention
+
+    q, k, v = chip_smoke.sp_inputs((1, 4096, 8, 64), torch.bfloat16, cuda_device, seed=1)
+    whole = flash_attention_with_lse(q, k, v, causal=True)[0]
+    for fn, calls in ((ring_attention, 1), (ulysses_attention, 1), (zigzag_ring_attention, 3)):
+        flash_attention_with_lse.launches = 0
+        o = fn(q, k, v, local_impl="flash")
+        assert flash_attention_with_lse.launches == calls, fn.__name__
+        if calls == 1:
+            assert torch.equal(_bits(o), _bits(whole)), fn.__name__
+        else:
+            assert over_tolerance(o, whole) <= 1.0
+
+
+@pytest.mark.cuda
+def test_ring_bodies_for_eight_ranks_in_one_process_on_card(cuda_device):
+    """The flash ring for p = 8 in one process: bf16 within ``o_tolerance``
+    of one whole-sequence B4 call (8 diagonal and 28 earlier blocks: 36
+    launches); its f32 q, k and v gradients within ``grad_tolerance`` of
+    the whole-sequence backward."""
+    from tpulab_torch.parallel.ring import ring_attention_in_process
+
+    q, k, v = chip_smoke.sp_inputs((1, 8192, 8, 64), torch.bfloat16, cuda_device, seed=2)
+    flash_attention_with_lse.launches = 0
+    o = ring_attention_in_process(q, k, v, 8, local_impl="flash")
+    assert flash_attention_with_lse.launches == 36
+    assert over_tolerance(o, flash_attention_with_lse(q, k, v, causal=True)[0]) <= 1.0
+    q, k, v, do = chip_smoke.sp_inputs((1, 2048, 8, 64), torch.float32, cuda_device, seed=3,
+                                       n=4)
+
+    def grads(fn):
+        ts = [t.detach().requires_grad_() for t in (q, k, v)]
+        (fn(*ts) * do).sum().backward()
+        return [t.grad for t in ts]
+
+    got = grads(lambda *ts: ring_attention_in_process(*ts, 8, local_impl="flash"))
+    want = grads(lambda *ts: flash_attention_with_lse(*ts, causal=True)[0])
+    for g, w in zip(got, want):
+        assert grad_over_tolerance(g, w) <= 1.0

@@ -273,7 +273,8 @@ def test_harness_cli_lab1_sweep_and_lab5(tmp_path):
                              "--workdir", str(tmp_path / "w"), "--warmup", "0", "--reps", "1"]) == 0
 
 
-def test_harness_cli_lab5_mesh_raises_where_it_would_engage(tmp_path, monkeypatch):
+def test_harness_cli_lab5_mesh_engages_over_gloo_ranks_and_equals_tpulab(tmp_path,
+                                                                          monkeypatch):
     """Where ``--mesh`` engages, the harness's lab5 run goes over gloo ranks
     and its result equals ``tpulab``'s lab5 on a mesh of the same size."""
     # where the mesh engages (eight devices, --mesh 4) the run goes over four

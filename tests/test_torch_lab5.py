@@ -293,8 +293,8 @@ def test_lab5_sort_of_signed_zeros_and_nan_payloads_is_byte_equal(tmp_path):
     assert Path(path + "_port").read_bytes() == Path(path + "_jax").read_bytes()
 
 
-def test_lab5_mesh_engages_only_with_the_devices_and_then_raises(fixtures, monkeypatch,
-                                                                  tmp_path):
+def test_lab5_mesh_engages_only_with_the_devices_and_equals_tpulab(fixtures, monkeypatch,
+                                                                    tmp_path):
     """``--mesh N`` engages only where ``device_count >= N > 1``; where it
     engages, the output equals ``tpulab``'s ``lab5.run(..., mesh=N)``."""
     text = str(fixtures / "int10") + "\n"

@@ -42,6 +42,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tpulab_torch import optim
 from tpulab_torch.models.quant import QTensor, qmat
+from tpulab_torch.parallel.moe import combine_weights
 from tpulab_torch.parallel.ring import attention_reference, use_flash
 from tpulab_torch.runtime.device import resolve_device
 
@@ -638,24 +639,6 @@ def _attention(x: torch.Tensor, blk: _Weights, cfg: LabformerConfig,
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
     return attend(q, k, v, cfg, s).reshape(b, s, d) @ blk.wo
-
-
-def _route(gate: torch.Tensor, k: int, dtype: torch.dtype):
-    """(eids (n*k,), scales (n*k,)): top-k routing, token-major.  ``k == 1``
-    keeps the raw softmax mass; ``k > 1`` renormalizes over the chosen."""
-    top_vals, top_ids = torch.topk(gate, k, dim=-1)
-    if k > 1:
-        top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True)
-    return top_ids.reshape(-1), top_vals.reshape(-1).to(dtype)
-
-
-def combine_weights(gate: torch.Tensor, k: int, dtype: torch.dtype) -> torch.Tensor:
-    """Dense (n, E) combine matrix from top-k routing."""
-    n, n_experts = gate.shape
-    eid, gval = _route(gate, k, dtype)
-    rows = torch.arange(n, device=gate.device).repeat_interleave(k)
-    out = torch.zeros((n, n_experts), dtype=dtype, device=gate.device)
-    return out.index_put_((rows, eid), gval, accumulate=True)
 
 
 def _moe_aux_loss(gate: torch.Tensor, top: torch.Tensor, n_experts: int):

@@ -8,7 +8,10 @@ through ``_flash_fwd_call`` and ``_flash_bshd``; B5 and B6 replace
 and ``q_offset``; they make the checks and refusals ``_flash_bshd`` makes
 with its default 1024-row blocks, and have no block knobs: the CUDA kernels
 (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) pick their own tiles and
-mask by position, so they need no padding.  The dtype picks the kernel:
+mask by position, so they need no padding.  :func:`flash_attention_partial`
+makes every check but the default block's, for the sequence-parallel
+bodies (``tpulab`` picks them a block that divides the local length), and
+the backward refuses no length.  The dtype picks the kernel:
 float32 runs on the FMA pipes, as the Pallas kernel's ``Precision.HIGHEST``
 asks; bfloat16 runs B4, B5 and B6 on the tensor cores (``wgmma``), whose
 16-byte copies need 16-byte-aligned rows, so a bfloat16 operand that is
@@ -112,9 +115,27 @@ def softmax_scale(d: int) -> float:
     return float(np.float32(1.0 / np.sqrt(d)))
 
 
+def refuse_padded(s: int, causal: bool, q_offset: int) -> None:
+    """``_flash_bshd``'s refusals of a length its default 1024-row block
+    would pad: it pads seq to the block (max(8, s) up to 1024, then 1024)
+    and refuses a padded call with a query offset or without the causal
+    mask (the zero keys would receive weight)."""
+    block = min(_JAX_BLOCK, max(8, s))
+    if s % block:
+        if q_offset:
+            raise NotImplementedError(
+                "q_offset requires seq % block == 0 (zero-padded keys would "
+                "receive weight); pick block_q/block_k dividing seq")
+        if not causal:
+            raise NotImplementedError(
+                "non-causal flash requires seq % block == 0 (padded keys "
+                "would receive weight); pick block_q/block_k dividing seq")
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, window: int,
-           q_offset: int) -> None:
-    """The refusals of ``_flash_bshd`` (default blocks), then the kernel's."""
+           q_offset: int, jax_block: bool = True) -> None:
+    """The refusals of ``_flash_bshd`` (its default blocks' only where
+    ``jax_block``), then the kernel's."""
     if window and not causal:
         raise NotImplementedError("sliding window requires causal=True")
     if window < 0:
@@ -132,18 +153,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, wind
         )
     if h % k.shape[2]:
         raise ValueError(f"heads={h} must be a multiple of kv_heads={k.shape[2]}")
-    # the JAX wrapper pads seq to its block (max(8, s) up to 1024, then
-    # 1024) and refuses the padded cases below
-    block = min(_JAX_BLOCK, max(8, s))
-    if s % block:
-        if q_offset:
-            raise NotImplementedError(
-                "q_offset requires seq % block == 0 (zero-padded keys would "
-                "receive weight); pick block_q/block_k dividing seq")
-        if not causal:
-            raise NotImplementedError(
-                "non-causal flash requires seq % block == 0 (padded keys "
-                "would receive weight); pick block_q/block_k dividing seq")
+    if jax_block:
+        refuse_padded(s, causal, q_offset)
     if not (q.dtype == k.dtype == v.dtype):
         raise ValueError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
     if q.dtype not in DTYPES:
@@ -290,14 +301,30 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     requires it, the call records B5 and B6 as its backward (second-order
     gradients are refused).
     """
+    return _with_lse(q, k, v, causal, window, q_offset, jax_block=True)
+
+
+flash_attention_with_lse.launches = 0
+
+
+def _with_lse(q, k, v, causal, window, q_offset, jax_block: bool):
     window, q_offset = int(window), int(q_offset)
-    _check(q, k, v, causal, window, q_offset)
+    _check(q, k, v, causal, window, q_offset, jax_block)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return _Flash.apply(q, k, v, bool(causal), window, q_offset)
     return _forward(q, k, v, causal, window, q_offset)
 
 
-flash_attention_with_lse.launches = 0
+def flash_attention_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                            causal: bool = True, window: int = 0,
+                            q_offset: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`flash_attention_with_lse` at any length: its checks but for
+    :func:`refuse_padded`.  The sequence-parallel bodies' local attention
+    (``tpulab.parallel.ring``'s, which picks a block dividing the local
+    length and so never pads): the kernel and the plain version mask by
+    position and need no padding.  Launches count in
+    ``flash_attention_with_lse.launches``."""
+    return _with_lse(q, k, v, causal, window, q_offset, jax_block=False)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -367,7 +394,10 @@ def flash_attention_bwd_plain(q, k, v, o, lse, do, dlse=None, causal: bool = Tru
 
 
 def _check_bwd(q, k, v, do, lse, delta, causal, window, q_offset) -> None:
-    _check(q, k, v, causal, window, q_offset)
+    # ``_flash_bwd_call`` runs after ``_flash_bshd``'s padding, so the
+    # backward makes no refusal of its own length: a forward that ran
+    # (:func:`flash_attention_partial` at any length) has its backward
+    _check(q, k, v, causal, window, q_offset, jax_block=False)
     if do.shape != q.shape or do.dtype != q.dtype:
         raise ValueError(f"do {tuple(do.shape)} {do.dtype} does not match q "
                          f"{tuple(q.shape)} {q.dtype}")

@@ -305,8 +305,11 @@ def adamw(learning_rate: Schedule) -> Transform:
                  scale_by_learning_rate(learning_rate))
 
 
-def sgd(learning_rate: Schedule, momentum: float) -> Transform:
-    """``optax.sgd`` with (non-Nesterov) momentum."""
+def sgd(learning_rate: Schedule, momentum: Optional[float] = None) -> Transform:
+    """``optax.sgd``: the learning rate alone, or after (non-Nesterov)
+    momentum."""
+    if momentum is None:
+        return chain(scale_by_learning_rate(learning_rate))
     return chain(trace(momentum), scale_by_learning_rate(learning_rate))
 
 

@@ -7,11 +7,16 @@ attention blocks the model tier shares.
 * ``halo``        — lab2's Roberts cross with a one-row halo
 * ``classify``    — lab3 over row shards
 * ``dsort``       — hw2's sample sort
-* ``ring``        — the dense attention oracle and the flash predicate
+* ``spmd``        — differentiable exchanges: shard, gather, ring shift,
+                    all-to-all
+* ``ring``        — ring, zigzag and Ulysses attention (sequence
+                    parallelism), the dense oracle, the flash predicate
+* ``moe``         — top-k MoE with all-to-all expert dispatch
+* ``pipeline``    — GPipe over a ``pp`` axis, and its training step
 
 Ranks are processes: gloo on the CPU, NCCL on the card with one GPU a
-rank.  Ring, zigzag and Ulysses attention, MoE and the pipeline wait for
-ROADMAP A12.2; mesh training for A12.3; the tp-sharded engine for A12.4.
+rank.  Mesh training waits for ROADMAP A12.3; the tp-sharded engine for
+A12.4.
 """
 
 from tpulab_torch.parallel.classify import classify_sharded
@@ -21,9 +26,13 @@ from tpulab_torch.parallel.dsort import distributed_sort
 from tpulab_torch.parallel.halo import roberts_sharded
 from tpulab_torch.parallel.mesh import (RankPool, best_factorization, launch, make_mesh,
                                         mesh_anchor, mesh_devices, parse_mesh_spec)
+from tpulab_torch.parallel.moe import switch_moe, switch_moe_reference
 from tpulab_torch.parallel.multihost import (global_mesh, host_shard_to_global,
                                              initialize as initialize_multihost,
                                              sync_global_devices)
+from tpulab_torch.parallel.pipeline import make_pipeline_train_step, pipeline_apply
+from tpulab_torch.parallel.ring import (attention_reference, ring_attention, ulysses_attention,
+                                        zigzag_ring_attention)
 
 __all__ = [
     "make_mesh",
@@ -40,6 +49,14 @@ __all__ = [
     "roberts_sharded",
     "distributed_sort",
     "classify_sharded",
+    "ring_attention",
+    "zigzag_ring_attention",
+    "ulysses_attention",
+    "attention_reference",
+    "make_pipeline_train_step",
+    "pipeline_apply",
+    "switch_moe",
+    "switch_moe_reference",
     "global_mesh",
     "host_shard_to_global",
     "initialize_multihost",
