@@ -316,8 +316,10 @@ failure:
        neither; the gather/native clients stream and their chunks
        reassemble;
     d. two replicas with a crash scheduled on replica 1's fifth tick (its
-       requests migrate), then a rolling restart (drain, rebuilt, undrain,
-       each replica) under load: every request completes with the
+       requests migrate; replica 0 takes no placement until replica 1's
+       stepper starts for a request, so replica 1 ticks however fast the
+       host serves each client), then a rolling restart (drain, rebuilt,
+       undrain, each replica) under load: every request completes with the
        fault-free bytes, nothing is shed;
     e. the port's load generator replays the seeded ``fast`` trace (its
        36-request CI tier) against the demo model (d128, L4, float32): a
@@ -405,8 +407,35 @@ failure:
        summing its B5/B6 outputs in float32 printed beside it; the ring
        with one stale block (a visiting block dropped) must fail every
        limit.
-15. One ``{"model": {...}}`` line with phases 5 to 7's (5e, 6e, 6f and
-    6g included) and 9 to 14's numbers, one ``{"lab_suite": {...}}`` line with phase 8's, one
+15. Mesh training (``train(mesh_devices=N)``, ``tpulab_torch.models.
+    sharded``), each run with B4-B6's launch counts set to 0 just before
+    and read just after, and printed:
+
+    a. the flagship config (d512, h8, L8, ff2048) in bfloat16 at b8 s2048,
+       4 steps with snapshots every 2, through ``train(mesh_devices=1)``
+       (an NCCL group of one) and ``train(mesh_devices=0)``: the final
+       loss and each snapshot (parameters, moments, counters) bit-equal,
+       B4, B5 and B6 launched once per layer and step in both; then the
+       step ms of the mesh step and the one-device step, CUDA events, taken
+       in turns (one, mesh, mesh, one) within this call;
+    b. dispatch MoE (E=4, top-2, capacity factor 1) at the flagship's
+       widths and 2 layers, float32, b2 s1024, 3 steps on a mesh of one:
+       the card's losses within ``TRAIN_LOSS_RTOL`` of the port's on the
+       CPU (a gloo rank); the share of layer 0's routed rows the capacity
+       drops is printed, and the dense MoE's first loss must differ from
+       the dispatch's by more than ``MOE_DROP_GAP`` where that share is
+       not 0 (and lie within ``TRAIN_LOSS_RTOL`` of it where it is);
+    c. 15a's step-2 mesh snapshot resumed by ``train(mesh_devices=0)`` to
+       step 4: the final loss and the step-4 snapshot bit-equal to the
+       uninterrupted one-device run's;
+    d. ``train --mesh N`` with N one more than the cards fails with the
+       device-count message, ``train --zero1 --mesh 1`` with ``tpulab``'s
+       "zero1 needs a mesh with dp > 1";
+    e. with two or more cards, ``dryrun_train_step`` in every rank of an
+       NCCL pool of two (else the line ``15e not run: 1 CUDA device``);
+    f. the phase's seconds.
+16. One ``{"model": {...}}`` line with phases 5 to 7's (5e, 6e, 6f and
+    6g included) and 9 to 15's numbers, one ``{"lab_suite": {...}}`` line with phase 8's, one
     ``{"kernels": [...]}`` line, the card line again, and last ``{"ok":
     true, "device": {...}}``.
 
@@ -4039,6 +4068,34 @@ def generate_runs(sizes: dict, device, sock: str, path: str, cfg, card: str) -> 
     return out
 
 
+@contextlib.contextmanager
+def replica1_first(fleet, service):
+    """Replica 0 takes no placement (cordoned: no drain-owed rebuild) until
+    replica 1's stepper is started for a request; then it is placeable
+    again, before replica 1's first tick, so a crash there has a peer to
+    migrate to.  Placement breaks ties to the lowest index, and on a
+    loaded host each client could otherwise finish on replica 0 before the
+    next one connects, leaving replica 1 without a tick (ROADMAP C17)."""
+    ensure = service._ensure_stepper_locked
+
+    def release_then_ensure(replica):
+        # the caller holds replica.cond; fleet.cv nests inside it, as in _try_submit
+        if replica.index == 1:
+            with fleet.cv:
+                fleet.replicas[0].draining = False
+                fleet.cv.notify_all()
+        ensure(replica)
+
+    with fleet.cv:
+        fleet.replicas[0].draining = True
+    service._ensure_stepper_locked = release_then_ensure
+    try:
+        yield
+    finally:
+        del service._ensure_stepper_locked
+        service.undrain(fleet, 0)
+
+
 def fleet_runs(sizes: dict, sock: str, path: str, card: str) -> dict:
     """Phase 12d: two replicas, a crash scheduled on replica 1 (its
     requests migrate), then a rolling restart (drain, rebuilt, undrain,
@@ -4056,10 +4113,15 @@ def fleet_runs(sizes: dict, sock: str, path: str, card: str) -> dict:
     steps = sizes["daemon_fleet_steps"]
     ref = reference_bytes(path, "gather", "native", chunk, prompts, steps)
     config = {**keys, "steps": steps}
+    concurrent_generate(sock, [b"warm up", b"and the second replica"], {**keys, "steps": 2})
+    fleet_obj = fleet_of(keys)
+    check(len(fleet_obj.replicas) == 2, "phase 12d's fleet has not two replicas")
+    wait_idle(fleet_obj)
     m0, r0, s0 = td._C_MIGRATIONS.value, td._C_RESTARTS.value, td._C_SHED.value
     t0 = time.perf_counter()
     with faults.active([{"site": "paged.tick@replica1", "kind": "raise",
-                         "at": sizes["daemon_crash_at"]}]) as inj:
+                         "at": sizes["daemon_crash_at"]}]) as inj, \
+            replica1_first(fleet_obj, td._FLEET_SERVICE):
         got = concurrent_generate(sock, prompts, config)
         fired = inj.fired()
     crash_s = time.perf_counter() - t0
@@ -5186,6 +5248,231 @@ def run_sp_path(sizes: dict, device, backend: str, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------ phase 15: mesh training
+
+
+#: 15b: the least relative gap between the dense and the dispatch MoE's
+#: first loss where the capacity drops rows (f32 rounding alone moves it
+#: by ~1e-7)
+MOE_DROP_GAP = 1e-5
+
+
+def mesh_train_run(sizes: dict, cfg, backend: str, mesh_devices: int, work: Path, steps: int,
+                   **kw) -> tuple:
+    """``train`` of the flagship batches with snapshots every
+    ``mesh_save_every`` in ``work``: (its ``[train] step`` lines, its final
+    loss unrounded)."""
+    from tpulab_torch.train import train
+
+    lines: list = []
+    _, loss = train(steps=steps, batch=sizes["mesh_batch"], seq=sizes["mesh_seq"], cfg=cfg,
+                    mesh_devices=mesh_devices, ckpt_dir=str(work),
+                    save_every=sizes["mesh_save_every"], log=lines.append, device=backend,
+                    **kw)
+    return [" ".join(ln.split()[:5]) for ln in lines if ln.startswith("[train] step")], loss
+
+
+def mesh_step_ms(sizes: dict, device, cfg, card: str) -> dict:
+    """The step ms of the one-device step and of the mesh-of-one step, each
+    a fresh model, taken in turns (one, mesh, mesh, one) by CUDA events."""
+    import statistics
+
+    import torch
+
+    from tpulab_torch.models.labformer import init_train_state
+    from tpulab_torch.parallel.mesh import make_mesh
+    from tpulab_torch.train import batches, mesh_sizes
+
+    mesh = make_mesh(mesh_sizes(1, False), backend=device.type)
+    sides = {"one": init_train_state(cfg, None, seed=0, device=device),
+             "mesh": init_train_state(cfg, mesh, seed=0)}
+    batch_at = batches(cfg.vocab, sizes["mesh_batch"], sizes["mesh_seq"], 0)
+    tokens = [sides["one"][0].tokens(batch_at(i)) for i in range(2)]
+    samples = {"one": [], "mesh": []}
+
+    def one_step(side, i):
+        model, state, step = sides[side]
+        if device.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+        t0 = time.perf_counter()
+        step(model, state, tokens[i % 2])
+        if device.type == "cuda":
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end)
+        return (time.perf_counter() - t0) * 1e3
+
+    for side in sides:  # warm-up
+        one_step(side, 0)
+    for r in range(sizes["mesh_rounds"]):
+        for side in ("one", "mesh", "mesh", "one"):
+            samples[side].append(one_step(side, r))
+    out = {side: statistics.median(v) for side, v in samples.items()}
+    print(f"phase 15a step ms, bf16 b{sizes['mesh_batch']} s{sizes['mesh_seq']}, in turns: "
+          f"one device {out['one']:.6f}, mesh of one {out['mesh']:.6f} (median of "
+          f"{len(samples['one'])} each; one {samples['one']}, mesh {samples['mesh']}) "
+          f"[{card}]", flush=True)
+    del sides
+    return {"one_ms": out["one"], "mesh_ms": out["mesh"], "runs": samples, "card": card}
+
+
+def rank_moe_losses(cfg, sizes: dict, backend: str) -> list:
+    """15b's dispatch MoE steps on a mesh of one on ``backend`` (in a gloo
+    rank for the CPU's side, on 4 threads)."""
+    import torch
+
+    from tpulab_torch.models.labformer import init_train_state
+    from tpulab_torch.parallel.mesh import make_mesh
+    from tpulab_torch.train import batches, mesh_sizes
+
+    if backend == "cpu":
+        torch.set_num_threads(4)
+    mesh = make_mesh(mesh_sizes(1, False), backend=backend)
+    model, state, step = init_train_state(cfg, mesh, seed=0)
+    batch_at = batches(cfg.vocab, sizes["mesh_moe_batch"], sizes["mesh_moe_seq"], 0)
+    losses = []
+    for i in range(sizes["mesh_moe_steps"]):
+        model, state, loss = step(model, state, batch_at(i))
+        losses.append(float(loss))
+    return losses
+
+
+def layer0_dropped_share(cfg, sizes: dict, device) -> float:
+    """The share of layer 0's routed rows (first batch, fresh weights) over
+    the dispatch capacity of a mesh of one."""
+    import torch
+
+    from tpulab_torch.models import labformer as LF
+    from tpulab_torch.parallel.mesh import make_mesh
+    from tpulab_torch.parallel.moe import dispatch_capacity, dropped_share
+    from tpulab_torch.train import batches, mesh_sizes
+
+    mesh = make_mesh(mesh_sizes(1, False), backend=device.type)
+    model = LF.Labformer.from_numpy(LF.init_params(cfg, 0), cfg, mesh=mesh)
+    tok = model.tokens(batches(cfg.vocab, sizes["mesh_moe_batch"], sizes["mesh_moe_seq"], 0)(0))
+    with torch.no_grad():
+        x = model.top.embed[tok[:, :-1]]
+        blk = model.blocks[0]
+        pos = torch.arange(x.shape[1], device=x.device)
+        x = x + LF._attention(LF._rmsnorm(x, blk.ln1), blk, cfg, pos, model.plan)
+        h = LF._rmsnorm(x, blk.ln2).reshape(-1, cfg.d_model)
+        cap = dispatch_capacity(cfg.moe_capacity_factor, cfg.moe_top_k, h.shape[0],
+                                cfg.n_experts)
+        return dropped_share(h, blk.router, cfg.n_experts, cap, cfg.moe_top_k)
+
+
+def run_mesh_train(sizes: dict, device, backend: str, card: str) -> dict:
+    """Phase 15: mesh training (15a-15f in the module's docstring)."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from tpulab_torch.models.labformer import LabformerConfig
+    from tpulab_torch.parallel import RankPool
+    from tpulab_torch.parallel.mesh import device_type_count
+
+    t0 = time.perf_counter()
+    work = WORK / "mesh_train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    out: dict = {"card": card}
+    steps, s = sizes["mesh_steps"], sizes["mesh_seq"]
+    cfg = LabformerConfig(**sizes["train"], max_seq=s, dtype=torch.bfloat16)
+    per_run = dict.fromkeys(TRAIN_KERNELS, steps * cfg.n_layers if s >= 1024 else 0)
+
+    # 15a: the mesh of one against one device, bit for bit: every snapshot
+    # (parameters, moments, counters) and the final loss unrounded
+    (one, one_loss), one_launches = counted(
+        lambda: mesh_train_run(sizes, cfg, backend, 0, work / "one", steps), device, per_run,
+        "phase 15a one-device run")
+    (mesh, mesh_loss), mesh_launches = counted(
+        lambda: mesh_train_run(sizes, cfg, backend, 1, work / "mesh", steps), device, per_run,
+        "phase 15a mesh run")
+    every = sizes["mesh_save_every"]
+    saved = list(range(every, steps + 1, every))
+    check(len(one) == steps and np.isfinite(one_loss), f"phase 15a: {one}, loss {one_loss}")
+    check(mesh == one and mesh_loss == one_loss,
+          f"phase 15a: the mesh of one's {mesh} (loss {mesh_loss!r}) differ from one device's "
+          f"{one} ({one_loss!r})")
+    check(all(snapshot_equal(work / "one", work / "mesh", at) for at in saved),
+          f"phase 15a: a snapshot of steps {saved} differs between the mesh of one and one device")
+    print(f"phase 15a: train(mesh_devices=1) bit-equal to mesh_devices=0 over {steps} bf16 steps "
+          f"at b{sizes['mesh_batch']} s{s} (snapshots {saved}, final loss {mesh_loss!r}); "
+          f"launches mesh {json.dumps({k: mesh_launches[k] for k in TRAIN_KERNELS})}, one device "
+          f"{json.dumps({k: one_launches[k] for k in TRAIN_KERNELS})} [{card}]", flush=True)
+    out["a"] = {"steps": mesh, "final_loss": mesh_loss,
+                "launches": {k: mesh_launches[k] for k in TRAIN_KERNELS},
+                "one_device_launches": {k: one_launches[k] for k in TRAIN_KERNELS},
+                **mesh_step_ms(sizes, device, cfg, card)}
+
+    # 15b: dispatch MoE on a mesh of one, card against a CPU rank
+    moe = LabformerConfig(**{**sizes["train"], "n_layers": 2}, max_seq=sizes["mesh_moe_seq"],
+                          dtype=torch.float32, n_experts=4, moe_top_k=2, moe_impl="dispatch",
+                          moe_capacity_factor=sizes["mesh_moe_capacity"])
+    got = rank_moe_losses(moe, sizes, backend)
+    with RankPool(1, "cpu") as pool:
+        cpu = pool.run(rank_moe_losses, moe, sizes, "cpu")
+    err = max(abs(a - w) / abs(w) for a, w in zip(got, cpu))
+    check(all(np.isfinite(got)) and err <= TRAIN_LOSS_RTOL,
+          f"phase 15b: dispatch MoE losses {got} differ from the CPU's {cpu}")
+    dense = rank_moe_losses(dataclasses.replace(moe, moe_impl="dense"),
+                            {**sizes, "mesh_moe_steps": 1}, backend)
+    share = layer0_dropped_share(moe, sizes, device)
+    gap = abs(dense[0] - got[0]) / abs(dense[0])
+    check(gap > MOE_DROP_GAP if share > 0 else gap <= TRAIN_LOSS_RTOL,
+          f"phase 15b: layer 0 drops {share} of its rows, and the dense first loss "
+          f"{dense[0]} is {gap:.3e} relative from the dispatch's {got[0]}")
+    print(f"phase 15b: dispatch MoE (E=4, top-2, f32) losses {got}, CPU {cpu} (worst relative "
+          f"{err:.3e}); layer 0 drops {share:.6f} of its routed rows; dense first loss "
+          f"{dense[0]} [{card}]", flush=True)
+    out["b"] = {"losses": got, "cpu_losses": cpu, "loss_max_rel_err": err,
+                "dropped_share_layer0": share, "dense_first_loss": dense[0]}
+
+    # 15c: the mesh snapshot of step save_every resumed on one device
+    resumed = work / "resumed"
+    shutil.copytree(work / "mesh", resumed)
+    for d in resumed.iterdir():
+        if d.name.isdigit() and int(d.name) > every:
+            shutil.rmtree(d)
+    again, again_loss = mesh_train_run(sizes, cfg, backend, 0, resumed, steps, resume=True)
+    check(again == one[every:] and again_loss == one_loss,
+          f"phase 15c: resumed {again} (loss {again_loss!r}) differ from {one[every:]} "
+          f"({one_loss!r})")
+    check(all(snapshot_equal(work / "one", resumed, at) for at in saved[1:]),
+          "phase 15c: a resumed snapshot differs from the uninterrupted run's")
+    print(f"phase 15c: the mesh's step-{every} snapshot resumed on one device to step {steps}, "
+          f"bit-equal (final loss {again_loss!r})", flush=True)
+    out["c"] = {"resumed_steps": again, "final_loss": again_loss}
+
+    # 15d: the refusals
+    n_over = device_type_count(device.type) + 1
+    base = ["train", "--backend", backend, "--steps", "1", "--batch", "2", "--seq", "64"]
+    msg = cli_raises(base + ["--mesh", str(n_over)], ValueError)
+    check(f"need {n_over} devices, have {n_over - 1}" in msg, f"phase 15d: --mesh {n_over}: {msg}")
+    zmsg = cli_raises(base + ["--zero1", "--mesh", "1"], ValueError)
+    check("zero1 needs a mesh with dp > 1" in zmsg, f"phase 15d: --zero1 --mesh 1: {zmsg}")
+    print(f"phase 15d: --mesh {n_over} refused ({msg}); --zero1 --mesh 1 refused ({zmsg})",
+          flush=True)
+    out["d"] = {"mesh_over": msg, "zero1_mesh1": zmsg}
+
+    # 15e: the oracle over NCCL where there are two cards
+    if device.type == "cuda" and torch.cuda.device_count() >= 2:
+        from tpulab_torch.models.labformer import dryrun_train_step
+
+        with RankPool(2, "cuda") as pool:
+            pool.run(dryrun_train_step, 2)
+        out["e"] = "dryrun_train_step passed in both ranks of an NCCL pool of 2"
+    else:
+        out["e"] = f"15e not run: {torch.cuda.device_count()} CUDA device"
+    print(out["e"] if out["e"].startswith("15e") else f"phase 15e: {out['e']}", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 15 took {out['seconds']:.1f} s [{card}]", flush=True)
+    return out
+
+
 KERNEL_META = {
     "roberts": ("tpulab_torch/csrc/stencil.cu", "tpulab/ops/pallas/stencil.py:82"),
     "elementwise": ("tpulab_torch/csrc/elementwise.cu", "tpulab/ops/pallas/elementwise.py:57"),
@@ -5346,12 +5633,19 @@ FULL_SIZES = {
     "sp_windows": (4096, 5000), "sp_reps": 3, "sp_cpu_ranks": 2, "sp_dtype": "bfloat16",
     "sp_moe": {"experts": 8, "k": 2, "d": 512, "ff": 2048, "tokens": 8192},
     "sp_pipe": {"layers": 8, "d": 512, "n_micro": 4, "batch": 4096},
+    # 15: the flagship (TRAIN) in bf16 at b8 s2048 for 4 steps, snapshots
+    # every 2; 3 rounds of timed steps in turns; dispatch MoE at its widths
+    # and 2 layers, f32 b2 s1024, 3 steps, capacity factor 1 (at 2, E=4 and
+    # top-2 on one rank no expert's bucket can overflow)
+    "mesh_batch": 8, "mesh_seq": 2048, "mesh_steps": 4, "mesh_save_every": 2,
+    "mesh_rounds": 3, "mesh_moe_batch": 2, "mesh_moe_seq": 1024, "mesh_moe_steps": 3,
+    "mesh_moe_capacity": 1.0,
 }
 
 
 def run(device, sizes: dict, backend: str, card: str = "cpu",
         parent: Path | None = None) -> dict:
-    """Phases 2 to 14 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
+    """Phases 2 to 15 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
     ``parent``: a checkout to time phases 4, 6c and 7d against (:func:`in_turns`)."""
     t0 = time.perf_counter()
     inp = make_inputs(sizes)
@@ -5394,6 +5688,9 @@ def run(device, sizes: dict, backend: str, card: str = "cpu",
     model["phase12"] = run_daemon_path(sizes, device, backend, card, inp, main)
     model["phase13"] = run_mesh_path(sizes, device, backend, card)
     model["phase14"] = run_sp_path(sizes, device, backend, card)
+    model["phase15"] = run_mesh_train(sizes, device, backend, card)
+    for name in TRAIN_KERNELS:
+        rows[name]["mesh_launches"] = model["phase15"]["a"]["launches"][name]
     kernels = []
     for name, row in rows.items():
         source, replaces = KERNEL_META[name]

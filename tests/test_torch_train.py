@@ -179,10 +179,17 @@ def test_optimizer_refusals_and_schedules():
 
 
 def test_mesh_options_refuse():
-    cfg = tlf.LabformerConfig(**BASE)
-    for kw in (dict(zero1=True), dict(zero2=True), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="A12"):
-            tlf.make_train_step(cfg, **kw)
+    """The step's refusal of ZeRO under LoRA is tpulab's, message and all;
+    without a mesh ZeRO is a no-op in both packages' step (their trainers
+    refuse it, see ``test_unported_arguments_raise``)."""
+    for kw in (dict(zero1=True), dict(zero2=True)):
+        msgs = []
+        for lf in (tlf, jlf):
+            with pytest.raises(ValueError) as e:
+                lf.make_train_step(lf.LabformerConfig(**BASE, lora_rank=2), None, **kw)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1]
+        tlf.make_train_step(tlf.LabformerConfig(**BASE), None, **kw)
 
 
 # ------------------------------------------------------------ the loop and the CLI
@@ -274,8 +281,25 @@ UNPORTED = [
 
 @pytest.mark.parametrize("kw", UNPORTED, ids=lambda kw: "-".join(kw))
 def test_unported_arguments_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP A"):
-        ttrain.train(steps=1, batch=2, seq=8, log=lambda _: None, device="cpu", **kw)
+    """The mesh arguments, ported since mesh training: ZeRO without a mesh
+    raises tpulab's ValueError (its message), dispatch MoE without a mesh
+    is refused (tpulab silently runs it dense), and ``mesh_devices=4``
+    trains to the one-device loss."""
+    run = dict(steps=1, batch=2, seq=8, log=lambda _: None)
+    if "mesh_devices" in kw:
+        _, loss = ttrain.train(**run, device="cpu", **kw)
+        _, single = ttrain.train(**run, device="cpu")
+        assert abs(loss - single) <= 2e-5
+    elif "moe_impl" in kw:
+        with pytest.raises(NotImplementedError, match="mesh"):
+            ttrain.train(**run, device="cpu", **kw)
+    else:
+        msgs = []
+        for fn, extra in ((jtrain.train, {}), (ttrain.train, dict(device="cpu"))):
+            with pytest.raises(ValueError) as e:
+                fn(**run, **kw, **extra)
+            msgs.append(str(e.value))
+        assert msgs[0] == msgs[1] and "mesh" in msgs[0]
 
 
 def _validation_case(name, tmp_path):

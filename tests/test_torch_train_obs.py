@@ -128,12 +128,12 @@ def test_sanitize_traps_a_nan_made_in_the_backward(monkeypatch):
     times the 0 of the product before it): anomaly mode names the backward
     op that made it and the loop the step; without sanitize the step's
     loss is finite and the loss check sees nothing."""
-    real = tlf.Labformer.loss_fn
+    real = tlf.Labformer._head
 
-    def loss_fn(self, tokens):
-        return real(self, tokens) + (self.top.final_norm * 0).sqrt().sum()
+    def head(self, x):
+        return real(self, x) + (self.top.final_norm * 0).sqrt().sum()
 
-    monkeypatch.setattr(tlf.Labformer, "loss_fn", loss_fn)
+    monkeypatch.setattr(tlf.Labformer, "_head", head)
     cfg = tlf.LabformerConfig(**BASE)
     with pytest.raises(FloatingPointError, match=r"backward of step 0:.*'MulBackward0'"):
         ttrain.train(steps=2, batch=2, seq=16, cfg=cfg, log=lambda _: None, device="cpu",

@@ -1,5 +1,5 @@
 """Labformer, the framework's byte-level decoder transformer, on PyTorch
-(the counterpart of ``tpulab.models.labformer``, single device).
+(the counterpart of ``tpulab.models.labformer``).
 
 :class:`Labformer` is an ``nn.Module`` with one :class:`Block` per layer in
 a ``ModuleList``.  Its weights come from the JAX package's parameter tree
@@ -24,27 +24,36 @@ optax.  ``cfg.remat`` recomputes each block in the backward
 products (:func:`_remat_context`).  The port updates the module's parameters and the optimizer state
 in place where ``tpulab`` returns new trees.
 
-What needs a mesh (sequence parallelism, the all_to_all MoE dispatch,
-ZeRO) waits for mesh training, ROADMAP A12.3.
+Every model has a :class:`tpulab_torch.models.sharded.Plan`: with a mesh
+(:func:`make_train_step`'s ``mesh``, a ``DeviceMesh`` of
+``tpulab_torch.parallel.make_mesh`` over the ``(dp, sp, tp, pp)`` axes of
+``tpulab``'s trainer) the model holds this rank's shards, and the same
+step runs tensor, sequence, pipeline and data parallelism, the
+all_to_all MoE dispatch, and ZeRO-1/2; without one, every axis has size
+1 and the step is the one-device step.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from tpulab_torch import optim
+from tpulab_torch import ckpt, optim
+from tpulab_torch.models import sharded
 from tpulab_torch.models.quant import QTensor, qmat
-from tpulab_torch.parallel.moe import combine_weights
+from tpulab_torch.parallel import ring, spmd
+from tpulab_torch.parallel.mesh import make_mesh, mesh_shape
+from tpulab_torch.parallel.moe import _moe_body, combine_weights, dispatch_capacity
 from tpulab_torch.parallel.ring import attention_reference, use_flash
-from tpulab_torch.runtime.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -273,48 +282,55 @@ class _Weights(nn.Module):
 class Block(_Weights):
     """One transformer layer: attention and MLP with pre-norm residuals."""
 
-    def forward(self, x: torch.Tensor, cfg: LabformerConfig, positions: torch.Tensor):
-        x = x + _attention(_rmsnorm(x, self.ln1), self, cfg, positions)
-        y, aux_f = _mlp(_rmsnorm(x, self.ln2), self, cfg)
+    def forward(self, x: torch.Tensor, cfg: LabformerConfig, positions: torch.Tensor,
+                plan=None):
+        x = x + _attention(_rmsnorm(x, self.ln1), self, cfg, positions, plan)
+        y, aux_f = _mlp(_rmsnorm(x, self.ln2), self, cfg, plan)
         return x + y, aux_f
 
 
 class Labformer(nn.Module):
-    """The labformer on one device.  ``forward(tokens)`` gives next-token
-    logits for ``tokens`` (batch, seq) int.
+    """The labformer.  ``forward(tokens)`` gives next-token logits for
+    ``tokens`` (batch, seq) int.
 
     ``trainable`` makes the parameters require grad: every leaf, or with
     ``cfg.lora_rank`` the adapter leaves only (``tpulab``'s LoRA step
-    differentiates the adapter subtree alone)."""
+    differentiates the adapter subtree alone).  ``plan`` (a
+    ``models.sharded.Plan``; :meth:`from_numpy` makes it from its ``mesh``
+    and ``device``) says which part of the whole tree ``params`` this rank
+    holds: on a mesh its stage's layers, its tp columns and rows, its
+    experts; without one, all of it on ``device``.  The leaf methods
+    (:meth:`to_tree`, :meth:`assign`) see this rank's parts;
+    :func:`gather_params` and :meth:`assign_whole` the whole tree."""
 
     def __init__(self, params: Dict[str, Any], cfg: LabformerConfig,
                  device: Optional[Union[str, torch.device]] = None,
-                 trainable: bool = False):
+                 trainable: bool = False, plan: Optional[sharded.Plan] = None):
         super().__init__()
-        if cfg.n_experts and cfg.moe_impl == "dispatch":
+        plan = plan if plan is not None else sharded.Plan(None, cfg, device)
+        if cfg.n_experts and cfg.moe_impl == "dispatch" and plan.mesh is None:
             raise NotImplementedError(
-                "moe_impl='dispatch' routes over a mesh; the port trains on one "
-                "device until mesh training (ROADMAP A12.3)")
-        device = resolve_device(device) if device is None or isinstance(device, str) \
-            else torch.device(device)
-        self.cfg = cfg
-        tree = {k: _to_torch(v) for k, v in params.items() if k != "blocks"}
-        blocks = {k: _to_torch(v) for k, v in params["blocks"].items()}
+                "moe_impl='dispatch' routes tokens over the (dp, sp) axes of a mesh: "
+                "train with a mesh (make_train_step(cfg, mesh), train(mesh_devices=N))")
+        self.cfg, self.plan = cfg, plan
+        tree = _parts(params, plan)
         def learns(name: str) -> bool:
             return trainable and (not cfg.lora_rank or "_lora_" in name)
 
-        self.top = _Weights(tree, device, learns)
+        self.top = _Weights({k: v for k, v in tree.items() if k != "blocks"}, plan.device, learns)
         self.blocks = nn.ModuleList(
-            Block(_layer(blocks, i), device, learns) for i in range(cfg.n_layers))
+            Block(_layer(tree["blocks"], i), plan.device, learns)
+            for i in range(plan.n_local_layers))
 
     @classmethod
     def from_numpy(cls, params: Dict[str, Any], cfg: LabformerConfig,
                    device: Optional[Union[str, torch.device]] = None,
-                   trainable: bool = False) -> "Labformer":
+                   trainable: bool = False, mesh=None) -> "Labformer":
         """The module from ``tpulab``'s parameter tree (numpy leaves,
         per-layer leaves stacked on axis 0), on ``device`` (the card unless
-        ``"cpu"``)."""
-        return cls(params, cfg, device, trainable)
+        ``"cpu"``).  With a ``mesh`` (every rank of it calls this with the
+        same whole tree), this rank's shards on its device."""
+        return cls(params, cfg, device, trainable, sharded.Plan(mesh, cfg, device))
 
     def named_leaves(self) -> List[Tuple[str, list]]:
         """``(name, tensors)`` of every leaf, in the order of ``tpulab``'s
@@ -387,6 +403,10 @@ class Labformer(nn.Module):
             for i, blk in enumerate(self.blocks):
                 getattr(blk, name).copy_(leaf[i])
 
+    def assign_whole(self, tree: Dict[str, Any]) -> None:
+        """:meth:`assign` of a whole tree: on a mesh, this rank's shards of it."""
+        self.assign(_parts(tree, self.plan))
+
     @property
     def device(self) -> torch.device:
         embed = self.top.embed
@@ -396,24 +416,48 @@ class Labformer(nn.Module):
         """``tokens`` as an int64 tensor on the model's device."""
         return torch.as_tensor(tokens, device=self.device).long()
 
-    def _forward_scan(self, tokens):
-        """(logits, aux_per_layer (L,), load_per_layer (L, E or 1))."""
-        tokens = self.tokens(tokens)
-        positions = torch.arange(tokens.shape[1], device=self.device)
-        x = self.top.embed[tokens]
+    def _stage_forward(self, inputs: torch.Tensor, positions: torch.Tensor):
+        """This rank's stage over its ``inputs`` (batch, seq): ``(x, auxes,
+        loads, x_in)``.  Stage 0 embeds ``inputs``; a later stage takes the
+        residual stream from the one before (``x_in``, a leaf that requires
+        grad where grad is on)."""
+        x_in = None
+        if self.plan.first:
+            x = self.top.embed[inputs]
+        else:
+            x = x_in = sharded.recv_prev((*inputs.shape, self.cfg.d_model),
+                                         self.top.embed.dtype, self.plan)
+            if torch.is_grad_enabled():
+                x_in.requires_grad_()
         auxes, loads = [], []
         remat = self.cfg.remat and torch.is_grad_enabled()
         for blk in self.blocks:
             if remat:  # keep the block's input (and its products under "dots"); recompute the rest
-                x, (aux, load) = checkpoint(blk, x, self.cfg, positions, use_reentrant=False,
+                x, (aux, load) = checkpoint(blk, x, self.cfg, positions, self.plan,
+                                            use_reentrant=False,
                                             **_remat_context(self.cfg.remat_policy))
             else:
-                x, (aux, load) = blk(x, self.cfg, positions)
+                x, (aux, load) = blk(x, self.cfg, positions, self.plan)
             auxes.append(aux)
             loads.append(load)
-        x = _rmsnorm(x, self.top.final_norm)
-        logits = x @ self.top.embed.T  # tied head
-        return logits, torch.stack(auxes), torch.stack(loads)
+        return x, auxes, loads, x_in
+
+    def _head(self, x: torch.Tensor) -> torch.Tensor:
+        return _rmsnorm(x, self.top.final_norm) @ self.top.embed.T  # tied head
+
+    def _forward_scan(self, tokens):
+        """(logits, aux_per_layer (L,), load_per_layer (L, E or 1)); on a
+        mesh, the whole of each on every rank (a collective, forward only)."""
+        plan = self.plan
+        inputs, positions = plan.local_tokens(self.tokens(tokens))
+        x, auxes, loads, _ = self._stage_forward(inputs, positions)
+        if plan.last:
+            logits = self._head(x)
+        else:
+            sharded.send_next(x, plan)
+            logits = torch.empty((*inputs.shape, self.cfg.vocab), dtype=x.dtype, device=x.device)
+        return (plan.whole_tokens(logits), spmd.gather_dim(torch.stack(auxes), plan.pp, 0),
+                spmd.gather_dim(torch.stack(loads), plan.pp, 0))
 
     def forward_with_aux(self, tokens) -> Tuple[torch.Tensor, torch.Tensor]:
         """(logits, mean per-layer router load-balancing loss; 0 when dense)."""
@@ -421,34 +465,113 @@ class Labformer(nn.Module):
         return logits, aux_per_layer.mean()
 
     def forward(self, tokens) -> torch.Tensor:
-        """Logits for next-token prediction; ``tokens`` (batch, seq) int."""
+        """Logits for next-token prediction; ``tokens`` (batch, seq) int.  On
+        a mesh, the whole logits on every rank (a collective)."""
         return self.forward_with_aux(tokens)[0]
 
     def expert_load(self, tokens) -> torch.Tensor:
         """(n_layers, n_experts) fraction of tokens argmax-routed per expert."""
         return self._forward_scan(tokens)[2]
 
+    def _objective(self, tokens: torch.Tensor):
+        """This rank's stage of the loss of the global ``(batch, seq+1)``
+        block: ``(objective, logged, x_out, x_in)``.  ``objective`` is the
+        part of the global loss whose gradient this stage's backward takes
+        (the last stage's token share of the causal next-byte cross entropy,
+        and each stage's layers' share of the weighted router loss);
+        ``logged`` is its global value's part (a float32 device scalar, to
+        be summed over pp).  On one device both are the loss."""
+        plan, cfg = self.plan, self.cfg
+        inputs, targets, positions = plan.local_batch(tokens)
+        x, auxes, _, x_in = self._stage_forward(inputs, positions)
+        objective = logged = None
+        if plan.last:
+            logp = torch.log_softmax(self._head(x).float(), dim=-1)
+            ll = torch.gather(logp, -1, targets[..., None])[..., 0]
+            n_tokens = tokens.shape[0] * (tokens.shape[1] - 1)
+            objective = -ll.mean() if plan.data_ranks == 1 else -ll.sum() / n_tokens
+            logged = objective.detach().clone()
+            for a in ("dp", "sp"):
+                spmd.all_reduce_(logged, plan.ax[a])
+        if cfg.n_experts and cfg.moe_aux_weight:
+            aux = torch.stack(auxes)
+            aux = aux.mean() if plan.n_stages == 1 else aux.sum() / cfg.n_layers
+            term = np.float32(cfg.moe_aux_weight).item() * aux
+            objective = term if objective is None else objective + term
+            logged = term.detach() if logged is None else logged + term.detach()
+        if logged is None:
+            logged = torch.zeros((), dtype=torch.float32, device=plan.device)
+        return objective, logged, x, x_in
+
     def loss_fn(self, tokens) -> torch.Tensor:
         """Causal next-byte cross entropy, plus the weighted router
-        load-balancing loss when the model has experts."""
+        load-balancing loss when the model has experts.  On a mesh, the
+        global loss of the whole batch on every rank (a collective, forward
+        only: the step's :func:`_backward` takes its gradient)."""
         tokens = self.tokens(tokens)
-        logits, aux = self.forward_with_aux(tokens[:, :-1])
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        ll = torch.gather(logp, -1, tokens[:, 1:, None])[..., 0]
-        loss = -ll.mean()
-        if self.cfg.n_experts and self.cfg.moe_aux_weight:
-            loss = loss + np.float32(self.cfg.moe_aux_weight).item() * aux
-        return loss
+        if self.plan.mesh is None:
+            return self._objective(tokens)[0]
+        with torch.no_grad():
+            _, logged, x, _ = self._objective(tokens)
+            if not self.plan.last:
+                sharded.send_next(x, self.plan)
+            return self.plan.sum_stages(logged)
+
+
+def _parts(tree: Dict[str, Any], plan: sharded.Plan) -> Dict[str, Any]:
+    """This rank's parts of a whole parameter tree (``init_params``'
+    nesting; numpy, torch or ``QTensor`` leaves) as CPU tensors."""
+    out = {k: plan.take(k, _to_torch(v)) for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = {k: plan.take(f"blocks/{k}", _to_torch(v))
+                     for k, v in tree.get("blocks", {}).items()}
+    return out
 
 
 # ------------------------------------------------------------ training
 
 
-def _refuse_mesh_options(cfg: LabformerConfig, mesh, zero1: bool, zero2: bool) -> None:
-    if mesh is not None or zero1 or zero2:
-        raise NotImplementedError(
-            "mesh training (sp, ZeRO-1/2, dispatch MoE) is not ported yet "
-            "(ROADMAP A12.3); train on one device with mesh=None")
+def gather_params(model: Labformer) -> Dict[str, Any]:
+    """The whole parameter tree (CPU tensors) of a model on a mesh, on
+    every rank (a collective); ``to_tree()`` on one device."""
+    return model.plan.gather_tree(model.to_tree())
+
+
+def mesh_grads(model: Labformer, tokens) -> Dict[str, Any]:
+    """The whole gradient tree (CPU tensors) of the global loss of
+    ``tokens`` at ``model``'s parameters, on every rank: the step's
+    backward and its sums over the ranks, then every part gathered.  The
+    parameters' ``.grad`` are left holding this rank's summed parts."""
+    leaves = _flat(model)
+    for p in leaves:
+        p.grad = None
+    _backward(model, model.tokens(tokens))
+    for p in leaves:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    sharded.sync_grads(model, [p.grad for p in leaves], None)
+    return model.plan.gather_tree(model.to_tree(grads=True))
+
+
+def _refuse_mesh_options(cfg: LabformerConfig, mesh, zero1: bool, zero2: bool,
+                         optimizer) -> None:
+    """``tpulab``'s refusals, and the optimizer parts the step does not
+    make shard-aware."""
+    if cfg.lora_rank and (zero1 or zero2):
+        raise ValueError(
+            "lora_rank > 0 with zero1/zero2 is pointless: the "
+            "optimizer state is already O(rank) per layer")
+    if mesh is None:
+        return
+    if optimizer.whole_leaves:
+        sizes = sharded._mesh_sizes(mesh)
+        split = (sizes.get("tp", 1) > 1 or sizes.get("pp", 1) > 1
+                 or ((zero1 or zero2) and sizes.get("dp", 1) > 1)
+                 or (cfg.n_experts and sizes.get("dp", 1) * sizes.get("sp", 1) > 1))
+        if split:
+            raise NotImplementedError(
+                "adafactor's factored statistics, block RMS and parameter RMS read whole "
+                "leaves: on a mesh they run only where no leaf is split (tp = pp = 1, no "
+                "ZeRO, no experts over (dp, sp)); use adamw, lion or sgd there")
 
 
 #: the products remat "dots" keeps: 2-D matmuls, which is what the block's
@@ -489,27 +612,24 @@ def _leaf_sizes(model) -> List[Tuple[str, int]]:
     return [(name, len(ts)) for name, ts in model.trainable_leaves()]
 
 
-def _accum_backward(model: Labformer, tokens: torch.Tensor, accum: int,
-                    leaves: List[torch.Tensor]) -> torch.Tensor:
-    """The loss, with the gradient left in each leaf's ``.grad``; ``accum``
-    > 1 averages microbatches as ``tpulab``'s ``_accum_value_and_grad``:
-    losses and gradients summed in order from zero, then times
-    ``float32(1 / accum)``."""
-    if accum <= 1:
-        loss = model.loss_fn(tokens)
-        loss.backward()
-        return loss.detach()
-    micro = tokens.reshape(accum, tokens.shape[0] // accum, tokens.shape[1])
-    total = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    for mb in micro:
-        loss = model.loss_fn(mb)
-        loss.backward()
-        total = total + loss.detach()
-    inv = float(np.float32(1.0 / accum))
-    with torch.no_grad():
-        for p in leaves:
-            p.grad.mul_(optim._scalar(inv, p.grad))
-    return total * inv
+def _backward(model: Labformer, tokens: torch.Tensor) -> torch.Tensor:
+    """Forward and backward of one (micro)batch through this rank's stage;
+    the gradients of its parts accumulate in their ``.grad`` (not yet
+    summed over the ranks).  Returns the batch's global loss."""
+    plan = model.plan
+    objective, logged, x_out, x_in = model._objective(tokens)
+    if plan.last:
+        objective.backward()
+    else:
+        sharded.send_next(x_out, plan)
+        outs, grads = [x_out], [sharded.recv_next(x_out, plan)]
+        if objective is not None:
+            outs.append(objective)
+            grads.append(None)
+        torch.autograd.backward(outs, grads)
+    if not plan.first:
+        sharded.send_prev(x_in.grad, plan)
+    return plan.sum_stages(logged)
 
 
 def make_train_step(cfg: LabformerConfig, mesh=None, optimizer: Optional[optim.Transform] = None,
@@ -519,12 +639,23 @@ def make_train_step(cfg: LabformerConfig, mesh=None, optimizer: Optional[optim.T
     ``tpulab``'s ``make_train_step``.
 
     The step takes the loss's gradient (``accum`` > 1: averaged over that
-    many microbatches of the batch), leaves it in each trainable leaf's
-    ``.grad`` (where the bridge reads it), and applies ``optimizer``
-    (default ``optim.adamw(3e-4)``, as ``tpulab``'s) to the parameters and
-    ``opt_state`` in place.  Under ``cfg.lora_rank`` only the adapter
-    leaves are trainable, so only they get gradients and optimizer state.
-    ``loss`` is a device scalar (reading it waits for the step).
+    many microbatches of the batch as ``tpulab``'s
+    ``_accum_value_and_grad``: losses and gradients summed in order from
+    zero, then times ``float32(1 / accum)``), leaves it in each trainable
+    leaf's ``.grad`` (where the bridge reads it), and applies
+    ``optimizer`` (default ``optim.adamw(3e-4)``, as ``tpulab``'s) to the
+    parameters and ``opt_state`` in place.  Under ``cfg.lora_rank`` only
+    the adapter leaves are trainable, so only they get gradients and
+    optimizer state.  ``loss`` is a device scalar (reading it waits for
+    the step).
+
+    On a ``mesh`` (the model of :func:`init_train_state` on it) every rank
+    calls the step with the same global token block, and each gets the
+    global loss; the gradients are summed over the ranks each leaf is
+    replicated on (:mod:`tpulab_torch.models.sharded`).  ``zero1`` keeps
+    1/dp of each moment the ZeRO-1 spec shards and all-gathers the update;
+    ``zero2`` also reduce-scatters the gradients.  Without a mesh both are
+    no-ops, as in ``tpulab``, and every collective is skipped.
 
     ``step.step_k(model, opt_state, block)`` runs K steps over one
     ``(K, batch, seq+1)`` token block, uploaded once, and returns the K
@@ -532,17 +663,53 @@ def make_train_step(cfg: LabformerConfig, mesh=None, optimizer: Optional[optim.T
     fused K-step program (``tpulab/models/labformer.py:654-682``), run
     eagerly.  The K steps are the same step, in order, so the losses and
     parameters are bit-equal to K calls of ``step``."""
-    _refuse_mesh_options(cfg, mesh, zero1, zero2)
     optimizer = optimizer or optim.adamw(3e-4)
+    _refuse_mesh_options(cfg, mesh, zero1, zero2, optimizer)
+    views: Dict[int, sharded.ZeroView] = {}
+
+    def zero_view(model: Labformer) -> sharded.ZeroView:
+        if id(model) not in views:
+            views[id(model)] = sharded.ZeroView(model, zero1 or zero2)
+        return views[id(model)]
 
     def train_step(model: Labformer, opt_state, tokens):
+        zv = zero_view(model)
+        z2 = zv if zero2 and zv.dp is not None else None
         leaves = _flat(model)
         for p in leaves:
             p.grad = None
-        loss = _accum_backward(model, model.tokens(tokens), accum, leaves)
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
-        with torch.no_grad():
-            optim.apply_updates(leaves, optimizer.update(grads, opt_state, leaves))
+
+        def summed_grads():
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in leaves]
+            grads = sharded.sync_grads(model, grads, z2)
+            return z2.reduce_scatter(grads) if z2 is not None else zv.view(grads)
+
+        tokens = model.tokens(tokens)
+        if accum <= 1:
+            loss = _backward(model, tokens)
+            grads = summed_grads()
+        else:
+            micro = tokens.reshape(accum, tokens.shape[0] // accum, tokens.shape[1])
+            total = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            grads = None
+            for mb in micro:
+                total = total + _backward(model, mb)
+                if z2 is not None:  # ZeRO-2 reduce-scatters each microbatch's gradients
+                    part = summed_grads()
+                    grads = part if grads is None else [a + b for a, b in zip(grads, part)]
+                    for p in leaves:
+                        p.grad = None
+            if z2 is None:
+                grads = summed_grads()
+            inv = float(np.float32(1.0 / accum))
+            with torch.no_grad():
+                for g in grads:
+                    g.mul_(optim._scalar(inv, g))
+            loss = total * inv
+        with torch.no_grad(), optim.global_sum(
+                sharded.global_sum_over(zv.split_keys(), model.plan)):
+            updates = optimizer.update(list(grads), opt_state, zv.view(leaves))
+            optim.apply_updates(leaves, zv.gather(updates))
         return model, opt_state, loss
 
     def step_k(model: Labformer, opt_state, block):
@@ -553,6 +720,8 @@ def make_train_step(cfg: LabformerConfig, mesh=None, optimizer: Optional[optim.T
         return model, opt_state, torch.stack(losses)
 
     train_step.step_k = step_k
+    train_step.zero_view = zero_view
+    train_step.optimizer = optimizer
     return optimizer, train_step
 
 
@@ -562,11 +731,44 @@ def init_train_state(cfg: LabformerConfig, mesh=None, seed: int = 0,
                      device: Optional[Union[str, torch.device]] = None):
     """``(model, opt_state, step)``: the trainable model from
     :func:`init_params` (``seed``) on ``device`` (the card unless
-    ``"cpu"``), the optimizer's state over its trainable leaves, and the
+    ``"cpu"``; with a ``mesh``, this rank's shards on its device), the
+    optimizer's state over its trainable leaves (its ZeRO view: 1/dp of
+    each leaf ``_zero1_spec`` shards, under ``zero1``/``zero2``), and the
     step of :func:`make_train_step`."""
     optimizer, step = make_train_step(cfg, mesh, optimizer, accum, zero1, zero2)
-    model = Labformer.from_numpy(init_params(cfg, seed), cfg, device, trainable=True)
-    return model, optimizer.init(_flat(model), _leaf_sizes(model)), step
+    model = Labformer.from_numpy(init_params(cfg, seed), cfg, device, trainable=True,
+                                 mesh=mesh)
+    zv = step.zero_view(model)
+    return model, optimizer.init(zv.view(_flat(model)), zv.leaves()), step
+
+
+def _whole_model(tree: Dict[str, Any], cfg: LabformerConfig) -> Labformer:
+    """A CPU stand-in of the whole model (``ckpt``'s input): the one-device
+    layout of ``tree`` (dispatch MoE read as the dense model, whose
+    parameters are the same)."""
+    return Labformer(tree, dataclasses.replace(cfg, moe_impl="dense"), "cpu", trainable=True)
+
+
+def save_snapshot(ckpt_dir: str, step: int, model: Labformer, opt_state, train_step) -> None:
+    """``ckpt.save`` of the whole tree and the whole optimizer state (the
+    ZeRO moments gathered) of a model on a mesh, written by rank 0: a
+    collective of every rank, so any topology resumes from it."""
+    tree = gather_params(model)
+    state = sharded.gather_opt_state(model, opt_state, train_step.zero_view(model))
+    if dist.get_rank() == 0:
+        ckpt.save(ckpt_dir, step, _whole_model(tree, model.cfg), state)
+    dist.barrier()
+
+
+def restore_snapshot(ckpt_dir: str, step: int, model: Labformer, opt_state, train_step) -> None:
+    """Load snapshot ``step`` (of any topology) into this rank's shards and
+    its part of the optimizer state, in place."""
+    whole = _whole_model(ckpt.read_params(ckpt_dir, step), model.cfg)
+    state = train_step.optimizer.init(_flat(whole), _leaf_sizes(whole))
+    ckpt.restore(ckpt_dir, step, whole, state)
+    model.assign_whole(whole.to_tree())
+    sharded.fill_opt_state(model, opt_state, state, train_step.zero_view(model),
+                           len(_flat(whole)))
 
 
 # ------------------------------------------------------------ layers
@@ -624,21 +826,62 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cfg: LabformerConf
 
 
 def _attention(x: torch.Tensor, blk: _Weights, cfg: LabformerConfig,
-               positions: torch.Tensor) -> torch.Tensor:
+               positions: torch.Tensor, plan=None) -> torch.Tensor:
+    """Causal self-attention of the block.  On a mesh (``plan``), this
+    rank's heads of its tokens: the head columns split over tp (Megatron:
+    ``copy_to`` in, ``reduce_from`` after ``wo``), and over sp > 1 the
+    ring, zigzag or Ulysses body of ``cfg.sp_impl`` on the sp group."""
     b, s, d = x.shape
-    h, dh, kvh = cfg.n_heads, cfg.head_dim, cfg.kv_heads
-    q_proj = x @ blk.wq
-    v_proj = x @ blk.wv
+    tp = plan.tp if plan is not None else None
+    n_tp = tp.p if tp is not None else 1
+    h, dh, kvh = cfg.n_heads // n_tp, cfg.head_dim, cfg.kv_heads
+    kv_split = plan is None or plan.kv_split
+    if kv_split:
+        kvh //= n_tp
+    xc = spmd.copy_to(x, tp)
+    q_proj = xc @ blk.wq
+    v_proj = xc @ blk.wv
     if cfg.lora_rank:
         scale = torch.tensor(cfg.lora_alpha / cfg.lora_rank, dtype=torch.float64).to(x.dtype)
-        q_proj = q_proj + (x @ blk.wq_lora_a) @ blk.wq_lora_b * scale.to(x.device)
-        v_proj = v_proj + (x @ blk.wv_lora_a) @ blk.wv_lora_b * scale.to(x.device)
+        q_proj = q_proj + spmd.copy_to(x @ blk.wq_lora_a, tp) @ blk.wq_lora_b * scale.to(x.device)
+        v_proj = v_proj + spmd.copy_to(x @ blk.wv_lora_a, tp) @ blk.wv_lora_b * scale.to(x.device)
     q = q_proj.reshape(b, s, h, dh)
-    k = (x @ blk.wk).reshape(b, s, kvh, dh)
+    k = (xc @ blk.wk).reshape(b, s, kvh, dh)
     v = v_proj.reshape(b, s, kvh, dh)
     q = _rope(q, positions, cfg.rope_theta)
     k = _rope(k, positions, cfg.rope_theta)
-    return attend(q, k, v, cfg, s).reshape(b, s, d) @ blk.wo
+    if not kv_split:  # every kv head here: keep this tp rank's query heads' share
+        k, v = (t.narrow(2, tp.idx * h, h) for t in repeat_kv(k, v, cfg.n_heads))
+    sp = plan.sp if plan is not None else None
+    if sp is not None:
+        o = _sp_attention(q, *repeat_kv(k, v, h), cfg, sp, n_tp)
+    else:
+        o = attend(q, k, v, cfg, s)
+    return spmd.reduce_from(o.reshape(b, s, h * dh) @ blk.wo, tp)
+
+
+def _sp_attention(q, k, v, cfg: LabformerConfig, sp, n_tp: int) -> torch.Tensor:
+    """``tpulab``'s sp branch (``tpulab/models/labformer.py:396-456``): the
+    body of ``cfg.sp_impl`` and ``cfg.attn_impl`` over this rank's sequence
+    shard (zigzag: the permuted layout the model boundary made)."""
+    if cfg.attn_window and cfg.sp_impl == "zigzag":
+        raise NotImplementedError(
+            "attn_window over sp > 1 requires sp_impl='ulysses' or "
+            "'ring' (zigzag's balance argument is void under a "
+            "window — use ring)")
+    s_local = q.shape[1]
+    if cfg.sp_impl == "zigzag":
+        body = ring._zigzag_local_body(cfg.attn_impl, s_local)
+    elif cfg.sp_impl == "ulysses":
+        if (cfg.n_heads // n_tp) % sp.p:
+            raise ValueError(f"ulysses needs local heads divisible by sp: "
+                             f"{cfg.n_heads} heads / tp={n_tp} over sp={sp.p}")
+        body = functools.partial(ring._ulysses_body, causal=True, local_impl=cfg.attn_impl,
+                                 window=cfg.attn_window)
+    else:
+        body = ring._ring_local_body(cfg.attn_impl, s_local, causal=True,
+                                     window=cfg.attn_window)
+    return body(q, k, v, ring.GroupExchange(sp))
 
 
 def _moe_aux_loss(gate: torch.Tensor, top: torch.Tensor, n_experts: int):
@@ -648,19 +891,149 @@ def _moe_aux_loss(gate: torch.Tensor, top: torch.Tensor, n_experts: int):
     return n_experts * (f * p).sum(), f
 
 
-def _mlp(x: torch.Tensor, blk: _Weights, cfg: LabformerConfig):
+def _mesh_aux_loss(gate: torch.Tensor, top: torch.Tensor, n_experts: int, plan):
+    """:func:`_moe_aux_loss` over the global tokens of a mesh: the per-rank
+    sums of ``f`` and ``P`` summed over the data axes before the product
+    (``P``'s all-reduce hands each rank the whole gradient, so the data
+    axes' gradient sum counts each rank's tokens once)."""
+    n = gate.shape[0] * gate.shape[1] * plan.data_ranks
+    ep = plan.axis("ep")
+    f = spmd.all_reduce_(F.one_hot(top, n_experts).float().sum(dim=(0, 1)), ep)
+    p = spmd.reduce_from(gate.sum(dim=(0, 1)), ep)
+    f, p = f / n, p / n
+    return n_experts * (f * p).sum(), f
+
+
+def _mlp(x: torch.Tensor, blk: _Weights, cfg: LabformerConfig, plan=None):
     """``(y, (aux, f))``: block output, router loss, per-expert load
-    ((1,) zeros for the dense MLP)."""
+    ((1,) zeros for the dense MLP).  On a mesh (``plan``): ``d_ff`` split
+    over tp (Megatron), and the experts over the fused (dp, sp) axis,
+    gathered for the dense combine or reached by the all_to_all dispatch
+    of ``moe_impl="dispatch"``."""
+    tp = plan.tp if plan is not None else None
     if cfg.n_experts:
         gate = torch.softmax((x @ blk.router).float(), dim=-1)
         top = gate.argmax(dim=-1)
-        aux = _moe_aux_loss(gate, top, cfg.n_experts)
-        b_, s_, _ = x.shape
+        if plan is None or plan.data_ranks == 1:
+            aux = _moe_aux_loss(gate, top, cfg.n_experts)
+        else:
+            aux = _mesh_aux_loss(gate, top, cfg.n_experts, plan)
+        b_, s_, d_ = x.shape
+        if plan is not None and cfg.moe_impl == "dispatch":
+            return _dispatch(x, blk, cfg, plan), aux
         weights = combine_weights(gate.reshape(b_ * s_, -1), cfg.moe_top_k,
                                   x.dtype).reshape(b_, s_, cfg.n_experts)
-        hidden = F.gelu(torch.einsum("bsd,edf->bsef", x, blk.w1), approximate="tanh")
-        out = torch.einsum("bsef,efd->bsed", hidden, blk.w2)
-        return torch.einsum("bsed,bse->bsd", out, weights), aux
+        ep = plan.axis("ep") if plan is not None else None
+        w1, w2 = spmd.gather_shards(blk.w1, ep, 0), spmd.gather_shards(blk.w2, ep, 0)
+        hidden = F.gelu(torch.einsum("bsd,edf->bsef", spmd.copy_to(x, tp), w1),
+                        approximate="tanh")
+        out = torch.einsum("bsef,efd->bsed", hidden, w2)
+        return spmd.reduce_from(torch.einsum("bsed,bse->bsd", out, weights), tp), aux
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     aux = (zero, torch.zeros((1,), dtype=torch.float32, device=x.device))
-    return qmat(F.gelu(qmat(x, blk.w1), approximate="tanh"), blk.w2), aux
+    return spmd.reduce_from(qmat(F.gelu(qmat(spmd.copy_to(x, tp), blk.w1), approximate="tanh"),
+                                 blk.w2), tp), aux
+
+
+def _dispatch(x: torch.Tensor, blk: _Weights, cfg: LabformerConfig, plan) -> torch.Tensor:
+    """``moe_impl="dispatch"`` (``tpulab/models/labformer.py:496-523``):
+    ``parallel.moe._moe_body`` over the fused (dp, sp) axis, on ``tpulab``'s
+    token groups (rows of the global ``(batch * seq)`` array, cut into
+    equal runs per rank), with ``d_ff`` split over tp."""
+    if plan.ep is None:
+        raise ValueError("dispatch MoE needs dp and/or sp mesh axes")
+    b, s, d = x.shape
+    p = plan.data_ranks
+    n_local = b * s  # b * s / (dp * sp) of the global tokens
+    capacity = dispatch_capacity(cfg.moe_capacity_factor, cfg.moe_top_k, n_local, cfg.n_experts)
+    blocks, runs = _token_partitions(plan, b, s, d)
+    ep = plan.axis("ep")
+    flat = spmd.repartition(x, ep, blocks, runs) if p > 1 else x.reshape(b * s, d)
+    y = _moe_body(flat, blk.router, blk.w1, blk.w2, plan.ep, n_experts=cfg.n_experts,
+                  capacity=capacity, k=cfg.moe_top_k, tp=plan.tp)
+    return spmd.repartition(y, ep, runs, blocks) if p > 1 else y.reshape(b, s, d)
+
+
+def _token_partitions(plan, b: int, s: int, d: int):
+    """The two cuts of the global ``(B, S, d)`` token array among the (dp,
+    sp) ranks: ``blocks`` (rank (i, j) holds batch rows i and sequence
+    shard j, its activations) and ``runs`` (rank r holds rows ``[r n, (r+1)
+    n)`` of the row-major ``(B * S, d)`` array, ``tpulab``'s shard_map
+    groups)."""
+    dp, sp = plan.size["dp"], plan.size["sp"]
+    p, n = dp * sp, b * s
+
+    def take_block(whole, r):  # the fused axis is row-major: r = i * sp + j
+        i, j = divmod(r, sp)
+        return whole[i * b:(i + 1) * b, j * s:(j + 1) * s]
+
+    def assemble_blocks(parts):
+        return torch.cat([torch.cat(parts[i * sp:(i + 1) * sp], dim=1) for i in range(dp)],
+                         dim=0)
+
+    def take_run(whole, r):
+        return whole.reshape(p * n, d)[r * n:(r + 1) * n]
+
+    def assemble_runs(parts):
+        return torch.cat(parts, dim=0).reshape(dp * b, sp * s, d)
+
+    return spmd.Partition(take_block, assemble_blocks), spmd.Partition(take_run, assemble_runs)
+
+
+# ------------------------------------------------------------ the oracle
+
+
+def dryrun_train_step(n_devices: int, backend: Optional[str] = None) -> None:
+    """One sharded training step on tiny shapes over an ``n_devices`` mesh
+    (``tpulab``'s ``dryrun_train_step``, the oracle of
+    ``__graft_entry__.dryrun_multichip``), run in every rank of a pool of
+    ``n_devices`` (or in this process for 1).
+
+    The mesh's ``(dp, sp, tp, pp)`` sizes are factored from
+    ``n_devices``; the MoE config sends its tokens through the all_to_all
+    dispatch over ``(dp, sp)``, and the optimizer runs ZeRO-1.  The loss
+    must be finite and ``wq`` must change.  With more than one device a
+    dp-only mesh then certifies ZeRO: every moment leaf with an axis
+    divisible by dp holds 1/dp on each rank, and ZeRO-2's first loss is
+    within 1e-5 of ZeRO-1's."""
+    mesh = make_mesh(n_devices=n_devices, axes=("dp", "sp", "tp", "pp"), backend=backend)
+    shape = mesh_shape(mesh)
+    sp, tp, pp = shape["sp"], shape["tp"], shape["pp"]
+    cfg = LabformerConfig(
+        d_model=max(32, 8 * tp) * 2, n_heads=max(4, tp * sp), n_layers=max(2, 2 * pp),
+        d_ff=64, n_experts=4, max_seq=64, moe_impl="dispatch")
+    model, opt_state, train_step = init_train_state(cfg, mesh, seed=0, zero1=True)
+    rng = np.random.default_rng(1)
+    seq = 8 * sp + 1  # +1: the loss shifts tokens and targets
+    tokens = rng.integers(0, cfg.vocab, (2 * shape["dp"], seq)).astype(np.int32)
+    before = gather_params(model)["blocks"]["wq"][0, 0, :4].clone()
+    model, opt_state, loss = train_step(model, opt_state, tokens)
+    loss = float(loss)
+    assert np.isfinite(loss), f"non-finite loss {loss}"
+    after = gather_params(model)["blocks"]["wq"][0, 0, :4]
+    assert not torch.allclose(before, after), "params did not update"
+
+    if n_devices > 1:
+        dp_mesh = make_mesh({"dp": n_devices}, backend=backend)
+        zcfg = LabformerConfig(d_model=32, n_heads=4, n_layers=2, d_ff=8 * n_devices,
+                               max_seq=64)
+        ztok = rng.integers(0, zcfg.vocab, (n_devices, 17)).astype(np.int32)
+        zm, zs, zstep = init_train_state(zcfg, dp_mesh, seed=0, zero1=True)
+        zm, zs, zloss = zstep(zm, zs, ztok)
+        assert np.isfinite(float(zloss)), "zero1 loss not finite"
+        zm2, zs2, zstep2 = init_train_state(zcfg, dp_mesh, seed=0, zero2=True)
+        zm2, zs2, zloss2 = zstep2(zm2, zs2, ztok)
+        assert np.isfinite(float(zloss2)), "zero2 loss not finite"
+        assert abs(float(zloss) - float(zloss2)) <= 1e-5, "zero2 first-step loss diverged from zero1"
+        split, i = 0, 0
+        view = zstep.zero_view(zm)
+        for path, n, mode, arg in view.items:
+            k = arg if mode == "layers" else n
+            mine = sum(t.numel() for t in zs[0]["mu"][i:i + k])
+            i += k
+            whole = dict(zm.trainable_leaves())[path]
+            shape_ = ((len(whole),) if path.startswith("blocks/") else ()) + tuple(whole[0].shape)
+            if any(d % n_devices == 0 and d >= n_devices for d in shape_):
+                assert mine * n_devices == math.prod(shape_), (path, mine, shape_)
+                split += 1
+        assert split, "no optimizer moment was dp-sharded"

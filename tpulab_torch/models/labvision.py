@@ -36,6 +36,8 @@ from torch import nn
 
 from tpulab_torch import optim
 from tpulab_torch.models.labformer import _flat, _leaf_sizes
+from tpulab_torch.parallel import spmd
+from tpulab_torch.parallel.mesh import mesh_anchor, mesh_shape
 from tpulab_torch.runtime.device import resolve_device
 
 
@@ -183,20 +185,34 @@ class Labvision(nn.Module):
         return -torch.gather(logp, -1, labels[:, None]).mean()
 
 
-def make_train_step(cfg: LabvisionConfig, optimizer: Optional[optim.Transform] = None):
+def make_train_step(cfg: LabvisionConfig, optimizer: Optional[optim.Transform] = None,
+                    mesh=None):
     """``(optimizer, step)``: ``step(model, opt_state, images, labels) ->
     (model, opt_state, loss)`` on a trainable :class:`Labvision`, the
     counterpart of ``tpulab``'s ``make_train_step`` (default
     ``optim.adamw(1e-3)``); the update is applied in place, through the
-    HWIO views, and ``loss`` is a device scalar."""
+    HWIO views, and ``loss`` is a device scalar.
+
+    With a ``mesh`` (its ``dp`` axis; ``tpulab/models/labvision.py:104-143``)
+    every rank is given the whole batch and takes its dp rows; the
+    parameters are replicated, each rank's loss is its rows' share of the
+    global mean, and the gradients are summed over dp (the model keeps no
+    batch statistics, so nothing else crosses the ranks)."""
     optimizer = optimizer or optim.adamw(1e-3)
+    dp = None
+    if mesh is not None:
+        if mesh_shape(mesh).get("dp", 1) > 1:
+            dp = spmd.mesh_axis(mesh, "dp")
 
     def step(model: Labvision, opt_state, images, labels):
         leaves = _flat(model)
         for p in model.parameters():
             p.grad = None
-        loss = model.loss_fn(images, labels)
-        loss.backward()
+        if dp is None:
+            loss = model.loss_fn(images, labels)
+            loss.backward()
+        else:
+            loss = _dp_backward(model, images, labels, dp)
         with torch.no_grad():
             optim.apply_updates(leaves, optimizer.update(model.grad_leaves(), opt_state, leaves))
         return model, opt_state, loss.detach()
@@ -204,12 +220,32 @@ def make_train_step(cfg: LabvisionConfig, optimizer: Optional[optim.Transform] =
     return optimizer, step
 
 
+def _dp_backward(model: Labvision, images, labels, dp) -> torch.Tensor:
+    """This dp rank's rows: their share of the global mean loss, its
+    backward, and the gradients summed over dp; the global loss."""
+    b = len(labels)
+    if b % dp.p:
+        raise ValueError(f"batch {b} not divisible by dp={dp.p}")
+    rows = slice(dp.idx * (b // dp.p), (dp.idx + 1) * (b // dp.p))
+    logp = torch.log_softmax(model(torch.as_tensor(images)[rows]), dim=-1)
+    labels = torch.as_tensor(labels)[rows].to(model.device, non_blocking=True).long()
+    objective = -torch.gather(logp, -1, labels[:, None]).sum() / b
+    objective.backward()
+    with torch.no_grad():
+        spmd.all_reduce_buckets([(p.grad, ("dp",)) for p in model.parameters()
+                                 if p.grad is not None], {"dp": dp})
+        return spmd.all_reduce_(objective.detach().clone(), dp)
+
+
 def init_train_state(cfg: LabvisionConfig, seed: int = 0,
                      optimizer: Optional[optim.Transform] = None,
-                     device: Optional[Union[str, torch.device]] = None):
+                     device: Optional[Union[str, torch.device]] = None, mesh=None):
     """``(model, opt_state, step)`` from :func:`init_params` (``seed``) on
-    ``device`` (the card unless ``"cpu"``)."""
-    optimizer, step = make_train_step(cfg, optimizer)
+    ``device`` (the card unless ``"cpu"``; with a ``mesh``, this rank's
+    device), the step of :func:`make_train_step`."""
+    optimizer, step = make_train_step(cfg, optimizer, mesh)
+    if mesh is not None:
+        device = mesh_anchor(mesh)
     model = Labvision.from_numpy(init_params(cfg, seed), cfg, device, trainable=True)
     return model, optimizer.init(_flat(model), _leaf_sizes(model)), step
 

@@ -30,6 +30,8 @@ update's dtype.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import math
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple, Union
@@ -43,6 +45,9 @@ Schedule = Union[float, Callable[[int], float]]
 class Transform(NamedTuple):
     init: Callable[..., Any]  # (params, leaves=None) -> state
     update: Callable[[List[torch.Tensor], Any, List[torch.Tensor]], List[torch.Tensor]]
+    #: reads statistics over whole leaves (adafactor's): the mesh step runs
+    #: it only where no leaf is split across ranks
+    whole_leaves: bool = False
 
 
 @functools.lru_cache(maxsize=None)
@@ -55,6 +60,27 @@ def _scalar(x: float, like: torch.Tensor) -> float:
     return _rounded(float(x), like.dtype)
 
 
+#: how a whole-tree sum is taken: None on one device (a plain sum of the
+#: parts), or the mesh step's, which counts each element once across ranks
+_GLOBAL_SUM: contextvars.ContextVar = contextvars.ContextVar("optim_global_sum", default=None)
+
+
+@contextlib.contextmanager
+def global_sum(fn: Optional[Callable[[List[torch.Tensor]], torch.Tensor]]):
+    """Within the block, whole-tree sums (the global norm) reduce their
+    per-tensor parts with ``fn`` (the mesh trainer's)."""
+    token = _GLOBAL_SUM.set(fn)
+    try:
+        yield
+    finally:
+        _GLOBAL_SUM.reset(token)
+
+
+def _tree_sum(parts: List[torch.Tensor]) -> torch.Tensor:
+    fn = _GLOBAL_SUM.get()
+    return sum(parts) if fn is None else fn(parts)
+
+
 def chain(*transforms: Transform) -> Transform:
     def init(params, leaves=None):
         return [t.init(params, leaves) for t in transforms]
@@ -64,7 +90,7 @@ def chain(*transforms: Transform) -> Transform:
             updates = t.update(updates, st, params)
         return updates
 
-    return Transform(init, update)
+    return Transform(init, update, any(t.whole_leaves for t in transforms))
 
 
 def _no_state(params, leaves=None):
@@ -77,7 +103,7 @@ def clip_by_global_norm(max_norm: float) -> Transform:
     on the device)."""
 
     def update(updates, state, params):
-        norm = torch.sqrt(sum((u * u).sum() for u in updates))
+        norm = torch.sqrt(_tree_sum([(u * u).sum() for u in updates]))
         return [torch.where(norm < max_norm, u, (u / norm.to(u.dtype)) * _scalar(max_norm, u))
                 for u in updates]
 
@@ -256,7 +282,7 @@ def scale_by_factored_rms(decay_rate: float = 0.8, min_dim_size_to_factor: int =
             out.extend(u.unbind(0) if n > 1 else [u])
         return out
 
-    return Transform(init, update)
+    return Transform(init, update, whole_leaves=True)
 
 
 def clip_by_block_rms(threshold: float) -> Transform:
@@ -275,7 +301,7 @@ def clip_by_block_rms(threshold: float) -> Transform:
             out.extend(u / denom for u in ts)
         return out
 
-    return Transform(init, update)
+    return Transform(init, update, whole_leaves=True)
 
 
 def scale_by_param_block_rms(min_scale: float = 1e-3) -> Transform:
@@ -295,7 +321,7 @@ def scale_by_param_block_rms(min_scale: float = 1e-3) -> Transform:
             i += n
         return out
 
-    return Transform(init, update)
+    return Transform(init, update, whole_leaves=True)
 
 
 def adamw(learning_rate: Schedule) -> Transform:

@@ -8,14 +8,17 @@ attention blocks the model tier shares.
 * ``classify``    — lab3 over row shards
 * ``dsort``       — hw2's sample sort
 * ``spmd``        — differentiable exchanges: shard, gather, ring shift,
-                    all-to-all
+                    all-to-all, and the mesh trainer's Megatron pair
+                    (``copy_to``, ``reduce_from``), ``gather_shards``
+                    and ``repartition``
 * ``ring``        — ring, zigzag and Ulysses attention (sequence
                     parallelism), the dense oracle, the flash predicate
 * ``moe``         — top-k MoE with all-to-all expert dispatch
 * ``pipeline``    — GPipe over a ``pp`` axis, and its training step
 
 Ranks are processes: gloo on the CPU, NCCL on the card with one GPU a
-rank.  Mesh training waits for ROADMAP A12.3; the tp-sharded engine for
+rank.  Mesh training over these blocks is ``tpulab_torch.models.sharded``
+(``train(mesh_devices=N)``); the tp-sharded engine waits for ROADMAP
 A12.4.
 """
 
@@ -25,7 +28,8 @@ from tpulab_torch.parallel.collectives import (all_gather_op, distributed_mean,
 from tpulab_torch.parallel.dsort import distributed_sort
 from tpulab_torch.parallel.halo import roberts_sharded
 from tpulab_torch.parallel.mesh import (RankPool, best_factorization, launch, make_mesh,
-                                        mesh_anchor, mesh_devices, parse_mesh_spec)
+                                        mesh_anchor, mesh_devices, parse_mesh_spec,
+                                        shared_pool)
 from tpulab_torch.parallel.moe import switch_moe, switch_moe_reference
 from tpulab_torch.parallel.multihost import (global_mesh, host_shard_to_global,
                                              initialize as initialize_multihost,
@@ -41,6 +45,7 @@ __all__ = [
     "parse_mesh_spec",
     "mesh_anchor",
     "RankPool",
+    "shared_pool",
     "launch",
     "distributed_reduce",
     "distributed_mean",

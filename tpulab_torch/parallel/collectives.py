@@ -80,16 +80,20 @@ def check_dtype(dtype: torch.dtype, group, what: str) -> None:
                         f"(it has {', '.join(have)})")
 
 
-def gather_axis(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """Every rank's ``x`` of the axis, concatenated along the first dim in
-    rank order (``all_gather_into_tensor``)."""
-    group = mesh.get_group(axis)
+def gather_group(x: torch.Tensor, group, p: int) -> torch.Tensor:
+    """Every rank's ``x`` of ``group`` (``p`` ranks), concatenated along the
+    first dim in rank order (``all_gather_into_tensor``)."""
     check_dtype(x.dtype, group, "all_gather")
     x = x.contiguous()
-    out = torch.empty((axis_size(mesh, axis) * x.shape[0], *x.shape[1:]), dtype=x.dtype,
-                      device=x.device)
+    out = torch.empty((p * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
     dist.all_gather_into_tensor(out, x, group=group)
     return out
+
+
+def gather_axis(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """Every rank's ``x`` of the axis, concatenated along the first dim in
+    rank order."""
+    return gather_group(x, mesh.get_group(axis), axis_size(mesh, axis))
 
 
 def _identity_fill(op: str, dtype: np.dtype) -> np.ndarray:

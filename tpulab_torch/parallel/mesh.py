@@ -14,7 +14,8 @@ with the same full host array and gives every rank the same full result:
 
 :class:`RankPool` spawns the ranks (start method ``spawn``, a
 ``FileStore`` in a temporary directory), runs a function in each and
-returns rank 0's result; :func:`launch` is one pool for one call.  In a
+returns rank 0's result; :func:`launch` is one pool for one call, and
+:func:`shared_pool` one kept for the process (the mesh trainer's).  In a
 single process with no process group, :func:`make_mesh` makes one of a
 single rank, so the sharded functions also run unlaunched, on one device;
 a later call on the other device type raises, and does not run on that
@@ -368,3 +369,30 @@ def launch(fn, world_size: int, *args, device_type: Optional[str] = None, **kwar
     unless ``device_type`` is ``"cpu"``); rank 0's result."""
     with RankPool(world_size, device_type) as pool:
         return pool.run(fn, *args, **kwargs)
+
+
+#: pools kept for the process by :func:`shared_pool`, by (ranks, device type)
+_SHARED: Dict[Tuple[int, str], RankPool] = {}
+
+
+def shared_pool(world_size: int, device_type: Optional[str] = None) -> RankPool:
+    """A :class:`RankPool` of ``world_size`` ranks kept for the process and
+    reused by every caller (``train(mesh_devices=N)``, tests); spawned at
+    the first call, again after a failure ended it, and closed at exit."""
+    from tpulab_torch.runtime.device import resolve_device
+
+    key = (int(world_size), resolve_device(device_type).type)
+    pool = _SHARED.get(key)
+    if pool is None or not pool._procs:
+        if not _SHARED:
+            import atexit
+
+            atexit.register(close_shared_pools)
+        pool = _SHARED[key] = RankPool(*key)
+    return pool
+
+
+def close_shared_pools() -> None:
+    for pool in _SHARED.values():
+        pool.close()
+    _SHARED.clear()

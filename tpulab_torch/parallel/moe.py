@@ -91,31 +91,51 @@ def switch_moe_reference(x, router_w, w1, w2, k: int = 1, *,
 
 
 def _moe_body(x, router_w, w1_loc, w2_loc, ax: spmd.Axis, *, n_experts: int, capacity: int,
-              k: int = 1) -> torch.Tensor:
+              k: int = 1, tp: Optional[spmd.Axis] = None) -> torch.Tensor:
     """One rank's top-k MoE over its local tokens: x (n, d); router_w (d, E)
     whole; w1_loc/w2_loc (E_loc, d, ff)/(E_loc, ff, d) this rank's experts.
     A token's slot in its expert's bucket is the count of earlier
-    token-major rows routed to that expert; dropped rows add zero."""
+    token-major rows routed to that expert; dropped rows add zero.  With
+    ``tp``, the experts' ``ff`` is split over it (the mesh trainer's
+    layout): the received tokens enter the split product through
+    :func:`spmd.copy_to` and its partial sums leave through
+    :func:`spmd.reduce_from`."""
     n, d = x.shape
     p, c = ax.p, capacity
     e_loc = n_experts // p
     gate = torch.softmax((x @ router_w).float(), dim=-1)
     eid, gval = _route(gate, k, x.dtype)                               # (n*k,)
     xk = x.repeat_interleave(k, dim=0) if k > 1 else x                 # (n*k, d)
-    eoh = F.one_hot(eid, n_experts)                                    # (n*k, E)
-    pos = (eoh.cumsum(dim=0) * eoh).sum(dim=-1) - 1
-    keep = pos < c
-    slot = pos.clamp(0, c - 1)
+    slot, keep = _bucket_slots(eid, n_experts, c)
     contrib = torch.where(keep[:, None], xk, torch.zeros_like(xk))
     send = torch.zeros((n_experts, c, d), dtype=x.dtype, device=x.device).index_put(
         (eid, slot), contrib, accumulate=True)
     recv = spmd.all_to_all(send.reshape(p, e_loc, c, d), ax)           # (p, E_loc, C, d)
     tok = recv.movedim(1, 0).reshape(e_loc, p * c, d)
-    out = _ffn(tok, w1_loc, w2_loc, ("ekd,edf->ekf", "ekf,efd->ekd"))  # (E_loc, pC, d)
+    out = spmd.reduce_from(_ffn(spmd.copy_to(tok, tp), w1_loc, w2_loc,
+                                ("ekd,edf->ekf", "ekf,efd->ekd")), tp)  # (E_loc, pC, d)
     back = out.reshape(e_loc, p, c, d).movedim(0, 1)
     ret = spmd.all_to_all(back, ax).reshape(n_experts, c, d)
     y = ret[eid, slot] * torch.where(keep, gval, torch.zeros_like(gval))[:, None]
     return y.reshape(n, k, d).sum(dim=1) if k > 1 else y
+
+
+def _bucket_slots(eid: torch.Tensor, n_experts: int, capacity: int):
+    """``(slot, keep)`` of each routed row (token-major): its place in its
+    expert's bucket, the count of earlier rows routed to that expert
+    (clamped to the bucket), and whether it fits."""
+    eoh = F.one_hot(eid, n_experts)                                    # (n*k, E)
+    pos = (eoh.cumsum(dim=0) * eoh).sum(dim=-1) - 1
+    return pos.clamp(0, capacity - 1), pos < capacity
+
+
+def dropped_share(x: torch.Tensor, router_w: torch.Tensor, n_experts: int, capacity: int,
+                  k: int = 1) -> float:
+    """The share of one rank's routed rows (``n * k``) that :func:`_moe_body`
+    drops: those past ``capacity`` in their expert's bucket."""
+    gate = torch.softmax((x @ router_w).float(), dim=-1)
+    _, keep = _bucket_slots(_route(gate, k, x.dtype)[0], n_experts, capacity)
+    return float((~keep).float().mean())
 
 
 def switch_moe(tokens, router_w, w1, w2, *, mesh=None, axis: AxisName = "ep",

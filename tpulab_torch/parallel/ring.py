@@ -49,6 +49,7 @@ import functools
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 
 from tpulab_torch.parallel import spmd
@@ -384,6 +385,18 @@ def _ulysses_body(q, k, v, ex, *, causal: bool, local_impl: str = "dense", windo
 
 
 # ------------------------------------------------------------ entry points
+
+
+def _zigzag_perm(seq: int, p: int) -> np.ndarray:
+    """The global sequence permutation of the zigzag layout (``tpulab``'s):
+    rank ``i`` holds half-blocks ``i`` and ``2p - 1 - i``, in that order."""
+    hl = seq // (2 * p)
+    order = []
+    for i in range(p):
+        order.extend(range(i * hl, (i + 1) * hl))
+        j = 2 * p - 1 - i
+        order.extend(range(j * hl, (j + 1) * hl))
+    return np.asarray(order, dtype=np.int32)
 
 
 def _check_window(causal: bool, window: int) -> None:

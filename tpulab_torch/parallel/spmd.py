@@ -48,7 +48,7 @@ import torch
 import torch.distributed as dist
 from torch.autograd.function import once_differentiable
 
-from tpulab_torch.parallel.collectives import check_dtype
+from tpulab_torch.parallel.collectives import check_dtype, gather_group
 from tpulab_torch.parallel.mesh import axis_size, mesh_anchor
 
 Layout = Tuple[Tuple[int, ...], ...]
@@ -137,11 +137,7 @@ def assemble(parts: Sequence[torch.Tensor], dim: int, layout: Layout) -> torch.T
 
 def _all_gather(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     """Every rank's ``x``, stacked along a new dim 0 in rank order."""
-    check_dtype(x.dtype, ax.group, "all_gather")
-    x = x.contiguous()
-    out = torch.empty((ax.p * x.shape[0], *x.shape[1:]), dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x, group=ax.group)
-    return out.view(ax.p, *x.shape)
+    return gather_group(x, ax.group, ax.p).view(ax.p, *x.shape)
 
 
 def _shift(x: torch.Tensor, ax: Axis, step: int) -> torch.Tensor:
@@ -160,6 +156,8 @@ def _shift(x: torch.Tensor, ax: Axis, step: int) -> torch.Tensor:
 
 def _a2a(x: torch.Tensor, ax: Axis) -> torch.Tensor:
     """Block ``j`` of dim 0 to rank ``j``; block ``j`` of the result from rank ``j``."""
+    if ax.p == 1:
+        return x.clone()
     check_dtype(x.dtype, ax.group, "all_to_all_single")
     x = x.contiguous()
     out = torch.empty_like(x)
@@ -294,3 +292,150 @@ def keep(x: torch.Tensor, *held: Optional[torch.Tensor]) -> torch.Tensor:
     if not held or not torch.is_grad_enabled():
         return x
     return _Keep.apply(x, *held)
+
+
+# ------------------------------------------------------------ sharded training
+#
+# The mesh trainer (:mod:`tpulab_torch.models.sharded`) keeps each rank's own
+# shards of the parameters and its own slice of the batch, so its exchanges
+# follow Megatron's rule instead of the one above: a rank's loss is its
+# share of the global loss, and a gradient is summed over the ranks whose
+# shares it collects.  ``None`` for an axis means size 1: every op is then
+# the identity, and the one-device arithmetic runs unchanged.
+
+
+def all_reduce_(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """Sum ``x`` over ``ax`` in place (every rank gets the same bits)."""
+    if ax is not None and ax.p > 1:
+        check_dtype(x.dtype, ax.group, "all_reduce")
+        dist.all_reduce(x, group=ax.group)
+    return x
+
+
+def gather_dim(x: torch.Tensor, ax: Optional[Axis], dim: int) -> torch.Tensor:
+    """Every rank's ``x`` of ``ax`` concatenated along ``dim`` in rank order."""
+    if ax is None or ax.p == 1:
+        return x
+    return torch.cat(list(_all_gather(x.contiguous(), ax).unbind(0)), dim)
+
+
+def reduce_scatter_dim(x: torch.Tensor, ax: Optional[Axis], dim: int) -> torch.Tensor:
+    """This rank's block of ``x`` summed over ``ax``, cut along ``dim``
+    (``reduce_scatter_tensor``)."""
+    if ax is None or ax.p == 1:
+        return x
+    check_dtype(x.dtype, ax.group, "reduce_scatter")
+    src = x.movedim(dim, 0).contiguous()
+    out = torch.empty((src.shape[0] // ax.p, *src.shape[1:]), dtype=x.dtype, device=x.device)
+    dist.reduce_scatter_tensor(out, src, group=ax.group)
+    return out.movedim(0, dim)
+
+
+def all_reduce_buckets(pairs, axes: Dict[str, Optional[Axis]]) -> None:
+    """Sum each tensor of ``pairs`` (``(tensor, axis names)``) over its
+    axes (``axes[name]``) in place, the tensors of one key in one flat
+    buffer."""
+    buckets: Dict[Tuple[str, ...], list] = {}
+    for t, key in pairs:
+        if key:
+            buckets.setdefault(tuple(key), []).append(t)
+    for key, ts in buckets.items():
+        flat = torch.cat([t.reshape(-1) for t in ts])
+        for a in key:
+            all_reduce_(flat, axes[a])
+        off = 0
+        for t in ts:
+            t.copy_(flat[off:off + t.numel()].view_as(t))
+            off += t.numel()
+
+
+class _CopyTo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ax, x):
+        ctx.ax = ax
+        return x.view_as(x)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return None, all_reduce_(g.clone(memory_format=torch.contiguous_format), ctx.ax)
+
+
+def copy_to(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """``x`` entering a region split over ``ax`` (Megatron's ``f``): the
+    identity, whose backward sums the ranks' partial input gradients."""
+    if ax is None or ax.p == 1 or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyTo.apply(ax, x)
+
+
+class _ReduceFrom(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ax, x):
+        return all_reduce_(x.clone(memory_format=torch.contiguous_format), ax)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return None, g
+
+
+def reduce_from(x: torch.Tensor, ax: Optional[Axis]) -> torch.Tensor:
+    """The sum over ``ax`` of the ranks' partial results (Megatron's ``g``):
+    an all-reduce, whose backward hands each rank the whole gradient."""
+    if ax is None or ax.p == 1:
+        return x
+    return _ReduceFrom.apply(ax, x)
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ax, dim, x):
+        ctx.ax, ctx.dim = ax, dim
+        return gather_dim(x, ax, dim)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        return None, None, reduce_scatter_dim(g, ctx.ax, ctx.dim)
+
+
+def gather_shards(x: torch.Tensor, ax: Optional[Axis], dim: int) -> torch.Tensor:
+    """The whole tensor from the ranks' shards along ``dim``, where each rank
+    uses it on its own data: the backward sums the ranks' gradients and
+    hands each its block (a reduce-scatter)."""
+    if ax is None or ax.p == 1:
+        return x
+    return _GatherShards.apply(ax, dim, x)
+
+
+class Partition:
+    """One way to cut a whole tensor among the p ranks of an axis:
+    ``take(whole, r)`` is rank r's part, ``assemble(parts)`` the inverse."""
+
+    def __init__(self, take_fn, assemble_fn):
+        self.take, self.assemble = take_fn, assemble_fn
+
+
+class _Repartitioned(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ax, src, dst, x):
+        ctx.ax, ctx.src, ctx.dst = ax, src, dst
+        parts = list(_all_gather(x.contiguous(), ax).unbind(0))
+        return dst.take(src.assemble(parts), ax.idx).contiguous()
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, g):
+        parts = list(_all_gather(g.contiguous(), ctx.ax).unbind(0))
+        return None, None, None, ctx.src.take(ctx.dst.assemble(parts), ctx.ax.idx).contiguous()
+
+
+def repartition(x: torch.Tensor, ax: Optional[Axis], src: Partition,
+                dst: Partition) -> torch.Tensor:
+    """This rank's part under ``dst`` of the whole tensor whose parts under
+    ``src`` the ranks hold (a permutation of the whole, so its backward is
+    the permutation back)."""
+    if ax is None or ax.p == 1:
+        return x
+    return _Repartitioned.apply(ax, src, dst, x)

@@ -52,8 +52,16 @@ unfired injected fault and anything shorter than K run as K=1 calls, so
 losses and parameters are bit-equal to the K=1 loop.  Under ``overlap`` = 1
 a block's losses are drained one block late and checked step by step.
 
-What the port does not have raises ``NotImplementedError`` naming its
-ROADMAP item: the mesh and ZeRO options and dispatch MoE (A12.3).
+Mesh training (``mesh_devices`` N, ``--mesh N``): ``tpulab``'s
+factorization of N over ``(dp, sp, tp, pp)`` (``best_factorization`` fills
+pp, then tp, then sp; ``zero1`` takes a factor of 2 for dp from pp, tp or
+sp), one rank a device (:func:`tpulab_torch.parallel.mesh.shared_pool`:
+NCCL on the card, gloo with ``device="cpu"``), the loop in every rank on
+its shards (:mod:`tpulab_torch.models.sharded`), rank 0's log lines and
+result returned.  ``mesh_devices=1`` runs in this process, on a group of
+one.  labvision splits its batch over a ``dp`` mesh of N.  A snapshot
+holds the whole tree (the ZeRO moments gathered), so any topology resumes
+any other's.
 """
 
 from __future__ import annotations
@@ -125,17 +133,58 @@ def corpus_windows(src: np.ndarray, batch: int, seq: int, seed: int):
     return batch_at
 
 
-def _refuse_unported(**given) -> None:
-    """NotImplementedError for every argument the port does not have."""
-    queued = {
-        "mesh_devices": "mesh training is not ported yet (ROADMAP A12.3)",
-        "zero1": "ZeRO-1 shards over a mesh (ROADMAP A12.3)",
-        "zero2": "ZeRO-2 shards over a mesh (ROADMAP A12.3)",
-        "moe_impl": "dispatch MoE routes over a mesh (ROADMAP A12.3)",
-    }
-    for name, value in given.items():
-        if value:
-            raise NotImplementedError(f"{name}: {queued[name]}")
+def mesh_sizes(mesh_devices: int, zero1: bool) -> dict:
+    """``tpulab``'s factorization of ``mesh_devices`` over ``(dp, sp, tp,
+    pp)`` (``tpulab/train.py:459-482``): ``best_factorization`` fills the
+    innermost axes first; with ``zero1`` a factor of 2 moves to dp from
+    pp, then tp, then sp."""
+    from tpulab_torch.parallel.mesh import best_factorization
+
+    sizes = best_factorization(mesh_devices, ("dp", "sp", "tp", "pp"))
+    if zero1 and sizes["dp"] == 1:
+        for a in ("pp", "tp", "sp"):
+            if sizes[a] % 2 == 0:
+                sizes[a] //= 2
+                sizes["dp"] = 2
+                break
+        else:
+            raise ValueError(
+                f"zero1 needs a mesh with dp > 1; cannot "
+                f"factor one out of {mesh_devices} devices")
+    return sizes
+
+
+def _train_rank(kwargs: dict):
+    """One rank of a mesh run: the loop on this rank's shards; rank 0's
+    log lines come back with the result."""
+    import torch.distributed as dist
+
+    lines: list = []
+    log = lines.append if dist.get_rank() == 0 else (lambda *a, **k: None)
+    step, loss = train(**kwargs, log=log)
+    return step, loss, lines
+
+
+def _train_on_pool(kwargs: dict, log, device) -> tuple:
+    """``train(**kwargs)`` in every rank of a kept pool of
+    ``mesh_devices`` ranks on ``device``'s type; rank 0's lines go to
+    ``log``."""
+    import pickle
+
+    from tpulab_torch.parallel.mesh import shared_pool
+
+    kwargs = {**kwargs, "device": device.type}
+    try:
+        pickle.dumps(kwargs)
+    except (pickle.PicklingError, TypeError, AttributeError) as e:  # a closure (an optimizer)
+        raise ValueError(f"mesh_devices={kwargs['mesh_devices']}: the arguments go to "
+                         f"spawned ranks and must pickle; give the optimizer by name "
+                         f"(opt_name, lr, schedule, ...): {e}") from None
+    pool = shared_pool(kwargs["mesh_devices"], device.type)
+    step, loss, lines = pool.run(_train_rank, kwargs)
+    for line in lines:
+        log(line)
+    return step, loss
 
 
 def _outputs(out):
@@ -179,15 +228,15 @@ def _warm_start(model, cfg, init_from: str) -> None:
     (``tpulab.train._warm_start``): the optimizer state stays clean, and
     LoRA adapters keep their zero-delta init."""
     from tpulab_torch.models.generate import load_params
-    from tpulab_torch.models.labformer import _join_lora, _split_lora
+    from tpulab_torch.models.labformer import _join_lora, _split_lora, gather_params
 
     base_cfg = dataclasses.replace(cfg, lora_rank=0) if cfg.lora_rank else cfg
     restored, _ = load_params(base_cfg, init_from)  # raises when there is no snapshot
-    lora, live_base = _split_lora(model.to_tree())
+    lora, live_base = _split_lora(gather_params(model))
     if set(restored["blocks"]) != set(live_base["blocks"]):
         raise ValueError(f"{init_from}: snapshot leaves {sorted(restored['blocks'])} differ "
                          f"from the model's {sorted(live_base['blocks'])}")
-    model.assign(_join_lora(restored, lora))
+    model.assign_whole(_join_lora(restored, lora))
 
 
 def _check_resume_config(sc_path: str, cfg) -> None:
@@ -273,8 +322,10 @@ def train(
     ``trace_dir`` writes a ``torch.profiler`` trace of the loop there;
     ``sanitize`` traps the first non-finite value where it is made
     (:func:`_sanitized`; ``tpulab`` also turns buffer donation off, which
-    the port never uses).
+    the port never uses).  ``mesh_devices`` N > 1 runs the loop in N
+    ranks (see the module's docstring).
     """
+    args = {k: v for k, v in locals().items() if k != "log"}
     from tpulab_torch import ckpt
     from tpulab_torch.obs import TRACER, histogram, maybe_trace, roofline
     from tpulab_torch.runtime.device import resolve_device
@@ -309,11 +360,30 @@ def train(
         raise ValueError("data_dir streams byte tokens — only the labformer consumes it")
     if model not in ("labformer", "labvision"):
         raise ValueError(f"unknown model {model!r}")
-    _refuse_unported(mesh_devices=mesh_devices, zero1=zero1, zero2=zero2,
-                     moe_impl=moe_impl != "dense")
+    zero1 = bool(zero1 or zero2)  # stage 2 builds on stage 1's layouts
+    if zero1 and not mesh_devices:
+        raise ValueError(
+            "zero1 requires a device mesh (--mesh N): optimizer moments "
+            "shard over the dp axis")
     inject_fault = tuple(inject_fault or ())
     device = resolve_device(device) if device is None or isinstance(device, str) \
         else torch.device(device)
+    mesh = None
+    if mesh_devices:
+        import torch.distributed as dist
+
+        from tpulab_torch.parallel.mesh import make_mesh
+
+        sizes = ({"dp": mesh_devices} if model == "labvision"
+                 else mesh_sizes(mesh_devices, zero1))
+        in_rank = dist.is_initialized() and dist.get_world_size() == mesh_devices
+        if mesh_devices > 1 and not in_rank:
+            return _train_on_pool(args, log, device)
+        mesh = make_mesh(sizes, backend=device.type)
+    rank0 = mesh is None or dist.get_rank() == 0
+    if not rank0:
+        def log(*a, **k):
+            pass
 
     if optimizer is None and (lr or warmup_steps or schedule != "const"
                               or clip_norm or opt_name != "adamw"):
@@ -333,7 +403,7 @@ def train(
 
         cfg = cfg or LabvisionConfig()
         net, opt_state, vstep = init_train_state(cfg, seed=seed, optimizer=optimizer,
-                                                 device=device)
+                                                 device=device, mesh=mesh)
 
         def batch_at(step: int):
             return synth_batch(cfg, batch, np.random.default_rng((seed << 20) ^ step))
@@ -368,8 +438,9 @@ def train(
             max_seq=seq, remat=remat, remat_policy=remat_policy, n_experts=experts,
             moe_impl=moe_impl, moe_aux_weight=moe_aux_weight, moe_top_k=moe_top_k,
             lora_rank=lora_rank, lora_alpha=lora_alpha)
-        net, opt_state, train_step = init_train_state(cfg, None, seed=seed, optimizer=optimizer,
-                                                      accum=accum, device=device)
+        net, opt_state, train_step = init_train_state(cfg, mesh, seed=seed, optimizer=optimizer,
+                                                      accum=accum, zero1=zero1, zero2=zero2,
+                                                      device=device)
         if init_from:
             _warm_start(net, cfg, init_from)
 
@@ -428,23 +499,44 @@ def train(
                 with torch.no_grad():
                     return eval_of([net.loss_fn(val_at(j)) for j in range(eval_batches)])
 
+    if mesh is not None and model == "labformer":
+        from tpulab_torch.models.labformer import restore_snapshot, save_snapshot
+
+        def save(path, at, net, opt_state):
+            save_snapshot(path, at, net, opt_state, train_step)
+
+        def restore(path, at, net, opt_state):
+            restore_snapshot(path, at, net, opt_state, train_step)
+    elif mesh is not None:  # labvision's replicated parameters: rank 0 writes them
+        def save(path, at, net, opt_state):
+            if rank0:
+                ckpt.save(path, at, net, opt_state)
+            dist.barrier()
+
+        restore = ckpt.restore
+    else:
+        save, restore = ckpt.save, ckpt.restore
+
     start_step = 0
     ckpt_path = None
     if ckpt_dir:
         ckpt_path = os.path.abspath(ckpt_dir)
-        if not resume and os.path.exists(ckpt_path):
-            shutil.rmtree(ckpt_path)  # a fresh run never restores a stale snapshot
-        os.makedirs(ckpt_path, exist_ok=True)
         sc_path = os.path.join(ckpt_path, ckpt.SIDECAR)
+        if rank0:
+            if not resume and os.path.exists(ckpt_path):
+                shutil.rmtree(ckpt_path)  # a fresh run never restores a stale snapshot
+            os.makedirs(ckpt_path, exist_ok=True)
+        if mesh is not None:
+            dist.barrier()
         if model == "labformer":  # tpulab writes no sidecar for labvision
             if resume and os.path.exists(sc_path):
                 _check_resume_config(sc_path, cfg)  # on resume the sidecar is authoritative
-            else:
+            elif rank0:
                 ckpt.write_sidecar(ckpt_path, cfg, tokenizer)
         latest = ckpt.latest_step(ckpt_path)
         if resume and latest is not None:
             start_step = latest
-            ckpt.restore(ckpt_path, start_step, net, opt_state)
+            restore(ckpt_path, start_step, net, opt_state)
             log(f"[train] resumed from step {start_step}")
 
     loss = float("nan")
@@ -534,7 +626,7 @@ def train(
     where = {"step": start_step}
     try:
         with contextlib.ExitStack() as stack:
-            stack.enter_context(maybe_trace(trace_dir))
+            stack.enter_context(maybe_trace(trace_dir if rank0 else None))
             if sanitize:
                 stack.enter_context(_sanitized(net, where))
             step = start_step
@@ -575,7 +667,7 @@ def train(
                     # drop the blocks in flight past the fault and replay
                     # from the snapshot: the restore is total
                     pending.clear()
-                    ckpt.restore(ckpt_path, rollback, net, opt_state)
+                    restore(ckpt_path, rollback, net, opt_state)
                     step = rollback
                     if "l" in box:
                         box.pop("l").close()  # reopened at the rollback step
@@ -583,7 +675,7 @@ def train(
                 if at_eval:
                     log(f"[eval] step {step - 1} val_loss {eval_loss(step - 1):.4f}")
                 if at_save:
-                    ckpt.save(ckpt_path, step, net, opt_state)
+                    save(ckpt_path, step, net, opt_state)
                 if at_eval or at_save:
                     note_mfu()
                     log(metrics_line())
@@ -618,7 +710,9 @@ def main(argv=None) -> int:
     ap.add_argument("--save-every", type=int, default=20)
     ap.add_argument("--resume", action="store_true",
                     help="restore the newest snapshot in --ckpt-dir and continue")
-    ap.add_argument("--mesh", type=int, default=0, help="not ported (ROADMAP A12.3)")
+    ap.add_argument("--mesh", type=int, default=0,
+                    help="train over N devices: (dp, sp, tp, pp) factored from N, one rank "
+                         "a device (0 = one device, no mesh)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--sanitize", action="store_true",
                     help="trap the first non-finite value where a module or a backward op "
@@ -633,7 +727,8 @@ def main(argv=None) -> int:
                          "weight products, recompute the rest (attention included)")
     ap.add_argument("--experts", type=int, default=0, help="MoE experts (0 = dense MLP)")
     ap.add_argument("--moe-impl", default="dense", choices=("dense", "dispatch"),
-                    help="dense; dispatch is not ported (ROADMAP A12.3)")
+                    help="dense (every expert, gate-combined) | dispatch (all_to_all over the "
+                         "mesh's (dp, sp) axes, with capacity; needs --mesh)")
     ap.add_argument("--moe-aux-weight", type=float, default=0.01,
                     help="switch-transformer router load-balancing loss weight")
     ap.add_argument("--moe-top-k", type=int, default=1,
@@ -650,8 +745,10 @@ def main(argv=None) -> int:
     ap.add_argument("--schedule", default="const", choices=("const", "cosine"))
     ap.add_argument("--clip-norm", type=float, default=0.0,
                     help="global gradient-norm clip (0 = off)")
-    ap.add_argument("--zero1", action="store_true", help="not ported (ROADMAP A12.3)")
-    ap.add_argument("--zero2", action="store_true", help="not ported (ROADMAP A12.3)")
+    ap.add_argument("--zero1", action="store_true",
+                    help="ZeRO-1: shard optimizer moments over dp (needs --mesh)")
+    ap.add_argument("--zero2", action="store_true",
+                    help="ZeRO-2: also reduce-scatter gradients over dp (implies --zero1)")
     ap.add_argument("--recover", type=int, default=0,
                     help="on a non-finite loss, roll back to the newest snapshot and "
                          "continue, at most N times (0 = fail fast)")
