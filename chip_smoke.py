@@ -152,7 +152,9 @@ failure:
       requests of (8, 17, 5, 33, 9, 21, 12, 7) prompt tokens and 64 new
       tokens each.  With ``attn="pallas"``, ``"gather"`` and ``"pallas"``
       over int8 KV: tokens/s (wall clock, the median of 3 waves after one
-      warm-up wave), ms per tick, and one profiled wave;
+      warm-up wave) and ms per tick; ``"pallas"`` on native KV also one
+      profiled wave (a wave under the profiler takes ~40 s of host time,
+      so the other two variants are not profiled);
    b. the same model in float32 with ``"pallas"`` on the card against the
       port on the CPU, and ``"pallas"`` against ``"gather"`` on the card:
       each request's greedy stream equal up to its first step whose CPU
@@ -434,8 +436,26 @@ failure:
     e. with two or more cards, ``dryrun_train_step`` in every rank of an
        NCCL pool of two (else the line ``15e not run: 1 CUDA device``);
     f. the phase's seconds.
-16. One ``{"model": {...}}`` line with phases 5 to 7's (5e, 6e, 6f and
-    6g included) and 9 to 15's numbers, one ``{"lab_suite": {...}}`` line with phase 8's, one
+16. The tp-sharded ``PagedEngine`` on the serving mesh
+    (``parallel.mesh.serving_mesh``), on ``serving_mesh(1, 1)`` over a
+    group of one rank (NCCL on the card), ``attn="gather"``, each run with
+    the launch counts set to 0 just before and read just after:
+
+    a. phase 7a's ``PAGED`` config (d512, 8 heads, 2 kv heads, L8, bf16)
+       with ``attn_impl="flash"``, so that every whole-prompt prefill runs
+       B4 on the rank's heads, its 8 prompts and geometry, through
+       ``mesh=None`` and through the mesh: streams and ``stats()``
+       bit-equal, B4 once per layer and prefill on both sides, B7 never;
+    b. a spill round trip on the mesh (radix index, a pool of 4 usable
+       blocks, a 33-token prompt evicted to the host tier by three
+       others, then served again from it): streams bit-equal to the same
+       requests without the tier, the spill counters advancing;
+    c. ``attn="pallas"`` on the mesh refused with ``tpulab``'s
+       ``EngineConfigError`` message;
+    d. the ``mesh_tick_overhead`` bench row (its ticks/s printed);
+    e. the phase's seconds.
+17. One ``{"model": {...}}`` line with phases 5 to 7's (5e, 6e, 6f and
+    6g included) and 9 to 16's numbers, one ``{"lab_suite": {...}}`` line with phase 8's, one
     ``{"kernels": [...]}`` line, the card line again, and last ``{"ok":
     true, "device": {...}}``.
 
@@ -2316,7 +2336,8 @@ def time_paged_bench(sizes: dict, device, card: str) -> tuple:
             check(w["stats"]["ticks"] == ticks, "paged bench waves differ in ticks")
         tokens = sum(len(x) for x in wave["streams"])
         wall = statistics.median(walls)
-        prof = profile_window(lambda: paged_wave(model, cfg, sizes, attn, kv, device), device)
+        prof = (profile_window(lambda: paged_wave(model, cfg, sizes, attn, kv, device), device)
+                if (attn, kv) == PAGED_VARIANTS[0] else {"busy_share": "not profiled"})
         if "kernel_launches" in prof:
             prof["launches_per_tick"] = prof["kernel_launches"] / ticks
         st = wave["stats"]
@@ -5640,12 +5661,132 @@ FULL_SIZES = {
     "mesh_batch": 8, "mesh_seq": 2048, "mesh_steps": 4, "mesh_save_every": 2,
     "mesh_rounds": 3, "mesh_moe_batch": 2, "mesh_moe_seq": 1024, "mesh_moe_steps": 3,
     "mesh_moe_capacity": 1.0,
+    # 16: phase 7a's PAGED engine (its prompts and geometry) on a serving mesh
+    # of one; the mesh_tick_overhead row at tpulab's defaults
+    "mesh_bench": {},
 }
+
+
+# ------------------------------------------------------ phase 16: the serving mesh
+
+
+def mesh_wave(model, cfg, sizes: dict, device, mesh) -> dict:
+    """Phase 7a's requests through a fresh ``attn="gather"`` engine on
+    ``mesh`` (None: one device): its streams and stats."""
+    import torch
+
+    from tpulab_torch.models.paged import PagedEngine
+
+    eng = PagedEngine(model, cfg, slots=sizes["paged_slots"], n_blocks=sizes["paged_blocks"],
+                      block_size=sizes["paged_bs"], max_seq=sizes["paged_max_seq"],
+                      attn="gather", mesh=mesh)
+    rids = [eng.submit(p, max_new=sizes["paged_new"]) for p in paged_jobs(sizes)]
+    out = eng.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    check_no_leak(eng, f"phase 16a mesh={mesh is not None}")
+    return {"streams": [out[r].tolist() for r in rids], "stats": eng.stats()}
+
+
+def mesh_spill_run(model, cfg, sizes: dict, mesh, spill: bool) -> tuple:
+    """16b: a 33-token prompt, three others that evict its prefix from a
+    pool of 4 usable blocks, then the first again, on ``mesh``; (streams,
+    stats)."""
+    from tpulab_torch.models.paged import PagedEngine
+
+    bs = sizes["paged_bs"]
+    kw = dict(prefix_index="radix", spill_blocks=16) if spill else {}
+    eng = PagedEngine(model, cfg, slots=2, n_blocks=5, block_size=bs,
+                      max_seq=sizes["paged_max_seq"], attn="gather", mesh=mesh, **kw)
+    rng = np.random.default_rng(16)
+    first = rng.integers(0, 256, (2 * bs + 1,)).astype(np.int32)
+    prompts = [first] + [rng.integers(0, 256, (2 * bs + 1,)).astype(np.int32)
+                         for _ in range(3)] + [first]
+    streams = []
+    for p in prompts:
+        rid = eng.submit(p, max_new=bs // 2)
+        streams.append(eng.run()[rid].tolist())
+    return streams, eng.stats()
+
+
+def run_mesh_serving(sizes: dict, device, backend: str, card: str) -> dict:
+    """Phase 16: the tp-sharded engine on a serving mesh of one (16a-16e in
+    the module's docstring)."""
+    import torch
+
+    from tpulab_torch import bench
+    from tpulab_torch.models.labformer import Labformer, LabformerConfig, init_params
+    from tpulab_torch.models.paged import EngineConfigError, PagedEngine
+    from tpulab_torch.parallel.mesh import serving_mesh
+
+    t0 = time.perf_counter()
+    out: dict = {"card": card}
+    cfg = LabformerConfig(**sizes["paged"], attn_impl="flash", dtype=torch.bfloat16)
+    model = Labformer.from_numpy(init_params(cfg, seed=0), cfg, device)
+    mesh = serving_mesh(1, 1, backend=backend)
+    prefills = len(sizes["paged_prompts"]) * cfg.n_layers
+    want = {"flash_fwd": prefills}
+    one, one_launches = counted(lambda: mesh_wave(model, cfg, sizes, device, None), device,
+                                want, "phase 16a one-device engine")
+    got, mesh_launches = counted(lambda: mesh_wave(model, cfg, sizes, device, mesh), device,
+                                 want, "phase 16a mesh engine")
+    check(got["streams"] == one["streams"],
+          "phase 16a: the mesh of one's streams differ from mesh=None's")
+    differ = {k: (got["stats"][k], one["stats"][k]) for k in one["stats"]
+              if got["stats"][k] != one["stats"][k]}
+    check(not differ, f"phase 16a: stats differ (mesh, one device): {differ}")
+    check(mesh_launches["flash_fwd"] == one_launches["flash_fwd"]
+          and mesh_launches["paged_decode"] == one_launches["paged_decode"] == 0,
+          f"phase 16a: launches mesh {mesh_launches}, one device {one_launches}")
+    print(f"phase 16a: serving_mesh(1, 1) bit-equal to mesh=None on {len(got['streams'])} "
+          f"streams of {sizes['paged_new']} (d{cfg.d_model} L{cfg.n_layers} kv{cfg.kv_heads} "
+          f"bf16, gather); launches mesh B4 {mesh_launches['flash_fwd']} B7 "
+          f"{mesh_launches['paged_decode']}, one device B4 {one_launches['flash_fwd']} B7 "
+          f"{one_launches['paged_decode']}; mesh_devices {got['stats']['mesh_devices']}, "
+          f"kv_pool_bytes {got['stats']['kv_pool_bytes']} [{card}]", flush=True)
+    out["a"] = {"streams_equal": True, "ticks": got["stats"]["ticks"],
+                "launches": {k: mesh_launches[k] for k in ("flash_fwd", "paged_decode")},
+                "one_device_launches": {k: one_launches[k] for k in ("flash_fwd",
+                                                                      "paged_decode")}}
+
+    # 16b: the spill tier on the mesh's pools
+    ref, _ = mesh_spill_run(model, cfg, sizes, mesh, spill=False)
+    spilled, st = mesh_spill_run(model, cfg, sizes, mesh, spill=True)
+    check(spilled == ref, f"phase 16b: spill-armed streams {spilled} differ from {ref}")
+    check(st["spill_spilled"] >= 1 and st["spill_prefetched"] >= 1 and st["spill_hits"] >= 1,
+          f"phase 16b: the spill tier never cycled: {st}")
+    print(f"phase 16b: spill round trip on the mesh bit-equal over {len(ref)} requests "
+          f"(spilled {st['spill_spilled']}, prefetched {st['spill_prefetched']}, hits "
+          f"{st['spill_hits']})", flush=True)
+    out["b"] = {k: st[k] for k in ("spill_spilled", "spill_prefetched", "spill_hits")}
+
+    # 16c: tpulab's refusal of the paged kernel on a mesh
+    try:
+        PagedEngine(model, cfg, slots=2, n_blocks=8, block_size=sizes["paged_bs"],
+                    max_seq=sizes["paged_max_seq"], attn="pallas", mesh=mesh)
+        msg = ""
+    except EngineConfigError as e:
+        msg = str(e)
+    check(msg == "attn='pallas' does not support mesh serving",
+          f"phase 16c: attn='pallas' on a mesh: {msg!r}")
+    print(f"phase 16c: attn='pallas' on the mesh refused ({msg})", flush=True)
+    out["c"] = msg
+
+    # 16d: the bench row, on the ranks this machine has
+    row = bench.bench_mesh_tick_overhead(backend=backend, **sizes["mesh_bench"])
+    print(json.dumps({"mesh_tick_overhead": row}), flush=True)
+    out["d"] = {k: row[k] for k in ("metric", "value", "mesh", "ref_1x1_ticks_per_s",
+                                    "mesh_over_1x1", "n_devices")}
+    out["d"]["device_count"] = torch.cuda.device_count() if device.type == "cuda" else 0
+    del model
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 16 took {out['seconds']:.1f} s [{card}]", flush=True)
+    return out
 
 
 def run(device, sizes: dict, backend: str, card: str = "cpu",
         parent: Path | None = None) -> dict:
-    """Phases 2 to 15 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
+    """Phases 2 to 16 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
     ``parent``: a checkout to time phases 4, 6c and 7d against (:func:`in_turns`)."""
     t0 = time.perf_counter()
     inp = make_inputs(sizes)
@@ -5689,6 +5830,7 @@ def run(device, sizes: dict, backend: str, card: str = "cpu",
     model["phase13"] = run_mesh_path(sizes, device, backend, card)
     model["phase14"] = run_sp_path(sizes, device, backend, card)
     model["phase15"] = run_mesh_train(sizes, device, backend, card)
+    model["phase16"] = run_mesh_serving(sizes, device, backend, card)
     for name in TRAIN_KERNELS:
         rows[name]["mesh_launches"] = model["phase15"]["a"]["launches"][name]
     kernels = []

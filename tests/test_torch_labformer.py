@@ -194,8 +194,13 @@ def test_config_checks_and_mesh_paths():
             tlf.LabformerConfig(**BASE, **bad)
         with pytest.raises(ValueError):
             jlf.LabformerConfig(**BASE, **bad)
-    tcfg = tlf.LabformerConfig(**BASE, n_experts=4, moe_impl="dispatch")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        Labformer.from_numpy(tlf.init_params(tcfg), tcfg, "cpu")
+    # a dispatch-MoE config without a mesh runs the dense MoE, as tpulab's
+    # forward does with mesh=None (the refusal is training's alone)
+    jcfg, tcfg = _cfgs(n_experts=4, moe_impl="dispatch")
+    params = jlf.init_params(jcfg, seed=0)
+    tokens = _tokens(11)
+    got = Labformer.from_numpy(params, tcfg, "cpu")(tokens).detach().numpy()
+    want = np.asarray(jlf.forward(params, jnp.asarray(tokens), jcfg))
+    np.testing.assert_allclose(got, want, **F32_TOL)
     assert tlf.LabformerConfig(**BASE).head_dim == 8
     assert dataclasses.replace(tcfg, n_kv_heads=2).kv_heads == 2

@@ -265,14 +265,19 @@ def test_oversized_request_and_bad_knobs_rejected(models):
     pytest.param(dict(obs=True), "A11", id="what5-A11"),
     ("rid", "A11"), ("publish_metrics", "A11")])
 def test_unported_knobs_refused(models, what, item):
-    """Mesh serving (A12) is refused, naming its item; the A11 knobs
-    (``obs=True``, ``submit(rid=)``, ``publish_metrics``) are served since
-    the observability layer landed, and these ids now check that."""
-    _, _, model = models["small"]
+    """The A12 and A11 knobs, served since their items landed: mesh serving
+    (A12.4) keeps ``tpulab``'s refusal of ``attn="pallas"`` on a mesh, with
+    its exception type and message, made before the mesh is read; the A11
+    knobs (``obs=True``, ``submit(rid=)``, ``publish_metrics``) are served
+    since the observability layer landed, and these ids now check that."""
+    jparams, jcfg, model = models["small"]
     geo = dict(slots=1, n_blocks=8, block_size=8, max_seq=32)
     if item == "A12":
-        with pytest.raises(NotImplementedError, match=item):
-            tpaged.PagedEngine(model, model.cfg, **geo, **what)
+        with pytest.raises(jpaged.EngineConfigError) as jerr:
+            jpaged.PagedEngine(jparams, jcfg, **geo, **what, attn="pallas")
+        with pytest.raises(tpaged.EngineConfigError) as terr:
+            tpaged.PagedEngine(model, model.cfg, **geo, **what, attn="pallas")
+        assert str(terr.value) == str(jerr.value) and "pallas" in str(terr.value)
         return
     eng = tpaged.PagedEngine(model, model.cfg, **geo, **(what if isinstance(what, dict) else {}))
     assert eng.obs

@@ -42,12 +42,12 @@ XLA's cost model.
 
 ``train_step_overhead`` steps the trainer's fused ``steps_per_call`` loop
 and the synchronous loop in turns (:func:`_paired`); it is reported, not
-gated.
+gated.  ``mesh_tick_overhead`` times the tp-sharded engine's steady ticks
+on the widest serving mesh the ranks allow against ``serving_mesh(1, 1)``.
 
 Rows of ``tpulab``'s registry that wait for a module of their own are not
 registered (``run_benchmarks`` raises rather than turning an error into a
-row): ``mesh_tick_overhead`` (ROADMAP A12.4) and ``decode_recompiles``
-(A13).
+row): ``decode_recompiles`` (A13).
 """
 
 from __future__ import annotations
@@ -497,6 +497,104 @@ def bench_paged_tick(slots: int = 4, steps: int = 64, reps: int = 5,
                       sync_ticks_per_s=round(steps / t_off, 1),
                       speedup_vs_sync=round(t_off / t_on, 3),
                       inflight_depth=stats[1]["inflight_depth"])
+
+
+def _mesh_tick_engine(mesh, slots: int, steps: int, warm: int):
+    """The mesh row's engine on ``mesh`` (d64, L2, f32, the whole parameter
+    tree from seed 0), ``slots`` 8-token prompts admitted and ``warm`` steps
+    taken; the budget outlives ``steps`` more."""
+    from tpulab_torch.models.labformer import init_params
+    from tpulab_torch.models.paged import PagedEngine
+
+    cfg = _small_cfg(256)
+    eng = PagedEngine(init_params(cfg, seed=0), cfg, slots=slots, n_blocks=64, block_size=16,
+                      max_seq=256, mesh=mesh)
+    rng = np.random.default_rng(0)
+    for _ in range(slots):
+        eng.submit(rng.integers(0, cfg.vocab, (8,)).astype(np.int32),
+                   max_new=warm + steps + 4)
+    for _ in range(warm):
+        eng.step()
+    return eng
+
+
+def _steady_steps(eng, n: int):
+    """``n`` engine steps, one a turn, which must upload and build nothing."""
+    h2d0, rc0 = eng.counters["h2d_ticks"], eng.counters["recompiles"]
+    for _ in range(n):
+        eng.step()
+        yield
+    if eng.counters["h2d_ticks"] != h2d0:
+        raise RuntimeError("a steady mesh tick uploaded host state")
+    if eng.counters["recompiles"] != rc0:
+        raise RuntimeError("a steady mesh tick built a kernel")
+
+
+def _mesh_window(mesh, slots: int, steps: int, warm: int) -> float:
+    """One rank's side of the mesh row: the seconds of a steady window."""
+    eng = _mesh_tick_engine(mesh, slots, steps, warm)
+    _sync(eng.device)
+    t0 = time.perf_counter()
+    for _ in _steady_steps(eng, steps):
+        pass
+    _sync(eng.device)
+    return time.perf_counter() - t0
+
+
+def bench_mesh_tick_overhead(slots: int = 4, steps: int = 48, reps: int = 3,
+                             backend: Optional[str] = None) -> Dict[str, Any]:
+    """The tp-sharded engine's steady ticks/s (d64, L2, f32) on the widest
+    ``(batch, model)`` serving mesh the ranks allow, capped at ``(2, 4)``
+    (4 heads bound the model axis), against ``serving_mesh(1, 1)``.  Each
+    window follows 6 warm-up steps and must upload and build nothing.
+
+    One rank (the one-card machine): both engines on one mesh of one,
+    stepped in turns (:func:`_paired`), at least 3 pairs after one warm
+    pair.  More ranks: the sides live in different process groups (the
+    mesh in :func:`~tpulab_torch.parallel.mesh.run_on_mesh`'s ranks, the
+    reference in this process), so whole windows alternate, each timed
+    between two synchronizes on rank 0.  The value is the mesh side's
+    median; on one host's CPU ranks it is the gloo exchanges' overhead,
+    not a speedup."""
+    from tpulab_torch.parallel.mesh import device_type_count, run_on_mesh, serving_mesh
+
+    device = resolve_device(backend)
+    n_dev = device_type_count(device.type)
+    b, m = (2, 4) if n_dev >= 8 else ((1, 2) if n_dev >= 2 else (1, 1))
+    warm = 6
+    times: Dict[str, list] = {"mesh": [], "ref": []}
+    if b * m == 1:
+        mesh = serving_mesh(1, 1, backend=device.type)
+
+        def pair():
+            engs = [_mesh_tick_engine(mesh, slots, steps, warm) for _ in range(2)]
+            _sync(device)
+            spent, _ = _paired(*(_steady_steps(e, steps) for e in engs))
+            _sync(device)
+            return spent
+
+        pair()
+        for _ in range(max(reps, 3)):
+            spent = pair()
+            times["mesh"].append(spent[0])
+            times["ref"].append(spent[1])
+    else:
+        sides = {"mesh": {"batch": b, "model": m}, "ref": {"batch": 1, "model": 1}}
+
+        def window(name):
+            return run_on_mesh(_mesh_window, sides[name], slots, steps, warm,
+                               device_type=device.type)
+
+        for name in sides:
+            window(name)
+        for i in range(max(reps, 3)):
+            for name in (("mesh", "ref") if i % 2 == 0 else ("ref", "mesh")):
+                times[name].append(window(name))
+    t_mesh, t_ref = float(np.median(times["mesh"])), float(np.median(times["ref"]))
+    return _model_row(f"mesh_tick_{b * m}dev_ticks_per_s", round(steps / t_mesh, 1),
+                      "ticks/s", device, [t * 1e3 for t in times["mesh"]], mesh=f"{b}x{m}",
+                      ref_1x1_ticks_per_s=round(steps / t_ref, 1),
+                      mesh_over_1x1=round(t_ref / t_mesh, 3), n_devices=n_dev)
 
 
 def bench_prefill_interleave(slots: int = 4, reps: int = 5,
@@ -1233,6 +1331,7 @@ REGISTRY = {
     "speculative_decode": bench_speculative_decode,
     "paged_engine": bench_paged_engine,
     "paged_tick_overhead": bench_paged_tick,
+    "mesh_tick_overhead": bench_mesh_tick_overhead,
     "prefill_interleave": bench_prefill_interleave,
     "obs_overhead": bench_obs_overhead,
     "journey_overhead": bench_journey_overhead,

@@ -59,7 +59,8 @@ the fleet into prefill and decode pools joined by the KV handoff.
 A ``beams`` request runs beam search on a replica's model outside the
 batching engine, one at a time (``_SPEC_LOCK``), and answers unstreamed.
 
-Refused, naming the ROADMAP item: ``--mesh``, ``tp`` above 1 (A12).
+Refused, naming the ROADMAP item: ``--mesh``, ``tp`` above 1 (A12.5, the
+daemon on the serving mesh; the engine serves on one since A12.4).
 
 Run: ``python -m tpulab_torch.daemon --socket /tmp/tpulab.sock``
 (``--backend cpu`` to serve on the host; the card otherwise, with no
@@ -2211,7 +2212,7 @@ def _handle_generate(header: dict, payload: bytes,
     ``priority`` (KV-pressure preemption rank), ``tag`` (echoed in the
     slow log), ``hedge_ms`` and ``beams`` (beam search of that width,
     outside the engine under ``_SPEC_LOCK``, unstreamed).  ``tp`` above 1
-    and ``mesh`` (A12) raise, naming their item."""
+    and ``mesh`` (A12.5) raise, naming their item."""
     import numpy as np
 
     from tpulab_torch.models.paged import _unported
@@ -2241,9 +2242,9 @@ def _handle_generate(header: dict, payload: bytes,
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
     if tp > 1:
-        raise _unported("tensor-parallel serving (tp > 1)", "A12")
+        raise _unported("tensor-parallel serving (tp > 1) in the daemon, item A12.5,", "A12")
     if config.get("mesh"):
-        raise _unported("mesh serving", "A12")
+        raise _unported("mesh serving in the daemon, item A12.5,", "A12")
     deadline_ms = config.get("deadline_ms")
     if deadline_ms is not None:
         deadline_ms = float(deadline_ms)
@@ -3708,7 +3709,7 @@ def main(argv=None) -> int:
                     default=SPILL_DTYPE,
                     help="host spill-tier payload format")
     ap.add_argument("--mesh", default=os.environ.get("TPULAB_DAEMON_MESH", ""),
-                    metavar="AxB", help="serving mesh: not ported (A12)")
+                    metavar="AxB", help="serving mesh: not ported (A12.5)")
     ap.add_argument("--slowlog", type=int, default=None, metavar="N",
                     help="slow-log window: keep the worst N requests by e2e "
                          "latency (default 64; 0 disables)")
@@ -3718,7 +3719,7 @@ def main(argv=None) -> int:
                          "disables)")
     args = ap.parse_args(argv)
     if args.mesh:
-        raise _unported("mesh serving (--mesh)", "A12")
+        raise _unported("mesh serving (--mesh) in the daemon, item A12.5,", "A12")
     if args.replicas < 1:
         ap.error("--replicas must be >= 1")
     if args.hedge_ms < 0:

@@ -35,13 +35,23 @@ from tpulab_torch.models.labformer import (
     init_params,
 )
 from tpulab_torch.models.quant import embed_lookup, qmat, unembed
+from tpulab_torch.parallel import spmd
 from tpulab_torch.parallel.ring import NEG_INF
 
 
+def local_heads(model: Labformer) -> Tuple[int, int]:
+    """(query heads, kv heads) this rank computes: the model's, or on a
+    serving mesh their share over the model axis (which divides both)."""
+    tp = model.plan.tp
+    n = tp.p if tp is not None else 1
+    return model.cfg.n_heads // n, model.cfg.kv_heads // n
+
+
 def init_kv_cache(cfg: LabformerConfig, batch: int, max_seq: int,
-                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+                  device: torch.device, kv_heads: Optional[int] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     # kv_heads, not n_heads: under GQA the cache shrinks by the group factor
-    shape = (cfg.n_layers, batch, max_seq, cfg.kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, batch, max_seq, kv_heads or cfg.kv_heads, cfg.head_dim)
     return (torch.zeros(shape, dtype=cfg.dtype, device=device),
             torch.zeros(shape, dtype=cfg.dtype, device=device))
 
@@ -135,11 +145,15 @@ def _prefill(model: Labformer, prompt: torch.Tensor, cache_len: int):
     """One batched forward over the whole prompt, filling the KV caches.
 
     Returns ``(last_logits, k_caches, v_caches)``; the caches hold the
-    prompt's kv-width K/V, zero-padded to ``cache_len``."""
-    cfg = model.cfg
+    prompt's kv-width K/V, zero-padded to ``cache_len``.  On a serving
+    mesh (the model's plan), this rank's heads: the caches hold its kv
+    heads, and the products after attention and the MLP are summed over
+    the model axis."""
+    cfg, tp = model.cfg, model.plan.tp
     b, p = prompt.shape
-    h, dh, kvh = cfg.n_heads, cfg.head_dim, cfg.kv_heads
-    k_caches, v_caches = init_kv_cache(cfg, b, cache_len, prompt.device)
+    dh = cfg.head_dim
+    h, kvh = local_heads(model)
+    k_caches, v_caches = init_kv_cache(cfg, b, cache_len, prompt.device, kvh)
     x = embed_lookup(model.top.embed, prompt, cfg.dtype)
     positions = torch.arange(p, device=prompt.device)
     for i, blk in enumerate(model.blocks):
@@ -150,8 +164,8 @@ def _prefill(model: Labformer, prompt: torch.Tensor, cache_len: int):
         q = _rope(q, positions, cfg.rope_theta)
         k = _rope(k, positions, cfg.rope_theta)
         o = attend(q, k, v, cfg, p)
-        x = x + qmat(o.reshape(b, p, cfg.d_model), blk.wo)
-        y, _ = _mlp(_rmsnorm(x, blk.ln2), blk, cfg)
+        x = x + spmd.reduce_from(qmat(o.reshape(b, p, h * dh), blk.wo), tp)
+        y, _ = _mlp(_rmsnorm(x, blk.ln2), blk, cfg, model.plan)
         x = x + y
         k_caches[i, :, :p] = k
         v_caches[i, :, :p] = v

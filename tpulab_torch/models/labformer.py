@@ -308,10 +308,6 @@ class Labformer(nn.Module):
                  trainable: bool = False, plan: Optional[sharded.Plan] = None):
         super().__init__()
         plan = plan if plan is not None else sharded.Plan(None, cfg, device)
-        if cfg.n_experts and cfg.moe_impl == "dispatch" and plan.mesh is None:
-            raise NotImplementedError(
-                "moe_impl='dispatch' routes tokens over the (dp, sp) axes of a mesh: "
-                "train with a mesh (make_train_step(cfg, mesh), train(mesh_devices=N))")
         self.cfg, self.plan = cfg, plan
         tree = _parts(params, plan)
         def learns(name: str) -> bool:
@@ -664,6 +660,10 @@ def make_train_step(cfg: LabformerConfig, mesh=None, optimizer: Optional[optim.T
     eagerly.  The K steps are the same step, in order, so the losses and
     parameters are bit-equal to K calls of ``step``."""
     optimizer = optimizer or optim.adamw(3e-4)
+    if cfg.n_experts and cfg.moe_impl == "dispatch" and mesh is None:
+        raise NotImplementedError(
+            "moe_impl='dispatch' routes tokens over the (dp, sp) axes of a mesh: "
+            "train with a mesh (make_train_step(cfg, mesh), train(mesh_devices=N))")
     _refuse_mesh_options(cfg, mesh, zero1, zero2, optimizer)
     views: Dict[int, sharded.ZeroView] = {}
 
@@ -744,9 +744,8 @@ def init_train_state(cfg: LabformerConfig, mesh=None, seed: int = 0,
 
 def _whole_model(tree: Dict[str, Any], cfg: LabformerConfig) -> Labformer:
     """A CPU stand-in of the whole model (``ckpt``'s input): the one-device
-    layout of ``tree`` (dispatch MoE read as the dense model, whose
-    parameters are the same)."""
-    return Labformer(tree, dataclasses.replace(cfg, moe_impl="dense"), "cpu", trainable=True)
+    layout of ``tree``."""
+    return Labformer(tree, cfg, "cpu", trainable=True)
 
 
 def save_snapshot(ckpt_dir: str, step: int, model: Labformer, opt_state, train_step) -> None:
@@ -919,7 +918,7 @@ def _mlp(x: torch.Tensor, blk: _Weights, cfg: LabformerConfig, plan=None):
         else:
             aux = _mesh_aux_loss(gate, top, cfg.n_experts, plan)
         b_, s_, d_ = x.shape
-        if plan is not None and cfg.moe_impl == "dispatch":
+        if plan is not None and plan.moe_dispatch:
             return _dispatch(x, blk, cfg, plan), aux
         weights = combine_weights(gate.reshape(b_ * s_, -1), cfg.moe_top_k,
                                   x.dtype).reshape(b_, s_, cfg.n_experts)

@@ -1,5 +1,5 @@
 """Paged KV cache and continuous-batching engine (the counterpart of
-``tpulab.models.paged``, single device).
+``tpulab.models.paged``).
 
 The KV cache is a pool of fixed-size blocks shared by every request slot:
 
@@ -119,8 +119,28 @@ bracketed by the compile ledger's recompile tripwire
 per shape, so ``recompiles`` stays 0 unless a kernel build lands inside a
 steady step).
 
-Not ported yet, refused with ``NotImplementedError`` naming its ROADMAP
-item: mesh serving (A12).
+Mesh serving (``mesh=``, ``parallel.mesh.serving_mesh(batch, model)`` or
+the legacy ``{"tp": N}`` mesh) is SPMD: the engine is built in every rank
+(:func:`tpulab_torch.parallel.mesh.run_on_mesh`), each rank runs the same
+host scheduler on the same requests, and its decisions read only the
+requests and the device results (the clock is read for observability
+alone), so every rank posts the same collectives.  Each rank holds its
+part of the weights (``models.sharded.Plan`` with the model axis as tp:
+head columns of ``wq``/``wk``/``wv``, rows of ``wo``, ``d_ff``), its kv
+heads of both pools (and of the int8 scale planes), the same on every
+batch rank, and its batch rank's ``slots / batch`` slots of the per-slot
+device state; the host mirrors are whole on every rank.  The products
+after attention and the MLP are summed over the model axis.  One rule keeps
+the pools equal over the batch axis: a program on one slot's replicated
+input (the dense prefill, ``paged_extend``, a spill restore) runs on every
+batch rank, and a program over the split slot state (``paged_tick``,
+``paged_verify``) all-gathers the K/V rows it writes over the batch axis
+before writing them, then its sampled tokens, so every host mirror
+advances alike.  A block read back to the host gathers its kv heads over
+the model axis, so spill and handoff payloads are a one-device engine's
+bytes; a restore keeps this rank's heads.  ``tpulab``'s refusals hold:
+``attn="pallas"``, the dense-draft proposer, a model axis that does not
+divide the heads, and ``slots`` not a multiple of the batch axis.
 """
 
 from __future__ import annotations
@@ -134,12 +154,13 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from tpulab_torch import faults as _faults
 from tpulab_torch.kvcache.radix import RadixPrefixIndex
 from tpulab_torch.kvcache.spill import SPILL_DTYPES, HostSpillTier, SpillPolicy
 from tpulab_torch.models import generate as _gen
-from tpulab_torch.models.generate import _attend_cached, apply_repetition_penalty
+from tpulab_torch.models.generate import _attend_cached, apply_repetition_penalty, local_heads
 from tpulab_torch.models.labformer import (
     Labformer,
     LabformerConfig,
@@ -159,6 +180,7 @@ from tpulab_torch.obs.roofline import per_token_flops
 from tpulab_torch.obs.slowlog import SLOWLOG as _SLOWLOG
 from tpulab_torch.ops.cuda.paged import Pool, paged_attend_kernel
 from tpulab_torch.ops.cuda.paged import pool_gather as _pool_gather
+from tpulab_torch.parallel import spmd
 from tpulab_torch.parallel.ring import NEG_INF
 from tpulab_torch.runtime.device import resolve_device
 
@@ -210,17 +232,19 @@ def publish_engine_stats(st: Dict[str, int], suffix: str = "") -> None:
 
 
 def init_pools(cfg: LabformerConfig, n_blocks: int, block_size: int,
-               kv_dtype: str = "native", device=None) -> Tuple[Pool, Pool]:
+               kv_dtype: str = "native", device=None,
+               kv_heads: Optional[int] = None) -> Tuple[Pool, Pool]:
     """K/V pools (L, P, BS, kv, d) on ``device``; block 0 is TRASH.
 
     ``device`` is a ``torch.device`` or a backend name, resolved as every
     entry point resolves it: None is the card (an error where none is
     visible), ``"cpu"`` the host.  ``kv_dtype="int8"`` makes each pool an
     ``(int8 data, f32 scale)`` pair, quantized at write time by symmetric
-    amax along the head dim."""
+    amax along the head dim.  ``kv_heads`` (default the config's) is a
+    serving-mesh rank's share."""
     device = resolve_device(device) if device is None or isinstance(device, str) \
         else torch.device(device)
-    shape = (cfg.n_layers, n_blocks, block_size, cfg.kv_heads, cfg.head_dim)
+    shape = (cfg.n_layers, n_blocks, block_size, kv_heads or cfg.kv_heads, cfg.head_dim)
     if kv_dtype == "int8":
         def one():
             return (torch.zeros(shape, dtype=torch.int8, device=device),
@@ -352,6 +376,30 @@ def _paged_attend(q: torch.Tensor, kpool_l: Pool, vpool_l: Pool, tables: torch.T
     return o.reshape(S, W, h, dh).to(q.dtype)
 
 
+def _write_rows(kpool_l: Pool, vpool_l: Pool, at, k: torch.Tensor, v: torch.Tensor,
+                batch: Optional[spmd.Axis]) -> None:
+    """Write K/V rows ``k``, ``v`` (slots first) at ``at`` (block, offset)
+    of one layer's pools, in place.  Over a batch axis the slots are this
+    rank's: every batch rank's rows are gathered first (``at`` is already
+    whole), so the pools stay equal on every batch rank."""
+    if batch is not None:
+        k, v = spmd.gather_dim(torch.stack((k, v)), batch, 1).unbind(0)
+    _pool_write(kpool_l, at, k)
+    _pool_write(vpool_l, at, v)
+
+
+def _whole_slots(t: torch.Tensor, batch: Optional[spmd.Axis]) -> torch.Tensor:
+    """Every batch rank's slots of ``t`` (slot axis leading), in slot order."""
+    return spmd.gather_dim(t, batch, 0)
+
+
+def _whole_at(blk: torch.Tensor, off: torch.Tensor, batch: Optional[spmd.Axis]):
+    """The (block, offset) index of every batch rank's K/V rows: one gather."""
+    if batch is None:
+        return blk, off
+    return tuple(_whole_slots(torch.stack((blk, off), 1), batch).unbind(1))
+
+
 def _decode_core(model: Labformer, tokens: torch.Tensor, kpool: Pool, vpool: Pool,
                  tables: torch.Tensor, lengths: torch.Tensor, cfg: LabformerConfig,
                  block_size: int, attn: str = "gather") -> torch.Tensor:
@@ -361,13 +409,17 @@ def _decode_core(model: Labformer, tokens: torch.Tensor, kpool: Pool, vpool: Poo
     position); every layer writes the new K/V through the block table into
     the pools (in place) and attends [0, lengths] inclusive: through kernel
     B7 under ``attn="pallas"``, the gather path under ``"gather"``.  Idle
-    slots point their table at TRASH."""
+    slots point their table at TRASH.  On a serving mesh (the model's
+    plan) the slots are this batch rank's and the heads this model rank's."""
     S = tokens.shape[0]
-    h, dh, kvh = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    dh = cfg.head_dim
+    h, kvh = local_heads(model)
+    tp, batch = model.plan.tp, model.plan.batch
     x = embed_lookup(model.top.embed, tokens, cfg.dtype)[:, None, :]
     pos = lengths.long()
     blk = tables.gather(1, (pos // block_size)[:, None])[:, 0].long()
     off = pos % block_size
+    at = _whole_at(blk, off, batch)
     seen_len = lengths + 1
     cos, sin = _rope_cos_sin(pos, dh, cfg.rope_theta, cfg.dtype)
     for i, layer in enumerate(model.blocks):
@@ -376,16 +428,15 @@ def _decode_core(model: Labformer, tokens: torch.Tensor, kpool: Pool, vpool: Poo
         k = _rope_apply(qmat(xn, layer.wk).reshape(S, 1, kvh, dh), cos, sin)
         v = qmat(xn, layer.wv).reshape(S, 1, kvh, dh)
         kpool_l, vpool_l = _layer(kpool, i), _layer(vpool, i)
-        _pool_write(kpool_l, (blk, off), k[:, 0])
-        _pool_write(vpool_l, (blk, off), v[:, 0])
+        _write_rows(kpool_l, vpool_l, at, k[:, 0], v[:, 0], batch)
         if attn == "pallas":
             o = paged_attend_kernel(q, kpool_l, vpool_l, tables, seen_len, block_size,
                                     window=cfg.attn_window)
         else:
             o = _paged_attend(q, kpool_l, vpool_l, tables, seen_len, block_size,
                               window=cfg.attn_window)
-        x = x + qmat(o.reshape(S, 1, cfg.d_model), layer.wo)
-        y, _ = _mlp(_rmsnorm(x, layer.ln2), layer, cfg)
+        x = x + spmd.reduce_from(qmat(o.reshape(S, 1, h * dh), layer.wo), tp)
+        y, _ = _mlp(_rmsnorm(x, layer.ln2), layer, cfg, model.plan)
         x = x + y
     x = _rmsnorm(x, model.top.final_norm)
     return unembed(x, model.top.embed)[:, 0, :]
@@ -415,9 +466,12 @@ def paged_verify(model: Labformer, tokens: torch.Tensor, kpool: Pool, vpool: Poo
     attends keys [0, lengths + j], so rejected drafts leave only stale K/V
     past the committed frontier, which the next round overwrites.  The
     window attends through the gather path (``tpulab`` takes W as a static
-    argument for its jit; here it is ``tokens.shape[1]``)."""
+    argument for its jit; here it is ``tokens.shape[1]``).  On a serving
+    mesh the slots are this batch rank's, as in :func:`_decode_core`."""
     S, W = tokens.shape
-    h, dh, kvh = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    dh = cfg.head_dim
+    h, kvh = local_heads(model)
+    tp, batch = model.plan.tp, model.plan.batch
     x = embed_lookup(model.top.embed, tokens, cfg.dtype)
     j = torch.arange(W, device=tokens.device)
     pos = lengths.long()[:, None] + j
@@ -427,6 +481,7 @@ def paged_verify(model: Labformer, tokens: torch.Tensor, kpool: Pool, vpool: Poo
     blk = torch.where(writable, tables.gather(1, torch.clamp(logical, max=M - 1)).long(),
                       TRASH)
     off = pos % block_size
+    at = _whole_at(blk, off, batch)
     cos, sin = _rope_cos_sin(pos, dh, cfg.rope_theta, cfg.dtype)
     for i, layer in enumerate(model.blocks):
         xn = _rmsnorm(x, layer.ln1)
@@ -434,12 +489,11 @@ def paged_verify(model: Labformer, tokens: torch.Tensor, kpool: Pool, vpool: Poo
         k = _rope_apply(qmat(xn, layer.wk).reshape(S, W, kvh, dh), cos, sin)
         v = qmat(xn, layer.wv).reshape(S, W, kvh, dh)
         kpool_l, vpool_l = _layer(kpool, i), _layer(vpool, i)
-        _pool_write(kpool_l, (blk, off), k)
-        _pool_write(vpool_l, (blk, off), v)
+        _write_rows(kpool_l, vpool_l, at, k, v, batch)
         o = _paged_attend(q, kpool_l, vpool_l, tables, lengths + 1, block_size,
                           window=cfg.attn_window)
-        x = x + qmat(o.reshape(S, W, cfg.d_model), layer.wo)
-        y, _ = _mlp(_rmsnorm(x, layer.ln2), layer, cfg)
+        x = x + spmd.reduce_from(qmat(o.reshape(S, W, h * dh), layer.wo), tp)
+        y, _ = _mlp(_rmsnorm(x, layer.ln2), layer, cfg, model.plan)
         x = x + y
     x = _rmsnorm(x, model.top.final_norm)
     return unembed(x, model.top.embed), kpool, vpool
@@ -462,8 +516,11 @@ def paged_extend(model: Labformer, tokens: torch.Tensor, kpool: Pool, vpool: Poo
     (1, bucket; valid through ``n_valid``) at positions ``start``..,
     attending the slot's pool contents (a shared prefix, earlier chunks)
     and the window's own causal prefix; positions from ``n_valid`` on write
-    to TRASH.  Returns the pools (updated in place)."""
-    h, dh, kvh = cfg.n_heads, cfg.head_dim, cfg.kv_heads
+    to TRASH.  Returns the pools (updated in place).  On a serving mesh
+    every batch rank runs it alike, on this model rank's heads."""
+    dh = cfg.head_dim
+    h, kvh = local_heads(model)
+    tp = model.plan.tp
     dev = tokens.device
     x = embed_lookup(model.top.embed, tokens, cfg.dtype)
     j = torch.arange(bucket, device=dev)
@@ -483,8 +540,8 @@ def paged_extend(model: Labformer, tokens: torch.Tensor, kpool: Pool, vpool: Poo
         kg = _pool_gather(kpool_l, row, cfg.dtype).reshape(1, M * block_size, kvh, dh)
         vg = _pool_gather(vpool_l, row, cfg.dtype).reshape(1, M * block_size, kvh, dh)
         o = _attend_cached(q, kg, vg, start, cfg.attn_window)
-        x = x + qmat(o.reshape(1, bucket, cfg.d_model), layer.wo)
-        y, _ = _mlp(_rmsnorm(x, layer.ln2), layer, cfg)
+        x = x + spmd.reduce_from(qmat(o.reshape(1, bucket, h * dh), layer.wo), tp)
+        y, _ = _mlp(_rmsnorm(x, layer.ln2), layer, cfg, model.plan)
         x = x + y
     return kpool, vpool
 
@@ -559,7 +616,8 @@ def paged_tick(model: Labformer, state: Dict[str, torch.Tensor], kpool: Pool, vp
     ``last_tok`` takes the sampled token, ``lengths`` grows by one and
     ``seen`` marks the token, each only where ``active`` (idle slots keep
     their state for the next admission); ``draws`` advances for every slot,
-    so admission sets a slot's draw counter."""
+    so admission sets a slot's draw counter.  On a serving mesh ``state``
+    holds this batch rank's slots, and the tokens of every slot come back."""
     logits = _decode_core(model, state["last_tok"], kpool, vpool, state["tables"],
                           state["lengths"], cfg, block_size, attn)
     toks = _sample_core(logits, state["temps"], state["seeds"], state["draws"],
@@ -570,7 +628,7 @@ def paged_tick(model: Labformer, state: Dict[str, torch.Tensor], kpool: Pool, vp
     state["draws"] += 1
     rows = torch.arange(toks.shape[0], device=toks.device)
     state["seen"][rows, toks] |= act
-    return toks
+    return _whole_slots(toks, model.plan.batch)
 
 
 def _spec_commit(state: Dict[str, torch.Tensor], adv: torch.Tensor, last_tok: torch.Tensor,
@@ -723,7 +781,13 @@ class PagedEngine:
     card unless ``"cpu"``).  ``interleave``, ``overlap``, ``prefill_chunk``,
     ``attn``, ``kv_dtype``, ``spec_k``, ``spec_ngram``, ``draft_params``,
     ``draft_cfg``, ``max_pending``, ``prefix_index``, ``spill_blocks``,
-    ``spill_dtype`` and ``obs`` are ``tpulab``'s knobs."""
+    ``spill_dtype``, ``obs`` and ``mesh`` are ``tpulab``'s knobs.
+
+    With a ``mesh`` (a serving mesh, built in every rank; see the module
+    docstring) the engine runs on the mesh's device, and ``model`` is the
+    whole parameter tree, of which each rank keeps its parts, or a
+    :class:`Labformer` built on the serving plan (a whole-device one only
+    on a mesh of one rank)."""
 
     def __init__(self, model, cfg: LabformerConfig, *, slots: int = 4,
                  n_blocks: int = 64, block_size: int = 16, max_seq: int = 256,
@@ -733,8 +797,6 @@ class PagedEngine:
                  interleave: bool = True, obs: bool = True, max_pending: int = 0,
                  prefix_index: str = "dict", spill_blocks: int = 0,
                  spill_dtype: str = "native", device=None):
-        if mesh is not None:
-            raise _unported("mesh serving", "A12")
         if max_seq % block_size:
             raise ValueError("max_seq must be a multiple of block_size")
         if prefill_chunk < 0:
@@ -753,6 +815,9 @@ class PagedEngine:
             raise ValueError(f"attn={attn!r}; expected 'gather' or 'pallas'")
         if kv_dtype not in ("native", "int8"):
             raise ValueError(f"kv_dtype={kv_dtype!r}; expected 'native' or 'int8'")
+        if attn == "pallas" and mesh is not None:
+            # B7 reads one device's pools; on a mesh the gather path serves
+            raise EngineConfigError("attn='pallas' does not support mesh serving")
         if max_pending < 0:
             raise ValueError(f"max_pending must be >= 0, got {max_pending}")
         if prefix_index not in ("dict", "radix"):
@@ -765,15 +830,21 @@ class PagedEngine:
             raise ValueError("spill_blocks > 0 requires prefix_index='radix'")
         if spill_dtype not in SPILL_DTYPES:
             raise ValueError(f"spill_dtype={spill_dtype!r}; expected one of {SPILL_DTYPES}")
-        self.model = model if isinstance(model, Labformer) else Labformer.from_numpy(
-            model, cfg, device)
+        self.mesh = mesh
+        if mesh is None:
+            self.model = model if isinstance(model, Labformer) else Labformer.from_numpy(
+                model, cfg, device)
+            self._s_local, self._lo = slots, 0
+        else:
+            self.model = self._mesh_model(model, cfg, mesh, slots, device)
         self.device = self.model.device
         self.cfg = cfg
         self.slots = slots
         self.attn = attn
         self.block_size = block_size
         self.max_blocks = max_seq // block_size
-        self.kpool, self.vpool = init_pools(cfg, n_blocks, block_size, kv_dtype, self.device)
+        self.kpool, self.vpool = init_pools(cfg, n_blocks, block_size, kv_dtype, self.device,
+                                            local_heads(self.model)[1])
         self.n_usable_blocks = n_blocks - 1
         self.free = list(range(1, n_blocks))  # block 0 is TRASH
         # host mirrors of the per-slot decode state
@@ -861,8 +932,6 @@ class PagedEngine:
         # host waits that read KV blocks back (a spill at eviction, an
         # export): one each, whatever the number of blocks
         self.kv_fetches = 0
-        self._kv_pool_bytes = _pool_nbytes(self.kpool) + _pool_nbytes(self.vpool)
-        self._block_bytes = self._kv_pool_bytes // n_blocks
         # speculative decoding: a tick verifies (spec_k + 1)-token windows
         # whenever a decoding slot speculates; spec_fetches counts the
         # host's waits in those ticks (one each)
@@ -872,11 +941,94 @@ class PagedEngine:
         self.draft: Optional[Labformer] = None
         self.draft_cfg: Optional[LabformerConfig] = None
         self.d_kc = self.d_vc = None
+        self._account_bytes(n_blocks)
         if draft_params is not None:
             self.set_draft(draft_params, draft_cfg)
 
+    def _mesh_model(self, model, cfg: LabformerConfig, mesh, slots: int, device) -> Labformer:
+        """The engine's model on a serving ``mesh`` after ``tpulab``'s
+        refusals (before any allocation), and this rank's slots."""
+        from tpulab_torch.models.sharded import Plan
+        from tpulab_torch.parallel.mesh import axis_size, batch_axis, mesh_shape, model_axis
+
+        m_ax = model_axis(mesh)
+        m_sz = axis_size(mesh, m_ax)
+        if cfg.kv_heads % m_sz or cfg.n_heads % m_sz:
+            raise EngineConfigError(
+                f"{m_ax or 'model'}={m_sz} must divide "
+                f"kv_heads={cfg.kv_heads} and n_heads={cfg.n_heads}")
+        b_sz = axis_size(mesh, batch_axis(mesh))
+        if slots % b_sz:
+            raise EngineConfigError(
+                f"slots={slots} must be a multiple of the mesh "
+                f"batch axis size {b_sz}")
+        if device is not None and torch.device(device).type != mesh.device_type:
+            raise ValueError(f"device {device!r} is not the mesh's ({mesh.device_type})")
+        world = math.prod(mesh_shape(mesh).values())
+        if isinstance(model, Labformer):
+            if model.device.type != mesh.device_type:
+                raise ValueError(f"the model is on {model.device.type}, the mesh on "
+                                 f"{mesh.device_type}")
+            pm = model.plan.mesh
+            if pm is None and world > 1:
+                raise ValueError(
+                    f"a whole-device Labformer on a mesh of {world} ranks: pass the "
+                    f"parameter tree, or a Labformer built on the serving plan")
+            if pm is not None and (mesh_shape(pm) != mesh_shape(mesh)
+                                   or not model.plan.serving):
+                raise ValueError("the Labformer's plan is not this serving mesh's: build it "
+                                 "on sharded.Plan(mesh, cfg, serving=True)")
+        else:
+            model = Labformer(model, cfg, plan=Plan(mesh, cfg, serving=True))
+        self._s_local = slots // b_sz
+        batch = model.plan.batch
+        self._lo = (batch.idx if batch is not None else 0) * self._s_local
+        return model
+
+    def _own(self, s: int) -> Optional[int]:
+        """Slot ``s``'s row in this rank's device state (None where another
+        batch rank holds it)."""
+        i = s - self._lo
+        return i if 0 <= i < self._s_local else None
+
+    def _account_bytes(self, n_blocks: int) -> None:
+        """The engine's static byte sizes, with ``tpulab``'s meaning on a
+        mesh: ``_kv_pool_bytes`` the logical single copy (block math, cache
+        bytes), ``_kv_pool_device_bytes`` the physical sum over the ranks
+        (the pools are whole over the batch axis), and each rank's row of
+        :meth:`shard_stats`, gathered once here so that no later stats
+        read posts a collective."""
+        local = _pool_nbytes(self.kpool) + _pool_nbytes(self.vpool)
+        self._mesh_devices, self._shard_rows = 1, None
+        if self.mesh is None:
+            self._kv_pool_bytes = self._kv_pool_device_bytes = local
+        else:
+            from tpulab_torch.parallel.collectives import gather_group
+            from tpulab_torch.parallel.mesh import axis_size, mesh_shape, model_axis
+
+            self._mesh_devices = math.prod(mesh_shape(self.mesh).values())
+            self._kv_pool_bytes = local * axis_size(self.mesh, model_axis(self.mesh))
+            self._kv_pool_device_bytes = local * self._mesh_devices
+            mine = torch.tensor([[self._local_bytes(), local]], dtype=torch.int64,
+                                device=self.device)
+            rows = mine if self._mesh_devices == 1 else gather_group(
+                mine, dist.group.WORLD, self._mesh_devices)
+            self._shard_rows = {i: {"hbm_bytes_in_use": int(r[0]), "kv_pool_bytes": int(r[1])}
+                                for i, r in enumerate(rows.cpu().tolist())}
+            self._dev_bytes_est = sum(r["hbm_bytes_in_use"] for r in self._shard_rows.values())
+        self._block_bytes = self._kv_pool_bytes // n_blocks
+
+    def _local_bytes(self) -> int:
+        """Device bytes this rank holds: its weights, pools, draft caches and
+        per-slot state."""
+        tensors = list(self.model.parameters()) + list(self._dev.values())
+        if self.draft is not None:
+            tensors += list(self.draft.parameters()) + [self.d_kc, self.d_vc]
+        return _pool_nbytes(self.kpool) + _pool_nbytes(self.vpool) + int(sum(
+            t.numel() * t.element_size() for t in tensors if t is not None))
+
     def _init_dev_state(self) -> Dict[str, torch.Tensor]:
-        S, dev = self.slots, self.device
+        S, dev = self._s_local, self.device
         return {
             "last_tok": torch.zeros(S, dtype=torch.int64, device=dev),
             "lengths": torch.zeros(S, dtype=torch.int32, device=dev),
@@ -907,20 +1059,24 @@ class PagedEngine:
 
     def _push_slot(self, s: int, active: bool):
         """Write slot ``s``'s host-mirror state into the device state (the
-        admission and release upload); marks the tick as h2d."""
+        admission and release upload; on a mesh, by the batch rank that
+        holds the slot); marks the tick as h2d."""
         self._h2d = True
+        i = self._own(s)
+        if i is None:
+            return
         st = self._dev
         # fill_ takes the scalar as a launch argument; assigning one would
         # copy it from pageable memory and wait for the device
-        st["lengths"][s].fill_(int(self.lengths[s]))
-        st["last_tok"][s].fill_(int(self.last_tok[s]))
-        st["temps"][s].fill_(float(self.temps[s]))
-        st["seeds"][s].fill_(int(self.seeds[s]))
-        st["draws"][s].fill_(int(self.draws[s]))
-        st["penalties"][s].fill_(float(self.penalties[s]))
-        st["seen"][s] = self._upload(self.seen[s])
-        st["tables"][s] = self._upload(self.tables[s])
-        st["active"][s].fill_(bool(active))
+        st["lengths"][i].fill_(int(self.lengths[s]))
+        st["last_tok"][i].fill_(int(self.last_tok[s]))
+        st["temps"][i].fill_(float(self.temps[s]))
+        st["seeds"][i].fill_(int(self.seeds[s]))
+        st["draws"][i].fill_(int(self.draws[s]))
+        st["penalties"][i].fill_(float(self.penalties[s]))
+        st["seen"][i] = self._upload(self.seen[s])
+        st["tables"][i] = self._upload(self.tables[s])
+        st["active"][i].fill_(bool(active))
 
     def set_draft(self, draft_params, draft_cfg: LabformerConfig = None):
         """Enable the dense-draft proposer (``spec="draft"``): a second
@@ -930,6 +1086,10 @@ class PagedEngine:
         The first draft set stays (the daemon sets it lazily)."""
         if self.draft is not None:
             return
+        if self.mesh is not None:
+            raise EngineConfigError(
+                "the dense-draft proposer is uncertified on mesh "
+                "serving (use spec='lookup')")
         if self.spec_k <= 0:
             raise ValueError("set_draft on an engine with spec_k=0: "
                              "build the engine with spec_k > 0")
@@ -1062,10 +1222,16 @@ class PagedEngine:
         """Host copies of pool ``blocks`` in the pool's representation:
         (K payloads, V payloads), one per block, each ``(L, BS, kv, d)``
         (an int8 pool: a ``(data, scale)`` pair).  One gather, one copy
-        and one wait for the device, counted in ``kv_fetches``."""
+        and one wait for the device, counted in ``kv_fetches``.  On a mesh
+        every rank's kv heads are gathered over the model axis first, so
+        every rank holds a one-device engine's bytes."""
         kd, vd = _spill_read(self.kpool, self.vpool, self._upload(np.asarray(blocks, np.int64)))
         quantized = isinstance(kd, tuple)
-        host = self._fetch_all([*kd, *vd] if quantized else [kd, vd])
+        parts = [*kd, *vd] if quantized else [kd, vd]
+        tp = self.model.plan.tp
+        if tp is not None:  # the kv-head dim is 3 in every part
+            parts = [spmd.gather_dim(t, tp, 3) for t in parts]
+        host = self._fetch_all(parts)
         self.kv_fetches += 1
         if quantized:
             kq, ks, vq, vs = host
@@ -1075,12 +1241,19 @@ class PagedEngine:
 
     def _write_blocks(self, blocks: List[int], kparts: list, vparts: list) -> None:
         """Write host payloads (as :meth:`_read_blocks` gives them) into
-        pool ``blocks``: one upload of each stacked part."""
+        pool ``blocks``: one upload of each stacked part (on a mesh, of this
+        rank's kv heads)."""
+        tp = self.model.plan.tp
+        kvh = local_heads(self.model)[1]
+
+        def mine(t):  # (n, L, BS, kv, ...): this model rank's kv heads
+            return t if tp is None else t.narrow(3, tp.idx * kvh, kvh)
+
         def stack(parts):
             if isinstance(parts[0], tuple):
-                return tuple(self._to_device(torch.stack([p[i] for p in parts]))
+                return tuple(self._to_device(mine(torch.stack([p[i] for p in parts])))
                              for i in range(2))
-            return self._to_device(torch.stack(parts))
+            return self._to_device(mine(torch.stack(parts)))
         _spill_restore(self.kpool, self.vpool, stack(kparts), stack(vparts),
                        self._upload(np.asarray(blocks, np.int64)))
 
@@ -1685,15 +1858,15 @@ class PagedEngine:
         and per-slot state (static per engine, computed once).  The memory
         gauge falls back to it where the allocator cannot be read."""
         if self._dev_bytes_est is None:
-            tensors = list(self.model.parameters()) + list(self._dev.values())
-            if self.draft is not None:
-                tensors += list(self.draft.parameters()) + [self.d_kc, self.d_vc]
-            self._dev_bytes_est = self._kv_pool_bytes + int(sum(
-                t.numel() * t.element_size() for t in tensors if t is not None))
+            self._dev_bytes_est = self._local_bytes()
         return self._dev_bytes_est
 
     def shard_stats(self) -> Dict[int, Dict[str, int]]:
-        """Per-shard bytes, ``{0: {...}}`` off a mesh (the only case here)."""
+        """Per-shard bytes by mesh-order rank, ``{i: {"hbm_bytes_in_use":
+        ..., "kv_pool_bytes": ...}}``; ``{0: ...}`` off a mesh, the engine's
+        totals.  On a mesh, the rows gathered at construction."""
+        if self._shard_rows is not None:
+            return self._shard_rows
         return {0: {"hbm_bytes_in_use": self.device_bytes_estimate(),
                     "kv_pool_bytes": self._kv_pool_bytes}}
 
@@ -1711,7 +1884,7 @@ class PagedEngine:
             publish_engine_stats(srow, suffix=f"_shard{i}")
         _roofline.update_device_memory_gauges(self.device_bytes_estimate(),
                                               device=self.device)
-        _roofline.update_mfu_gauges()
+        _roofline.update_mfu_gauges(n_devices=self._mesh_devices)
         return st
 
     def _head_admittable(self) -> bool:
@@ -1943,9 +2116,12 @@ class PagedEngine:
         The dense draft's proposals stay on the device and enter the window
         there; the window, the target's choices and the row-0 tokens (and
         the logits, where a penalized slot speculates) come back in one
-        copy, and the commit goes back in one :func:`_spec_commit`."""
+        copy, and the commit goes back in one :func:`_spec_commit`.  On a
+        mesh the device sees this batch rank's rows, and what comes back
+        is gathered over the batch axis first."""
         k, W, S = self.spec_k, self.spec_k + 1, self.slots
-        dev = self.device
+        mine = slice(self._lo, self._lo + self._s_local)
+        batch = self.model.plan.batch
         tokens = np.zeros((S, W), np.int64)
         tokens[:, 0] = self.last_tok
         n_draft = np.zeros(S, np.int64)
@@ -1962,7 +2138,7 @@ class PagedEngine:
             else:
                 hist = np.concatenate([req.prompt, np.asarray(req.out, np.int32)])
                 tokens[s, 1:1 + k_eff] = _lookup_propose(hist, k_eff, req.spec_ngram)
-        window = self._upload(tokens)
+        window = self._upload(tokens[mine])
         if from_draft.any():
             # every slot proposes from its own cache row; a device-inactive
             # slot (idle, or prefilling) writes past max_seq, where nothing
@@ -1976,13 +2152,14 @@ class PagedEngine:
             window = torch.where(self._upload(from_draft), drafts, window)
         logits, _, _ = paged_verify(self.model, window, self.kpool, self.vpool,
                                     self._dev["tables"], self._dev["lengths"],
-                                    self._upload(n_draft), self.cfg, self.block_size)
+                                    self._upload(n_draft[mine]), self.cfg, self.block_size)
         st = self._dev
         toks0 = _sample_core(logits[:, 0], st["temps"], st["seeds"], st["draws"],
                              st["penalties"], st["seen"], bool((self.temps > 0).any()))
         ints = torch.cat([window, logits.argmax(dim=-1), toks0[:, None]], dim=1)
         need_logits = any(n_draft[s] > 0 and self.penalties[s] != 1.0 for s in range(S))
-        fetched = self._fetch_wait([ints, logits.float()] if need_logits else [ints])
+        back = [ints, logits.float()] if need_logits else [ints]
+        fetched = self._fetch_wait([_whole_slots(t, batch) for t in back])
         self.spec_fetches += 1
         window_np, choices, nxt0 = fetched[0][:, :W], fetched[0][:, W:2 * W], fetched[0][:, -1]
         logits_np = fetched[1] if need_logits else None
@@ -2021,8 +2198,8 @@ class PagedEngine:
         marks = np.where(np.arange(W)[None, :] < adv[:, None], marks, marks[:, :1])
         # commit every slot before the releases, whose slot resets would
         # otherwise be advanced a second time
-        _spec_commit(self._dev, self._upload(adv), self._upload(last), self._upload(marks),
-                     self._upload(mark_vals))
+        _spec_commit(self._dev, self._upload(adv[mine]), self._upload(last[mine]),
+                     self._upload(marks[mine]), self._upload(mark_vals[mine]))
         for s, req in to_release:
             self._release_slot(s, req)
             finished.append(req.req_id)
@@ -2081,7 +2258,8 @@ class PagedEngine:
                     # the device table follows; safe under overlap, since
                     # the block is already outside every in-flight window
                     self._h2d = True
-                    self._dev["tables"][s, j].fill_(TRASH)
+                    if self._own(s) is not None:
+                        self._dev["tables"][self._own(s), j].fill_(TRASH)
                     self.counters["blocks_retired"] += 1
             self._retire_from[s] = max(self._retire_from[s], n_dead)
 
@@ -2106,8 +2284,8 @@ class PagedEngine:
 
     def stats(self) -> Dict[str, int]:
         """``tpulab``'s stats keys: the counters, pool occupancy, the cache
-        and its host tier (zeros while disarmed) and the async window's
-        depth; the mesh reports its disarmed values."""
+        and its host tier (zeros while disarmed), the pools' bytes and the
+        async window's depth.  Equal on every rank of a mesh; no collective."""
         radix, spill = self._radix, self._spill
         return {
             **self.counters,
@@ -2123,10 +2301,12 @@ class PagedEngine:
             "spill_host_bytes": spill.nbytes if spill is not None else 0,
             "spill_capacity_blocks": spill.capacity if spill is not None else 0,
             "spill_dropped": spill.dropped if spill is not None else 0,
+            # the logical single copy; the physical sum over the ranks (the
+            # pools are whole over the batch axis); one rank's share
             "kv_pool_bytes": self._kv_pool_bytes,
-            "kv_pool_device_bytes": self._kv_pool_bytes,
-            "kv_pool_bytes_per_shard": self._kv_pool_bytes,
-            "mesh_devices": 1,
+            "kv_pool_device_bytes": self._kv_pool_device_bytes,
+            "kv_pool_bytes_per_shard": self._kv_pool_device_bytes // self._mesh_devices,
+            "mesh_devices": self._mesh_devices,
             "compile_buckets_dense": len(self._dense_buckets),
             "compile_buckets_extend": len(self._extend_buckets),
             "inflight_depth": self.inflight_depth,

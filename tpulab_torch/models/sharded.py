@@ -37,6 +37,13 @@ and its own slice of the batch, and the collectives are written out.
 
 A plan without a mesh is one device: every axis has size 1, every
 collective is skipped, and the step runs the one-device arithmetic.
+
+A plan also places the serving engine's parameters on the ``("batch",
+"model")`` serving mesh (``parallel.mesh.serving_mesh``) or the legacy
+``{"tp": N}`` one, as ``tpulab``'s ``shard_serving_params`` does: the model
+axis (or ``"tp"``) takes tp's role in the layout above, and ``"batch"`` is
+a data axis no parameter is split on.  Serving runs the dense MoE, as
+``tpulab``'s engine does (dispatch MoE is a training layout).
 """
 
 from __future__ import annotations
@@ -54,6 +61,8 @@ from tpulab_torch.parallel.ring import _zigzag_perm
 from tpulab_torch.runtime.device import resolve_device
 
 AXES = ("dp", "sp", "tp", "pp")
+#: the axes of a serving mesh: ``"model"`` is the tp role, ``"batch"`` splits slots
+SERVING_AXES = ("batch", "model")
 
 # ------------------------------------------------------------ placement rules
 #
@@ -150,16 +159,31 @@ class Plan:
     each parameter leaf lies.  Every rank makes the plan's process groups
     together, in one order, when it is built.  Without a ``mesh`` the plan
     is one device (``device``: the card unless ``"cpu"``), every axis of
-    size 1."""
+    size 1.  ``serving`` (implied by a ``("batch", "model")`` mesh) places
+    the serving engine's parameters: the same layout, the dense MoE, and
+    :attr:`batch` the axis the engine splits its slots over."""
 
-    def __init__(self, mesh, cfg, device=None):
+    def __init__(self, mesh, cfg, device=None, serving: bool = False):
         self.mesh, self.cfg = mesh, cfg
         self.shape = mesh_shape(mesh) if mesh is not None else {}
-        unknown = sorted(set(self.shape) - set(AXES))
-        if unknown:
-            raise ValueError(f"mesh axes {unknown}: the labformer trains over {AXES}")
-        self.size = {a: self.shape.get(a, 1) for a in AXES}
-        self.ax = {a: spmd.mesh_axis(mesh, a) if self.size[a] > 1 else None for a in AXES}
+        # a serving mesh names batch and model; model plays tp's part
+        self.serving = serving or any(a in self.shape for a in SERVING_AXES)
+        unknown = sorted(set(self.shape) - set(AXES) - set(SERVING_AXES))
+        if unknown or (self.serving and set(self.shape) - set(SERVING_AXES) - {"tp"}) \
+                or {"tp", "model"} <= set(self.shape):
+            raise ValueError(f"mesh axes {sorted(self.shape)}: the labformer trains over "
+                             f"{AXES} and serves over {SERVING_AXES} (or tp)")
+        names = {a: a for a in AXES}
+        if "model" in self.shape:
+            names["tp"] = "model"
+        self.size = {a: self.shape.get(names[a], 1) for a in AXES}
+        self.ax = {a: spmd.mesh_axis(mesh, names[a]) if self.size[a] > 1 else None
+                   for a in AXES}
+        n_batch = self.shape.get("batch", 1)
+        self.batch = spmd.mesh_axis(mesh, "batch") if n_batch > 1 else None
+        # tpulab routes by all_to_all only where a training mesh is given
+        self.moe_dispatch = mesh is not None and not self.serving and \
+            cfg.moe_impl == "dispatch"
         self.idx = {a: self.ax[a].idx if self.ax[a] is not None else 0 for a in AXES}
         # tpulab's expert axis: the data axes the mesh names, fused
         self.ep_axes = tuple(a for a in ("dp", "sp") if a in self.shape)

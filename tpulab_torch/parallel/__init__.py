@@ -18,8 +18,8 @@ attention blocks the model tier shares.
 
 Ranks are processes: gloo on the CPU, NCCL on the card with one GPU a
 rank.  Mesh training over these blocks is ``tpulab_torch.models.sharded``
-(``train(mesh_devices=N)``); the tp-sharded engine waits for ROADMAP
-A12.4.
+(``train(mesh_devices=N)``); the tp-sharded ``PagedEngine`` serves over
+``mesh.serving_mesh`` (``mesh.run_on_mesh`` drives it in every rank).
 """
 
 from tpulab_torch.parallel.classify import classify_sharded
@@ -29,7 +29,7 @@ from tpulab_torch.parallel.dsort import distributed_sort
 from tpulab_torch.parallel.halo import roberts_sharded
 from tpulab_torch.parallel.mesh import (RankPool, best_factorization, launch, make_mesh,
                                         mesh_anchor, mesh_devices, parse_mesh_spec,
-                                        shared_pool)
+                                        run_on_mesh, serving_mesh, shared_pool)
 from tpulab_torch.parallel.moe import switch_moe, switch_moe_reference
 from tpulab_torch.parallel.multihost import (global_mesh, host_shard_to_global,
                                              initialize as initialize_multihost,
@@ -43,6 +43,8 @@ __all__ = [
     "mesh_devices",
     "best_factorization",
     "parse_mesh_spec",
+    "serving_mesh",
+    "run_on_mesh",
     "mesh_anchor",
     "RankPool",
     "shared_pool",

@@ -21,8 +21,14 @@ single rank, so the sharded functions also run unlaunched, on one device;
 a later call on the other device type raises, and does not run on that
 group's.
 
-``tpulab``'s serving helpers (``serving_mesh`` and after) wait for the
-tp-sharded engine (ROADMAP A12.4).
+The serving mesh (``serving_mesh`` and after) is ``tpulab``'s 2-D
+``("batch", "model")`` mesh of the tp-sharded ``PagedEngine``: attention
+heads and the KV pools split over the model axis (or the legacy 1-D
+``"tp"``), the per-slot decode state over the batch axis.  Its specs are
+tuples of axis names, one entry a dim, saying where each rank's part of a
+tensor lies; :func:`shard_serving_params` gives this rank its parts of the
+whole parameter tree, and :func:`run_on_mesh` runs an engine-building
+function in every rank of a shared pool (or in this process for one).
 """
 
 from __future__ import annotations
@@ -187,7 +193,10 @@ def mesh_shape(mesh) -> Dict[str, int]:
     return {name: mesh.size(i) for i, name in enumerate(mesh.mesh_dim_names)}
 
 
-def axis_size(mesh, axis: str) -> int:
+def axis_size(mesh, axis: Optional[str]) -> int:
+    """Size of ``axis`` on ``mesh`` (1 for a None axis or mesh)."""
+    if mesh is None or axis is None:
+        return 1
     return mesh.size(mesh.mesh_dim_names.index(axis))
 
 
@@ -222,13 +231,120 @@ def parse_mesh_spec(spec: str) -> Tuple[int, int]:
     return batch, model
 
 
+# ------------------------------------------------------------ serving mesh (2-D)
+
+#: the serving mesh's axis names (``--mesh AxB`` is batch x model)
+BATCH_AXIS = "batch"
+MODEL_AXIS = "model"
+
+
+def serving_mesh(batch: int = 1, model: int = 1, *, backend: Optional[str] = None):
+    """The engine's 2-D serving mesh: axes ``("batch", "model")`` over
+    ``batch * model`` ranks (the whole world).  ``serving_mesh(1, 1)`` is
+    one device, bit-identical to ``mesh=None`` serving."""
+    if batch < 1 or model < 1:
+        raise ValueError(
+            f"serving mesh axes must be >= 1, got batch={batch} "
+            f"model={model}")
+    return make_mesh({BATCH_AXIS: batch, MODEL_AXIS: model}, backend=backend)
+
+
+def model_axis(mesh) -> Optional[str]:
+    """The axis attention heads and the KV pools split on: ``"model"`` on a
+    serving mesh, ``"tp"`` on the legacy 1-D tp mesh, None for neither."""
+    if mesh is None:
+        return None
+    for ax in (MODEL_AXIS, "tp"):
+        if ax in mesh.mesh_dim_names:
+            return ax
+    return None
+
+
+def batch_axis(mesh) -> Optional[str]:
+    """The axis the per-slot decode state splits on (None on the legacy tp
+    mesh, whose state every rank holds whole)."""
+    if mesh is not None and BATCH_AXIS in mesh.mesh_dim_names:
+        return BATCH_AXIS
+    return None
+
+
+def pool_spec(mesh) -> Tuple[Optional[str], ...]:
+    """Where one KV pool ``(L, P, BS, kv, d)`` lies: the kv-head dim over the
+    model axis, every other dim (the batch axis too) whole on each rank."""
+    return (None, None, None, model_axis(mesh), None)
+
+
+def pool_scale_spec(mesh) -> Tuple[Optional[str], ...]:
+    """Where an int8 pool's f32 scale plane ``(L, P, BS, kv)`` lies: split
+    like the data plane, so quantize-on-write never crosses ranks."""
+    return (None, None, None, model_axis(mesh))
+
+
+def slot_spec(mesh, ndim: int) -> Tuple[Optional[str], ...]:
+    """Where one per-slot decode-state tensor (slot axis leading) lies: the
+    slots over the batch axis, trailing dims whole."""
+    return (batch_axis(mesh),) + (None,) * (ndim - 1)
+
+
+def serving_param_spec(spec: Tuple, mesh) -> Tuple:
+    """A labformer parameter spec (``models.sharded.param_specs``) read on
+    the serving mesh: ``"tp"`` renamed to the mesh's model axis, then the
+    axes the mesh lacks dropped (``dp``/``sp``/``pp`` replicate).  No
+    parameter splits on the batch axis."""
+    target = model_axis(mesh)
+
+    def keep(entry):
+        if entry is None:
+            return None
+        names = entry if isinstance(entry, tuple) else (entry,)
+        names = tuple(target if n == "tp" and target else n for n in names)
+        kept = tuple(n for n in names if n in mesh.mesh_dim_names)
+        return kept if len(kept) > 1 else (kept[0] if kept else None)
+
+    return tuple(keep(e) for e in spec)
+
+
+def shard_serving_params(params, cfg, mesh):
+    """This rank's parts of the whole parameter tree ``params`` on the
+    serving ``mesh`` (CPU tensors, ``init_params``' nesting): the layout of
+    ``models.sharded.Plan`` with model as tp, whole over the batch axis."""
+    from tpulab_torch.models.labformer import _parts
+    from tpulab_torch.models.sharded import Plan
+
+    return _parts(params, Plan(mesh, cfg, "cpu", serving=True))
+
+
+def _on_mesh(fn, axes: Dict[str, int], backend: Optional[str], args, kwargs):
+    return fn(make_mesh(dict(axes), backend=backend), *args, **kwargs)
+
+
+def run_on_mesh(fn, axes: Dict[str, int], *args, device_type: Optional[str] = None,
+                **kwargs):
+    """``fn(mesh, *args, **kwargs)`` in every rank of the mesh of ``axes``
+    (``{"batch": b, "model": m}``, or ``{"tp": n}``), on the card unless
+    ``device_type`` is ``"cpu"``; rank 0's result.  More than one rank runs
+    in :func:`shared_pool`'s ranks (``fn`` module-level, in a module that
+    imports no JAX); one runs here, on a group of one.  Every rank builds
+    its engine and drives it with the same requests."""
+    n = math.prod(int(v) for v in axes.values())
+    if n == 1:
+        from tpulab_torch.runtime.device import resolve_device
+
+        return _on_mesh(fn, axes, resolve_device(device_type).type, args, kwargs)
+    pool = shared_pool(n, device_type)
+    return pool.run(_on_mesh, fn, dict(axes), pool.device_type, args, kwargs)
+
+
 # ------------------------------------------------------------ ranks
 
 
 def _to_host(out):
-    """A result fit to leave its rank: tensors copied to the CPU."""
+    """A result fit to leave its rank: tensors copied to the CPU, each into
+    storage of its own.  The pipe moves a tensor's storage into shared
+    memory, freeing the buffer it had, which a tensor made from a numpy view
+    of it would still point into."""
     if isinstance(out, torch.Tensor):
-        return out.detach().cpu()
+        return out.detach().to("cpu", copy=True)
     if isinstance(out, (tuple, list)):
         return type(out)(_to_host(o) for o in out)
     if isinstance(out, dict):
