@@ -454,8 +454,34 @@ failure:
        ``EngineConfigError`` message;
     d. the ``mesh_tick_overhead`` bench row (its ticks/s printed);
     e. the phase's seconds.
-17. One ``{"model": {...}}`` line with phases 5 to 7's (5e, 6e, 6f and
-    6g included) and 9 to 16's numbers, one ``{"lab_suite": {...}}`` line with phase 8's, one
+17. The daemon on the serving mesh (``parallel.mesh_engine.MeshEngine``:
+    a ``PagedEngine`` in every rank of a rank pool, driven from the
+    daemon), its replica a front over one spawned rank on this card
+    (NCCL, a group of one), called by its constructor (the wire's
+    ``"1x1"`` is one device):
+
+    a. phase 12's snapshot (the serving labformer, bf16,
+       ``attn_impl="flash"``) and 8 prompts through ``handle_request``
+       at ``prefill_chunk`` 0, each queued before the next and the
+       stepper started with the last, first on the one-device replica,
+       then on the mesh replica under the same fleet key: bytes
+       bit-equal, ``stats()`` equal past the byte keys, the slow log's
+       entries, the journeys' phases and the trace events of each
+       request alike; B4 once per layer and prefill in the rank (read
+       there, with the counts set to 0 just before) as on one device,
+       none in the daemon's process during the mesh run, B7 never;
+    b. a ``paged.step`` raise on a mesh replica at phase 12d's chunked
+       prefill: one restart, and the 4 replayed requests bit-equal to the
+       fault-free engine (a whole-prompt re-prefill in bf16 rounds unlike
+       the decode ticks it replaces, on one device as on the mesh);
+    c. ``{"tp": N}`` and ``{"mesh": "1xN"}``, N one more than the cards
+       (at least 2), refused with ``tpulab``'s device-count message;
+    d. ms per engine step of 4 requests, the one-device engine and the
+       forwarded one in turns (one, mesh, mesh, one), with rank 0's time
+       inside the step, and the pool's round trip for an empty call;
+    e. the phase's seconds.
+18. One ``{"model": {...}}`` line with phases 5 to 7's (5e, 6e, 6f and
+    6g included) and 9 to 17's numbers, one ``{"lab_suite": {...}}`` line with phase 8's, one
     ``{"kernels": [...]}`` line, the card line again, and last ``{"ok":
     true, "device": {...}}``.
 
@@ -5664,6 +5690,9 @@ FULL_SIZES = {
     # 16: phase 7a's PAGED engine (its prompts and geometry) on a serving mesh
     # of one; the mesh_tick_overhead row at tpulab's defaults
     "mesh_bench": {},
+    # 17: phase 12's snapshot and clients through the daemon's mesh replica;
+    # 200 pool round trips timed
+    "daemon_mesh_reps": 200,
 }
 
 
@@ -5784,9 +5813,279 @@ def run_mesh_serving(sizes: dict, device, backend: str, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------- phase 17: the daemon on the mesh
+
+#: the stats keys a mesh may change (the physical pool bytes, the rank count)
+MESH_BYTE_KEYS = {"kv_pool_device_bytes", "kv_pool_bytes_per_shard", "mesh_devices"}
+
+
+def rank_launches(zero: bool) -> dict:
+    """In a rank: each kernel's launch count, set to 0 first where ``zero``."""
+    wrappers = zero_counts() if zero else counters()
+    return {name: w.launches for name, w in wrappers.items()}
+
+
+@contextlib.contextmanager
+def queued_first(service, n: int):
+    """The replica's stepper starts only once ``n`` requests are queued on
+    it, so every run of the same requests in the same order is scheduled
+    alike, whatever the clients' timing."""
+    ensure = service._ensure_stepper_locked
+
+    def gate(replica):
+        if len(replica.tickets) >= n:
+            ensure(replica)
+
+    service._ensure_stepper_locked = gate
+    try:
+        yield
+    finally:
+        del service._ensure_stepper_locked
+
+
+def served_in_order(fleet, prompts: list, config: dict, tag: str) -> list:
+    """Each prompt through ``handle_request`` on a thread of its own, the
+    next one started once the last is queued, the stepper started with the
+    last; the bytes in prompt order."""
+    import threading
+
+    from tpulab_torch import daemon as td
+
+    out, errors = [None] * len(prompts), []
+    replica = fleet.replicas[0]
+    wait_idle(fleet)  # an earlier request's stepper would start this wave early
+
+    def one(i):
+        try:
+            out[i] = td.handle_request({"lab": "generate", "config": {
+                **config, "tag": f"{tag}:{i}"}}, prompts[i])
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"request {i}: {e!r}")
+
+    threads = []
+    with queued_first(td._FLEET_SERVICE, len(prompts)):
+        for i in range(len(prompts)):
+            threads.append(threading.Thread(target=one, args=(i,)))
+            threads[-1].start()
+            deadline = time.monotonic() + 120
+            while True:
+                with replica.cond:  # the stepper starts once the last is queued
+                    if len(replica.tickets) > i or replica.stepper_alive or errors:
+                        break
+                check(time.monotonic() < deadline, f"request {i} was never queued")
+                time.sleep(0.001)
+    for th in threads:
+        th.join(timeout=600)
+    check(not any(th.is_alive() for th in threads), "a generate client hung")
+    check(not errors, f"generate requests failed: {errors[:3]}")
+    return out
+
+
+def obs_rows(tag: str, n: int) -> list:
+    """For each of ``n`` requests tagged ``tag:i``: its slow-log entry past
+    the timings, with its journey's phases and its trace events' names,
+    after checking the journey and the events carry the entry's rid."""
+    from tpulab_torch import daemon as td
+
+    slow = json.loads(td.handle_request({"lab": "slowlog", "config": {"n": 256}}, b""))["worst"]
+    trace = json.loads(td.handle_request({"lab": "trace_dump"}, b""))["traceEvents"]
+    timing = {"e2e_ms", "queue_wait_ms", "prefill_ms", "ttft_ms", "itl_max_ms",
+              "itl_max_at_token", "rid", "tag"}
+    rows = []
+    for i in range(n):
+        entries = [e for e in slow if e["tag"] == f"{tag}:{i}"]
+        check(len(entries) == 1, f"{tag}:{i}: {len(entries)} slow-log entries")
+        rid = entries[0]["rid"]
+        journey = json.loads(td.handle_request({"lab": "journey", "config": {"rid": rid}},
+                                               b""))["journey"]
+        check(journey is not None and journey["completed"], f"{tag}:{i}: no journey for {rid}")
+        names = sorted({e["name"] for e in trace if e.get("args", {}).get("arg") == rid})
+        check("engine.retire" in names, f"{tag}:{i}: no trace events for rid {rid}")
+        rows.append(({k: v for k, v in entries[0].items() if k not in timing},
+                     [p["phase"] for p in journey["phases"]], names))
+    return rows
+
+
+def mesh_fleet(path: str, backend: str, knobs: dict, key, stamp):
+    """A fleet of one replica whose engine is a ``MeshEngine`` over one
+    spawned rank (a serving mesh of one on this device type)."""
+    from tpulab_torch import daemon as td
+    from tpulab_torch.parallel.mesh_engine import MeshEngine
+
+    def builder():
+        eng = MeshEngine({"batch": 1, "model": 1}, path, device_type=backend, **knobs)
+        eng._build_key, eng._build_stamp, eng._rebuild = key, stamp, builder
+        return eng, None
+
+    return td._make_fleet(builder, 1, key=key, stamp=stamp)
+
+
+def step_ms(eng, prompts: list, steps: int) -> tuple:
+    """Every prompt submitted to ``eng``, then ``step()`` until it is done;
+    (host ms per step, steps, and for a ``MeshEngine`` rank 0's ms per step
+    inside the step, else None)."""
+    for p in prompts:
+        eng.submit(np.frombuffer(p, np.uint8).astype(np.int32), max_new=steps)
+    rank_ms = getattr(eng, "rank_ms", None)
+    n, t0 = 0, time.perf_counter()
+    while eng.pending or eng.inflight_depth or any(a is not None for a in eng.active):
+        eng.step()
+        n += 1
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    eng._done.clear()
+    return ms, n, None if rank_ms is None else (eng.rank_ms - rank_ms) / n
+
+
+def pool_noop() -> None:
+    """A rank function that does nothing (the pool's round trip)."""
+
+
+def run_daemon_mesh(sizes: dict, device, backend: str, card: str) -> dict:
+    """Phase 17: the daemon's mesh replica (``parallel.mesh_engine``) over
+    one spawned rank (17a-17e in the module's docstring)."""
+    import torch
+
+    from tpulab_torch import daemon as td
+    from tpulab_torch import faults
+    from tpulab_torch.parallel.mesh import device_type_count
+
+    t0 = time.perf_counter()
+    out: dict = {"card": card}
+    td.BACKEND, td.REPLICAS = backend, 1
+    path, cfg, _, model = serving_snapshot(sizes, device, WORK / "daemon_mesh")
+    del model
+    steps = sizes["daemon_gen_steps"]
+    prompts = daemon_prompts(sizes, seed=17)
+    config = {"steps": steps, "ckpt_dir": path, "prefill_chunk": 0}
+    key = td._fleet_key(config)
+    want = {"flash_fwd": cfg.n_layers * len(prompts)}
+
+    # 17a: the one-device fleet, then the mesh replica under the same key; the
+    # slow log starts empty, so no earlier phase's slower requests crowd it
+    td.handle_request({"lab": "slowlog", "config": {"clear": True}}, b"")
+    td.handle_request({"lab": "generate", "config": {**config, "steps": 2}}, b"warm up")
+    one_fleet = fleet_of(config)
+    one, one_launches = counted(lambda: served_in_order(one_fleet, prompts, config, "p17one"),
+                                device, want, "phase 17a one-device replica")
+    one_stats = json.loads(td.handle_request({"lab": "generate_stats", "config": config}, b""))
+    stamp = td._FLEETS[key][0]
+    fleet = mesh_fleet(path, backend, td._engine_knobs("gather", "native", 0), key, stamp)
+    pool = fleet.replicas[0].engine._pool
+    with td._FLEET_SERVICE.lock:
+        td._FLEETS[key] = (stamp, fleet)
+    td.handle_request({"lab": "generate", "config": {**config, "steps": 2}}, b"warm up")
+    pool.run(rank_launches, True)
+    got, here = counted(lambda: served_in_order(fleet, prompts, config, "p17mesh"), device, {},
+                        "phase 17a daemon process (the rank launches)")
+    mesh_launches = pool.run(rank_launches, False)
+    mesh_stats = json.loads(td.handle_request({"lab": "generate_stats", "config": config}, b""))
+    check(got == one, f"phase 17a: the mesh replica's bytes differ from one device's "
+          f"({sum(a != b for a, b in zip(got, one))} of {len(got)})")
+    check(all(len(g) == steps for g in got), "phase 17a: short responses")
+    if device.type == "cuda":
+        check(mesh_launches["flash_fwd"] == one_launches["flash_fwd"] > 0
+              and mesh_launches["paged_decode"] == one_launches["paged_decode"] == 0,
+              f"phase 17a: rank launches {mesh_launches}, one device {one_launches}")
+    differ = {k: (mesh_stats.get(k), v) for k, v in one_stats.items()
+              if k not in MESH_BYTE_KEYS and mesh_stats.get(k) != v}
+    check(not differ, f"phase 17a: stats differ (mesh, one device): {differ}")
+    check(obs_rows("p17mesh", len(prompts)) == obs_rows("p17one", len(prompts)),
+          "phase 17a: the slow log, journeys or trace events of the mesh replica's requests "
+          "differ from one device's")
+    print(f"phase 17a: the daemon's mesh replica (one rank, {backend}) bit-equal to the "
+          f"one-device replica on {len(prompts)} requests of {steps} tokens (d{cfg.d_model} "
+          f"L{cfg.n_layers} bf16, gather, prefill_chunk 0); stats equal past "
+          f"{sorted(MESH_BYTE_KEYS)}; slowlog/journey/trace alike; launches in the rank B4 "
+          f"{mesh_launches['flash_fwd']} B7 {mesh_launches['paged_decode']}, one device B4 "
+          f"{one_launches['flash_fwd']} B7 {one_launches['paged_decode']}, in the daemon "
+          f"during the mesh run B4 {here['flash_fwd']} [{card}]", flush=True)
+    out["a"] = {"bytes_equal": True, "ticks": mesh_stats["ticks"],
+                "launches": {k: mesh_launches[k] for k in ("flash_fwd", "paged_decode")},
+                "one_device_launches": {k: one_launches[k] for k in ("flash_fwd",
+                                                                      "paged_decode")}}
+
+    # 17b: a paged.step fault on a mesh replica at phase 12d's chunked prefill
+    # (a whole-prompt re-prefill in bf16 rounds unlike the decode ticks it
+    # replaces, on any replica): quarantine, rebuild, replay
+    chunk = sizes["daemon_fleet_chunk"]
+    fconfig = {"steps": steps, "ckpt_dir": path, "prefill_chunk": chunk}
+    fkey = td._fleet_key(fconfig)
+    ffleet = mesh_fleet(path, backend, td._engine_knobs("gather", "native", chunk), fkey, stamp)
+    with td._FLEET_SERVICE.lock:
+        td._FLEETS[fkey] = (stamp, ffleet)
+    ref = reference_bytes(path, "gather", "native", chunk, prompts[:4], steps)
+    r0 = td._C_RESTARTS.value
+    faults.configure([{"site": "paged.step@replica0", "kind": "raise", "at": 3}])
+    try:
+        replayed = served_in_order(ffleet, prompts[:4], fconfig, "p17fault")
+    finally:
+        faults.disable()
+    check(replayed == ref, "phase 17b: the replayed bytes differ from the fault-free run's")
+    check(td._C_RESTARTS.value == r0 + 1 and ffleet.replicas[0].generation == 1,
+          f"phase 17b: restarts {td._C_RESTARTS.value - r0}, generation "
+          f"{ffleet.replicas[0].generation}")
+    print(f"phase 17b: a paged.step fault on the mesh replica (prefill_chunk {chunk}) "
+          f"quarantined it; rebuilt in the same rank, its {len(replayed)} requests replayed "
+          f"bit-equal to the fault-free engine", flush=True)
+    out["b"] = {"restarts": td._C_RESTARTS.value - r0, "bytes_equal": True}
+    with td._FLEET_SERVICE.lock:
+        td._FLEETS.pop(fkey, None)
+    del ffleet
+
+    # 17c: wider than the device type: tpulab's device-count message
+    have = device_type_count(backend)
+    need = max(2, have + 1)
+    msgs = []
+    for knob in ({"tp": need}, {"mesh": f"1x{need}"}):
+        try:
+            td.handle_request({"lab": "generate", "config": {"steps": 2, **knob}}, b"x")
+            msgs.append("")
+        except ValueError as e:
+            msgs.append(str(e))
+    check(msgs == [f"mesh serving needs {need} devices; this daemon has {have}"] * 2,
+          f"phase 17c: {msgs}")
+    print(f"phase 17c: {{'tp': {need}}} and {{'mesh': '1x{need}'}} refused ({msgs[0]})",
+          flush=True)
+    out["c"] = msgs[0]
+
+    # 17d: a forwarded step against the one-device step, in turns; the round trip
+    turns = []
+    for name, replica in (("one", one_fleet.replicas[0]), ("mesh", fleet.replicas[0]),
+                          ("mesh", fleet.replicas[0]), ("one", one_fleet.replicas[0])):
+        with replica.cond:  # the replica's own stepper stays out meanwhile
+            ms, n, in_rank = step_ms(replica.engine, prompts[:4], steps)
+        turns.append({"engine": name, "ms_per_step": ms, "steps": n, "rank_ms_per_step": in_rank})
+    reps = sizes["daemon_mesh_reps"]
+    t1 = time.perf_counter()
+    for _ in range(reps):
+        pool.run(pool_noop)
+    rtt = (time.perf_counter() - t1) * 1e3 / reps
+    mean = {k: sum(t["ms_per_step"] for t in turns if t["engine"] == k) / 2
+            for k in ("one", "mesh")}
+    in_rank = sum(t["rank_ms_per_step"] for t in turns if t["engine"] == "mesh") / 2
+    print(f"phase 17d: ms per step, 4 requests of {steps} tokens, in turns (one, mesh, mesh, "
+          f"one): {[round(t['ms_per_step'], 4) for t in turns]}; forwarded {mean['mesh']:.4f} "
+          f"(of which {in_rank:.4f} inside the rank's step) vs one device {mean['one']:.4f} "
+          f"({mean['mesh'] / mean['one']:.3f}x); the pool's "
+          f"round trip {rtt:.4f} ms over {reps} calls; device_count "
+          f"{torch.cuda.device_count() if device.type == 'cuda' else 0} [{card}]", flush=True)
+    out["d"] = {"turns": turns, "ms_per_step": mean, "rank_ms_per_step": in_rank,
+                "pool_round_trip_ms": rtt,
+                "device_count": torch.cuda.device_count() if device.type == "cuda" else 0}
+    with td._FLEET_SERVICE.lock:
+        td._FLEETS.pop(key, None)
+    del fleet, one_fleet
+    from tpulab_torch.parallel import mesh_engine
+
+    mesh_engine.close_pools()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 17 took {out['seconds']:.1f} s [{card}]", flush=True)
+    return out
+
+
 def run(device, sizes: dict, backend: str, card: str = "cpu",
         parent: Path | None = None) -> dict:
-    """Phases 2 to 16 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
+    """Phases 2 to 17 on ``device``; the ``kernels``, ``model`` and ``lab_suite`` payloads.
     ``parent``: a checkout to time phases 4, 6c and 7d against (:func:`in_turns`)."""
     t0 = time.perf_counter()
     inp = make_inputs(sizes)
@@ -5831,6 +6130,7 @@ def run(device, sizes: dict, backend: str, card: str = "cpu",
     model["phase14"] = run_sp_path(sizes, device, backend, card)
     model["phase15"] = run_mesh_train(sizes, device, backend, card)
     model["phase16"] = run_mesh_serving(sizes, device, backend, card)
+    model["phase17"] = run_daemon_mesh(sizes, device, backend, card)
     for name in TRAIN_KERNELS:
         rows[name]["mesh_launches"] = model["phase15"]["a"]["launches"][name]
     kernels = []

@@ -10,14 +10,18 @@ into the terminal bytes), a stop byte, prompt lookup and the int8 draft;
 error texts match; deadline shedding answers the parseable
 ``shed retry_after_ms=`` line.  With two replicas and a crash scoped to
 replica 1, every greedy output equals the fault-free output, requests
-migrate and no block leaks; drain/undrain and a hedge work.  Every knob
-the port does not serve raises, naming its ROADMAP item.
+migrate and no block leaks; drain/undrain and a hedge work.  ``tpulab``'s
+eight mesh-knob rejections raise in both daemons with its messages before
+any engine is built, and a malformed ``--mesh`` exits 2
+(``tests/test_torch_daemon_mesh.py`` serves the mesh itself).
 
 Fleet and engine state is read under the locks the daemon itself takes
 (``replica.cond``, ``fleet.cv``).
 """
 
 import json
+import os
+import re
 import threading
 import time
 
@@ -310,17 +314,70 @@ def test_drain_undrain_and_hedge(daemons, monkeypatch):
         td.handle_request({"lab": "drain", "config": {"replica": 5}}, b"")
 
 
-# ------------------------------------------------------------------ refusals
+def test_socket_appears_only_once_it_listens(monkeypatch, tmp_path):
+    """``serve()`` binds under a temporary name and renames once it
+    listens: with ``listen`` held back, the path a client polls for is
+    absent until then, and a connect as soon as it exists succeeds."""
+    import socket
 
-@pytest.mark.parametrize("header,item", [
-    ({"lab": "generate", "config": {"tp": 2}}, "A12"),
-    ({"lab": "generate", "config": {"mesh": "2x1"}}, "A12")])
-def test_unported_requests_name_their_item(header, item):
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
-        td.handle_request(header, PROMPT)
+    class SlowListen(socket.socket):
+        def listen(self, *a):
+            time.sleep(0.5)
+            super().listen(*a)
+
+    monkeypatch.setattr(td, "BACKEND", "cpu")
+    monkeypatch.setattr(td, "METRICS_INTERVAL_S", 0.0)
+    monkeypatch.setattr(td.socket, "socket", SlowListen)
+    path = str(tmp_path / "d.sock")
+    stop = threading.Event()
+    th = threading.Thread(target=td.serve, args=(path,), kwargs={"stop_event": stop},
+                          daemon=True)
+    th.start()
+    try:
+        deadline = time.monotonic() + 30
+        while not os.path.exists(path):
+            assert time.monotonic() < deadline, "the socket never appeared"
+            time.sleep(0.001)
+        with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as c:
+            c.connect(path)  # ECONNREFUSED where the path came before listen
+    finally:
+        stop.set()
+        th.join(timeout=30)
+    assert not th.is_alive() and not os.path.exists(path)
 
 
-@pytest.mark.parametrize("argv,item", [(["--mesh", "2x2"], "A12")])
-def test_unported_flags_name_their_item(argv, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=rf"ROADMAP {item}\)"):
-        td.main(["--backend", "cpu", "--socket", str(tmp_path / "s.sock"), *argv])
+# ------------------------------------------------------------------ the mesh knobs
+
+#: tpulab's eight mesh-knob rejections (tests/test_native.py), each raised
+#: before any engine is built
+MESH_REJECTIONS = (
+    ({"tp": 0}, "tp must be >= 1"),
+    ({"tp": 4096}, "mesh serving needs 4096 devices; this daemon has"),
+    ({"mesh": "64x64"}, "mesh serving needs 4096 devices; this daemon has"),
+    ({"tp": 2, "attn": "pallas"}, "attn='pallas' does not support mesh serving"),
+    ({"tp": 2, "mesh": "1x2"}, "config sets both mesh and tp > 1"),
+    ({"mesh": "nope"}, "mesh spec 'nope'"),
+    ({"tp": 2, "beams": 2}, "mesh serving covers the engine decode path only"),
+    ({"tp": 2, "speculative": True},
+     "speculative (dense-draft) decoding is uncertified on mesh serving"),
+)
+
+
+@pytest.mark.parametrize("config,msg", MESH_REJECTIONS, ids=[str(c) for c, _ in MESH_REJECTIONS])
+def test_mesh_knobs_rejected_before_any_build(config, msg, monkeypatch):
+    monkeypatch.setattr(td, "BACKEND", "cpu")
+    monkeypatch.setattr(td, "_FLEETS", {})
+    monkeypatch.setattr(td, "_build_engine", lambda *a, **k: pytest.fail("an engine was built"))
+    with pytest.raises(ValueError, match=re.escape(msg)):
+        td.handle_request({"lab": "generate", "config": {"steps": 2, **config}}, b"x")
+    with pytest.raises(ValueError, match=re.escape(msg)):
+        jd.handle_request({"lab": "generate", "config": {"steps": 2, **config}}, b"x")
+
+
+@pytest.mark.parametrize("spec", ["nope", "2x", "0x4"])
+def test_malformed_mesh_flag_exits_2(spec, tmp_path):
+    """``--mesh`` is parsed and canonicalized at the argparse boundary, as
+    ``tpulab``'s (``tests/test_mesh_serving.py``): a bad spec exits 2."""
+    with pytest.raises(SystemExit) as e:
+        td.main(["--backend", "cpu", "--socket", str(tmp_path / "s.sock"), "--mesh", spec])
+    assert e.value.code == 2

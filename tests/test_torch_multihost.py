@@ -74,6 +74,21 @@ class TestInitialize:
         assert initialize() is False
         assert jax_initialize() is False
 
+    def test_noop_beside_an_unlaunched_group_of_one(self):
+        """A group of one that an unlaunched mesh made for this process is
+        no launch: ``initialize`` still answers False (a fresh process, so
+        no other test's group is in the way)."""
+        code = ("import os\n"
+                "for k in ('MASTER_ADDR', 'RANK', 'WORLD_SIZE'): os.environ.pop(k, None)\n"
+                "from tpulab_torch.parallel.mesh import make_mesh\n"
+                "from tpulab_torch.parallel.multihost import initialize\n"
+                "make_mesh(backend='cpu')\n"
+                "print(initialize())\n")
+        out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                             text=True, timeout=120, env={**os.environ, "PYTHONPATH": str(ROOT)})
+        assert out.returncode == 0, out.stderr
+        assert out.stdout.split() == ["False"]
+
     def test_runtime_info_of_one_process(self, monkeypatch):
         monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
         assert runtime_info() == {"process_index": 0, "process_count": 1,

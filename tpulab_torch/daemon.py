@@ -59,8 +59,16 @@ the fleet into prefill and decode pools joined by the KV handoff.
 A ``beams`` request runs beam search on a replica's model outside the
 batching engine, one at a time (``_SPEC_LOCK``), and answers unstreamed.
 
-Refused, naming the ROADMAP item: ``--mesh``, ``tp`` above 1 (A12.5, the
-daemon on the serving mesh; the engine serves on one since A12.4).
+The serving mesh, ``tpulab``'s: ``--mesh AxB`` (or ``TPULAB_DAEMON_MESH``)
+serves every engine over a 2-D ``batch x model`` mesh (KV pools and
+attention heads split on the model axis, the per-slot decode state on the
+batch axis), a request's ``{"mesh": "AxB"}`` overrides it, and the legacy
+``{"tp": N}`` serves over a 1-D tp mesh of N devices; ``"1x1"`` and ``""``
+serve on one device.  The port is SPMD, so a mesh replica's engine is a
+``PagedEngine`` built in every rank of a rank pool (NCCL on the card, gloo
+with ``--backend cpu``) and driven from here through
+:class:`tpulab_torch.parallel.mesh_engine.MeshEngine`; a rank that fails
+fails its replica, which quarantines and rebuilds like any other.
 
 Run: ``python -m tpulab_torch.daemon --socket /tmp/tpulab.sock``
 (``--backend cpu`` to serve on the host; the card otherwise, with no
@@ -87,6 +95,7 @@ from typing import Optional
 from tpulab_torch import faults as _faults
 from tpulab_torch import obs as _obs
 from tpulab_torch import router as _router
+from tpulab_torch.parallel.mesh import RankDied
 
 
 
@@ -194,6 +203,13 @@ SPILL_BLOCKS = int(os.environ.get("TPULAB_DAEMON_SPILL_BLOCKS", "0"))
 
 #: host-tier payload format: "native" (lossless), "int8" or "int4"
 SPILL_DTYPE = os.environ.get("TPULAB_DAEMON_SPILL_DTYPE", "native")
+
+#: serving mesh spec "AxB" (batch x model axis sizes; "" = no mesh:
+#: one-device engines).  KV pools and attention heads split on the model
+#: axis, the per-slot decode state on the batch axis.  Daemon-wide default
+#: via ``--mesh`` / this env; per-request override via config {"mesh":
+#: "AxB"}.  Mutually exclusive with the legacy per-request {"tp": N} knob.
+MESH_SPEC = os.environ.get("TPULAB_DAEMON_MESH", "")
 
 #: bounded admission: each engine's pending queue caps here, and a
 #: submit past the bound sheds with retry-after
@@ -939,6 +955,7 @@ class _FleetService:
             cand = [(r, r.health.placeable and not r.draining,
                      r.health.state == _router.SUSPECT, r.role)
                     for r in fleet.replicas if r.index not in exclude]
+        lost = []
         for r, placeable, suspect, role in cand:
             if not placeable:
                 continue
@@ -946,16 +963,29 @@ class _FleetService:
                 if r.dead:
                     continue
                 eng = r.engine
-                load = len(eng.pending) + sum(
-                    1 for a in eng.active if a is not None)
-                affinity = 0
-                if prompt is not None and len(prompt) > 1:
-                    # shared-prefix blocks already resident in THIS
-                    # replica's cache (the LRU freshen is harmless —
-                    # the entry IS being matched)
-                    affinity = len(eng._lookup_prefix(prompt)[0])
+                try:
+                    if getattr(eng, "lost", False):
+                        raise RankDied("the mesh engine's ranks are gone")
+                    load = len(eng.pending) + sum(
+                        1 for a in eng.active if a is not None)
+                    affinity = 0
+                    if prompt is not None and len(prompt) > 1:
+                        # shared-prefix blocks already resident in THIS
+                        # replica's cache (the LRU freshen is harmless —
+                        # the entry IS being matched)
+                        affinity = len(eng._lookup_prefix(prompt)[0])
+                except RankDied as err:
+                    # a mesh engine whose ranks are gone is not placeable;
+                    # with no stepper to meet the failure, it fails here
+                    if not r.stepper_alive:
+                        r.stepper_alive = True
+                        lost.append((r, eng, err))
+                    continue
             views.append(_router.ReplicaView(
                 r.index, True, suspect, load, affinity, role=role))
+        for r, eng, err in lost:
+            threading.Thread(target=self._fail_replica, args=(r, eng, err),
+                             daemon=True).start()
         return views
 
     def _place(self, fleet: _Fleet, prompt, exclude=frozenset(),
@@ -1014,6 +1044,8 @@ class _FleetService:
                                    tag=tag, **kw)
                     except QueueFullError:
                         return "full"
+                    except RankDied:
+                        return None  # placement fails the lost engine
                     req = eng.pending[-1]
                     tkt = _Ticket(req, replica)
                     replica.tickets[req.req_id] = tkt
@@ -1363,43 +1395,46 @@ class _FleetService:
                 # peer without spec capability: degrade to plain ticks
                 # — greedy streams are identical either way
                 req.spec = "off"
-            nbytes = 0
-            if handoff:
-                # journey: the cross-pool transfer window closes when
-                # the decode engine starts importing; the import phase
-                # closes when the spill puts return.  The payload size
-                # is measured ONCE here — the same nbytes the
-                # handoff_bytes counter ingests below — so journey
-                # bytes and the counter can be compared exactly.
-                _obs.JOURNEY.mark(req.rid, "handoff_import_begin",
-                                  replica=replica.index,
-                                  pool=replica.role)
-                if payload:
-                    nbytes = eng.import_handoff(payload)
-                t_imp = time.monotonic()
-                _obs.JOURNEY.mark(req.rid, "handoff_import", t=t_imp,
-                                  replica=replica.index,
-                                  pool=replica.role, nbytes=nbytes)
-                req.handoff_bytes += nbytes
-                if req.t_prefill_done:
-                    # park -> import-complete wall time: the slow-log
-                    # handoff_ms field, and by construction the sum of
-                    # the journey's three handoff phases
-                    req.handoff_ms = round(
-                        (t_imp - req.t_prefill_done) * 1e3, 3)
-            elif payload:
-                nbytes = eng.import_handoff(payload)
             try:
-                rid_e = eng.resubmit(req, fresh_id=True)
-            except ValueError:
-                # an early-stop cancel raced past the satisfied check
-                # above (resubmit refuses cancelled requests — and the
-                # cancel path's parked branch sets the flag without
-                # this replica's condition): complete with the tokens
-                # the request already has, exactly like the satisfied
-                # path
-                rid_e = None
-            else:
+                nbytes = 0
+                if handoff:
+                    # journey: the cross-pool transfer window closes when
+                    # the decode engine starts importing; the import phase
+                    # closes when the spill puts return.  The payload size
+                    # is measured ONCE here — the same nbytes the
+                    # handoff_bytes counter ingests below — so journey
+                    # bytes and the counter can be compared exactly.
+                    _obs.JOURNEY.mark(req.rid, "handoff_import_begin",
+                                      replica=replica.index,
+                                      pool=replica.role)
+                    if payload:
+                        nbytes = eng.import_handoff(payload)
+                    t_imp = time.monotonic()
+                    _obs.JOURNEY.mark(req.rid, "handoff_import", t=t_imp,
+                                      replica=replica.index,
+                                      pool=replica.role, nbytes=nbytes)
+                    req.handoff_bytes += nbytes
+                    if req.t_prefill_done:
+                        # park -> import-complete wall time: the slow-log
+                        # handoff_ms field, and by construction the sum of
+                        # the journey's three handoff phases
+                        req.handoff_ms = round(
+                            (t_imp - req.t_prefill_done) * 1e3, 3)
+                elif payload:
+                    nbytes = eng.import_handoff(payload)
+                try:
+                    rid_e = eng.resubmit(req, fresh_id=True)
+                except ValueError:
+                    # an early-stop cancel raced past the satisfied check
+                    # above (resubmit refuses cancelled requests — and the
+                    # cancel path's parked branch sets the flag without
+                    # this replica's condition): complete with the tokens
+                    # the request already has, exactly like the satisfied
+                    # path
+                    rid_e = None
+            except RankDied:
+                return False  # placement fails the lost engine
+            if rid_e is not None:
                 replica.tickets[rid_e] = tkt
                 self._ensure_stepper_locked(replica)
         if rid_e is None:
@@ -1841,6 +1876,8 @@ class _FleetService:
         with replica.cond:
             row["dead"] = replica.dead
             eng = replica.engine
+            if getattr(eng, "rank_pids", None) is not None:
+                row["ranks"] = list(eng.rank_pids)  # a mesh replica's processes
             if not replica.dead:
                 row["pending"] = len(eng.pending)
                 row["active"] = sum(
@@ -1958,7 +1995,12 @@ class _FleetService:
                 # would kill the stranger's request
                 if (not rep.dead
                         and rep.tickets.get(tkt.req.req_id) is tkt):
-                    where = rep.engine.cancel(tkt.req.req_id)
+                    try:
+                        where = rep.engine.cancel(tkt.req.req_id)
+                    except RankDied:
+                        # the lost engine's harvest honours the flag
+                        tkt.req.cancelled = True
+                        return
                     if where == "pending":
                         rep.tickets.pop(tkt.req.req_id, None)
                         finish_now = not mark
@@ -2078,7 +2120,7 @@ class _FleetService:
 
 _FLEET_SERVICE = _FleetService()
 
-#: (realpath|None, attn, kv_dtype, prefill_chunk) -> (stamp, fleet);
+#: (realpath|None, attn, kv_dtype, prefill_chunk, tp, mesh) -> (stamp, fleet);
 #: LRU, max 4 — room for one checkpoint's knob variants plus a second
 #: checkpoint
 _FLEETS: "dict" = {}
@@ -2100,29 +2142,32 @@ def _ckpt_stamp(ckpt_dir: str):
 
 
 
-def _build_engine(path, attn: str, kv_dtype: str, prefill_chunk: int):
-    """Cold-build one serving engine from its recipe (checkpoint
-    realpath and serving knobs) on the daemon's device.  A checkpoint's
-    sidecar is honoured (its config replaces the demo config, LoRA
-    adapters fold before serving, and its BPE tokenizer is returned);
-    without one the demo model's random weights from seed 0 serve.  The
-    recipe is left on the engine (``_rebuild``, ``_build_key``,
-    ``_build_stamp``) for the supervisor and the flight recorder."""
-    from tpulab_torch.models.generate import demo_config, load_params, load_sidecar
-    from tpulab_torch.models.paged import PagedEngine
-    from tpulab_torch.runtime.device import resolve_device
+def _canon_mesh(spec: str) -> str:
+    """A ``--mesh``/``{"mesh"}`` spec in its cache-key form (``"02x4"`` is
+    ``"2x4"``); ``""`` for no mesh and for ``"1x1"``, one device."""
+    if not spec:
+        return ""
+    from tpulab_torch.parallel.mesh import parse_mesh_spec
 
-    device = resolve_device(BACKEND)
-    cfg, tok = load_sidecar(path)
-    if cfg is None:
-        cfg = demo_config()
-    params, _ = load_params(cfg, path)
-    if cfg.lora_rank:
-        from tpulab_torch.models.labformer import merge_lora
+    b, m = parse_mesh_spec(spec)
+    return f"{b}x{m}" if b * m > 1 else ""
 
-        params, cfg = merge_lora(params, cfg)
-    engine = PagedEngine(
-        params, cfg, slots=4, n_blocks=128, block_size=16,
+
+def _mesh_axes(tp: int, mesh_spec: str):
+    """The serving mesh's axes of a recipe, its spec canonical (None: one
+    device)."""
+    if mesh_spec:
+        b, m = (int(v) for v in mesh_spec.split("x"))
+        return {"batch": b, "model": m}
+    if tp > 1:
+        return {"tp": tp}
+    return None
+
+
+def _engine_knobs(attn: str, kv_dtype: str, prefill_chunk: int) -> dict:
+    """The ``PagedEngine`` knobs of every serving engine the daemon builds."""
+    return dict(
+        slots=4, n_blocks=128, block_size=16,
         max_seq=_SERVE_MAX_SEQ, attn=attn, kv_dtype=kv_dtype,
         # chunked prefill by default, interleaved with decode ticks
         prefill_chunk=prefill_chunk,
@@ -2135,36 +2180,69 @@ def _build_engine(path, attn: str, kv_dtype: str, prefill_chunk: int):
         prefix_index=PREFIX_INDEX,
         spill_blocks=SPILL_BLOCKS,
         spill_dtype=SPILL_DTYPE,
-        device=device,
     )
-    engine._build_key = (path, attn, kv_dtype, prefill_chunk)
+
+
+def _build_engine(path, attn: str, kv_dtype: str, prefill_chunk: int,
+                  tp: int = 1, mesh_spec: str = ""):
+    """Cold-build one serving engine from its recipe (checkpoint
+    realpath and serving knobs) on the daemon's device.  A checkpoint's
+    sidecar is honoured (its config replaces the demo config, LoRA
+    adapters fold before serving, and its BPE tokenizer is returned);
+    without one the demo model's random weights from seed 0 serve.  On a
+    mesh (``mesh_spec`` ``"AxB"`` over more than one device, or ``tp``
+    above 1) the engine is built in every rank of a rank pool on the
+    daemon's device type, and a :class:`~tpulab_torch.parallel.mesh_engine.
+    MeshEngine` drives it.  The recipe is left on the engine
+    (``_rebuild``, ``_build_key``, ``_build_stamp``) for the supervisor
+    and the flight recorder."""
+    from tpulab_torch.models.generate import load_sidecar, serving_params
+    from tpulab_torch.models.paged import PagedEngine
+    from tpulab_torch.runtime.device import resolve_device
+
+    device = resolve_device(BACKEND)
+    knobs = _engine_knobs(attn, kv_dtype, prefill_chunk)
+    axes = _mesh_axes(tp, mesh_spec)
+    if axes is not None:
+        from tpulab_torch.parallel.mesh_engine import MeshEngine
+
+        _, tok = load_sidecar(path)
+        engine = MeshEngine(axes, path, device_type=device.type, **knobs)
+    else:
+        params, cfg, tok = serving_params(path)
+        engine = PagedEngine(params, cfg, device=device, **knobs)
+    engine._build_key = (path, attn, kv_dtype, prefill_chunk, tp, mesh_spec)
     engine._build_stamp = _ckpt_stamp(path) if path else None
-    engine._rebuild = lambda: _build_engine(path, attn, kv_dtype, prefill_chunk)
+    engine._rebuild = lambda: _build_engine(path, attn, kv_dtype, prefill_chunk, tp,
+                                            mesh_spec)
     return engine, tok
 
 
 def _fleet_for(ckpt, attn: str = "gather", kv_dtype: str = "native",
-               prefill_chunk: Optional[int] = None) -> _Fleet:
+               prefill_chunk: Optional[int] = None, tp: int = 1,
+               mesh_spec: str = "") -> _Fleet:
     """The warm :class:`_Fleet` (``REPLICAS`` engines and the tokenizer)
     of a serving config.  Keys are (realpath, attn, kv_dtype,
-    prefill_chunk): ``ckpts`` and ``./ckpts`` alias, and engines built
-    with different knobs never collide.  A newer checkpoint step evicts
-    the stale fleet, at most 4 stay resident (LRU), and only the dict
-    lookups hold the registry lock: the cold build runs outside it, so
-    in-flight decode on other fleets never stalls behind a load (a lost
+    prefill_chunk, tp, mesh): ``ckpts`` and ``./ckpts`` alias, and engines
+    built with different knobs never collide.  A newer checkpoint step
+    evicts the stale fleet, at most 4 stay resident (LRU), and only the
+    dict lookups hold the registry lock: the cold build runs outside it,
+    so in-flight decode on other fleets never stalls behind a load (a lost
     build race reuses the winner's fleet)."""
     if prefill_chunk is None:
         prefill_chunk = PREFILL_CHUNK
+    mesh_spec = _canon_mesh(mesh_spec)
     path = os.path.realpath(ckpt) if ckpt else None
-    key = (path, attn, kv_dtype, prefill_chunk)
+    key = (path, attn, kv_dtype, prefill_chunk, tp, mesh_spec)
     stamp = _ckpt_stamp(path) if path else None
     with _FLEET_SERVICE.lock:
         hit = _FLEETS.get(key)
         if hit is not None and hit[0] == stamp:
             _FLEETS[key] = _FLEETS.pop(key)  # LRU freshen
             return hit[1]
-    fleet = _make_fleet(lambda: _build_engine(path, attn, kv_dtype, prefill_chunk),
-                        REPLICAS, key=key, stamp=stamp)
+    fleet = _make_fleet(
+        lambda: _build_engine(path, attn, kv_dtype, prefill_chunk, tp, mesh_spec),
+        REPLICAS, key=key, stamp=stamp)
     with _FLEET_SERVICE.lock:
         hit = _FLEETS.get(key)
         if hit is not None and hit[0] == stamp:
@@ -2210,12 +2288,16 @@ def _handle_generate(header: dict, payload: bytes,
     through the shared engine's verify ticks — ``deadline_ms``
     (queue-wait shedding: a ``shed retry_after_ms=N`` error frame),
     ``priority`` (KV-pressure preemption rank), ``tag`` (echoed in the
-    slow log), ``hedge_ms`` and ``beams`` (beam search of that width,
-    outside the engine under ``_SPEC_LOCK``, unstreamed).  ``tp`` above 1
-    and ``mesh`` (A12.5) raise, naming their item."""
+    slow log), ``hedge_ms``, ``beams`` (beam search of that width,
+    outside the engine under ``_SPEC_LOCK``, unstreamed), ``mesh``
+    (``"AxB"``: serve over a batch x model mesh; default ``MESH_SPEC``)
+    and ``tp`` (serve over a legacy 1-D tp mesh of that many devices;
+    exclusive with ``mesh``).  On a mesh, greedy bytes equal one
+    device's; ``attn='pallas'``, ``beams`` and the dense-draft
+    ``speculative`` are refused there, as ``tpulab`` refuses them, and so
+    is a mesh wider than the daemon's device type has devices, all before
+    any engine is built."""
     import numpy as np
-
-    from tpulab_torch.models.paged import _unported
 
     config = header.get("config") or {}
     steps = int(config.get("steps", 64))
@@ -2241,10 +2323,20 @@ def _handle_generate(header: dict, payload: bytes,
     tp = int(config.get("tp", 1))
     if tp < 1:
         raise ValueError(f"tp must be >= 1, got {tp}")
-    if tp > 1:
-        raise _unported("tensor-parallel serving (tp > 1) in the daemon, item A12.5,", "A12")
-    if config.get("mesh"):
-        raise _unported("mesh serving in the daemon, item A12.5,", "A12")
+    # the 2-D serving mesh "AxB" (batch x model), a per-request override of
+    # the daemon-wide --mesh; validated here so a typo never pays a cold
+    # build, and exclusive with the legacy 1-D tp knob (two ways to say
+    # "shard the model" on one request is a contradiction, not a merge)
+    mesh_spec = str(config.get("mesh", MESH_SPEC) or "")
+    if mesh_spec:
+        from tpulab_torch.parallel.mesh import parse_mesh_spec
+
+        mesh_b, mesh_m = parse_mesh_spec(mesh_spec)
+        if tp > 1:
+            raise ValueError(
+                "config sets both mesh and tp > 1: the 2D mesh's "
+                "model axis IS the tp role — drop one")
+        mesh_spec = _canon_mesh(mesh_spec)  # "1x1" is one device
     deadline_ms = config.get("deadline_ms")
     if deadline_ms is not None:
         deadline_ms = float(deadline_ms)
@@ -2266,6 +2358,18 @@ def _handle_generate(header: dict, payload: bytes,
         raise ValueError(
             f"prefill_chunk must be >= 0 (0 = whole-prompt dense "
             f"oracle path), got {prefill_chunk}")
+    if tp > 1 or mesh_spec:
+        # the engine's own mesh refusal, before the cold build is paid:
+        # B7 reads one device's pools
+        if attn == "pallas":
+            raise ValueError("attn='pallas' does not support mesh serving")
+        from tpulab_torch.parallel.mesh import device_type_count
+
+        need = tp if tp > 1 else mesh_b * mesh_m
+        have = device_type_count(str(BACKEND).lower())
+        if have < need:
+            raise ValueError(
+                f"mesh serving needs {need} devices; this daemon has {have}")
     beams = int(config.get("beams", 0))
     deterministic_combo = (
         float(config.get("temperature", 0.0)) != 0.0
@@ -2316,7 +2420,20 @@ def _handle_generate(header: dict, payload: bytes,
                     f"lookup_ngram must be >= 1, got {spec_ngram}")
         else:
             spec_mode = "draft"
-    fleet = _fleet_for(config.get("ckpt_dir"), attn, kv_dtype, prefill_chunk)
+    if (tp > 1 or mesh_spec) and beams:
+        # beam search runs its own loop on one model, outside the engine
+        # decode path a mesh serves
+        raise ValueError(
+            "mesh serving covers the engine decode path only: drop "
+            "beams or the mesh/tp knob")
+    if (tp > 1 or mesh_spec) and bool(config.get("speculative")):
+        # prompt_lookup rides the mesh's verify ticks; the dense-draft
+        # proposer has no sharding
+        raise ValueError(
+            "speculative (dense-draft) decoding is uncertified on "
+            "mesh serving: use prompt_lookup or drop the mesh/tp knob")
+    fleet = _fleet_for(config.get("ckpt_dir"), attn, kv_dtype, prefill_chunk, tp,
+                       mesh_spec)
     # brownout ladder: degrade NEW admissions by the currently-engaged
     # rungs.  All four apply after parse/validation (a browned-out
     # request still had to be well-formed) and before any engine work.
@@ -2538,6 +2655,8 @@ def _recovery_params(config: dict) -> dict:
         stop_byte=int(config.get("stop_byte", -1)),
         attn=str(config.get("attn", "gather")),
         kv_dtype=str(config.get("kv_dtype", "native")),
+        tp=int(config.get("tp", 1)),
+        mesh=_canon_mesh(str(config.get("mesh", MESH_SPEC) or "")),
         prefill_chunk=int(config.get("prefill_chunk", PREFILL_CHUNK)),
         temperature=float(config.get("temperature", 0.0)),
         seed=int(config.get("seed", 0)),
@@ -2556,7 +2675,7 @@ def _refinish_completed(e, entry) -> None:
     try:
         p = _recovery_params(e.accept.get("config") or {})
         fleet = _fleet_for(p["ckpt_dir"], p["attn"], p["kv_dtype"],
-                           p["prefill_chunk"])
+                           p["prefill_chunk"], p["tp"], p["mesh"])
         entry.finish(_decode_out(fleet.tok, e.done.get("tokens") or [],
                                  p["stop_byte"]))
     except Exception as err:  # noqa: BLE001 — a failed refinish must
@@ -2583,7 +2702,7 @@ def _recover_one(journal, rid: str, e, entry) -> None:
         payload = durability.decode_payload(e.accept.get("payload", ""))
         tag = str(e.accept.get("tag", ""))
         fleet = _fleet_for(p["ckpt_dir"], p["attn"], p["kv_dtype"],
-                           p["prefill_chunk"])
+                           p["prefill_chunk"], p["tp"], p["mesh"])
         tok = fleet.tok
         if tok is None:
             prompt = np.frombuffer(payload, np.uint8).astype(np.int32)
@@ -2737,7 +2856,9 @@ def _fleet_key(config: dict) -> tuple:
     return (os.path.realpath(path) if path else None,
             str(config.get("attn", "gather")),
             str(config.get("kv_dtype", "native")),
-            int(config.get("prefill_chunk", PREFILL_CHUNK)))
+            int(config.get("prefill_chunk", PREFILL_CHUNK)),
+            int(config.get("tp", 1)),
+            _canon_mesh(str(config.get("mesh", MESH_SPEC) or "")))
 
 
 #: serializes the engine-gauge rewrite and render inside a ``metrics``
@@ -2785,12 +2906,17 @@ def _refresh_engine_gauges() -> None:
 
     estimate = 0
     per_shard: dict = {}
+    n_devices = 1
     for eng in all_engines:
         estimate += eng.device_bytes_estimate()
+        # each mesh shard's bytes summed across engines (shard i is device
+        # i of its serving mesh, mesh-order); the MFU peak scales by the
+        # widest warm mesh, the one the dispatches span
         for i, st in eng.shard_stats().items():
             agg = per_shard.setdefault(i, {})
             for k, v in st.items():
                 agg[k] = agg.get(k, 0) + v
+        n_devices = max(n_devices, getattr(eng, "_mesh_devices", 1))
     # gauge rewrite + render under ONE scrape lock: the stale-suffix
     # zeroing below is not atomic with the re-publish, so a concurrent
     # scrape rendering mid-rewrite would report a healthy fleet as
@@ -2833,7 +2959,7 @@ def _refresh_engine_gauges() -> None:
         from tpulab_torch.runtime.device import resolve_device
 
         _roofline.update_device_memory_gauges(estimate, device=resolve_device(BACKEND))
-        _roofline.update_mfu_gauges()
+        _roofline.update_mfu_gauges(n_devices=n_devices)
 
 
 def _handle_metrics(header: dict) -> bytes:
@@ -3295,7 +3421,8 @@ def _resolve_fleet(config: dict) -> Optional[_Fleet]:
     if not fleets:
         return None
     explicit = any(k in config for k in
-                   ("ckpt_dir", "attn", "kv_dtype", "prefill_chunk"))
+                   ("ckpt_dir", "attn", "kv_dtype", "tp", "prefill_chunk",
+                    "mesh"))
     if explicit or len(fleets) > 1:
         hit = fleets.get(_fleet_key(config))
         return hit[1] if hit else None
@@ -3410,14 +3537,21 @@ def serve(socket_path: str, *, max_requests: Optional[int] = None,
     ``max_requests`` connections, or ``stop_event`` (an embedding
     thread's stop: the accept loop polls it).  ``served_counter``, a
     one-element list, counts the connections handled, for callers that
-    check a request really reached the daemon."""
-    try:
-        os.unlink(socket_path)
-    except FileNotFoundError:
-        pass
+    check a request really reached the daemon.  The socket appears at
+    ``socket_path`` only once it listens (bound under a temporary name,
+    then renamed): a client that waits for the path to exist never meets
+    a bound socket that refuses it, however long startup's other threads
+    (a journal's recoveries) hold the interpreter between the two."""
+    pending = socket_path + ".tmp"
+    for stale in (socket_path, pending):
+        try:
+            os.unlink(stale)
+        except FileNotFoundError:
+            pass
     srv = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
-    srv.bind(socket_path)
+    srv.bind(pending)
     srv.listen(16)
+    os.rename(pending, socket_path)
 
     stop = {"flag": False}
 
@@ -3619,13 +3753,16 @@ def serve(socket_path: str, *, max_requests: Optional[int] = None,
             os.unlink(socket_path)
         except FileNotFoundError:
             pass
+        # the mesh engines' ranks end with the daemon
+        from tpulab_torch.parallel import mesh_engine
+
+        mesh_engine.close_pools()
 
 
 def main(argv=None) -> int:
     global PREFILL_CHUNK, REPLICAS, HEDGE_MS, PREFIX_INDEX, SPILL_BLOCKS, \
         SPILL_DTYPE, BACKEND, METRICS_INTERVAL_S, _JOURNAL, AUTOSCALE_MIN, \
-        AUTOSCALE_MAX, POOL_SPEC
-    from tpulab_torch.models.paged import _unported
+        AUTOSCALE_MAX, POOL_SPEC, MESH_SPEC
 
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -3708,8 +3845,14 @@ def main(argv=None) -> int:
     ap.add_argument("--spill-dtype", choices=("native", "int8", "int4"),
                     default=SPILL_DTYPE,
                     help="host spill-tier payload format")
-    ap.add_argument("--mesh", default=os.environ.get("TPULAB_DAEMON_MESH", ""),
-                    metavar="AxB", help="serving mesh: not ported (A12.5)")
+    ap.add_argument("--mesh", default=MESH_SPEC, metavar="AxB",
+                    help="2D serving mesh 'batch x model' for the "
+                         "daemon's engines (e.g. '2x4'): KV pools and "
+                         "attention heads shard on the model axis, the "
+                         "per-slot decode state on the batch axis; "
+                         "'1x1' or '' serves single-device (default "
+                         "TPULAB_DAEMON_MESH or ''; per-request "
+                         "'mesh' config overrides)")
     ap.add_argument("--slowlog", type=int, default=None, metavar="N",
                     help="slow-log window: keep the worst N requests by e2e "
                          "latency (default 64; 0 disables)")
@@ -3718,8 +3861,6 @@ def main(argv=None) -> int:
                          "requests' phase waterfalls (default 256; 0 "
                          "disables)")
     args = ap.parse_args(argv)
-    if args.mesh:
-        raise _unported("mesh serving (--mesh) in the daemon, item A12.5,", "A12")
     if args.replicas < 1:
         ap.error("--replicas must be >= 1")
     if args.hedge_ms < 0:
@@ -3741,6 +3882,12 @@ def main(argv=None) -> int:
     if args.spill_blocks and args.prefix_index != "radix":
         ap.error("--spill-blocks > 0 requires --prefix-index radix "
                  "(the spill tier keys host payloads by radix paths)")
+    if args.mesh:
+        # parsed and canonicalized here: a bad spec exits 2 before any build
+        try:
+            args.mesh = _canon_mesh(args.mesh)
+        except ValueError as e:
+            ap.error(f"--mesh: {e}")
     if args.autoscale_max >= 1:
         # elastic-fleet misconfiguration is rejected HERE with a
         # parseable argparse error, before any engine build
@@ -3788,6 +3935,7 @@ def main(argv=None) -> int:
     SPILL_BLOCKS = args.spill_blocks
     SPILL_DTYPE = args.spill_dtype
     POOL_SPEC = args.pool_spec
+    MESH_SPEC = args.mesh
     METRICS_INTERVAL_S = args.metrics_interval
     AUTOSCALE_MIN = args.autoscale_min
     AUTOSCALE_MAX = args.autoscale_max

@@ -152,6 +152,11 @@ class FaultInjector:
         self._hits: Dict[str, int] = {}
         self.rng = random.Random(0)
         self.enabled = False
+        #: bumped at every configure and disable, so a copy of the
+        #: injector in another process (a mesh engine's ranks) can tell
+        #: it is stale; ``armed`` is what re-arms such a copy
+        self.generation = 0
+        self.armed: Optional[tuple] = None
 
     def configure(self, schedule, seed: int = 0) -> None:
         rules = []
@@ -172,6 +177,8 @@ class FaultInjector:
             self._hits = {}
             self.rng = random.Random(seed)
             self.enabled = True
+            self.generation += 1
+            self.armed = ([dict(spec) for spec in schedule], seed)
         _set_active(True)
 
     def disable(self) -> None:
@@ -179,6 +186,8 @@ class FaultInjector:
             self._rules = []
             self._hits = {}
             self.enabled = False
+            self.generation += 1
+            self.armed = None
         _set_active(False)
 
     def hits(self, site: str) -> int:

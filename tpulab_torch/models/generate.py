@@ -295,6 +295,23 @@ def load_sidecar(ckpt_dir: Optional[str]):
     return cfg, tok
 
 
+def serving_params(ckpt_dir: Optional[str]):
+    """``(params, cfg, tokenizer | None)`` a server serves from ``ckpt_dir``:
+    the sidecar's config (the demo config without one), the newest
+    snapshot's parameters (the demo weights of seed 0 without a checkpoint)
+    and LoRA adapters folded in (the daemon's recipe, in its process or in
+    each rank of a mesh)."""
+    cfg, tok = load_sidecar(ckpt_dir)
+    if cfg is None:
+        cfg = demo_config()
+    params, _ = load_params(cfg, ckpt_dir)
+    if cfg.lora_rank:
+        from tpulab_torch.models.labformer import merge_lora
+
+        params, cfg = merge_lora(params, cfg)
+    return params, cfg, tok
+
+
 def load_params(cfg: LabformerConfig, ckpt_dir: Optional[str] = None, seed: int = 0):
     """``(params, step | None)``: ``init_params(cfg, seed)``, or with
     ``ckpt_dir`` the newest snapshot's parameters in the port's format.

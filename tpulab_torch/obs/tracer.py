@@ -177,6 +177,22 @@ class Tracer:
             nid = self._intern(name)
         self._record(_INSTANT, nid, args or arg)
 
+    def record_at(self, t_ns: int, ph: str, name: str, arg=None) -> None:
+        """Record an event another process timed (``ph`` ``"B"``, ``"E"``
+        or ``"i"``, at ``t_ns`` of ``time.monotonic_ns``, which every
+        process of a host shares) on the calling thread: how a mesh
+        engine's ranks hand their events to the daemon's ring."""
+        if not self.enabled:
+            return
+        nid = self._names.get(name)
+        if nid is None:
+            nid = self._intern(name)
+        buf = self._buf
+        cap = len(buf)
+        if cap:
+            buf[next(self._seq) % cap] = (int(t_ns), _PH.index(ph), nid,
+                                          threading.get_ident(), arg)
+
     # ------------------------------------------------------------ export
     def chrome_trace(self) -> dict:
         """Chrome trace-event JSON object (loads in Perfetto as-is).

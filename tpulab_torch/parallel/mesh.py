@@ -39,6 +39,7 @@ import multiprocessing.connection
 import os
 import shutil
 import tempfile
+import threading
 import time
 import traceback
 from typing import Any, Dict, List, Optional, Sequence, Tuple
@@ -352,10 +353,26 @@ def _to_host(out):
     return out
 
 
+class RankDied(RuntimeError):
+    """A pool call that cannot complete because a rank is gone: it died, or
+    the pool was closed.  The pool is ended."""
+
+
+class RankError(RuntimeError):
+    """A pool call that a rank refused: ``rank`` is the first rank that
+    failed, and ``payload`` what rank 0 attached to its exception (its
+    ``rank_payload`` attribute; None where rank 0 did not fail or attached
+    nothing)."""
+
+    def __init__(self, message: str, rank: int, payload=None):
+        super().__init__(message)
+        self.rank, self.payload = rank, payload
+
+
 def _rank_main(rank: int, world: int, device_type: str, store: str, conn) -> None:
     """One rank: join the group, then run each ``(fn, args, kwargs)`` that
-    arrives, answering ``(ok, rank 0's result or None, or a traceback)``,
-    until ``None`` arrives."""
+    arrives, answering ``(ok, rank 0's result or None)`` or ``(False,
+    (traceback, rank 0's payload or None))``, until ``None`` arrives."""
     from tpulab_torch.runtime import fpenv
 
     torch.set_num_threads(1)
@@ -375,8 +392,9 @@ def _rank_main(rank: int, world: int, device_type: str, store: str, conn) -> Non
             try:
                 out = fn(*args, **kwargs)
                 conn.send((True, _to_host(out) if rank == 0 else None))
-            except Exception:  # reported; the rank serves on (an exit ends it)
-                conn.send((False, traceback.format_exc()))
+            except Exception as e:  # reported; the rank serves on (an exit ends it)
+                payload = getattr(e, "rank_payload", None) if rank == 0 else None
+                conn.send((False, (traceback.format_exc(), _to_host(payload))))
     finally:
         dist.destroy_process_group()
         conn.close()
@@ -389,10 +407,17 @@ class RankPool:
 
     ``run(fn, *args, **kwargs)`` calls ``fn`` (a module-level function, so
     it pickles by name) in every rank and returns rank 0's result, its
-    tensors copied to the CPU.  A rank that raises or dies fails the call
-    (``RuntimeError`` with its traceback or exit code); the pool stays
+    tensors copied to the CPU.  A rank that raises fails the call with a
+    :class:`RankError` (its traceback, and rank 0's ``rank_payload``), one
+    that dies with a :class:`RankDied` naming its exit code; the pool stays
     only where every other rank answered (all refused alike), else it is
     ended.
+
+    Calls are serialized: ``run`` holds :attr:`lock` (re-entrant) from the
+    first send to the last answer, so every rank sees the calls of every
+    thread in one order, and the collectives inside them pair up.  A
+    caller that must send something with a call, in the order of the
+    calls, takes :attr:`lock` around both.
     Ranks import what ``fn``'s module imports, and nothing of the caller's
     ``__main__`` but what the ``spawn`` start method re-imports."""
 
@@ -407,6 +432,7 @@ class RankPool:
 
         ctx = mp.get_context("spawn")
         self.world_size, self.device_type = world_size, device_type
+        self.lock = threading.RLock()
         self._dir = tempfile.mkdtemp(prefix="tpulab_torch_ranks_")
         store = os.path.join(self._dir, "store")
         self._conns, self._procs = [], []
@@ -419,14 +445,31 @@ class RankPool:
             self._conns.append(ours)
             self._procs.append(proc)
 
+    @property
+    def alive(self) -> bool:
+        """Every rank runs (False once one died, or the pool was closed)."""
+        return bool(self._procs) and all(proc.is_alive() for proc in self._procs)
+
+    @property
+    def pids(self) -> List[int]:
+        """The ranks' process ids, by rank (empty once closed)."""
+        return [proc.pid for proc in self._procs]
+
     def run(self, fn, *args, **kwargs):
+        with self.lock:
+            return self._run(fn, args, kwargs)
+
+    def _run(self, fn, args, kwargs):
         if not self._procs:
-            raise RuntimeError("the rank pool is closed")
-        for conn in self._conns:
-            conn.send((fn, args, kwargs))
+            raise RankDied("the rank pool is closed")
+        for rank, conn in enumerate(self._conns):
+            try:
+                conn.send((fn, args, kwargs))
+            except OSError:  # the rank ended between calls
+                raise self._died(rank) from None
         answers: Dict[int, Any] = {}
         waiting = dict(enumerate(self._conns))
-        failed, deadline = None, None
+        failed, deadline, attached = None, None, None
         while waiting:
             timeout = None if deadline is None else max(0.0, deadline - time.monotonic())
             ready = multiprocessing.connection.wait(
@@ -438,40 +481,53 @@ class RankPool:
                     continue
                 try:
                     ok, payload = conn.recv()
-                except EOFError:  # the rank ended without an answer
-                    self._procs[rank].join(timeout=10)
-                    code = self._procs[rank].exitcode
-                    self.close(wait_s=0)
-                    raise RuntimeError(f"rank {rank} of {self.world_size} died "
-                                       f"(exit code {code})") from None
-                if not ok and failed is None:
-                    failed, deadline = (rank, payload), time.monotonic() + FAILED_GRACE_S
+                except (EOFError, OSError):  # the rank ended without an answer
+                    raise self._died(rank) from None
+                if not ok:
+                    if failed is None:
+                        failed, deadline = (rank, payload[0]), time.monotonic() + FAILED_GRACE_S
+                    if rank == 0:
+                        attached = payload[1]
                 answers[rank] = payload
                 del waiting[rank]
         if failed is not None:
             if waiting:
                 self.close(wait_s=0)
-            raise RuntimeError(f"rank {failed[0]} of {self.world_size} failed:\n{failed[1]}")
+            raise RankError(f"rank {failed[0]} of {self.world_size} failed:\n{failed[1]}",
+                            failed[0], attached)
         return answers[0]
+
+    def _died(self, rank: int) -> RankDied:
+        """End the pool, whose rank ``rank`` ended without an answer."""
+        self._procs[rank].join(timeout=10)
+        code = self._procs[rank].exitcode
+        self.close(wait_s=0)
+        return RankDied(f"rank {rank} of {self.world_size} died (exit code {code})")
 
     def close(self, wait_s: float = 10.0) -> None:
         """Stop every rank (asked first, ended after ``wait_s``; a failed
         call ends them at once, since the others may wait in a collective)
-        and remove the store."""
-        for conn in self._conns:
-            try:
-                conn.send(None)
-            except (OSError, ValueError):
-                pass
-        for proc in self._procs:
-            proc.join(timeout=wait_s)
-            if proc.is_alive():
-                proc.kill()
-                proc.join()
-        for conn in self._conns:
-            conn.close()
-        self._conns, self._procs = [], []
-        shutil.rmtree(self._dir, ignore_errors=True)
+        and remove the store.  A call in flight on another thread is let
+        finish for up to ``wait_s`` first."""
+        held = self.lock.acquire(timeout=max(wait_s, 1.0))
+        try:
+            for conn in self._conns:
+                try:
+                    conn.send(None)
+                except (OSError, ValueError):
+                    pass
+            for proc in self._procs:
+                proc.join(timeout=wait_s)
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join()
+            for conn in self._conns:
+                conn.close()
+            self._conns, self._procs = [], []
+            shutil.rmtree(self._dir, ignore_errors=True)
+        finally:
+            if held:
+                self.lock.release()
 
     def __enter__(self) -> "RankPool":
         return self
@@ -489,26 +545,33 @@ def launch(fn, world_size: int, *args, device_type: Optional[str] = None, **kwar
 
 #: pools kept for the process by :func:`shared_pool`, by (ranks, device type)
 _SHARED: Dict[Tuple[int, str], RankPool] = {}
+_SHARED_LOCK = threading.Lock()
 
 
 def shared_pool(world_size: int, device_type: Optional[str] = None) -> RankPool:
     """A :class:`RankPool` of ``world_size`` ranks kept for the process and
     reused by every caller (``train(mesh_devices=N)``, tests); spawned at
-    the first call, again after a failure ended it, and closed at exit."""
+    the first call, again after a failure ended it or one of its ranks
+    died, and closed at exit."""
     from tpulab_torch.runtime.device import resolve_device
 
     key = (int(world_size), resolve_device(device_type).type)
-    pool = _SHARED.get(key)
-    if pool is None or not pool._procs:
-        if not _SHARED:
-            import atexit
+    with _SHARED_LOCK:
+        pool = _SHARED.get(key)
+        if pool is not None and not pool.alive:
+            pool.close(wait_s=0)  # a rank died since its last call
+        if pool is None or not pool._procs:
+            if not _SHARED:
+                import atexit
 
-            atexit.register(close_shared_pools)
-        pool = _SHARED[key] = RankPool(*key)
-    return pool
+                atexit.register(close_shared_pools)
+            pool = _SHARED[key] = RankPool(*key)
+        return pool
 
 
 def close_shared_pools() -> None:
-    for pool in _SHARED.values():
+    with _SHARED_LOCK:
+        pools = list(_SHARED.values())
+        _SHARED.clear()
+    for pool in pools:
         pool.close()
-    _SHARED.clear()

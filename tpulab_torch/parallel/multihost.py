@@ -37,9 +37,13 @@ def initialize(coordinator_address: Optional[str] = None, num_processes: Optiona
     ``coordinator_address`` (``host:port``, default ``MASTER_ADDR`` and
     ``MASTER_PORT``), ``num_processes`` (``WORLD_SIZE``) and ``process_id``
     (``RANK``).  Ranks on the card take NCCL and ``cuda:<local_device_ids[0]>``
-    (default ``LOCAL_RANK``); on a host without a card, gloo."""
+    (default ``LOCAL_RANK``); on a host without a card, gloo.  The group of
+    one an unlaunched mesh made for this process (``mesh.ensure_group``) is
+    no launch: False, as without it."""
+    from tpulab_torch.parallel import mesh
+
     if dist.is_initialized():
-        return True
+        return mesh._IMPLICIT_GROUP is None
     env = os.environ
     if not coordinator_address and env.get("MASTER_ADDR"):
         coordinator_address = f"{env['MASTER_ADDR']}:{env.get('MASTER_PORT', '29500')}"
