@@ -206,13 +206,16 @@ failure:
 9. Speculative decoding and the model rows of ``bench``, each run with
    every launch count set to 0 just before and read just after:
 
-   a. ``speculative_generate`` (the int8 draft, k=4, 128 steps) and
+   a. ``speculative_generate`` (the int8 draft, k=4, 64 steps) and
       ``prompt_lookup_generate`` at the bench's width (d512, 8 heads, 8
       layers, d_ff 2048, bf16, seed-0 weights) over a 1024-token prompt
       (B4 once per layer of each prefill): tokens equal to plain greedy
       decode on the card up to the first position whose top-2 margin falls
       below 1e-2 or four bf16 ulps of the row's largest logit; tokens/s of
-      plain, speculative and lookup decode at the bench's 8-token prompt.
+      plain, speculative and lookup decode at the bench's 8-token prompt
+      (one timed run each after a warm-up: 9c's ``speculative_decode``
+      row times plain and speculative at ``tpulab``'s 128 steps and 3
+      trials).
       Then the small labformer of the serving tests (d32, 2 layers),
       trained on the card as ``trained_small`` is: both streams bit-equal
       to greedy decode;
@@ -435,7 +438,14 @@ failure:
        "zero1 needs a mesh with dp > 1";
     e. with two or more cards, ``dryrun_train_step`` in every rank of an
        NCCL pool of two (else the line ``15e not run: 1 CUDA device``);
-    f. the phase's seconds.
+    f. the phase's seconds (15g included);
+    g. adafactor at the flagship's widths cut to 2 layers, in float32 at
+       15a's b8 s2048, 4 steps with snapshots every 2, through
+       ``train(mesh_devices=1)`` and ``train(mesh_devices=0)``: the losses
+       and snapshots (keyed statistics included) bit-equal, B4, B5 and B6
+       launched once per layer and step on both sides; the mesh's step-2
+       snapshot resumed on one device to step 4 bit-equal; then the
+       adafactor step ms of both, in turns (one, mesh, mesh, one).
 16. The tp-sharded ``PagedEngine`` on the serving mesh
     (``parallel.mesh.serving_mesh``), on ``serving_mesh(1, 1)`` over a
     group of one rank (NCCL on the card), ``attn="gather"``, each run with
@@ -3162,9 +3172,10 @@ def run_bench_rows(sizes: dict, device, backend: str, card: str) -> dict:
     extra = ["--backend", backend] if backend == "cpu" else []
     for key, value in sizes["bench_model"].items():
         extra += [f"--{key}", str(value)]
-    rows, launches = [], {}
+    rows, launches, seconds = [], {}, {}
     h100 = "H100" in card and "HBM3" in card
     for group in sizes["bench_groups"]:
+        t0 = time.perf_counter()
         wrappers = zero_counts()
         got = [json.loads(line) for line in cli(["bench", "--only", group, *extra],
                                                 "").splitlines()]
@@ -3177,13 +3188,14 @@ def run_bench_rows(sizes: dict, device, backend: str, card: str) -> dict:
             check(not (flops and h100) or "mfu_pct_of_bf16_peak" in row, f"no MFU in {row}")
         rows.extend(got)
         check(all(launches[group][k] == 0 for k in LAB_KERNELS), f"lab kernels in {group}")
+        seconds[group] = round(time.perf_counter() - t0, 1)
     if device.type == "cuda":
         if "labformer_train" in launches:
             check(all(launches["labformer_train"][k] > 0 for k in TRAIN_KERNELS),
                   f"labformer_train launched {launches['labformer_train']}")
         if "flash_attention" in launches:
             check(launches["flash_attention"]["flash_fwd"] > 0, "flash rows launched no B4")
-    return {"rows": rows, "launches": launches, "host_loop_ms": loop}
+    return {"rows": rows, "launches": launches, "host_loop_ms": loop, "seconds": seconds}
 
 
 def flash_long_rows(sizes: dict, device) -> list:
@@ -3204,10 +3216,16 @@ def run_spec_and_bench_path(sizes: dict, device, backend: str, card: str) -> tup
     """Phase 9: (B4's long-context rows, the phase's numbers)."""
     t0 = time.perf_counter()
     spec, small = run_speculative(sizes, device, card)
+    t_a = time.perf_counter()
     engine = check_spec_engine(sizes, device, card, small)
+    t_b = time.perf_counter()
     bench_rows = run_bench_rows(sizes, device, backend, card)
+    t_c = time.perf_counter()
     long_rows = flash_long_rows(sizes, device)
-    print(f"phase 9 took {time.perf_counter() - t0:.1f} s", flush=True)
+    t_d = time.perf_counter()
+    print(f"phase 9 took {t_d - t0:.1f} s; by step: 9a {t_a - t0:.1f}, 9b {t_b - t_a:.1f}, "
+          f"9c {t_c - t_b:.1f} ({json.dumps(bench_rows['seconds'])}), 9d {t_d - t_c:.1f}",
+          flush=True)
     return long_rows, {"speculative": spec, "engine": engine, "bench": bench_rows}
 
 
@@ -5319,9 +5337,11 @@ def mesh_train_run(sizes: dict, cfg, backend: str, mesh_devices: int, work: Path
     return [" ".join(ln.split()[:5]) for ln in lines if ln.startswith("[train] step")], loss
 
 
-def mesh_step_ms(sizes: dict, device, cfg, card: str) -> dict:
+def mesh_step_ms(sizes: dict, device, cfg, card: str, optimizer=None,
+                 what: str = "15a step ms, bf16") -> dict:
     """The step ms of the one-device step and of the mesh-of-one step, each
-    a fresh model, taken in turns (one, mesh, mesh, one) by CUDA events."""
+    a fresh model (under ``optimizer``, default adamw), taken in turns (one,
+    mesh, mesh, one) by CUDA events."""
     import statistics
 
     import torch
@@ -5331,8 +5351,8 @@ def mesh_step_ms(sizes: dict, device, cfg, card: str) -> dict:
     from tpulab_torch.train import batches, mesh_sizes
 
     mesh = make_mesh(mesh_sizes(1, False), backend=device.type)
-    sides = {"one": init_train_state(cfg, None, seed=0, device=device),
-             "mesh": init_train_state(cfg, mesh, seed=0)}
+    sides = {"one": init_train_state(cfg, None, seed=0, optimizer=optimizer, device=device),
+             "mesh": init_train_state(cfg, mesh, seed=0, optimizer=optimizer)}
     batch_at = batches(cfg.vocab, sizes["mesh_batch"], sizes["mesh_seq"], 0)
     tokens = [sides["one"][0].tokens(batch_at(i)) for i in range(2)]
     samples = {"one": [], "mesh": []}
@@ -5356,7 +5376,7 @@ def mesh_step_ms(sizes: dict, device, cfg, card: str) -> dict:
         for side in ("one", "mesh", "mesh", "one"):
             samples[side].append(one_step(side, r))
     out = {side: statistics.median(v) for side, v in samples.items()}
-    print(f"phase 15a step ms, bf16 b{sizes['mesh_batch']} s{sizes['mesh_seq']}, in turns: "
+    print(f"phase {what} b{sizes['mesh_batch']} s{sizes['mesh_seq']}, in turns: "
           f"one device {out['one']:.6f}, mesh of one {out['mesh']:.6f} (median of "
           f"{len(samples['one'])} each; one {samples['one']}, mesh {samples['mesh']}) "
           f"[{card}]", flush=True)
@@ -5409,8 +5429,68 @@ def layer0_dropped_share(cfg, sizes: dict, device) -> float:
         return dropped_share(h, blk.router, cfg.n_experts, cap, cfg.moe_top_k)
 
 
+def mesh_adafactor(sizes: dict, device, backend: str, card: str, work: Path) -> dict:
+    """Phase 15g: adafactor at the flagship's widths (``mesh_ada_layers``
+    layers, float32, 15a's batch and sequence) through
+    ``train(mesh_devices=1)`` and ``train(mesh_devices=0)``, snapshots every
+    ``mesh_save_every``: losses and snapshots bit-equal, B4-B6 counted on
+    both sides; the mesh's first snapshot resumed on one device bit-equal;
+    the adafactor step ms of both, in turns."""
+    import shutil
+
+    import torch
+
+    from tpulab_torch.models.labformer import LabformerConfig
+    from tpulab_torch.train import build_optimizer
+
+    steps, every = sizes["mesh_steps"], sizes["mesh_save_every"]
+    b, s = sizes["mesh_batch"], sizes["mesh_seq"]
+    cfg = LabformerConfig(**{**sizes["train"], "n_layers": sizes["mesh_ada_layers"]},
+                          max_seq=s, dtype=torch.float32)
+    per_run = dict.fromkeys(TRAIN_KERNELS, steps * cfg.n_layers if use_flash_at(cfg, s) else 0)
+
+    def run(n, d, **kw):
+        return mesh_train_run(sizes, cfg, backend, n, work / d, steps, opt_name="adafactor", **kw)
+
+    (one, one_loss), one_launches = counted(lambda: run(0, "ada_one"), device, per_run,
+                                            "phase 15g one-device run")
+    (mesh, mesh_loss), mesh_launches = counted(lambda: run(1, "ada_mesh"), device, per_run,
+                                               "phase 15g mesh run")
+    saved = list(range(every, steps + 1, every))
+    check(len(one) == steps and np.isfinite(one_loss), f"phase 15g: {one}, loss {one_loss}")
+    check(mesh == one and mesh_loss == one_loss,
+          f"phase 15g: the mesh of one's adafactor {mesh} (loss {mesh_loss!r}) differ from one "
+          f"device's {one} ({one_loss!r})")
+    check(all(snapshot_equal(work / "ada_one", work / "ada_mesh", at) for at in saved),
+          f"phase 15g: an adafactor snapshot of steps {saved} differs between the mesh of one "
+          f"and one device")
+    check(all(one_launches[k] == mesh_launches[k] for k in TRAIN_KERNELS),
+          f"phase 15g: launches {one_launches} on one device, {mesh_launches} on the mesh")
+    resumed = work / "ada_resumed"
+    shutil.copytree(work / "ada_mesh", resumed)
+    for d in resumed.iterdir():
+        if d.name.isdigit() and int(d.name) > every:
+            shutil.rmtree(d)
+    again, again_loss = run(0, "ada_resumed", resume=True)
+    check(again == one[every:] and again_loss == one_loss,
+          f"phase 15g: resumed {again} (loss {again_loss!r}) differ from {one[every:]} "
+          f"({one_loss!r})")
+    launches = {k: mesh_launches[k] for k in TRAIN_KERNELS}
+    print(f"phase 15g: adafactor through train(mesh_devices=1) bit-equal to mesh_devices=0 over "
+          f"{steps} f32 steps at d{cfg.d_model} L{cfg.n_layers} b{b} s{s} (snapshots {saved}, "
+          f"final loss {mesh_loss!r}); the mesh's step-{every} snapshot resumed on one device "
+          f"bit-equal; launches mesh {json.dumps(launches)}, one device "
+          f"{json.dumps({k: one_launches[k] for k in TRAIN_KERNELS})} [{card}]", flush=True)
+    ms = mesh_step_ms(sizes, device, cfg, card,
+                      build_optimizer(lr=3e-4, steps=steps, optimizer="adafactor"),
+                      "15g adafactor step ms, f32")
+    return {"steps": mesh, "final_loss": mesh_loss, "resumed_loss": again_loss,
+            "launches": launches, "one_device_launches": {k: one_launches[k]
+                                                          for k in TRAIN_KERNELS}, **ms}
+
+
 def run_mesh_train(sizes: dict, device, backend: str, card: str) -> dict:
-    """Phase 15: mesh training (15a-15f in the module's docstring)."""
+    """Phase 15: mesh training (15a-15g in the module's docstring)."""
     import dataclasses
     import shutil
 
@@ -5514,6 +5594,7 @@ def run_mesh_train(sizes: dict, device, backend: str, card: str) -> dict:
     else:
         out["e"] = f"15e not run: {torch.cuda.device_count()} CUDA device"
     print(out["e"] if out["e"].startswith("15e") else f"phase 15e: {out['e']}", flush=True)
+    out["g"] = mesh_adafactor(sizes, device, backend, card, work)
     shutil.rmtree(work, ignore_errors=True)
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 15 took {out['seconds']:.1f} s [{card}]", flush=True)
@@ -5619,10 +5700,11 @@ FULL_SIZES = {
     # phase 8: lab5 at tpulab/bench.py:1679's 2^24 and its sort at :1653's 2^20
     "lab5_n": 2**24, "lab5_sort_n": 2**20, "hw2_n": 2**20, "harness_side": 1024,
     "harness_k": 3, "bench": {}, "selftest_skip": [],
-    # phase 9: the bench's speculative row (tpulab/bench.py:222-289), a
-    # 1024-token prompt to run B4 in both prefills, the small labformer's
+    # phase 9: the bench's speculative row (tpulab/bench.py:222-289) cut to
+    # 64 steps and one timed run (9c's row times it at tpulab's 128 and 3),
+    # a 1024-token prompt to run B4 in both prefills, the small labformer's
     # training steps (tests/conftest.py), bench rows at tpulab's defaults
-    "spec_k": 4, "spec_steps": 128, "spec_prompt": 1024, "spec_reps": 3,
+    "spec_k": 4, "spec_steps": 64, "spec_prompt": 1024, "spec_reps": 1,
     "small_train_steps": 80, "bench_model": {}, "bench_groups": BENCH_GROUPS,
     "b4_long": ((32768, 256), (8192, 0)),
     # phase 10: the daemon's engine settings with spill_blocks=64; the storm
@@ -5687,6 +5769,8 @@ FULL_SIZES = {
     "mesh_batch": 8, "mesh_seq": 2048, "mesh_steps": 4, "mesh_save_every": 2,
     "mesh_rounds": 3, "mesh_moe_batch": 2, "mesh_moe_seq": 1024, "mesh_moe_steps": 3,
     "mesh_moe_capacity": 1.0,
+    # 15g: adafactor at the flagship's widths, cut to 2 layers
+    "mesh_ada_layers": 2,
     # 16: phase 7a's PAGED engine (its prompts and geometry) on a serving mesh
     # of one; the mesh_tick_overhead row at tpulab's defaults
     "mesh_bench": {},

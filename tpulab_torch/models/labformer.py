@@ -550,24 +550,27 @@ def mesh_grads(model: Labformer, tokens) -> Dict[str, Any]:
 
 def _refuse_mesh_options(cfg: LabformerConfig, mesh, zero1: bool, zero2: bool,
                          optimizer) -> None:
-    """``tpulab``'s refusals, and the optimizer parts the step does not
-    make shard-aware."""
+    """``tpulab``'s refusals, before any step."""
     if cfg.lora_rank and (zero1 or zero2):
         raise ValueError(
             "lora_rank > 0 with zero1/zero2 is pointless: the "
             "optimizer state is already O(rank) per layer")
-    if mesh is None:
-        return
-    if optimizer.whole_leaves:
-        sizes = sharded._mesh_sizes(mesh)
-        split = (sizes.get("tp", 1) > 1 or sizes.get("pp", 1) > 1
-                 or ((zero1 or zero2) and sizes.get("dp", 1) > 1)
-                 or (cfg.n_experts and sizes.get("dp", 1) * sizes.get("sp", 1) > 1))
-        if split:
-            raise NotImplementedError(
-                "adafactor's factored statistics, block RMS and parameter RMS read whole "
-                "leaves: on a mesh they run only where no leaf is split (tp = pp = 1, no "
-                "ZeRO, no experts over (dp, sp)); use adamw, lion or sgd there")
+    if mesh is not None:
+        refuse_zero_adafactor(optimizer, sharded._mesh_sizes(mesh), zero1 or zero2)
+
+
+def refuse_zero_adafactor(optimizer: Optional[optim.Transform], sizes: Dict[str, int],
+                          zero: bool) -> None:
+    """``tpulab``'s failure under ZeRO with dp > 1 for an optimizer that
+    keeps statistics over whole leaves (adafactor), as a ``ValueError``
+    before any step: ``tpulab`` fails in ``device_put``, because its ZeRO
+    placement gives every params-shaped subtree the parameter's sharding."""
+    if optimizer is not None and optimizer.whole_leaves and zero and sizes.get("dp", 1) > 1:
+        raise ValueError(
+            "adafactor under zero1/zero2: tpulab's ZeRO placement (shard_opt_state) "
+            "shards the optimizer state by each parameter's shape, which cannot hold "
+            "adafactor's factored statistics (v_row, v_col); train adafactor without "
+            "ZeRO, or ZeRO with adamw, lion or sgd")
 
 
 #: the products remat "dots" keeps: 2-D matmuls, which is what the block's
@@ -707,7 +710,8 @@ def make_train_step(cfg: LabformerConfig, mesh=None, optimizer: Optional[optim.T
                     g.mul_(optim._scalar(inv, g))
             loss = total * inv
         with torch.no_grad(), optim.global_sum(
-                sharded.global_sum_over(zv.split_keys(), model.plan)):
+                sharded.global_sum_over(zv.split_keys(), model.plan)), \
+                optim.leaf_splits(zv.splits, sharded.sum_over):
             updates = optimizer.update(list(grads), opt_state, zv.view(leaves))
             optim.apply_updates(leaves, zv.gather(updates))
         return model, opt_state, loss
@@ -739,7 +743,8 @@ def init_train_state(cfg: LabformerConfig, mesh=None, seed: int = 0,
     model = Labformer.from_numpy(init_params(cfg, seed), cfg, device, trainable=True,
                                  mesh=mesh)
     zv = step.zero_view(model)
-    return model, optimizer.init(zv.view(_flat(model)), zv.leaves()), step
+    with optim.leaf_splits(zv.splits, sharded.sum_over):
+        return model, optimizer.init(zv.view(_flat(model)), zv.leaves()), step
 
 
 def _whole_model(tree: Dict[str, Any], cfg: LabformerConfig) -> Labformer:

@@ -34,6 +34,11 @@ and its own slice of the batch, and the collectives are written out.
   slice on the axis ``tpulab``'s ``_zero1_spec`` picks; its update is
   all-gathered over dp.  ZeRO-2 reduce-scatters the gradients over dp
   (after each ``accum`` microbatch) instead of all-reducing them.
+* **Whole-leaf statistics** (adafactor's): :attr:`ZeroView.splits` says
+  how each leaf of the optimizer's view lies across the ranks (its global
+  shape, the axes splitting each dim), which ``optim.leaf_splits`` hands
+  to the optimizer; each rank keeps its part of every statistic, and a
+  mesh snapshot gathers them into the one-device layout.
 
 A plan without a mesh is one device: every axis has size 1, every
 collective is skipped, and the step runs the one-device arithmetic.
@@ -55,6 +60,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from tpulab_torch import optim
 from tpulab_torch.parallel import spmd
 from tpulab_torch.parallel.mesh import mesh_anchor, mesh_shape
 from tpulab_torch.parallel.ring import _zigzag_perm
@@ -426,6 +432,7 @@ class ZeroView:
                         mode, arg = "dim", axis - 1 if stacked else axis
             self.items.append((path, len(ts), mode, arg))
         self.active = any(m is not None for _, _, m, _ in self.items)
+        self.splits = _leaf_splits(model, self)
 
     def _slices(self, ts, mode, arg):
         r = self.dp.idx if self.dp is not None else 0
@@ -497,6 +504,38 @@ class ZeroView:
         return out
 
 
+def _leaf_splits(model, zv: ZeroView) -> Optional[Dict[str, optim.Split]]:
+    """How each leaf of the optimizer's view lies across the ranks
+    (:class:`optim.Split`, for :func:`optim.leaf_splits`): the global shape
+    of the one-device layout, and per dim the axes that split it (the
+    spec's pp, tp and ep; dp, innermost, where the ZeRO view slices it).
+    None where no leaf is split."""
+    plan = model.plan
+    out: Dict[str, optim.Split] = {}
+    for (path, ts), (_, n, mode, arg) in zip(model.trainable_leaves(), zv.items):
+        block = path.startswith("blocks/")
+        stacked = block and n * plan.n_stages > 1
+        spec = plan.spec(path)[0 if stacked or not block else 1:]
+        local = ((n,) if stacked else ()) + tuple(ts[0].shape)
+        dims = [[plan.axis(a)] if plan.axis(a) is not None else [] for a in spec]
+        if mode == "layers":
+            dims[0].append(zv.dp)
+        elif mode == "dim":
+            dims[arg + (1 if stacked else 0)].append(zv.dp)
+        shape = tuple(d * math.prod(ax.p for ax in axes if ax is not zv.dp)
+                      for d, axes in zip(local, dims))
+        out[path] = optim.Split(shape, tuple(tuple(axes) for axes in dims))
+    return out if any(s.axes for s in out.values()) else None
+
+
+def sum_over(t: torch.Tensor, axes) -> torch.Tensor:
+    """``t`` summed in place over each of ``axes`` (:func:`optim.leaf_splits`'s
+    ``sum_over``)."""
+    for ax in axes:
+        spmd.all_reduce_(t, ax)
+    return t
+
+
 # ------------------------------------------------------------ gradients
 
 
@@ -541,15 +580,25 @@ def global_sum_over(keys: List[Tuple[str, ...]], plan: Plan):
 # ------------------------------------------------------------ whole optimizer state
 
 
-def _walk_lists(state, n: int, fn):
-    """``state`` with every per-tensor list of length ``n`` replaced by
-    ``fn(list)`` (a copy; counters and other entries kept)."""
+def _walk(state, n: int, fn, keyed, leaves, kind: Optional[str] = None):
+    """``state`` (a copy) with every per-tensor list of length ``n``
+    replaced by ``fn(list)``, each of adafactor's keyed statistics ``t``
+    (``optim.KEYED``) by ``keyed(kind, path, t)``, and each transform's
+    ``leaves`` list by ``leaves``; counters and other entries kept."""
     if isinstance(state, dict):
-        return {k: _walk_lists(v, n, fn) for k, v in state.items()}
+        out = {}
+        for k, v in state.items():
+            if kind is not None:  # a dict of keyed statistics: path -> tensor
+                out[k] = keyed(kind, k, v)
+            elif k == "leaves":
+                out[k] = leaves
+            else:
+                out[k] = _walk(v, n, fn, keyed, leaves, k if k in optim.KEYED else None)
+        return out
     if isinstance(state, (list, tuple)):
         if _is_tensor_list(state, n):
             return fn(list(state))
-        return [_walk_lists(v, n, fn) for v in state]
+        return [_walk(v, n, fn, keyed, leaves) for v in state]
     return state
 
 
@@ -573,13 +622,25 @@ def gather_opt_state(model, opt_state, zv: ZeroView):
                 out.append(plan.gather(path, part[0]).cpu())
         return out
 
-    return _walk_lists(opt_state, n_view, whole)
+    def whole_statistic(kind, path, t):
+        split = zv.splits.get(path) if zv.splits else None
+        t = t.to(plan.device)
+        if split is not None:
+            for d, leaf_dim in enumerate(optim.statistic_dims(kind, split.shape)):
+                for ax in reversed(split.dims[leaf_dim]):  # innermost first
+                    t = spmd.gather_dim(t, ax, d)
+        return t.cpu()
+
+    leaves = [[path, len(ts) * (plan.n_stages if path.startswith("blocks/") else 1)]
+              for path, ts in model.trainable_leaves()]
+    return _walk(opt_state, n_view, whole, whole_statistic, leaves)
 
 
 @torch.no_grad()
 def fill_opt_state(model, live, whole_state, zv: ZeroView, n_whole: int) -> None:
     """Write the whole model's optimizer state into this rank's ``live``
-    state in place (its shards, and its dp view under ZeRO)."""
+    state in place (its shards, and its dp view under ZeRO; its part of
+    each of adafactor's keyed statistics)."""
     plan = model.plan
 
     def local_of(whole_list):
@@ -594,16 +655,25 @@ def fill_opt_state(model, live, whole_state, zv: ZeroView, n_whole: int) -> None
             i += n_glob
         return [t.to(plan.device).clone() for t in zv.view(local)]
 
-    def fill(lv, wv):
+    def local_statistic(kind, path, t):
+        split = zv.splits.get(path) if zv.splits and kind else None
+        if split is not None:
+            for d, leaf_dim in enumerate(optim.statistic_dims(kind, split.shape)):
+                for ax in split.dims[leaf_dim]:  # outermost first
+                    n = t.shape[d] // ax.p
+                    t = t.narrow(d, ax.idx * n, n)
+        return t.to(plan.device).clone(memory_format=torch.contiguous_format)
+
+    def fill(lv, wv, kind=None):
         if isinstance(lv, dict):
             for k in lv:
                 if isinstance(lv[k], (dict, list)):
                     if isinstance(lv[k], list) and _is_tensor_list(wv[k], n_whole):
                         lv[k][:] = local_of(wv[k])
                     else:
-                        fill(lv[k], wv[k])
-                elif isinstance(lv[k], torch.Tensor):  # adafactor's keyed statistics (whole)
-                    lv[k] = wv[k].to(plan.device).clone()
+                        fill(lv[k], wv[k], k if k in optim.KEYED else None)
+                elif isinstance(lv[k], torch.Tensor):  # adafactor's keyed statistics
+                    lv[k] = local_statistic(kind, k, wv[k])
                 else:
                     lv[k] = wv[k]
         elif isinstance(lv, list):

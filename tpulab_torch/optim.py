@@ -18,6 +18,10 @@ holds one tensor per layer; ``None``: every tensor is a leaf of its own):
 optax takes a block's statistics over the whole leaf, so adafactor's
 factored second moment, its clipping RMS and its parameter scale are
 taken over the stacked ``(L, ...)`` leaf, as ``tpulab``'s tree holds it.
+On a mesh, where a rank holds a part of a leaf, the step says through
+:func:`leaf_splits` how each leaf lies across the ranks, and those
+statistics are taken over the whole (global) leaf, as GSPMD takes them for
+``tpulab``.
 Each operation is optax's, in its order and dtype: a Python scalar is
 rounded to the tensor's dtype first (optax's weak-typed scalars), moments
 keep the parameter's dtype (``mu_dtype=None``), bias corrections are
@@ -34,7 +38,7 @@ import contextlib
 import contextvars
 import functools
 import math
-from typing import Any, Callable, List, NamedTuple, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -45,8 +49,8 @@ Schedule = Union[float, Callable[[int], float]]
 class Transform(NamedTuple):
     init: Callable[..., Any]  # (params, leaves=None) -> state
     update: Callable[[List[torch.Tensor], Any, List[torch.Tensor]], List[torch.Tensor]]
-    #: reads statistics over whole leaves (adafactor's): the mesh step runs
-    #: it only where no leaf is split across ranks
+    #: keeps statistics over whole leaves (adafactor's), which ``tpulab``'s
+    #: ZeRO placement cannot hold: the mesh step refuses it under ZeRO
     whole_leaves: bool = False
 
 
@@ -79,6 +83,74 @@ def global_sum(fn: Optional[Callable[[List[torch.Tensor]], torch.Tensor]]):
 def _tree_sum(parts: List[torch.Tensor]) -> torch.Tensor:
     fn = _GLOBAL_SUM.get()
     return sum(parts) if fn is None else fn(parts)
+
+
+class Split(NamedTuple):
+    """How a leaf lies across the ranks of a mesh: its global shape (the
+    one-device layout: per-layer tensors stacked on a leading axis where
+    the model has more than one layer) and, per dim of it, the mesh axes
+    that split the dim, outer first (empty: whole on every rank)."""
+
+    shape: Tuple[int, ...]
+    dims: Tuple[Tuple[Any, ...], ...]
+
+    @property
+    def axes(self) -> Tuple[Any, ...]:
+        """Every axis that splits the leaf, once."""
+        return tuple(dict.fromkeys(a for d in self.dims for a in d))
+
+
+#: None on one device; else ``({leaf path: Split}, sum_over)``, where
+#: ``sum_over(t, axes)`` sums ``t`` in place over those mesh axes
+_LEAF_SPLITS: contextvars.ContextVar = contextvars.ContextVar("optim_leaf_splits",
+                                                              default=None)
+
+
+@contextlib.contextmanager
+def leaf_splits(splits: Optional[Dict[str, Split]],
+                sum_over: Optional[Callable[[torch.Tensor, Tuple[Any, ...]], torch.Tensor]]):
+    """Within the block, the statistics adafactor takes over a whole leaf
+    (its factoring decision and factored means, the block RMS of clipping
+    and of the parameter scale) see each leaf named in ``splits`` as the
+    whole global leaf: a rank's partial sums are summed with ``sum_over``
+    over the axes that split the leaf.  ``splits`` None: every leaf is
+    whole (one device), and each statistic is the plain one."""
+    token = _LEAF_SPLITS.set(None if splits is None else (splits, sum_over))
+    try:
+        yield
+    finally:
+        _LEAF_SPLITS.reset(token)
+
+
+def _split_of(name: str) -> Optional[Split]:
+    """``name``'s split within :func:`leaf_splits`; None where the leaf is
+    whole on every rank (or there is no mesh)."""
+    ctx = _LEAF_SPLITS.get()
+    split = None if ctx is None else ctx[0].get(name)
+    return split if split is not None and split.axes else None
+
+
+def _sum_over(t: torch.Tensor, axes) -> torch.Tensor:
+    return _LEAF_SPLITS.get()[1](t, tuple(axes))
+
+
+def _stacked(n: int, like: torch.Tensor, split: Optional[Split]) -> bool:
+    """Whether a leaf of ``n`` local tensors shaped ``like`` stacks them:
+    where the one-device layout has a layer axis (a rank under pp may hold
+    one layer of several)."""
+    return n > 1 if split is None else len(split.shape) == like.dim() + 1
+
+
+def _mean(x: torch.Tensor, dim: int, split: Optional[Split], leaf_dim: int,
+          keepdim: bool = False) -> torch.Tensor:
+    """``x.mean(dim)`` over the global leaf: where the leaf's dim
+    ``leaf_dim`` (``x``'s ``dim``) is split, the ranks' sums summed over its
+    axes, then divided by its global size."""
+    axes = split.dims[leaf_dim] if split is not None else ()
+    if not axes:
+        return x.mean(dim=dim, keepdim=keepdim)
+    total = _sum_over(x.sum(dim=dim, keepdim=keepdim), axes)
+    return total / _scalar(split.shape[leaf_dim], total)
 
 
 def chain(*transforms: Transform) -> Transform:
@@ -209,12 +281,23 @@ def _groups(params, leaves) -> List[Tuple[str, int, int]]:
     return out
 
 
-def _leaf_rms(ts: List[torch.Tensor]) -> torch.Tensor:
+def _leaf_rms(ts: List[torch.Tensor], split: Optional[Split] = None) -> torch.Tensor:
     """``sqrt(mean(x * x))`` over every tensor of a leaf (a device scalar in
-    the leaf's dtype; the sum in float32, as ``jnp.mean`` sums)."""
+    the leaf's dtype; the sum in float32, as ``jnp.mean`` sums); over the
+    global leaf where ``split`` splits it: each element counted once."""
     total = sum((t * t).float().sum() for t in ts)
-    n = sum(t.numel() for t in ts)
+    if split is None:
+        n = sum(t.numel() for t in ts)
+    else:
+        total, n = _sum_over(total, split.axes), math.prod(split.shape)
     return torch.sqrt((total / n).to(ts[0].dtype))
+
+
+def _largest_dims(shape) -> Tuple[int, int]:
+    """The second largest and the largest axis of ``shape``, in
+    ``np.argsort``'s order (ties: the lower axis first)."""
+    sorted_dims = np.argsort(shape)
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
 
 
 def _factored_dims(shape, min_dim_size_to_factor: int) -> Optional[Tuple[int, int]]:
@@ -222,10 +305,26 @@ def _factored_dims(shape, min_dim_size_to_factor: int) -> Optional[Tuple[int, in
     them is at least ``min_dim_size_to_factor``."""
     if len(shape) < 2:
         return None
-    sorted_dims = np.argsort(shape)
-    if shape[sorted_dims[-2]] < min_dim_size_to_factor:
+    d1, d0 = _largest_dims(shape)
+    if shape[d1] < min_dim_size_to_factor:
         return None
-    return int(sorted_dims[-2]), int(sorted_dims[-1])
+    return d1, d0
+
+
+#: adafactor's statistics, each keyed by leaf path: row and column means of
+#: a factored leaf, the full second moment of any other
+KEYED = ("v_row", "v_col", "v")
+
+
+def statistic_dims(key: str, shape) -> List[int]:
+    """The dims of a leaf of global ``shape`` that its statistic ``key``
+    (one of :data:`KEYED`) keeps, in order: ``v_row`` drops the largest,
+    ``v_col`` the second largest, ``v`` none."""
+    dims = list(range(len(shape)))
+    if key != "v":
+        d1, d0 = _largest_dims(shape)
+        dims.remove(d0 if key == "v_row" else d1)
+    return dims
 
 
 def scale_by_factored_rms(decay_rate: float = 0.8, min_dim_size_to_factor: int = 128,
@@ -233,14 +332,18 @@ def scale_by_factored_rms(decay_rate: float = 0.8, min_dim_size_to_factor: int =
     """``optax.scale_by_factored_rms`` (``factored=True``), on the stacked
     leaf: a leaf whose two largest axes reach ``min_dim_size_to_factor``
     keeps row and column means of ``g^2 + eps``, any other a full second
-    moment; the decay is ``1 - (step + 1)^-0.8`` in float32."""
+    moment; the decay is ``1 - (step + 1)^-0.8`` in float32.  Within
+    :func:`leaf_splits` the factoring is decided on the leaf's global
+    shape, a mean over a split dim is summed over the ranks, and each
+    statistic is this rank's part of the global one (split on the dims it
+    keeps)."""
 
     def init(params, leaves=None):
         state = {"count": 0, "v_row": {}, "v_col": {}, "v": {}}
         for name, i, n in _groups(params, leaves):
-            p = params[i]
-            shape = ((n,) if n > 1 else ()) + tuple(p.shape)
-            dims = _factored_dims(shape, min_dim_size_to_factor)
+            p, split = params[i], _split_of(name)
+            shape = ((n,) if _stacked(n, p, split) else ()) + tuple(p.shape)
+            dims = _factored_dims(split.shape if split else shape, min_dim_size_to_factor)
             kw = {"dtype": p.dtype, "device": p.device}
             if dims is not None:
                 d1, d0 = dims
@@ -260,26 +363,29 @@ def scale_by_factored_rms(decay_rate: float = 0.8, min_dim_size_to_factor: int =
         i = 0
         for name, n in state["leaves"]:
             # the leaf as tpulab's tree holds it: per-layer tensors stacked
-            g = torch.stack(updates[i:i + n]) if n > 1 else updates[i]
+            split = _split_of(name)
+            stacked = _stacked(n, updates[i], split)
+            g = torch.stack(updates[i:i + n]) if stacked else updates[i]
             i += n
             dt = g.dtype
             g_sqr = g * g + _scalar(eps, g)
             if name in state["v_row"]:
-                d1, d0 = _factored_dims(tuple(g.shape), min_dim_size_to_factor)
+                d1, d0 = _largest_dims(split.shape if split else tuple(g.shape))
                 # float32 like the decay (optax's strongly typed scalar)
                 v_row = (state["v_row"][name].float() * keep
-                         + g_sqr.mean(dim=d0).float() * take).to(dt)
+                         + _mean(g_sqr, d0, split, d0).float() * take).to(dt)
                 v_col = (state["v_col"][name].float() * keep
-                         + g_sqr.mean(dim=d1).float() * take).to(dt)
+                         + _mean(g_sqr, d1, split, d1).float() * take).to(dt)
                 state["v_row"][name], state["v_col"][name] = v_row, v_col
                 reduced_d1 = d1 - 1 if d1 > d0 else d1
-                row_factor = torch.rsqrt(v_row / v_row.mean(dim=reduced_d1, keepdim=True))
+                row_factor = torch.rsqrt(v_row / _mean(v_row, reduced_d1, split, d1,
+                                                       keepdim=True))
                 u = g * row_factor.unsqueeze(d0) * torch.rsqrt(v_col).unsqueeze(d1)
             else:
                 v = (state["v"][name].float() * keep + g_sqr.float() * take).to(dt)
                 state["v"][name] = v
                 u = g * torch.rsqrt(v)
-            out.extend(u.unbind(0) if n > 1 else [u])
+            out.extend(u.unbind(0) if stacked else [u])
         return out
 
     return Transform(init, update, whole_leaves=True)
@@ -294,10 +400,11 @@ def clip_by_block_rms(threshold: float) -> Transform:
 
     def update(updates, state, params):
         out, i = [], 0
-        for _, n in state["leaves"]:
+        for name, n in state["leaves"]:
             ts = updates[i:i + n]
             i += n
-            denom = torch.clamp(_leaf_rms(ts) / _scalar(threshold, ts[0]), min=1.0)
+            rms = _leaf_rms(ts, _split_of(name))
+            denom = torch.clamp(rms / _scalar(threshold, ts[0]), min=1.0)
             out.extend(u / denom for u in ts)
         return out
 
@@ -313,8 +420,8 @@ def scale_by_param_block_rms(min_scale: float = 1e-3) -> Transform:
 
     def update(updates, state, params):
         out, i = [], 0
-        for _, n in state["leaves"]:
-            rms = _leaf_rms(params[i:i + n])
+        for name, n in state["leaves"]:
+            rms = _leaf_rms(params[i:i + n], _split_of(name))
             floor = _scalar(min_scale, rms)
             factor = torch.where(rms <= floor, torch.full_like(rms, floor), rms)
             out.extend(u * factor.to(u.dtype) for u in updates[i:i + n])

@@ -60,8 +60,10 @@ NCCL on the card, gloo with ``device="cpu"``), the loop in every rank on
 its shards (:mod:`tpulab_torch.models.sharded`), rank 0's log lines and
 result returned.  ``mesh_devices=1`` runs in this process, on a group of
 one.  labvision splits its batch over a ``dp`` mesh of N.  A snapshot
-holds the whole tree (the ZeRO moments gathered), so any topology resumes
-any other's.
+holds the whole tree (the ZeRO moments and adafactor's statistics
+gathered), so any topology resumes any other's.  adafactor runs on any
+mesh but under ``zero1``/``zero2`` with dp > 1, where ``tpulab`` fails too:
+that is a ``ValueError`` before any rank starts.
 """
 
 from __future__ import annotations
@@ -368,6 +370,12 @@ def train(
     inject_fault = tuple(inject_fault or ())
     device = resolve_device(device) if device is None or isinstance(device, str) \
         else torch.device(device)
+    if optimizer is None and (lr or warmup_steps or schedule != "const"
+                              or clip_norm or opt_name != "adamw"):
+        optimizer = build_optimizer(lr=lr or (1e-3 if model == "labvision" else 3e-4),
+                                    steps=steps, warmup_steps=warmup_steps,
+                                    schedule=schedule, clip_norm=clip_norm,
+                                    optimizer=opt_name)
     mesh = None
     if mesh_devices:
         import torch.distributed as dist
@@ -376,6 +384,10 @@ def train(
 
         sizes = ({"dp": mesh_devices} if model == "labvision"
                  else mesh_sizes(mesh_devices, zero1))
+        if model == "labformer":
+            from tpulab_torch.models.labformer import refuse_zero_adafactor
+
+            refuse_zero_adafactor(optimizer, sizes, zero1)
         in_rank = dist.is_initialized() and dist.get_world_size() == mesh_devices
         if mesh_devices > 1 and not in_rank:
             return _train_on_pool(args, log, device)
@@ -385,12 +397,6 @@ def train(
         def log(*a, **k):
             pass
 
-    if optimizer is None and (lr or warmup_steps or schedule != "const"
-                              or clip_norm or opt_name != "adamw"):
-        optimizer = build_optimizer(lr=lr or (1e-3 if model == "labvision" else 3e-4),
-                                    steps=steps, warmup_steps=warmup_steps,
-                                    schedule=schedule, clip_norm=clip_norm,
-                                    optimizer=opt_name)
     box: dict = {}  # the open native loader, closed in the finally below
 
     def eval_of(losses) -> float:
