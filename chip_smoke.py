@@ -13,8 +13,10 @@ failure:
 1. Print the card's name and power limit (``nvidia-smi``), then build the
    kernels from ``tpulab_torch/csrc/`` (``nvcc``, sm_90a), and read the
    built library's SASS (``cuobjdump -sass``): every bfloat16 instance of
-   B4, B5 and B6 must hold ``wgmma`` (``HGMMA``), and the float32
-   instances of B4-B6 no tensor-core instruction; the instructions, the
+   B4, B5 and B6 must hold ``wgmma`` (``HGMMA``), every float32 instance
+   of B4 and B6 ``wgmma`` and ``mma.sync`` (``HGMMA`` and ``HMMA``: three
+   TF32 passes), and the float32 instances of B5 no tensor-core
+   instruction; the instructions, the
    ``ULDC`` and the integer<->float conversions (``I2F``/``F2I``) of B1
    and B3 are counted: B1 converts no pixel (at most one of each, its
    work index's division).
@@ -58,10 +60,13 @@ failure:
       prefill: the median and every run), and ``generate`` of 64 tokens;
    d. B4 against its plain version, element by element within
       ``o_tolerance``, at the two main-path shapes, at (8, 8, 4096, 64)
-      causal in bfloat16 and float32, and with a window, GQA and a query
-      offset; at the bfloat16 main-path and at-scale shapes the same limit
-      must reject the plain version with one key tile skipped.  Its time
-      stands beside its bound and beside ``scaled_dot_product_attention``
+      causal in bfloat16 and float32, in float32 at phase 15g's (8, 8,
+      2048, 64) and the CLI training run's (2, 8, 1024, 16), and with a
+      window, GQA and a query offset; at the bfloat16 main-path shape and
+      at both dtypes' at-scale shapes the same limit must reject the plain
+      version with one of the kernel's key tiles skipped.  Its time stands
+      beside its bound (float32: three TF32 passes, with the FMA pipes'
+      bound beside it) and beside ``scaled_dot_product_attention``
       (``is_causal``, or the window's band as a boolean mask) wherever
       that computes the same function;
    e. beam search (``tpulab_torch.models.beam``) on the serving labformer
@@ -100,9 +105,11 @@ failure:
    d. B5 and B6, fed B4's lse, against the plain backward on the same
       lse, element by element within ``grad_tolerance``, at (8, 8, 2048,
       64) bfloat16 (the training step's shape), at (8, 8, 4096, 64) in
-      bfloat16 and float32, and with a window, GQA and a query offset
-      with an lse cotangent; at the training shape the same limit must
-      reject the plain backward with one key tile skipped.  Their times
+      bfloat16 and float32, in float32 at (8, 8, 2048, 64), (2, 8, 1024,
+      16) and the demo's (1, 8, 1024, 16), and with a window, GQA and a
+      query offset with an lse cotangent; at the training shape and at
+      the float32 at-scale shape the same limit must reject the plain
+      backward with one key tile skipped.  Their times
       stand beside their bounds, their plain versions and the backward of
       ``scaled_dot_product_attention`` (``torch.autograd.grad`` of its
       output alone; dq, dk and dv together), wherever that computes the
@@ -497,7 +504,10 @@ failure:
 
 Bounds use the H100 SXM's published rates (NVIDIA data sheet): 3.35 TB/s
 of device memory, 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the
-tensor cores, 989 TFLOP/s bfloat16 on the tensor cores.  B3 counts issues
+tensor cores, 989 TFLOP/s bfloat16 and 495 TFLOP/s TF32 on the tensor
+cores.  Float32 B4 and B6 run every product as three TF32 passes, so their
+bound counts three times their flops at the TF32 rate (``fma_bound_ms``
+beside it: the flops at the FMA pipes' rate).  B3 counts issues
 at half the flop rate (an FMA is two flops, one issue): its float32
 screen's ``SCREEN_ISSUES`` per pixel and class, plus in float64
 ``CLASSIFY_F64_ISSUES`` per double fold this run's candidates need; its
@@ -522,6 +532,9 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 FP64_FLOPS = 34e12
 BF16_FLOPS = 989e12
+TF32_FLOPS = 495e12
+#: tensor-core passes of each float32 product in B4 and B6 (csrc/flash_tf32.cuh)
+TF32_PASSES = 3
 #: flops per pixel of the Roberts function: luminance (1 mul, 2 fma),
 #: two differences, magnitude (1 mul, 1 fma, sqrt), clamp
 ROBERTS_FLOPS_PER_PIXEL = 14
@@ -831,6 +844,23 @@ def bound(bytes_moved: float, flops: float, flop_rate: float) -> tuple:
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flop_rate * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def flash_bound(nbytes: float, flops: float, dtype, tf32: bool) -> dict:
+    """``bound_ms`` and ``bound_by`` of a flash kernel: bfloat16 at the
+    bf16 rate; float32 on the tensor cores (``tf32``: B4, B6) as three
+    TF32 passes, with ``fma_bound_ms``, the FMA pipes' bound, beside it;
+    float32 on the FMA pipes (B5) at their rate."""
+    import torch
+
+    if dtype == torch.bfloat16:
+        ms, by = bound(nbytes, flops, BF16_FLOPS)
+        return {"bound_ms": ms, "bound_by": by}
+    fma = bound(nbytes, flops, FP32_FLOPS)
+    if not tf32:
+        return {"bound_ms": fma[0], "bound_by": fma[1]}
+    ms, by = bound(nbytes, TF32_PASSES * flops, TF32_FLOPS)
+    return {"bound_ms": ms, "bound_by": by, "fma_bound_ms": fma[0]}
 
 
 def held(kernel, plain, args, launches, device, iters, plain_iters, library=None):
@@ -1345,6 +1375,7 @@ def flash_row(shape, dtype, device, iters, plain_iters, *, kvh=None, window=0, q
     from tpulab_torch.ops.cuda.attention import (
         flash_attention_plain,
         flash_attention_with_lse,
+        key_tile,
         over_tolerance,
     )
 
@@ -1373,9 +1404,10 @@ def flash_row(shape, dtype, device, iters, plain_iters, *, kvh=None, window=0, q
            "tolerance": "o_tolerance (tpulab_torch/ops/cuda/attention.py)",
            "err_over_tolerance": ratio, "lse_max_abs_err": lse_err,
            "rows_held": [first_row, s]}
-    if plant:  # the same limit must reject a kernel that skips one key tile
-        for tile in (s // 128, s // 64 - 2):
-            fault = over_tolerance(skipped_tile(q, k, v, tile), want_o)
+    if plant:  # the same limit must reject a kernel that skips one of its key tiles
+        bk = key_tile(d, dtype)
+        for tile in (s // (2 * bk), s // bk - 2):
+            fault = over_tolerance(skipped_tile(q, k, v, tile, bk), want_o)
             check(fault > 10, f"flash {shape}: a skipped key tile {tile} is only {fault} of "
                               f"o_tolerance")
             row.setdefault("skipped_tile_over_tolerance", []).append([tile, fault])
@@ -1396,8 +1428,7 @@ def flash_row(shape, dtype, device, iters, plain_iters, *, kvh=None, window=0, q
         row["library_max_abs_err"] = max_abs_err(library().transpose(1, 2)[:, first_row:],
                                                  want_o)
         row["library_ms"] = time_ms(library, (), device, iters)
-    row["bound_ms"], row["bound_by"] = bound(
-        nbytes, flops, BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+    row.update(flash_bound(nbytes, flops, dtype, tf32=True))
     return row
 
 
@@ -1409,7 +1440,9 @@ def flash_rows(sizes: dict, device) -> dict:
     row = flash_row(main_shape, f32, device, 50, 10)
     row["serving"] = flash_row(serve_shape, bf16, device, 20, 5, seed=1, plant=True)
     row["at_scale"] = [flash_row(big, bf16, device, 5, 2, seed=2, plant=True),
-                       flash_row(big, f32, device, 5, 2, seed=3)]
+                       flash_row(big, f32, device, 5, 2, seed=3, plant=True)]
+    row["f32_shapes"] = [flash_row(shape, f32, device, 10, 2, seed=7 + i)
+                         for i, shape in enumerate(sizes["b4_f32"])]
     s = big[2]
     row["variants"] = [
         flash_row(big, bf16, device, 5, 2, window=256, seed=4),
@@ -1643,12 +1676,11 @@ def bwd_rows(shape, dtype, device, iters, plain_iters, *, kvh=None, window=0, q_
         rows[0]["library_dq_max_abs_err"] = max_abs_err(library()[0].transpose(1, 2), dq)
         library_ms = time_ms(library, (), device, iters)
         del out
-    bf = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
-    for row, nbytes, flops in ((rows[0], operands + b * s * h * d * e, 6.0 * d * pairs * b * h),
-                               (rows[1], operands + 2 * b * s * kvh * d * e,
-                                8.0 * d * pairs * b * h)):
+    for row, nbytes, flops, tf32 in (
+            (rows[0], operands + b * s * h * d * e, 6.0 * d * pairs * b * h, False),
+            (rows[1], operands + 2 * b * s * kvh * d * e, 8.0 * d * pairs * b * h, True)):
         row["library_ms"] = library_ms
-        row["bound_ms"], row["bound_by"] = bound(nbytes, flops, bf)
+        row.update(flash_bound(nbytes, flops, dtype, tf32))
     return rows
 
 
@@ -1660,7 +1692,8 @@ def bwd_kernel_rows(sizes: dict, device) -> tuple:
     main_shape, big = sizes["b5_main"], sizes["b5_big"]
     dq, dkv = bwd_rows(main_shape, bf16, device, 10, 3, seed=11, plant=True)
     s = big[2]
-    for key, runs in (("at_scale", [dict(dtype=bf16, seed=12), dict(dtype=f32, seed=13)]),
+    for key, runs in (("at_scale", [dict(dtype=bf16, seed=12),
+                                    dict(dtype=f32, seed=13, plant=True)]),
                       ("variants", [dict(dtype=bf16, window=256, seed=14),
                                     dict(dtype=bf16, kvh=2, seed=15),
                                     dict(dtype=bf16, window=s // 4, q_offset=s, seed=16)])):
@@ -1668,6 +1701,10 @@ def bwd_kernel_rows(sizes: dict, device) -> tuple:
             a, b = bwd_rows(big, run.pop("dtype"), device, 3, 2, **run)
             dq.setdefault(key, []).append(a)
             dkv.setdefault(key, []).append(b)
+    for i, shape in enumerate(sizes["b6_f32"]):
+        a, b = bwd_rows(shape, f32, device, 5, 2, seed=17 + i)
+        dq.setdefault("f32_shapes", []).append(a)
+        dkv.setdefault("f32_shapes", []).append(b)
     return dq, dkv
 
 
@@ -5611,16 +5648,20 @@ KERNEL_META = {
     "paged_decode": ("tpulab_torch/csrc/paged_decode.cu", "tpulab/ops/pallas/paged.py:193"),
 }
 
-#: each flash kernel's design per dtype: ``wgmma`` on the tensor cores or
-#: ``fma`` on the f32 FMA pipes
-FLASH_DESIGN = {"flash_fwd": {"float32": "fma", "bfloat16": "wgmma"},
+#: each flash kernel's design per dtype: ``wgmma`` on the tensor cores,
+#: ``tf32x3`` on the tensor cores in three TF32 passes (``wgmma`` for the
+#: score products, ``mma.sync`` for those over keys or queries), or ``fma``
+#: on the f32 FMA pipes
+FLASH_DESIGN = {"flash_fwd": {"float32": "tf32x3", "bfloat16": "wgmma"},
                 "flash_dq": {"float32": "fma", "bfloat16": "wgmma"},
-                "flash_dkv": {"float32": "fma", "bfloat16": "wgmma"}}
+                "flash_dkv": {"float32": "tf32x3", "bfloat16": "wgmma"}}
+#: the tensor-core opcodes each design's instances hold
+DESIGN_OPCODES = {"wgmma": ["HGMMA"], "tf32x3": ["HGMMA", "HMMA"], "fma": []}
 #: (row, dtype) of a flash kernel's instance, by a part of its mangled name
 FLASH_TEMPLATES = (("flash_fwd_wgmma_kernel", "flash_fwd", "bfloat16"),
-                   ("flash_fwd_kernel", "flash_fwd", "float32"),
+                   ("flash_fwd_tf32_kernel", "flash_fwd", "float32"),
                    ("flash_dkv_wgmma_kernel", "flash_dkv", "bfloat16"),
-                   ("flash_bwd_dkv_kernel", "flash_dkv", "float32"),
+                   ("flash_dkv_tf32_kernel", "flash_dkv", "float32"),
                    ("flash_dq_wgmma_kernel", "flash_dq", "bfloat16"),
                    ("flash_bwd_dq_kernel", "flash_dq", "float32"))
 
@@ -5628,7 +5669,8 @@ FLASH_TEMPLATES = (("flash_fwd_wgmma_kernel", "flash_fwd", "bfloat16"),
 def sass_check(library: Path) -> dict:
     """Each flash row's tensor-core opcodes per dtype in the library's SASS,
     held to ``FLASH_DESIGN``: a ``wgmma`` design holds HGMMA in every
-    instance, an ``fma`` design no tensor-core opcode in any."""
+    instance, a ``tf32x3`` design HGMMA and HMMA, an ``fma`` design no
+    tensor-core opcode in any."""
     from tpulab_torch.ops.cuda import _build
     from tpulab_torch.ops.cuda.attention import HEAD_DIMS
 
@@ -5645,7 +5687,7 @@ def sass_check(library: Path) -> dict:
         for dtype, design in designs.items():
             ops = found.get(row, {}).get(dtype, [])
             check(len(ops) == len(HEAD_DIMS), f"{row} {dtype}: {len(ops)} instances in the SASS")
-            want = ["HGMMA"] if design == "wgmma" else []
+            want = DESIGN_OPCODES[design]
             check(all(o == want for o in ops),
                   f"{row} {dtype} ({design}): tensor-core opcodes {ops} in the SASS")
             out[row][dtype] = sorted({op for o in ops for op in o})
@@ -5685,6 +5727,10 @@ FULL_SIZES = {
     "gen_prompt": 1024, "gen_steps": 32, "serving": SERVING, "serve_prompt": 1024,
     "f32_steps": 16, "serve_batch": 8, "serve_steps": 64, "decode_reps": 8,
     "b4_demo": (1, 8, 1024, 16), "b4_serving": (8, 8, 1024, 64), "b4_big": (8, 8, 4096, 64),
+    # float32 B4 and B6 at phase 15g's shape and the CLI's train --seq 1024
+    # --batch 2 (B6 at the demo's too)
+    "b4_f32": ((8, 8, 2048, 64), (2, 8, 1024, 16)),
+    "b6_f32": ((8, 8, 2048, 64), (2, 8, 1024, 16), (1, 8, 1024, 16)),
     "train_cli_seq": 1024, "train_cli_batch": 2, "train_cli_steps": 4, "train": TRAIN,
     "train_f32_batch": 1, "train_f32_seq": 1024, "train_f32_steps": 3,
     "train_batch": 8, "train_seq": 2048, "train_steps": 5,
@@ -5954,7 +6000,10 @@ def served_in_order(fleet, prompts: list, config: dict, tag: str) -> list:
             deadline = time.monotonic() + 120
             while True:
                 with replica.cond:  # the stepper starts once the last is queued
-                    if len(replica.tickets) > i or replica.stepper_alive or errors:
+                    # a request that has returned was queued: at a tiny size the
+                    # stepper can serve the whole wave and stop between two polls
+                    if (len(replica.tickets) > i or replica.stepper_alive or errors
+                            or out[i] is not None):
                         break
                 check(time.monotonic() < deadline, f"request {i} was never queued")
                 time.sleep(0.001)
@@ -6073,9 +6122,13 @@ def run_daemon_mesh(sizes: dict, device, backend: str, card: str) -> dict:
     differ = {k: (mesh_stats.get(k), v) for k, v in one_stats.items()
               if k not in MESH_BYTE_KEYS and mesh_stats.get(k) != v}
     check(not differ, f"phase 17a: stats differ (mesh, one device): {differ}")
-    check(obs_rows("p17mesh", len(prompts)) == obs_rows("p17one", len(prompts)),
-          "phase 17a: the slow log, journeys or trace events of the mesh replica's requests "
-          "differ from one device's")
+    mesh_rows, one_rows = obs_rows("p17mesh", len(prompts)), obs_rows("p17one", len(prompts))
+    differ = [{"request": i, "mesh": m, "one_device": o}
+              for i, (m, o) in enumerate(zip(mesh_rows, one_rows)) if m != o]
+    check(not differ, "phase 17a: the slow log, journeys or trace events of the mesh replica's "
+          "requests differ from one device's; each differing request's (slow-log entry past "
+          f"the timings, journey phases, trace-event names) on both sides: "
+          f"{json.dumps(differ, default=str)}")
     print(f"phase 17a: the daemon's mesh replica (one rank, {backend}) bit-equal to the "
           f"one-device replica on {len(prompts)} requests of {steps} tokens (d{cfg.d_model} "
           f"L{cfg.n_layers} bf16, gather, prefill_chunk 0); stats equal past "

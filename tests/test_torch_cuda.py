@@ -318,17 +318,22 @@ def test_flash_bf16_kernels_read_strided_and_misaligned_inputs(cuda_device, layo
 @pytest.mark.cuda
 def test_flash_bf16_kernels_run_on_tensor_cores(cuda_device):
     """The built library's SASS (cuobjdump): every bfloat16 B4, B5 and B6
-    instance holds wgmma (HGMMA); the float32 B4, B5 and B6 instances use
+    instance holds wgmma (HGMMA); every float32 B4 and B6 instance holds
+    wgmma for its score products and mma.sync (HMMA) for the products over
+    keys or queries, three TF32 passes each; the float32 B5 instances use
     no tensor-core instruction."""
     sass = _build.kernel_sass(_build.build())
     tc = {name: _build.tensor_core_opcodes(text) for name, text in sass.items()}
     wgmma = [n for n in tc if any(k in n for k in ("flash_fwd_wgmma_kernel",
                                                    "flash_dq_wgmma_kernel",
                                                    "flash_dkv_wgmma_kernel"))]
-    fma = [n for n in tc if any(k in n for k in ("flash_fwd_kernel", "flash_bwd_dq_kernel",
-                                                 "flash_bwd_dkv_kernel"))]
-    assert len(wgmma) == 3 * len(HEAD_DIMS) and len(fma) == 3 * len(HEAD_DIMS)
+    tf32 = [n for n in tc if any(k in n for k in ("flash_fwd_tf32_kernel",
+                                                  "flash_dkv_tf32_kernel"))]
+    fma = [n for n in tc if "flash_bwd_dq_kernel" in n]
+    assert len(wgmma) == 3 * len(HEAD_DIMS)
+    assert len(tf32) == 2 * len(HEAD_DIMS) and len(fma) == len(HEAD_DIMS)
     assert all(tc[n] == ["HGMMA"] for n in wgmma)
+    assert all(tc[n] == ["HGMMA", "HMMA"] for n in tf32)
     assert not any(tc[n] for n in fma)
 
 

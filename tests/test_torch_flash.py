@@ -180,11 +180,39 @@ def test_flash_plain_is_the_cpu_path():
     assert torch.equal(o, po) and torch.equal(lse, plse)
 
 
-def _tiled_recurrence(q, k, v, causal=True, window=0, q_offset=0, skip_tile=None, bk=64):
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on the bits: the 10 leading mantissa bits,
+    rounded to nearest with ties away from zero, the low 13 bits zero
+    (adding half a unit to the magnitude's bits carries into the exponent
+    where it must)."""
+    u = (x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF) + 0x1000
+    u = u & 0xFFFFE000
+    return torch.where(u >= 2**31, u - 2**32, u).to(torch.int32).view(torch.float32)
+
+
+def tf32_product(a: torch.Tensor, b: torch.Tensor, products: str) -> torch.Tensor:
+    """``a @ b`` in f32 as a kernel forms it: ``"f32"`` from the f32 values;
+    ``"tf32x3"`` in three TF32 passes, each operand split into ``hi =
+    tf32(x)`` and ``lo = tf32(x - hi)``, the small terms first (``a_lo
+    b_hi + a_hi b_lo``, then ``+ a_hi b_hi``: ``csrc/flash_tf32.cuh``);
+    ``"tf32"`` in one pass, ``a_hi b_hi``.  The tensor cores' own order of
+    accumulation is not modelled: the card's checks hold the kernels."""
+    if products == "f32":
+        return a @ b
+    ah, bh = tf32(a), tf32(b)
+    if products == "tf32":
+        return ah @ bh
+    al, bl = tf32(a - ah), tf32(b - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+def _tiled_recurrence(q, k, v, causal=True, window=0, q_offset=0, skip_tile=None, bk=64,
+                      products="f32"):
     """Kernel B4's recurrence in PyTorch: key tiles of ``bk`` in order, a
     running max, p rounded to v's dtype at that max, f32 accumulator and
-    denominator rescaled at each tile.  ``skip_tile`` plants a fault: rows
-    past that tile do not see its keys."""
+    denominator rescaled at each tile; ``products`` forms S = Q'K^T and
+    P.V (:func:`tf32_product`).  ``skip_tile`` plants a fault: rows past
+    that tile do not see its keys."""
     b, s, h, d = q.shape
     qs = (q.float() * softmax_scale(d)).to(q.dtype).float().transpose(1, 2)
     kf, vf = k.float().transpose(1, 2), v.float().transpose(1, 2)
@@ -200,33 +228,38 @@ def _tiled_recurrence(q, k, v, causal=True, window=0, q_offset=0, skip_tile=None
                 keep = keep & (k_pos > q_pos - window)
         if skip_tile is not None and k0 == skip_tile * bk:
             keep = keep & (q_pos < k0 + bk)
-        sc = (qs @ kf[:, :, k0:k0 + bk].transpose(-1, -2)).masked_fill(~keep, -math.inf)
+        sc = tf32_product(qs, kf[:, :, k0:k0 + bk].transpose(-1, -2), products)
+        sc = sc.masked_fill(~keep, -math.inf)
         m_new = torch.maximum(m, sc.amax(-1, keepdim=True))
         live = m_new > -math.inf
         m_ref = torch.where(live, m_new, torch.zeros_like(m_new))
         alpha = torch.where(live, torch.exp(m - m_ref), torch.ones_like(m))
         p = torch.exp(sc - m_ref)
-        acc = acc * alpha + p.to(v.dtype).float() @ vf[:, :, k0:k0 + bk]
+        acc = acc * alpha + tf32_product(p.to(v.dtype).float(), vf[:, :, k0:k0 + bk], products)
         l = l * alpha + p.sum(-1, keepdim=True)
         m = m_new
     o = torch.where(l > 0, acc / torch.where(l > 0, l, torch.ones_like(l)), torch.zeros_like(acc))
     return o.transpose(1, 2).to(q.dtype)
 
 
-# (b, s, h, d, dtype, window, q_offset, key tile): the serving and demo
-# prefills (one batch row of each), a window and a query offset at 4096,
-# head_dim 128.  The key tile is the kernel's: float32 runs on the FMA
-# kernel (64 keys, 32 at head_dim 128), bfloat16 on the tensor-core kernel
-# (64 keys at every head dim)
+# (b, s, h, d, dtype, window, q_offset, key tile, products): the serving and
+# demo prefills (one batch row of each), a window and a query offset at
+# 4096, head_dim 128, and the float32 training shapes at head_dim 64.  The
+# key tile and the products are the kernel's: bfloat16 runs 64 keys at
+# every head dim, its products exact in f32; float32 runs three TF32 passes
+# (``"tf32x3"``) over 64 keys below head_dim 64 and 32 from 64 on
 TILED_CASES = [
-    (1, 1024, 8, 64, torch.bfloat16, 0, 0, 64),
-    (1, 1024, 8, 16, torch.float32, 0, 0, 64),
-    (1, 1024, 8, 16, torch.bfloat16, 0, 0, 64),
-    (1, 4096, 2, 64, torch.bfloat16, 256, 0, 64),
-    (1, 4096, 2, 64, torch.bfloat16, 1024, 4096, 64),
-    (1, 1024, 4, 128, torch.float32, 0, 0, 32),
-    (1, 1024, 4, 128, torch.bfloat16, 0, 0, 64),
+    (1, 1024, 8, 64, torch.bfloat16, 0, 0, 64, "f32"),
+    (1, 1024, 8, 16, torch.float32, 0, 0, 64, "tf32x3"),
+    (1, 1024, 8, 16, torch.bfloat16, 0, 0, 64, "f32"),
+    (1, 4096, 2, 64, torch.bfloat16, 256, 0, 64, "f32"),
+    (1, 4096, 2, 64, torch.bfloat16, 1024, 4096, 64, "f32"),
+    (1, 1024, 4, 128, torch.float32, 0, 0, 32, "tf32x3"),
+    (1, 1024, 4, 128, torch.bfloat16, 0, 0, 64, "f32"),
+    (1, 1024, 8, 64, torch.float32, 0, 0, 32, "tf32x3"),
+    (1, 2048, 2, 64, torch.float32, 256, 0, 32, "tf32x3"),
 ]
+F32_TILED_CASES = [c for c in TILED_CASES if c[4] == torch.float32]
 
 
 def _seeded(case):
@@ -239,9 +272,22 @@ def _seeded(case):
 @pytest.mark.parametrize("case", TILED_CASES)
 def test_o_tolerance_admits_the_kernels_recurrence(case):
     q, k, v = _seeded(case)
-    window, q_offset, bk = case[5:]
+    window, q_offset, bk, products = case[5:]
     want = flash_attention_plain(q, k, v, True, window, q_offset)[0]
-    assert over_tolerance(_tiled_recurrence(q, k, v, True, window, q_offset, bk=bk), want) <= 1
+    got = _tiled_recurrence(q, k, v, True, window, q_offset, bk=bk, products=products)
+    assert over_tolerance(got, want) <= 1
+
+
+@pytest.mark.parametrize("case", F32_TILED_CASES)
+def test_o_tolerance_rejects_one_tf32_pass(case):
+    """float32 B4 with one TF32 pass per product (``a_hi b_hi``) in place of
+    three: ``o_tolerance`` rejects it by more than 10x, so the limit tells
+    the three-pass split from a cheaper one."""
+    q, k, v = _seeded(case)
+    window, q_offset, bk = case[5:8]
+    want = flash_attention_plain(q, k, v, True, window, q_offset)[0]
+    got = _tiled_recurrence(q, k, v, True, window, q_offset, bk=bk, products="tf32")
+    assert over_tolerance(got, want) > 10
 
 
 @pytest.mark.parametrize("case,tile", [(TILED_CASES[0], 8), (TILED_CASES[0], 14),
@@ -250,7 +296,7 @@ def test_o_tolerance_admits_the_kernels_recurrence(case):
                                        (TILED_CASES[5], 28), (TILED_CASES[6], 14)])
 def test_o_tolerance_rejects_a_skipped_key_tile(case, tile):
     q, k, v = _seeded(case)
-    window, q_offset, bk = case[5:]
+    window, q_offset, bk, products = case[5:]
     want = flash_attention_plain(q, k, v, True, window, q_offset)[0]
-    got = _tiled_recurrence(q, k, v, True, window, q_offset, tile, bk)
+    got = _tiled_recurrence(q, k, v, True, window, q_offset, tile, bk, products)
     assert over_tolerance(got, want) > 10

@@ -14,9 +14,11 @@ gradients after.  bfloat16: two bf16 ulps of the element and of its row
 (both round p and ds to bf16 before their products, from f32 values that
 differ by f32 rounding, and round the result once more), plus the same
 ``2e-5 * head``.  The last tests show that the same limit admits the
-kernels' orders of summation (key by key and query by query on the FMA
-pipes, one tensor-core product's tile at a time in bfloat16) and rejects
-a backward that skips one key tile.
+kernels' orders of summation (float32 B5 key by key on the FMA pipes,
+float32 B6 one query tile of three-pass TF32 products at a time,
+bfloat16 one tensor-core product's tile at a time), rejects float32 B6
+with one TF32 pass in place of three, and rejects a backward that skips
+one key tile.
 """
 
 import math
@@ -40,6 +42,8 @@ from tpulab_torch.ops.cuda.attention import (
     visible,
 )
 from tpulab_torch.runtime import fpenv
+
+from test_torch_flash import tf32_product
 
 torch.set_num_threads(2)
 
@@ -213,13 +217,16 @@ def test_flash_grads_bf16_head_dims_match_tpulab(d, window):
     _assert_grads_close(got, want)
 
 
-def _kernel_order(q, k, v, do, lse, delta, keep, skip_tile=None, bk=64, bq=1, bk_dq=1):
+def _kernel_order(q, k, v, do, lse, delta, keep, skip_tile=None, bk=64, bq=1, bk_dq=1,
+                  products="f32"):
     """The kernels' sums in PyTorch: B5 accumulates dq one tile of ``bk_dq``
-    keys at a time, B6 dk and dv over each head of the GQA group one tile
-    of ``bq`` queries at a time (1 on the FMA pipes, a tensor-core
-    product's tile in bfloat16), p and ds rounded as the kernels round
-    them.  ``skip_tile`` plants a fault: rows past that key tile (of ``bk``
-    keys) do not see its keys."""
+    keys at a time from f32 scores, B6 dk and dv over each head of the GQA
+    group one tile of ``bq`` queries at a time (a tensor-core product's
+    tile), its four products formed as ``products`` says
+    (:func:`test_torch_flash.tf32_product`: S^T and dP^T, then P^T do and
+    dS^T q' per tile), p and ds rounded as the kernels round them.
+    ``skip_tile`` plants a fault: rows past that key tile (of ``bk`` keys)
+    do not see its keys."""
     b, s, h, d = q.shape
     g = h // k.shape[2]
     if skip_tile is not None:
@@ -228,46 +235,64 @@ def _kernel_order(q, k, v, do, lse, delta, keep, skip_tile=None, bk=64, bq=1, bk
     scale = softmax_scale(d)
     qs = (q.float() * scale).to(q.dtype).float()
     kf, vf = (t.repeat_interleave(g, 2).float() for t in (k, v))
-    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qs, kf) - lse.permute(0, 2, 1)[..., None])
-    p = torch.where(keep, p, torch.zeros(()))
-    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do.float(), vf) - delta.permute(0, 2, 1)[..., None])
-    dsr, pr = ds.to(q.dtype).float(), p.to(q.dtype).float()
+    lse_t, delta_t = (t.permute(0, 2, 1)[..., None] for t in (lse, delta))
+
+    def p_ds(scores, dps):
+        p = torch.where(keep, torch.exp(scores - lse_t), torch.zeros(()))
+        ds = p * (dps - delta_t)
+        return p.to(q.dtype).float(), ds.to(q.dtype).float()
+
+    # B5: f32 scores, dq one key tile at a time
+    pr, dsr = p_ds(torch.einsum("bqhd,bkhd->bhqk", qs, kf),
+                   torch.einsum("bqhd,bkhd->bhqk", do.float(), vf))
     acc = torch.zeros(b, h, s, d)
     for j in range(0, s, bk_dq):
         t = slice(j, j + bk_dq)
         acc = acc + torch.einsum("bhqk,bkhd->bhqd", dsr[..., t], kf[:, t])
     dq = (acc.to(q.dtype).float() * scale).to(q.dtype).transpose(1, 2)
+    # B6: its own products, dk and dv one query tile at a time
+    if products != "f32":
+        heads = lambda x: x.transpose(1, 2)  # (b, s, h, d) -> (b, h, s, d)
+        pr, dsr = p_ds(tf32_product(heads(qs), heads(kf).transpose(-1, -2), products),
+                       tf32_product(heads(do.float()), heads(vf).transpose(-1, -2), products))
     dk = torch.zeros(b, s, k.shape[2], d)
     dv = torch.zeros_like(dk)
     for hh in range(h):
         for i in range(0, s, bq):
             t = slice(i, i + bq)
-            dk[:, :, hh // g] += torch.einsum("bik,bid->bkd", dsr[:, hh, t], qs[:, t, hh])
-            dv[:, :, hh // g] += torch.einsum("bik,bid->bkd", pr[:, hh, t], do.float()[:, t, hh])
+            dk[:, :, hh // g] += tf32_product(dsr[:, hh, t].transpose(-1, -2), qs[:, t, hh],
+                                              products)
+            dv[:, :, hh // g] += tf32_product(pr[:, hh, t].transpose(-1, -2),
+                                              do.float()[:, t, hh], products)
     return dq, dk.to(k.dtype), dv.to(k.dtype)
 
 
 # (s, h, kv_heads, d, dtype, window, q_offset, B6's query tile, B5's key
-# tile): one batch row of the training step's shapes (head_dim 64 and the
-# demo's 16), a window, GQA, a query offset with an lse cotangent, a
-# sequence that ends inside a tile, and every head dim in bfloat16.  The
-# tiles are 1 on the FMA pipes (float32) and a tensor-core product's in
-# bfloat16: B6 64 queries (32 at head_dim 128), B5 64 keys
+# tile, B6's products): one batch row of the training step's shapes (head_dim
+# 64 and the demo's 16), a window, GQA, a query offset with an lse cotangent,
+# a sequence that ends inside a tile, and every head dim in bfloat16.  The
+# tiles and products are the kernels': in float32 B5 sums key by key on the
+# FMA pipes (key tile 1) and B6 runs three TF32 passes (``"tf32x3"``) over
+# 64 queries (32 at head_dim 128); in bfloat16 B6 sums 64 queries (32 at
+# head_dim 128) and B5 64 keys, their products exact in f32
 ORDER_CASES = [
-    (1024, 2, 2, 64, torch.bfloat16, 0, 0, 64, 64),
-    (1024, 2, 2, 64, torch.float32, 0, 0, 1, 1),
-    (1024, 4, 2, 16, torch.float32, 0, 0, 1, 1),
-    (1024, 2, 2, 64, torch.bfloat16, 256, 0, 64, 64),
-    (512, 2, 1, 64, torch.float32, 128, 512, 1, 1),
-    (512, 2, 2, 128, torch.bfloat16, 0, 0, 32, 64),
-    (512, 8, 2, 64, torch.bfloat16, 0, 0, 64, 64),
-    (512, 2, 1, 16, torch.bfloat16, 128, 512, 64, 64),
-    (1000, 2, 2, 64, torch.bfloat16, 0, 0, 64, 64),
-    (512, 4, 2, 32, torch.bfloat16, 0, 0, 64, 64),
-    (512, 4, 1, 128, torch.bfloat16, 200, 0, 32, 64),
-    (512, 2, 2, 64, torch.bfloat16, 128, 512, 64, 64),
-    (512, 2, 2, 8, torch.bfloat16, 0, 0, 64, 64),
+    (1024, 2, 2, 64, torch.bfloat16, 0, 0, 64, 64, "f32"),
+    (1024, 2, 2, 64, torch.float32, 0, 0, 64, 1, "tf32x3"),
+    (1024, 4, 2, 16, torch.float32, 0, 0, 64, 1, "tf32x3"),
+    (1024, 2, 2, 64, torch.bfloat16, 256, 0, 64, 64, "f32"),
+    (512, 2, 1, 64, torch.float32, 128, 512, 64, 1, "tf32x3"),
+    (512, 2, 2, 128, torch.bfloat16, 0, 0, 32, 64, "f32"),
+    (512, 8, 2, 64, torch.bfloat16, 0, 0, 64, 64, "f32"),
+    (512, 2, 1, 16, torch.bfloat16, 128, 512, 64, 64, "f32"),
+    (1000, 2, 2, 64, torch.bfloat16, 0, 0, 64, 64, "f32"),
+    (512, 4, 2, 32, torch.bfloat16, 0, 0, 64, 64, "f32"),
+    (512, 4, 1, 128, torch.bfloat16, 200, 0, 32, 64, "f32"),
+    (512, 2, 2, 64, torch.bfloat16, 128, 512, 64, 64, "f32"),
+    (512, 2, 2, 8, torch.bfloat16, 0, 0, 64, 64, "f32"),
+    (1024, 4, 4, 128, torch.float32, 0, 0, 32, 1, "tf32x3"),
+    (2048, 2, 2, 64, torch.float32, 256, 0, 64, 1, "tf32x3"),
 ]
+F32_ORDER_CASES = [c for c in ORDER_CASES if c[4] == torch.float32]
 
 
 def _order_inputs(case):
@@ -287,8 +312,19 @@ def _order_inputs(case):
 @pytest.mark.parametrize("case", ORDER_CASES)
 def test_grad_tolerance_admits_the_kernels_sums(case):
     args, want = _order_inputs(case)
-    for g, w in zip(_kernel_order(*args, bq=case[7], bk_dq=case[8]), want):
+    for g, w in zip(_kernel_order(*args, bq=case[7], bk_dq=case[8], products=case[9]), want):
         assert grad_over_tolerance(g, w) <= 1
+
+
+@pytest.mark.parametrize("case", F32_ORDER_CASES)
+def test_grad_tolerance_rejects_one_tf32_pass(case):
+    """float32 B6 with one TF32 pass per product in place of three:
+    ``grad_tolerance`` rejects its dk by more than 10x and its dv by more
+    than 1x (dv's operands, p and do, carry no cancelling sum)."""
+    args, want = _order_inputs(case)
+    _, dk, dv = _kernel_order(*args, bq=case[7], bk_dq=case[8], products="tf32")
+    assert grad_over_tolerance(dk, want[1]) > 10
+    assert grad_over_tolerance(dv, want[2]) > 1
 
 
 @pytest.mark.parametrize("case,tile", [(ORDER_CASES[0], 8), (ORDER_CASES[0], 14),
@@ -298,7 +334,8 @@ def test_grad_tolerance_admits_the_kernels_sums(case):
                                        (ORDER_CASES[10], 5), (ORDER_CASES[12], 5)])
 def test_grad_tolerance_rejects_a_skipped_key_tile(case, tile):
     args, want = _order_inputs(case)
-    for g, w in zip(_kernel_order(*args, skip_tile=tile, bq=case[7], bk_dq=case[8]), want):
+    for g, w in zip(_kernel_order(*args, skip_tile=tile, bq=case[7], bk_dq=case[8],
+                                  products=case[9]), want):
         assert grad_over_tolerance(g, w) > 10
 
 

@@ -28,11 +28,30 @@
 // Bound: operations at the model path's shapes (B5 6*d and B6 8*d flops per
 // visible (query, key) pair, against ~4 reads of (s, d) per head).
 //
-// In float32 both run on the f32 FMA pipes (Precision.HIGHEST, no TF32):
-// each row lives in registers of TPR threads (flash_common.cuh), and the
-// tile that every row of the block reads is staged in shared memory as f32.
+// In float32 B5 (flash_bwd_dq_kernel) runs on the f32 FMA pipes
+// (Precision.HIGHEST, no TF32): each row lives in registers of TPR threads
+// (flash_common.cuh), and the K/V tile that every row of the block reads is
+// staged in shared memory as f32.  It recomputes the scores in its own
+// order, not in B4's tensor-core order.
 //
-// In bfloat16 both run on the tensor cores (wgmma over flash_tc.cuh's
+// In float32 B6 (flash_dkv_tf32_kernel) runs on the tensor cores, every
+// product in three TF32 passes (flash_tf32.cuh), which keep the f32 limits
+// where one pass misses them: one warpgroup holds the block's 64 keys, K
+// and V split into hi and lo parts once (through registers), and dK, dV in
+// f32 registers across every query tile of the group.  Query tiles of 64
+// rows (32 at head dim 128, so shared memory fits) arrive raw by cp.async
+// with their lse and delta, the next tile's copy in flight while this one
+// computes, and are split when they land (q' prescaled first).  Per tile,
+// four products: S^T = K q'^T and dP^T = V do^T as wgmma (m64nBTk8 tf32,
+// both operands K-major along the head dim); P^T = exp(S^T - lse) (0 where
+// masked) and dS^T = P^T (dP^T - delta) in f32 registers; then dV += P^T do
+// and dK += dS^T q', which reduce over queries and would need do and q'
+// K-major along queries, a transpose wgmma cannot make for tf32: they run
+// as mma.sync m16n8k8 tf32, P^T and dS^T split in the accumulators'
+// registers, do's and q''s fragments loaded from their natural tiles.  exp
+// is the MUFU's ex2 of x log2(e), as in B4.
+//
+// In bfloat16 all three run on the tensor cores (wgmma over flash_tc.cuh's
 // 128-byte-swizzled bf16 panels, A operands of the d-wide products straight
 // from the score accumulators' registers, exp the MUFU's as in B4):
 //
@@ -59,6 +78,7 @@
 
 #include "flash_common.cuh"
 #include "flash_tc.cuh"
+#include "flash_tf32.cuh"
 
 #include <math.h>
 
@@ -190,152 +210,6 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-template <int D, typename T>
-__global__ void __launch_bounds__(Geometry<D>::THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int s, int h, int kvh, float scale, int causal, int window, int q_offset) {
-  using G = Geometry<D>;
-  constexpr int TPR = G::TPR, DPT = G::DPT, CPT = G::CPT, BT = G::BK, NC = D / 4;
-  __shared__ float4 qs[BT][NC];
-  __shared__ float4 dos[BT][NC];
-  __shared__ float lses[BT];
-  __shared__ float deltas[BT];
-  float* qsf = reinterpret_cast<float*>(qs);
-  float* dosf = reinterpret_cast<float*>(dos);
-
-  const int kt = blockIdx.x;  // the first key tiles see the most causal query tiles
-  const int bi = blockIdx.y / kvh;
-  const int kh = blockIdx.y % kvh;
-  const int group = h / kvh;
-  const int row = threadIdx.x / TPR;
-  const int t = threadIdx.x % TPR;
-  const int kj = kt * BQ + row;
-  // this key's index in the (batch, seq, kv_heads) layout of k, v, dk, dv
-  const long long rk = (static_cast<long long>(bi) * s + min(kj, s - 1)) * kvh + kh;
-
-  float kr[DPT], vr[DPT], dk_acc[DPT], dv_acc[DPT];
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const long long at = rk * D + (c * TPR + t) * 4 + e;
-      kr[c * 4 + e] = to_f32<T>(k[at]);
-      vr[c * 4 + e] = to_f32<T>(v[at]);
-      dk_acc[c * 4 + e] = 0.0f;
-      dv_acc[c * 4 + e] = 0.0f;
-    }
-  }
-
-  // the query rows that see some key of this tile
-  const long long k_lo = static_cast<long long>(kt) * BQ;
-  const long long k_hi = k_lo + BQ - 1;
-  long long i_begin = 0, i_end = s - 1;  // inclusive, query row indices
-  if (causal) {
-    i_begin = max(0LL, k_lo - q_offset);
-    if (window > 0) i_end = min(i_end, min(k_hi, s - 1LL) + window - 1 - q_offset);
-  }
-  const int qt_begin = static_cast<int>(i_begin / BT);
-  const int qt_end = i_end >= i_begin ? static_cast<int>(i_end / BT) + 1 : qt_begin;
-
-  for (int hi = kh * group; hi < kh * group + group; ++hi) {
-    for (int qt = qt_begin; qt < qt_end; ++qt) {
-      const int q0 = qt * BT;
-      __syncthreads();  // every row is done with the previous tile
-      for (int e = threadIdx.x; e < BT * D; e += G::THREADS) {
-        const int i = e / D;
-        const int dd = e % D;
-        const int qi = q0 + i;
-        float qx = 0.0f, dx = 0.0f;
-        if (qi < s) {
-          const long long at = ((static_cast<long long>(bi) * s + qi) * h + hi) * D + dd;
-          qx = prescaled<T>(q[at], scale);
-          dx = to_f32<T>(dout[at]);
-        }
-        qsf[i * D + dd] = qx;
-        dosf[i * D + dd] = dx;
-      }
-      for (int i = threadIdx.x; i < BT; i += G::THREADS) {
-        const int qi = q0 + i;
-        float l = 0.0f, dl = 0.0f;
-        if (qi < s) {
-          const long long rq = (static_cast<long long>(bi) * s + qi) * h + hi;
-          l = lse[rq];
-          dl = delta[rq];
-        }
-        lses[i] = l;
-        deltas[i] = dl;
-      }
-      __syncthreads();
-
-      // a tile whose every query row sees every key of this block needs no mask
-      const long long q_lo = static_cast<long long>(q_offset) + q0;
-      const long long q_hi = q_lo + BT - 1;
-      const bool full = q0 + BT <= s &&
-                        (!causal || (k_hi <= q_lo && (window == 0 || k_lo > q_hi - window)));
-#pragma unroll 4
-      for (int i = 0; i < BT; ++i) {
-        float sp = 0.0f, dpp = 0.0f;
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const float4 qq = qs[i][c * TPR + t];
-          const float4 dd = dos[i][c * TPR + t];
-          sp = fmaf(qq.x, kr[c * 4 + 0], sp);
-          sp = fmaf(qq.y, kr[c * 4 + 1], sp);
-          sp = fmaf(qq.z, kr[c * 4 + 2], sp);
-          sp = fmaf(qq.w, kr[c * 4 + 3], sp);
-          dpp = fmaf(dd.x, vr[c * 4 + 0], dpp);
-          dpp = fmaf(dd.y, vr[c * 4 + 1], dpp);
-          dpp = fmaf(dd.z, vr[c * 4 + 2], dpp);
-          dpp = fmaf(dd.w, vr[c * 4 + 3], dpp);
-        }
-        sp = row_sum<TPR>(sp);
-        dpp = row_sum<TPR>(dpp);
-        bool keep = true;
-        if (!full) {
-          const int qi = q0 + i;
-          keep = qi < s;
-          if (causal) {
-            const long long qpos = static_cast<long long>(q_offset) + qi;
-            keep = keep && kj <= qpos;
-            if (window > 0) keep = keep && kj > qpos - window;
-          }
-        }
-        const float p = keep ? expf(sp - lses[i]) : 0.0f;
-        const float ds = p * (dpp - deltas[i]);
-        const float pr = round_to<T>(p);
-        const float dsr = round_to<T>(ds);
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const float4 qq = qs[i][c * TPR + t];
-          const float4 dd = dos[i][c * TPR + t];
-          dv_acc[c * 4 + 0] = fmaf(pr, dd.x, dv_acc[c * 4 + 0]);
-          dv_acc[c * 4 + 1] = fmaf(pr, dd.y, dv_acc[c * 4 + 1]);
-          dv_acc[c * 4 + 2] = fmaf(pr, dd.z, dv_acc[c * 4 + 2]);
-          dv_acc[c * 4 + 3] = fmaf(pr, dd.w, dv_acc[c * 4 + 3]);
-          dk_acc[c * 4 + 0] = fmaf(dsr, qq.x, dk_acc[c * 4 + 0]);
-          dk_acc[c * 4 + 1] = fmaf(dsr, qq.y, dk_acc[c * 4 + 1]);
-          dk_acc[c * 4 + 2] = fmaf(dsr, qq.z, dk_acc[c * 4 + 2]);
-          dk_acc[c * 4 + 3] = fmaf(dsr, qq.w, dk_acc[c * 4 + 3]);
-        }
-      }
-    }
-  }
-
-  if (kj < s) {
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const long long at = rk * D + (c * TPR + t) * 4 + e;
-        dk[at] = from_f32<T>(dk_acc[c * 4 + e]);
-        dv[at] = from_f32<T>(dv_acc[c * 4 + e]);
-      }
-    }
-  }
-}
-
 struct Args {
   const void *q, *k, *v, *dout, *lse, *delta;
   void *dq, *dk, *dv;
@@ -356,10 +230,172 @@ int launch_dq(const Args& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ----------------------------------------- B6 in f32 on the tensor cores
+
 template <int D>
-int launch_dkv(const Args& a) {
+struct DkvTF32 {
+  static constexpr int BT = D > 64 ? 32 : 64;                  // query rows per tile
+  static constexpr int KTILE = tl_tf32::tile_bytes<BQ, D>();  // bytes of a K or V part
+  static constexpr int QTILE = tl_tf32::tile_bytes<BT, D>();  // bytes of a q' or do part
+  // alignment; K, V hi and lo; q', do hi and lo; the next raw q and do;
+  // the next raw lse and delta, and this tile's
+  static constexpr int SMEM = 1024 + 4 * KTILE + 6 * QTILE + 4 * BT * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(tl_tc::THREADS)
+flash_dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, const float* __restrict__ dout,
+                      const float* __restrict__ lse, const float* __restrict__ delta,
+                      float* __restrict__ dk, float* __restrict__ dv, int s, int h, int kvh,
+                      float scale, int causal, int window, int q_offset) {
+  using namespace tl_tc;
+  using C = DkvTF32<D>;
+  constexpr int BT = C::BT, KTILE = C::KTILE, QTILE = C::QTILE;
+  constexpr int NS = BT / 2;  // accumulator floats of the (key, query) products
+  constexpr int NA = D / 2;   // accumulator floats of dk and dv
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sbase = (raw + 1023) & ~1023u;
+  uint8_t* base = smem_raw + (sbase - raw);
+  // K hi, lo; V hi, lo; q' hi, lo; do hi, lo; raw q, raw do; raw lse,
+  // delta; this tile's lse, delta
+  const uint32_t skh = sbase, skl = skh + KTILE, svh = skl + KTILE, svl = svh + KTILE;
+  const uint32_t sqh = svl + KTILE, sql = sqh + QTILE, sdh = sql + QTILE, sdl = sdh + QTILE;
+  const uint32_t srq = sdl + QTILE, srd = srq + QTILE, srow = srd + QTILE;
+  auto at = [&](uint32_t a) { return base + (a - sbase); };
+  float* rows = reinterpret_cast<float*>(at(srow));  // raw lse, raw delta, lse, delta
+
+  const int tid = threadIdx.x;
+  const int g = (tid % 32) / 4, t = tid % 4;  // the lane's group and its place in it
+  const int r0 = (tid / 32) * 16 + g;         // this thread's keys: r0, r0 + 8
+  const int cq = 2 * t;                       // its query columns: 8 j + cq, + 1
+  const int kt = blockIdx.x;  // the first key tiles see the most causal query tiles
+  const int bi = blockIdx.y / kvh;
+  const int kh = blockIdx.y % kvh;
+  const int group = h / kvh;
+
+  // the query rows that see some key of this tile
+  const long long k_lo = static_cast<long long>(kt) * BQ;
+  const long long k_hi = k_lo + BQ - 1;
+  long long i_begin = 0, i_end = s - 1;  // inclusive, query row indices
+  if (causal) {
+    i_begin = max(0LL, k_lo - q_offset);
+    if (window > 0) i_end = min(i_end, min(k_hi, s - 1LL) + window - 1 - q_offset);
+  }
+  const int qt_begin = static_cast<int>(i_begin / BT);
+  const int nq = i_end >= i_begin ? static_cast<int>(i_end / BT) + 1 - qt_begin : 0;
+  const int n_tiles = nq * group;  // (query head, query tile) pairs, head-major
+
+  const long long kv_row = static_cast<long long>(kvh) * D;  // elements between keys
+  const long long q_row = static_cast<long long>(h) * D;     // elements between queries
+  auto load_q = [&](int it) {
+    const int hi = kh * group + it / nq;
+    const int q0 = (qt_begin + it % nq) * BT;
+    const long long at_q = (static_cast<long long>(bi) * s + q0) * h + hi;  // row of (b, s, h)
+    tl_tf32::load_tile<BT, D>(srq, q + at_q * D, q_row, s - q0, tid);
+    tl_tf32::load_tile<BT, D>(srd, dout + at_q * D, q_row, s - q0, tid);
+    for (int i = tid; i < BT; i += THREADS) {
+      const bool ok = q0 + i < s;
+      const long long r = ok ? at_q + static_cast<long long>(i) * h : at_q;
+      cp4(srow + i * 4, lse + r, ok);
+      cp4(srow + (BT + i) * 4, delta + r, ok);
+    }
+  };
+  if (n_tiles > 0) load_q(0);
+  cp_commit();
+  // K and V, split once for the block
+  const long long kv_at = (static_cast<long long>(bi) * s + k_lo) * kv_row + kh * D;
+  tl_tf32::stage_split<BQ, D>(at(skh), at(skl), k + kv_at, kv_row, s - kt * BQ, 1.0f, tid);
+  tl_tf32::stage_split<BQ, D>(at(svh), at(svl), v + kv_at, kv_row, s - kt * BQ, 1.0f, tid);
+
+  float dk_acc[NA], dv_acc[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_wait<0>();
+    __syncthreads();  // this tile landed; every warp is done with the last one's parts
+    tl_tf32::split_tile<BT, D>(at(srq), at(sqh), at(sql), scale, tid);  // q' = f32(q * scale)
+    tl_tf32::split_tile<BT, D>(at(srd), at(sdh), at(sdl), 1.0f, tid);
+    for (int i = tid; i < 2 * BT; i += THREADS) rows[2 * BT + i] = rows[i];
+    fence_async_shared();
+    __syncthreads();  // the parts are visible to wgmma; the raw tiles are free
+    if (it + 1 < n_tiles) load_q(it + 1);  // in flight while this tile computes
+    cp_commit();
+
+    // S^T = K q'^T and dP^T = V do^T, each in three passes
+    float sc[NS], dp[NS];
+    wg_fence();
+    tl_tf32::wgmma_x3<BT, D>(sc, skh, skl, sqh, sql);
+    tl_tf32::wgmma_x3<BT, D>(dp, svh, svl, sdh, sdl);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // P^T = exp(S^T - lse), 0 where masked; dS^T = P^T (dP^T - delta)
+    const int q0 = (qt_begin + it % nq) * BT;
+    const long long q_lo = static_cast<long long>(q_offset) + q0;
+    const long long q_hi = q_lo + BT - 1;
+    const bool full = q0 + BT <= s &&
+                      (!causal || (k_hi <= q_lo && (window == 0 || k_lo > q_hi - window)));
+    const float* lse_s = rows + 2 * BT;
+    const float* delta_s = rows + 3 * BT;
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int col = 8 * (i / 4) + cq + (i % 2);
+      bool keep = true;
+      if (!full) {
+        const long long kj = k_lo + r0 + 8 * ((i / 2) % 2);
+        const long long qpos = q_lo + col;
+        keep = q0 + col < s;
+        if (causal) {
+          keep = keep && kj <= qpos;
+          if (window > 0) keep = keep && kj > qpos - window;
+        }
+      }
+      const float p = keep ? exp_mufu(sc[i] - lse_s[col]) : 0.0f;
+      sc[i] = p;
+      dp[i] = p * (dp[i] - delta_s[col]);
+    }
+
+    // dV += P^T do and dK += dS^T q', each tile's product in three passes
+    float part[NA];
+    tl_tf32::mma_x3<BT, D>(part, sc, at(sdh), at(sdl), g, t);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) dv_acc[i] = __fadd_rn(dv_acc[i], part[i]);
+    tl_tf32::mma_x3<BT, D>(part, dp, at(sqh), at(sql), g, t);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) dk_acc[i] = __fadd_rn(dk_acc[i], part[i]);
+  }
+
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int kj = kt * BQ + r0 + 8 * rr;
+    if (kj < s) {
+      const long long at_k = ((static_cast<long long>(bi) * s + kj) * kvh + kh) * D;
+#pragma unroll
+      for (int j = 0; j < NA / 4; ++j) {
+        const int col = 8 * j + cq;
+        *reinterpret_cast<float2*>(dk + at_k + col) =
+            make_float2(dk_acc[4 * j + 2 * rr], dk_acc[4 * j + 2 * rr + 1]);
+        *reinterpret_cast<float2*>(dv + at_k + col) =
+            make_float2(dv_acc[4 * j + 2 * rr], dv_acc[4 * j + 2 * rr + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+int launch_dkv_tf32(const Args& a, int smem) {
+  if (smem != DkvTF32<D>::SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_dkv_tf32_kernel<D>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.s + BQ - 1) / BQ, a.b * a.kvh);
-  flash_bwd_dkv_kernel<D, float><<<grid, Geometry<D>::THREADS, 0, a.stream>>>(
+  kernel<<<grid, tl_tc::THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -817,19 +853,22 @@ extern "C" int tl_flash_bwd_dq_bf16(int d, const void* q, const void* k, const v
   }
 }
 
-// B6 in float32, on the FMA pipes
+// B6 in float32, on the tensor cores in three TF32 passes; besides, the
+// base pointers are 16-byte aligned and smem is the block's dynamic shared
+// memory in bytes (the wrapper's tf32_shared_bytes; any other value is
+// refused)
 extern "C" int tl_flash_bwd_dkv(int d, const void* q, const void* k, const void* v,
                                 const void* dout, const void* lse, const void* delta, void* dk,
                                 void* dv, int b, int s, int h, int kvh, float scale, int causal,
-                                int window, int q_offset, void* stream) {
+                                int window, int q_offset, int smem, void* stream) {
   const Args a{q, k, v, dout, lse, delta, nullptr, dk, dv, b, s, h, kvh, scale,
                causal, window, q_offset, static_cast<cudaStream_t>(stream)};
   switch (d) {
-    case 8: return launch_dkv<8>(a);
-    case 16: return launch_dkv<16>(a);
-    case 32: return launch_dkv<32>(a);
-    case 64: return launch_dkv<64>(a);
-    case 128: return launch_dkv<128>(a);
+    case 8: return launch_dkv_tf32<8>(a, smem);
+    case 16: return launch_dkv_tf32<16>(a, smem);
+    case 32: return launch_dkv_tf32<32>(a, smem);
+    case 64: return launch_dkv_tf32<64>(a, smem);
+    case 128: return launch_dkv_tf32<128>(a, smem);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -1,15 +1,17 @@
 // What the flash-attention kernels share: dtype conversions, the rounding
 // of an f32 value to the model dtype, and the per-row thread geometry of
-// the kernels on the FMA pipes (what the tensor-core kernels share is in
-// flash_tc.cuh).
+// the kernel on the FMA pipes, float32 B5 (what the tensor-core kernels
+// share is in flash_tc.cuh and flash_tf32.cuh).
 //
-// A query (or key) row of head_dim D lives in the registers of TPR
-// neighbouring threads of one warp: thread t holds dims (c * TPR + t) * 4 + e
-// for c < CPT, e < 4, and a dot product over the row is each thread's
-// partial sum reduced with __shfl_xor_sync over the TPR lanes.  In float32,
-// B4, B5 and B6 sum a score in this same order, so the backward recomputes
-// exactly the scores the forward's logsumexp came from.  In bfloat16 they
-// run on the tensor cores (flash_tc.cuh) and sum scores in its order.
+// A query row of head_dim D lives in the registers of TPR neighbouring
+// threads of one warp: thread t holds dims (c * TPR + t) * 4 + e for c <
+// CPT, e < 4, and a dot product over the row is each thread's partial sum
+// reduced with __shfl_xor_sync over the TPR lanes.  Float32 B4 and B6 sum
+// scores in the tensor cores' order, three TF32 passes, so B5 recomputes
+// each score in another order than the one behind B4's logsumexp: p =
+// exp(s - lse) may exceed 1 by a few f32 ulps, far inside grad_tolerance.
+// In bfloat16 all three run on the tensor cores (flash_tc.cuh) and B5
+// recomputes B4's own scores.
 
 #pragma once
 

@@ -8,21 +8,32 @@
 //
 // Numerics, as in the Pallas kernel and its wrapper:
 // - q is scaled by 1/sqrt(d) in f32 and rounded back to q's dtype first;
-// - scores are exact products of the inputs' values summed in f32 (no TF32:
-//   f32 runs as f32 FMAs; bf16 products are exact in the tensor cores' f32
-//   accumulation);
+// - scores are products of the inputs' values summed in f32 (bf16 products
+//   are exact in the tensor cores' f32 accumulation; f32 products run as
+//   three TF32 passes, flash_tf32.cuh, within the f32 limits);
 // - p is rounded to v's dtype before P.V, the denominator sums unrounded p;
 // - o = acc / l in f32, then rounded to q's dtype; lse = m + log(l).
+// exp is the MUFU's ex2 of x log2(e) (tl_tc::exp_mufu), a few f32 ulps
+// from expf, far inside both dtypes' limits.
 //
 // Bound: operations, at the shapes of the model path (s >= 1024: 4*s*s*d
-// flops per head against 4*s*d*2 bytes per head), so one kernel per dtype:
+// flops per head against 4*s*d*2 bytes per head).  Both dtypes run on the
+// tensor cores, one warpgroup per (64-query tile, batch*head):
 //
-// float32 (flash_fwd_kernel) runs on the f32 FMA pipes (67 TFLOP/s): the
-// Pallas kernel runs f32 at Precision.HIGHEST, and TF32 would miss its
-// limit.  One block per (64-query tile, batch*head) stages each K/V tile in
-// shared memory, and each query row lives in registers of TPR threads (its
-// slice of q, of the accumulator, and the tile's scores), which reduce each
-// dot product with warp shuffles.
+// float32 (flash_fwd_tf32_kernel): the Pallas kernel runs f32 at
+// Precision.HIGHEST, and one TF32 pass would miss its limit, so every
+// product is three TF32 passes (495 TFLOP/s dense, a 165 TFLOP/s ceiling
+// for f32 against the FMA pipes' 67).  q' is split into hi and lo parts once
+// per block, through registers.  K/V tiles of 64 keys (32 from head dim 64
+// on, so two blocks fit an SM) arrive raw by cp.async, the next tile's copy
+// in flight while this one computes, and are split when they land.  S =
+// Q'K^T is a wgmma (m64nBKk8 tf32, both operands K-major); the online
+// softmax runs on its f32 accumulator in registers, each row's max and sum
+// over the 4 threads that share it.  O += P V reduces over keys, so V
+// would have to be K-major along keys, a transpose wgmma cannot make for
+// tf32: it runs as mma.sync m16n8k8 tf32, P split in the registers of the
+// score accumulator, V's fragments loaded from its natural tile.  Scores
+// are summed in the tensor cores' order, not B5's (flash_common.cuh).
 //
 // bfloat16 (flash_fwd_wgmma_kernel) runs on the tensor cores (989 TFLOP/s).
 // One warpgroup per (64-query tile, batch*head) holds the prescaled q' tile
@@ -30,13 +41,11 @@
 // shared memory, two stages filled by cp.async, so the next tile's copy is
 // in flight while this one computes (flash_tc.cuh).  S = Q'K^T is a wgmma
 // (m64n64k16, d / 16 k-steps); the online softmax runs on its f32
-// accumulator in registers, each row's max and sum over the 4 threads that
-// share it; P is rounded to bf16 straight into the A fragment of the second
-// wgmma, O += P V, with V read MN-major (the transpose bit).  exp is the
-// MUFU's ex2 of x log2(e), a few f32 ulps from expf.  Scores are summed in
-// the tensor cores' order, not row_sum's (flash_common.cuh).  At head dim 8
-// the score product reads 16 columns, 8 of them zeroed; below 64 the P.V
-// product computes a 64-column tile and stores the first d.
+// accumulator in registers; P is rounded to bf16 straight into the A
+// fragment of the second wgmma, O += P V, with V read MN-major (the
+// transpose bit).  At head dim 8 the score product reads 16 columns, 8 of
+// them zeroed; below 64 the P.V product computes a 64-column tile and
+// stores the first d.
 //
 // Both: tiles wholly outside the causal or window range are never loaded
 // (the Pallas kernel's _block_edges); tiles wholly inside skip the
@@ -50,6 +59,7 @@
 
 #include "flash_common.cuh"
 #include "flash_tc.cuh"
+#include "flash_tf32.cuh"
 
 #include <math.h>
 
@@ -57,44 +67,47 @@ namespace {
 
 using namespace tl_flash;
 
-template <int D, typename T>
-__global__ void __launch_bounds__(Geometry<D>::THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, float* __restrict__ lse, int s, int h, int kvh,
-                 long long qsb, long long qss, long long qsh, long long ksb, long long kss,
-                 long long ksh, long long vsb, long long vss, long long vsh, float scale,
-                 int causal, int window, int q_offset) {
-  using G = Geometry<D>;
-  constexpr int TPR = G::TPR, DPT = G::DPT, CPT = G::CPT, BK = G::BK, NC = D / 4;
-  __shared__ float4 ks[BK][NC];
-  __shared__ float4 vs[BK][NC];
-  float* ksf = reinterpret_cast<float*>(ks);
-  float* vsf = reinterpret_cast<float*>(vs);
+// ------------------------------------------- float32 on the tensor cores
 
+template <int D>
+struct FwdTF32 {
+  static constexpr int BK = D <= 32 ? 64 : 32;                  // keys per tile
+  static constexpr int QTILE = tl_tf32::tile_bytes<BQ, D>();   // bytes of a q' part
+  static constexpr int TILE = tl_tf32::tile_bytes<BK, D>();    // bytes of a K or V part
+  // alignment; q' hi and lo; K hi and lo; V hi and lo; the next raw K and V
+  static constexpr int SMEM = 1024 + 2 * QTILE + 6 * TILE;
+};
+
+template <int D>
+__global__ void __launch_bounds__(tl_tc::THREADS)
+flash_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                      const float* __restrict__ v, float* __restrict__ o,
+                      float* __restrict__ lse, int s, int h, int kvh, long long qsb,
+                      long long qss, long long qsh, long long ksb, long long kss, long long ksh,
+                      long long vsb, long long vss, long long vsh, float scale, int causal,
+                      int window, int q_offset) {
+  using namespace tl_tc;
+  using C = FwdTF32<D>;
+  constexpr int BK = C::BK, QTILE = C::QTILE, TILE = C::TILE;
+  constexpr int NS = BK / 2, NA = D / 2;  // accumulator floats of S and of O
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sbase = (raw + 1023) & ~1023u;
+  uint8_t* base = smem_raw + (sbase - raw);
+  // q' hi, lo; K hi, lo; V hi, lo; raw K, raw V
+  const uint32_t sqh = sbase, sql = sbase + QTILE;
+  const uint32_t skh = sbase + 2 * QTILE, skl = skh + TILE, svh = skl + TILE, svl = svh + TILE;
+  const uint32_t srk = svl + TILE, srv = srk + TILE;
+  auto at = [&](uint32_t a) { return base + (a - sbase); };
+
+  const int tid = threadIdx.x;
+  const int g = (tid % 32) / 4, t = tid % 4;  // the lane's group and its place in it
+  const int r0 = (tid / 32) * 16 + g;         // this thread's rows: r0, r0 + 8
+  const int cq = 2 * t;                       // its columns: 8 j + cq, + 1
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int bi = blockIdx.y / h;
   const int hi = blockIdx.y % h;
   const int kh = hi / (h / kvh);
-  const int row = threadIdx.x / TPR;
-  const int t = threadIdx.x % TPR;
-  const int qi = qt * BQ + row;
-  const long long qpos = static_cast<long long>(q_offset) + qi;
-
-  // this thread's slice of the (prescaled) query row: dims (c*TPR + t)*4 + e
-  float qr[DPT];
-  const T* qrow = q + bi * qsb + static_cast<long long>(min(qi, s - 1)) * qss + hi * qsh;
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      qr[c * 4 + e] = prescaled<T>(qrow[(c * TPR + t) * 4 + e], scale);
-    }
-  }
-  float acc[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) acc[i] = 0.0f;
-  float m = -INFINITY;
-  float l = 0.0f;
 
   // the keys this query tile can see
   const long long q_lo = static_cast<long long>(q_offset) + qt * BQ;
@@ -107,101 +120,120 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   const int kt_begin = static_cast<int>(k_begin / BK);
   const int kt_end = k_end >= k_begin ? static_cast<int>(k_end / BK) + 1 : kt_begin;
 
-  const T* kbase = k + bi * ksb + kh * ksh;
-  const T* vbase = v + bi * vsb + kh * vsh;
+  const float* kbase = k + bi * ksb + kh * ksh;
+  const float* vbase = v + bi * vsb + kh * vsh;
+  auto load_kv = [&](int kt) {
+    const long long k0 = static_cast<long long>(kt) * BK;
+    tl_tf32::load_tile<BK, D>(srk, kbase + k0 * kss, kss, s - kt * BK, tid);
+    tl_tf32::load_tile<BK, D>(srv, vbase + k0 * vss, vss, s - kt * BK, tid);
+  };
+  if (kt_begin < kt_end) load_kv(kt_begin);
+  cp_commit();
+  // q' = f32(q * scale), split once for the block
+  tl_tf32::stage_split<BQ, D>(at(sqh), at(sql),
+                              q + bi * qsb + static_cast<long long>(qt) * BQ * qss + hi * qsh,
+                              qss, s - qt * BQ, scale, tid);
+
+  float acc[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.0f, 0.0f};  // this thread's share of each row's denominator
+
   for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every row is done with the previous tile
-    for (int e = threadIdx.x; e < BK * D; e += G::THREADS) {
-      const int j = e / D;
-      const int dd = e % D;
-      const int kj = k0 + j;
-      float kx = 0.0f, vx = 0.0f;
-      if (kj < s) {
-        kx = to_f32<T>(kbase[kj * kss + dd]);
-        vx = to_f32<T>(vbase[kj * vss + dd]);
-      }
-      ksf[j * D + dd] = kx;
-      vsf[j * D + dd] = vx;
-    }
-    __syncthreads();
+    cp_wait<0>();
+    __syncthreads();  // this tile landed; every warp is done with the last one's parts
+    tl_tf32::split_tile<BK, D>(at(srk), at(skh), at(skl), 1.0f, tid);
+    tl_tf32::split_tile<BK, D>(at(srv), at(svh), at(svl), 1.0f, tid);
+    fence_async_shared();
+    __syncthreads();  // the parts are visible to wgmma; the raw tiles are free
+    if (kt + 1 < kt_end) load_kv(kt + 1);  // in flight while this tile computes
+    cp_commit();
+
+    // S = Q' K^T in three passes
+    float sc[NS];
+    wg_fence();
+    tl_tf32::wgmma_x3<BK, D>(sc, sqh, sql, skh, skl);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
 
     // a tile inside every row's range needs no positional mask
+    const int k0 = kt * BK;
     const bool full = k0 + BK <= s &&
                       (!causal || (k0 + BK - 1 <= q_lo && (window == 0 || k0 > q_hi - window)));
-    float sc[BK];
-    float tile_max = -INFINITY;
+    if (!full) {
 #pragma unroll
-    for (int j = 0; j < BK; ++j) {
-      float part = 0.0f;
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float4 kk = ks[j][c * TPR + t];
-        part = fmaf(qr[c * 4 + 0], kk.x, part);
-        part = fmaf(qr[c * 4 + 1], kk.y, part);
-        part = fmaf(qr[c * 4 + 2], kk.z, part);
-        part = fmaf(qr[c * 4 + 3], kk.w, part);
-      }
-      part = row_sum<TPR>(part);
-      if (!full) {
-        const long long kp = k0 + j;
+      for (int i = 0; i < NS; ++i) {
+        const long long kp = k0 + 8 * (i / 4) + cq + (i % 2);
+        const long long qpos = q_lo + r0 + 8 * ((i / 2) % 2);
         bool keep = kp < s;
         if (causal) {
           keep = keep && kp <= qpos;
           if (window > 0) keep = keep && kp > qpos - window;
         }
-        if (!keep) part = -INFINITY;
+        if (!keep) sc[i] = -INFINITY;
       }
-      sc[j] = part;
-      tile_max = fmaxf(tile_max, part);
     }
 
-    const float m_new = fmaxf(m, tile_max);
-    if (m_new != -INFINITY) {  // else this row has seen no visible key yet
-      const float alpha = expf(m - m_new);
+    float mx[2] = {m[0], m[1]};
 #pragma unroll
-      for (int i = 0; i < DPT; ++i) acc[i] *= alpha;
-      float psum = 0.0f;
+    for (int i = 0; i < NS; ++i) mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+    float ref[2], alpha[2];
 #pragma unroll
-      for (int j = 0; j < BK; ++j) {
-        const float p = expf(sc[j] - m_new);
-        psum += p;
-        const float pr = round_to<T>(p);
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          const float4 vv = vs[j][c * TPR + t];
-          acc[c * 4 + 0] = fmaf(pr, vv.x, acc[c * 4 + 0]);
-          acc[c * 4 + 1] = fmaf(pr, vv.y, acc[c * 4 + 1]);
-          acc[c * 4 + 2] = fmaf(pr, vv.z, acc[c * 4 + 2]);
-          acc[c * 4 + 3] = fmaf(pr, vv.w, acc[c * 4 + 3]);
-        }
-      }
-      l = fmaf(l, alpha, psum);
-      m = m_new;
+    for (int rr = 0; rr < 2; ++rr) {
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+      mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+      ref[rr] = mx[rr] == -INFINITY ? 0.0f : mx[rr];  // a row with no visible key yet
+      alpha[rr] = exp_mufu(m[rr] - ref[rr]);
+      m[rr] = mx[rr];
     }
+    float ps[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      sc[i] = exp_mufu(sc[i] - ref[(i / 2) % 2]);
+      ps[(i / 2) % 2] += sc[i];
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) l[rr] = fmaf(l[rr], alpha[rr], ps[rr]);
+
+    // O = alpha O + P V, the tile's P V in three passes, P from the score accumulator
+    float pv[NA];
+    tl_tf32::mma_x3<BK, D>(pv, sc, at(svh), at(svl), g, t);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[i] = fmaf(acc[i], alpha[(i / 2) % 2], pv[i]);
   }
 
-  if (qi < s) {
-    const long long r = (static_cast<long long>(bi) * s + qi) * h + hi;
-    T* orow = o + r * D;
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
+  for (int rr = 0; rr < 2; ++rr) {
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+    l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
+    const int qi = qt * BQ + r0 + 8 * rr;
+    if (qi < s) {
+      const long long r = (static_cast<long long>(bi) * s + qi) * h + hi;
+      float* orow = o + r * D;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float val = l > 0.0f ? acc[c * 4 + e] / l : 0.0f;
-        orow[(c * TPR + t) * 4 + e] = from_f32<T>(val);
+      for (int j = 0; j < NA / 4; ++j) {
+        const float a0 = acc[4 * j + 2 * rr], a1 = acc[4 * j + 2 * rr + 1];
+        *reinterpret_cast<float2*>(orow + 8 * j + cq) =
+            l[rr] > 0.0f ? make_float2(a0 / l[rr], a1 / l[rr]) : make_float2(0.0f, 0.0f);
       }
+      if (cq == 0) lse[r] = l[rr] > 0.0f ? m[rr] + logf(l[rr]) : -INFINITY;
     }
-    if (t == 0) lse[r] = l > 0.0f ? m + logf(l) : -INFINITY;
   }
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, void* lse, int b, int s, int h,
-           int kvh, const long long* st, float scale, int causal, int window, int q_offset,
-           cudaStream_t stream) {
+int launch_tf32(const void* q, const void* k, const void* v, void* o, void* lse, int b, int s,
+                int h, int kvh, const long long* st, float scale, int causal, int window,
+                int q_offset, int smem, cudaStream_t stream) {
+  if (smem != FwdTF32<D>::SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_fwd_tf32_kernel<D>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((s + BQ - 1) / BQ, b * h);
-  flash_fwd_kernel<D, float><<<grid, Geometry<D>::THREADS, 0, stream>>>(
+  kernel<<<grid, tl_tc::THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(o), static_cast<float*>(lse), s, h, kvh, st[0], st[1], st[2], st[3],
       st[4], st[5], st[6], st[7], st[8], scale, causal, window, q_offset);
@@ -411,29 +443,31 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* o, void* lse
 
 #define TL_FLASH_ARGS q, k, v, o, lse, b, s, h, kvh, st, scale, causal, window, q_offset
 
-// float32 on the FMA pipes.  Strides are in elements; the head dimension
-// is contiguous.  Launches on `stream`; returns cudaGetLastError().
+// float32 on the tensor cores, three TF32 passes.  Strides are in
+// elements; the head dimension is contiguous; the base pointers and the
+// batch, seq and head strides are 16-byte aligned, and smem is the block's
+// dynamic shared memory in bytes (the wrapper's tf32_shared_bytes; any
+// other value is refused).  Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int tl_flash_fwd(int d, const void* q, const void* k, const void* v, void* o,
                             void* lse, int b, int s, int h, int kvh, long long qsb, long long qss,
                             long long qsh, long long ksb, long long kss, long long ksh,
                             long long vsb, long long vss, long long vsh, float scale, int causal,
-                            int window, int q_offset, void* stream) {
+                            int window, int q_offset, int smem, void* stream) {
   const long long st[9] = {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh};
   const cudaStream_t cs = static_cast<cudaStream_t>(stream);
   switch (d) {
-    case 8: return launch<8>(TL_FLASH_ARGS, cs);
-    case 16: return launch<16>(TL_FLASH_ARGS, cs);
-    case 32: return launch<32>(TL_FLASH_ARGS, cs);
-    case 64: return launch<64>(TL_FLASH_ARGS, cs);
-    case 128: return launch<128>(TL_FLASH_ARGS, cs);
+    case 8: return launch_tf32<8>(TL_FLASH_ARGS, smem, cs);
+    case 16: return launch_tf32<16>(TL_FLASH_ARGS, smem, cs);
+    case 32: return launch_tf32<32>(TL_FLASH_ARGS, smem, cs);
+    case 64: return launch_tf32<64>(TL_FLASH_ARGS, smem, cs);
+    case 128: return launch_tf32<128>(TL_FLASH_ARGS, smem, cs);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// bfloat16 on the tensor cores.  As tl_flash_fwd, and besides: the base
-// pointers and the batch, seq and head strides are 16-byte aligned, and
-// smem is the block's dynamic shared memory in bytes (the wrapper's
-// tc_shared_bytes; any other value is refused).
+// bfloat16 on the tensor cores.  As tl_flash_fwd, with smem the wrapper's
+// tc_shared_bytes.
 extern "C" int tl_flash_fwd_bf16(int d, const void* q, const void* k, const void* v, void* o,
                                  void* lse, int b, int s, int h, int kvh, long long qsb,
                                  long long qss, long long qsh, long long ksb, long long kss,

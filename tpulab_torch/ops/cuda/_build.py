@@ -62,10 +62,11 @@ SIGNATURES: Dict[str, List] = {
     # dtype, in, out, stats, nc, n, blocks, threads, stream
     "tl_classify": [_I, _P, _P, _P, _I, _L, _I, _I, _P],
     # d, q, k, v, o, lse, b, s, h, kv_heads, strides of q, k, v (batch,
-    # seq, head; elements), scale, causal, window, q_offset, stream (float32)
+    # seq, head; elements), scale, causal, window, q_offset, shared-memory
+    # bytes, stream (float32)
     "tl_flash_fwd": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, *[_L] * 9,
-                     ctypes.c_float, _I, _I, _I, _P],
-    # the same with the shared-memory bytes before the stream (bfloat16)
+                     ctypes.c_float, _I, _I, _I, _I, _P],
+    # the same (bfloat16)
     "tl_flash_fwd_bf16": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, *[_L] * 9,
                           ctypes.c_float, _I, _I, _I, _I, _P],
     # d, q, k, v, do, lse, delta, dq, b, s, h, kv_heads, scale, causal,
@@ -73,9 +74,10 @@ SIGNATURES: Dict[str, List] = {
     "tl_flash_bwd_dq": [_I, *[_P] * 7, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P],
     # the same with the shared-memory bytes before the stream (bfloat16)
     "tl_flash_bwd_dq_bf16": [_I, *[_P] * 7, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _P],
-    # d, then as tl_flash_bwd_dq with dk, dv in place of dq (float32)
-    "tl_flash_bwd_dkv": [_I, *[_P] * 8, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P],
-    # the same with the shared-memory bytes before the stream (bfloat16)
+    # d, then as tl_flash_bwd_dq with dk, dv in place of dq and the
+    # shared-memory bytes before the stream (float32)
+    "tl_flash_bwd_dkv": [_I, *[_P] * 8, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _P],
+    # the same (bfloat16)
     "tl_flash_bwd_dkv_bf16": [_I, *[_P] * 8, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I,
                               _P],
     # dtype, d, quantized, q, kpool, vpool, kscale, vscale, tables, lengths,

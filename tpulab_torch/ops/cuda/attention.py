@@ -11,13 +11,16 @@ with its default 1024-row blocks, and have no block knobs: the CUDA kernels
 mask by position, so they need no padding.  :func:`flash_attention_partial`
 makes every check but the default block's, for the sequence-parallel
 bodies (``tpulab`` picks them a block that divides the local length), and
-the backward refuses no length.  The dtype picks the kernel:
-float32 runs on the FMA pipes, as the Pallas kernel's ``Precision.HIGHEST``
-asks; bfloat16 runs B4, B5 and B6 on the tensor cores (``wgmma``), whose
-16-byte copies need 16-byte-aligned rows, so a bfloat16 operand that is
-not aligned is copied first.  In bfloat16, B5 recomputes the scores with
-B4's own product, so its ``p = exp(s - lse)`` comes from the scores
-behind the forward's lse.
+the backward refuses no length.  The dtype picks the kernel: bfloat16
+runs B4, B5 and B6 on the tensor cores (``wgmma``); float32 runs B4 and B6
+on the tensor cores too, every product in three TF32 passes
+(``csrc/flash_tf32.cuh``), which keep the f32 limits that the Pallas
+kernel's ``Precision.HIGHEST`` asks for, and B5 on the FMA pipes.  The
+tensor-core kernels' 16-byte copies need 16-byte-aligned rows, so an
+operand that is not aligned is copied first.  In bfloat16, B5 recomputes
+the scores with B4's own product, so its ``p = exp(s - lse)`` comes from
+the scores behind the forward's lse; in float32 it sums them in another
+order, and p may exceed 1 by a few ulps.
 
 K and V may be narrower than q (grouped-query attention): query head ``i``
 reads kv head ``i // (heads // kv_heads)``, the contiguous mapping of
@@ -64,7 +67,7 @@ HEAD_DIMS = (8, 16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: query rows per block (``BQ`` in csrc/flash_fwd.cu)
 BLOCK_Q = 64
-#: threads of a tensor-core (bfloat16) block of B4, B5 or B6: one warpgroup
+#: threads of a tensor-core block of B4, B5 or B6: one warpgroup
 TC_THREADS = 128
 #: the JAX wrapper's default block; a sequence it would have to pad is
 #: refused where padding is refused there
@@ -72,7 +75,8 @@ _JAX_BLOCK = 1024
 
 
 def _threads(d: int) -> int:
-    """Threads per block of an FMA kernel for head dim ``d`` (``Geometry``)."""
+    """Threads per block of float32 B5, on the FMA pipes, for head dim
+    ``d`` (``Geometry``)."""
     return BLOCK_Q * min(d // 4, 4)
 
 
@@ -97,6 +101,38 @@ def tc_shared_bytes(d: int, kernel: str) -> int:
         bt = 32 if d > 64 else 64
         return 1024 + 2 * BLOCK_Q * row + 4 * bt * row + 4 * bt * 4
     raise ValueError(f"no tensor-core kernel {kernel!r}; have {TC_KERNELS}")
+
+
+#: the float32 kernels on the tensor cores (three TF32 passes)
+TF32_KERNELS = ("flash_fwd", "flash_dkv")
+
+
+def key_tile(d: int, dtype: torch.dtype) -> int:
+    """Keys per tile of B4 at head dim ``d`` (``FwdTC::BK``, ``FwdTF32::BK``
+    in csrc/flash_fwd.cu): 64, and in float32 32 from head_dim 64 on, where
+    the hi and lo parts of 64 keys would leave one block an SM."""
+    return 32 if dtype == torch.float32 and d >= 64 else 64
+
+
+def tf32_shared_bytes(d: int, kernel: str) -> int:
+    """Dynamic shared memory of one block of the float32 ``kernel`` (one
+    of :data:`TF32_KERNELS`: B4 or B6), in bytes (``FwdTF32`` and
+    ``DkvTF32`` in csrc/): 1024 bytes of alignment, then f32 tiles of
+    128-byte rows per 32 head dims (one row of 128 bytes below 32), each
+    tensor as a hi and a lo part.  B4: q' (64 rows), the K and V parts of
+    one tile of 64 keys (32 from head_dim 64 on, so that two blocks fit an
+    SM), and the next tile's raw K and V: 82,944 bytes at head_dim 64.  B6:
+    the block's K and V (64 rows each), the q' and do parts of one tile of
+    64 queries (32 at head_dim 128), the next tile's raw q and do, and
+    lse and delta raw and current: 230,912 bytes at head_dim 128, within
+    the 232,448 a block may take."""
+    row = 128 * max(1, d // 32)
+    if kernel == "flash_fwd":
+        return 1024 + 2 * BLOCK_Q * row + 6 * key_tile(d, torch.float32) * row
+    if kernel == "flash_dkv":
+        bt = 32 if d > 64 else 64
+        return 1024 + 4 * BLOCK_Q * row + 6 * bt * row + 4 * bt * 4
+    raise ValueError(f"no float32 tensor-core kernel {kernel!r}; have {TF32_KERNELS}")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -217,8 +253,10 @@ def o_tolerance(want_o: torch.Tensor) -> torch.Tensor:
     ``want_o`` from :func:`flash_attention_plain` on the same inputs, in f32.
 
     float32: ``2e-5 + 2e-5 * |want_o|``: the same products summed in
-    another order.  bfloat16: two bf16 ulps of the element plus two of
-    the largest ``|want_o|`` in its (batch, seq, head) row.  Both round p
+    another order, the kernel's each as three TF32 passes (within 2^-21 of
+    the f32 product; one pass misses this limit by tens).  bfloat16: two
+    bf16 ulps of the element plus two of the largest ``|want_o|`` in its
+    (batch, seq, head) row.  Both round p
     to bf16, the kernel at each tile's running maximum and the plain
     version at the row's, so an element moves by a few p-roundings of the
     row's scale, and o's final rounding adds an ulp of its own.  A kernel
@@ -248,21 +286,20 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, wi
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
     b, s, h, d = q.shape
-    tc = q.dtype == torch.bfloat16  # the tensor-core kernel; float32 runs on the FMA pipes
-    q, k, v = (_aligned(t) if tc else t if t.stride(-1) == 1 else t.contiguous()
-               for t in (q, k, v))
+    bf16 = q.dtype == torch.bfloat16  # else float32 in three TF32 passes
+    q, k, v = (_aligned(t) for t in (q, k, v))
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, s, h), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    smem = tc_shared_bytes(d, "flash_fwd") if tc else 0
-    _build.check_geometry((-(-s // BLOCK_Q), b * h), (TC_THREADS if tc else _threads(d),), smem)
+    smem = (tc_shared_bytes if bf16 else tf32_shared_bytes)(d, "flash_fwd")
+    _build.check_geometry((-(-s // BLOCK_Q), b * h), (TC_THREADS,), smem)
     lib = _build.load_library()
     args = (d, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             b, s, h, k.shape[2], *(t.stride(i) for t in (q, k, v) for i in range(3)),
-            softmax_scale(d), int(bool(causal)), window, q_offset)
-    stream = _build.stream_handle(q.device)
-    rc = lib.tl_flash_fwd_bf16(*args, smem, stream) if tc else lib.tl_flash_fwd(*args, stream)
+            softmax_scale(d), int(bool(causal)), window, q_offset, smem,
+            _build.stream_handle(q.device))
+    rc = lib.tl_flash_fwd_bf16(*args) if bf16 else lib.tl_flash_fwd(*args)
     flash_attention_with_lse.launches += 1
     _build.check_launch(rc, "flash forward kernel")
     return o, lse
@@ -411,30 +448,30 @@ def _check_bwd(q, k, v, do, lse, delta, causal, window, q_offset) -> None:
 
 def _bwd_operands(q, k, v, do, lse, delta):
     """The backward's operands as its kernels read them: contiguous, and
-    in bfloat16 (the tensor-core kernels) q, k, v and do 16-byte aligned."""
+    q, k, v and do 16-byte aligned (the tensor-core kernels' copies)."""
     q, k, v, do, lse, delta = (t.contiguous() for t in (q, k, v, do, lse, delta))
-    if q.dtype == torch.bfloat16:
-        q, k, v, do = (_aligned(t) for t in (q, k, v, do))
+    q, k, v, do = (_aligned(t) for t in (q, k, v, do))
     return q, k, v, do, lse, delta
 
 
 def _launch_bwd(kernel: str, q, k, v, do, lse, delta, outs, causal, window, q_offset) -> None:
-    """B5 (``kernel="flash_dq"``) or B6 (``"flash_dkv"``) on contiguous
-    operands: ``tl_flash_bwd_dq`` or ``tl_flash_bwd_dkv`` in float32 on the
-    FMA pipes, their ``_bf16`` entry points on the tensor cores (operands
-    16-byte aligned)."""
+    """B5 (``kernel="flash_dq"``) or B6 (``"flash_dkv"``) on contiguous,
+    16-byte-aligned operands: in float32 ``tl_flash_bwd_dq`` on the FMA
+    pipes and ``tl_flash_bwd_dkv`` on the tensor cores (three TF32
+    passes), in bfloat16 their ``_bf16`` entry points on the tensor cores."""
     b, s, h, d = q.shape
-    tc = q.dtype == torch.bfloat16
+    bf16 = q.dtype == torch.bfloat16
     name = {"flash_dq": "tl_flash_bwd_dq", "flash_dkv": "tl_flash_bwd_dkv"}[kernel]
-    name += "_bf16" if tc else ""
-    smem = tc_shared_bytes(d, kernel) if tc else 0
+    name += "_bf16" if bf16 else ""
+    fma = not bf16 and kernel == "flash_dq"  # float32 B5
+    smem = 0 if fma else (tc_shared_bytes if bf16 else tf32_shared_bytes)(d, kernel)
     _build.check_geometry((-(-s // BLOCK_Q), b * (h if kernel == "flash_dq" else k.shape[2])),
-                          (TC_THREADS if tc else _threads(d),), smem)
+                          (_threads(d) if fma else TC_THREADS,), smem)
     lib = _build.load_library()
     rc = getattr(lib, name)(
         d, *(t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)),
         b, s, h, k.shape[2], softmax_scale(d), int(bool(causal)), window, q_offset,
-        *((smem,) if tc else ()), _build.stream_handle(q.device),
+        *(() if fma else (smem,)), _build.stream_handle(q.device),
     )
     _build.check_launch(rc, f"{name} kernel")
 
@@ -507,10 +544,10 @@ def grad_tolerance(want: torch.Tensor) -> torch.Tensor:
 
     float32: ``GRAD_F32 * (|want| + row + head)``, where ``row`` is the
     largest ``|want|`` of its (batch, seq, head) row and ``head`` of its
-    (batch, head): the kernels sum key by key (query by query) where the
-    plain version sums in einsum's order, and a gradient's terms cancel
-    (``sum_k ds = 0`` when dlse is 0), so rounding scales with the
-    operands, not with the result; a row that sees one key has ``ds = dp
+    (batch, head): the kernels sum key by key (B5) or tile by tile of
+    three-pass TF32 products (B6) where the plain version sums in einsum's
+    order, and a gradient's terms cancel (``sum_k ds = 0`` when dlse is
+    0), so rounding scales with the operands, not with the result; a row that sees one key has ``ds = dp
     - delta``, zero but for rounding, and only ``head`` bounds it.
     bfloat16: two bf16 ulps of the element and two of ``row`` (p and ds
     round to bf16 from f32 values that differ by f32 rounding, and the
