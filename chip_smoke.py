@@ -14,12 +14,12 @@ failure:
    kernels from ``tpulab_torch/csrc/`` (``nvcc``, sm_90a), and read the
    built library's SASS (``cuobjdump -sass``): every bfloat16 instance of
    B4, B5 and B6 must hold ``wgmma`` (``HGMMA``), every float32 instance
-   of B4 and B6 ``wgmma`` and ``mma.sync`` (``HGMMA`` and ``HMMA``: three
-   TF32 passes), and the float32 instances of B5 no tensor-core
-   instruction; the instructions, the
-   ``ULDC`` and the integer<->float conversions (``I2F``/``F2I``) of B1
-   and B3 are counted: B1 converts no pixel (at most one of each, its
-   work index's division).
+   of B4, B5 and B6 ``wgmma`` and ``mma.sync`` (``HGMMA`` and ``HMMA``:
+   three TF32 passes); each float32 instance's blocks per SM
+   (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) are read; the
+   instructions, the ``ULDC`` and the integer<->float conversions
+   (``I2F``/``F2I``) of B1 and B3 are counted: B1 converts no pixel (at
+   most one of each, its work index's division).
 2. The main path: lab1 (float64, n=1000), lab2 (1024x1024) and lab3
    (1024x1024, 8 classes, float64 and float32) through the CLI's own entry
    point, with every kernel's launch count set to 0 just before and read
@@ -99,9 +99,9 @@ failure:
       events around each of 5 steps: the median and every step), tokens/s,
       peak device memory, and one profiled step.  With ``--parent DIR``
       (another checkout, such as the parent commit unpacked with ``git
-      archive``), the same step and B5 at the training shape from DIR and
-      from this checkout in turns, parent, change, change, parent, each in
-      a process of its own;
+      archive``), the same step, B5 at the training shape and B5 in
+      float32 at (8, 8, 2048, 64) from DIR and from this checkout in turns,
+      parent, change, change, parent, each in a process of its own;
    d. B5 and B6, fed B4's lse, against the plain backward on the same
       lse, element by element within ``grad_tolerance``, at (8, 8, 2048,
       64) bfloat16 (the training step's shape), at (8, 8, 4096, 64) in
@@ -505,8 +505,8 @@ failure:
 Bounds use the H100 SXM's published rates (NVIDIA data sheet): 3.35 TB/s
 of device memory, 67 TFLOP/s float32 and 34 TFLOP/s float64 outside the
 tensor cores, 989 TFLOP/s bfloat16 and 495 TFLOP/s TF32 on the tensor
-cores.  Float32 B4 and B6 run every product as three TF32 passes, so their
-bound counts three times their flops at the TF32 rate (``fma_bound_ms``
+cores.  Float32 B4, B5 and B6 run every product as three TF32 passes, so
+their bound counts three times their flops at the TF32 rate (``fma_bound_ms``
 beside it: the flops at the FMA pipes' rate).  B3 counts issues
 at half the flop rate (an FMA is two flops, one issue): its float32
 screen's ``SCREEN_ISSUES`` per pixel and class, plus in float64
@@ -533,7 +533,7 @@ FP32_FLOPS = 67e12
 FP64_FLOPS = 34e12
 BF16_FLOPS = 989e12
 TF32_FLOPS = 495e12
-#: tensor-core passes of each float32 product in B4 and B6 (csrc/flash_tf32.cuh)
+#: tensor-core passes of each float32 product in B4, B5 and B6 (csrc/flash_tf32.cuh)
 TF32_PASSES = 3
 #: flops per pixel of the Roberts function: luminance (1 mul, 2 fma),
 #: two differences, magnitude (1 mul, 1 fma, sqrt), clamp
@@ -846,19 +846,16 @@ def bound(bytes_moved: float, flops: float, flop_rate: float) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def flash_bound(nbytes: float, flops: float, dtype, tf32: bool) -> dict:
+def flash_bound(nbytes: float, flops: float, dtype) -> dict:
     """``bound_ms`` and ``bound_by`` of a flash kernel: bfloat16 at the
-    bf16 rate; float32 on the tensor cores (``tf32``: B4, B6) as three
-    TF32 passes, with ``fma_bound_ms``, the FMA pipes' bound, beside it;
-    float32 on the FMA pipes (B5) at their rate."""
+    bf16 rate; float32 (B4, B5 and B6 alike) as three TF32 passes on the
+    tensor cores, with ``fma_bound_ms``, the FMA pipes' bound, beside it."""
     import torch
 
     if dtype == torch.bfloat16:
         ms, by = bound(nbytes, flops, BF16_FLOPS)
         return {"bound_ms": ms, "bound_by": by}
     fma = bound(nbytes, flops, FP32_FLOPS)
-    if not tf32:
-        return {"bound_ms": fma[0], "bound_by": fma[1]}
     ms, by = bound(nbytes, TF32_PASSES * flops, TF32_FLOPS)
     return {"bound_ms": ms, "bound_by": by, "fma_bound_ms": fma[0]}
 
@@ -1428,7 +1425,7 @@ def flash_row(shape, dtype, device, iters, plain_iters, *, kvh=None, window=0, q
         row["library_max_abs_err"] = max_abs_err(library().transpose(1, 2)[:, first_row:],
                                                  want_o)
         row["library_ms"] = time_ms(library, (), device, iters)
-    row.update(flash_bound(nbytes, flops, dtype, tf32=True))
+    row.update(flash_bound(nbytes, flops, dtype))
     return row
 
 
@@ -1676,11 +1673,11 @@ def bwd_rows(shape, dtype, device, iters, plain_iters, *, kvh=None, window=0, q_
         rows[0]["library_dq_max_abs_err"] = max_abs_err(library()[0].transpose(1, 2), dq)
         library_ms = time_ms(library, (), device, iters)
         del out
-    for row, nbytes, flops, tf32 in (
-            (rows[0], operands + b * s * h * d * e, 6.0 * d * pairs * b * h, False),
-            (rows[1], operands + 2 * b * s * kvh * d * e, 8.0 * d * pairs * b * h, True)):
+    for row, nbytes, flops in (
+            (rows[0], operands + b * s * h * d * e, 6.0 * d * pairs * b * h),
+            (rows[1], operands + 2 * b * s * kvh * d * e, 8.0 * d * pairs * b * h)):
         row["library_ms"] = library_ms
-        row.update(flash_bound(nbytes, flops, dtype, tf32))
+        row.update(flash_bound(nbytes, flops, dtype))
     return rows
 
 
@@ -1710,7 +1707,8 @@ def bwd_kernel_rows(sizes: dict, device) -> tuple:
 
 #: one side of :func:`in_turns`, run as ``python -c`` from the root of a
 #: checkout (argv[1]) with that checkout's package and ``chip_smoke.py``:
-#: phase 6c's step and B5 in bfloat16 at the training shape
+#: phase 6c's step and B5 in bfloat16 at the training shape, and B5 in
+#: float32 at phase 15g's (8, 8, 2048, 64)
 IN_TURNS_TRAIN = """
 import json, sys
 sys.path.insert(0, sys.argv[1])
@@ -1720,11 +1718,14 @@ torch.backends.cuda.matmul.allow_tf32 = False
 dev = torch.device("cuda", 0)
 t = c.time_train_bf16(c.FULL_SIZES, dev, c.card_line())
 dq = c.bwd_rows(c.FULL_SIZES["b5_main"], torch.bfloat16, dev, 10, 1, seed=11)[0]
+dq32 = c.bwd_rows((8, 8, 2048, 64), torch.float32, dev, 10, 1, seed=17)[0]
 print("IN_TURNS " + json.dumps({"step_ms": t["step_ms"], "step_ms_runs": t["step_ms_runs"],
                                 "tokens_per_s": t["tokens_per_s"],
                                 "busy_ms": t["profile"].get("busy_ms"),
                                 "wall_ms": t["profile"].get("wall_ms"),
-                                "b5_ms": dq["ms"], "b5_plain_ms": dq["plain_ms"]}), flush=True)
+                                "b5_ms": dq["ms"], "b5_plain_ms": dq["plain_ms"],
+                                "b5_f32_ms": dq32["ms"], "b5_f32_plain_ms": dq32["plain_ms"],
+                                "b5_f32_library_ms": dq32["library_ms"]}), flush=True)
 """
 
 #: the side of :func:`in_turns` for phase 4, run as ``IN_TURNS_TRAIN`` is: B1
@@ -5648,29 +5649,27 @@ KERNEL_META = {
     "paged_decode": ("tpulab_torch/csrc/paged_decode.cu", "tpulab/ops/pallas/paged.py:193"),
 }
 
-#: each flash kernel's design per dtype: ``wgmma`` on the tensor cores,
+#: each flash kernel's design per dtype: ``wgmma`` on the tensor cores, or
 #: ``tf32x3`` on the tensor cores in three TF32 passes (``wgmma`` for the
-#: score products, ``mma.sync`` for those over keys or queries), or ``fma``
-#: on the f32 FMA pipes
+#: score products, ``mma.sync`` for those over keys or queries)
 FLASH_DESIGN = {"flash_fwd": {"float32": "tf32x3", "bfloat16": "wgmma"},
-                "flash_dq": {"float32": "fma", "bfloat16": "wgmma"},
+                "flash_dq": {"float32": "tf32x3", "bfloat16": "wgmma"},
                 "flash_dkv": {"float32": "tf32x3", "bfloat16": "wgmma"}}
 #: the tensor-core opcodes each design's instances hold
-DESIGN_OPCODES = {"wgmma": ["HGMMA"], "tf32x3": ["HGMMA", "HMMA"], "fma": []}
+DESIGN_OPCODES = {"wgmma": ["HGMMA"], "tf32x3": ["HGMMA", "HMMA"]}
 #: (row, dtype) of a flash kernel's instance, by a part of its mangled name
 FLASH_TEMPLATES = (("flash_fwd_wgmma_kernel", "flash_fwd", "bfloat16"),
                    ("flash_fwd_tf32_kernel", "flash_fwd", "float32"),
                    ("flash_dkv_wgmma_kernel", "flash_dkv", "bfloat16"),
                    ("flash_dkv_tf32_kernel", "flash_dkv", "float32"),
                    ("flash_dq_wgmma_kernel", "flash_dq", "bfloat16"),
-                   ("flash_bwd_dq_kernel", "flash_dq", "float32"))
+                   ("flash_dq_tf32_kernel", "flash_dq", "float32"))
 
 
 def sass_check(library: Path) -> dict:
     """Each flash row's tensor-core opcodes per dtype in the library's SASS,
     held to ``FLASH_DESIGN``: a ``wgmma`` design holds HGMMA in every
-    instance, a ``tf32x3`` design HGMMA and HMMA, an ``fma`` design no
-    tensor-core opcode in any."""
+    instance, a ``tf32x3`` design HGMMA and HMMA."""
     from tpulab_torch.ops.cuda import _build
     from tpulab_torch.ops.cuda.attention import HEAD_DIMS
 
@@ -6313,6 +6312,11 @@ def main() -> int:
             print("  " + line.strip())
     sass = sass_check(library)
     print(f"SASS tensor-core opcodes per flash kernel and dtype: {json.dumps(sass)}", flush=True)
+    from tpulab_torch.ops.cuda.attention import HEAD_DIMS, TF32_KERNELS, tf32_blocks_per_sm
+
+    occupancy = {name: {d: tf32_blocks_per_sm(d, name) for d in HEAD_DIMS}
+                 for name in TF32_KERNELS}
+    print(f"float32 flash blocks per SM by head dim: {json.dumps(occupancy)}", flush=True)
     print(f"SASS of B1 and B3 (instructions, ULDC, conversions): "
           f"{json.dumps(lab_sass_counts(library))}", flush=True)
 
@@ -6324,6 +6328,8 @@ def main() -> int:
     for kernel in payload["kernels"]:
         if kernel["name"] in sass:
             kernel["sass_tensor_core_opcodes"] = sass[kernel["name"]]
+        if kernel["name"] in occupancy:
+            kernel["f32_blocks_per_sm"] = occupancy[kernel["name"]]
     print(json.dumps({"model": payload["model"]}), flush=True)
     print(json.dumps({"lab_suite": payload["lab_suite"]}), flush=True)
     print(json.dumps({"kernels": payload["kernels"]}), flush=True)

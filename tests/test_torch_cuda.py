@@ -318,23 +318,23 @@ def test_flash_bf16_kernels_read_strided_and_misaligned_inputs(cuda_device, layo
 @pytest.mark.cuda
 def test_flash_bf16_kernels_run_on_tensor_cores(cuda_device):
     """The built library's SASS (cuobjdump): every bfloat16 B4, B5 and B6
-    instance holds wgmma (HGMMA); every float32 B4 and B6 instance holds
+    instance holds wgmma (HGMMA); every float32 B4, B5 and B6 instance holds
     wgmma for its score products and mma.sync (HMMA) for the products over
-    keys or queries, three TF32 passes each; the float32 B5 instances use
-    no tensor-core instruction."""
+    keys or queries, three TF32 passes each; no flash instance is left on
+    the FMA pipes alone."""
     sass = _build.kernel_sass(_build.build())
     tc = {name: _build.tensor_core_opcodes(text) for name, text in sass.items()}
     wgmma = [n for n in tc if any(k in n for k in ("flash_fwd_wgmma_kernel",
                                                    "flash_dq_wgmma_kernel",
                                                    "flash_dkv_wgmma_kernel"))]
     tf32 = [n for n in tc if any(k in n for k in ("flash_fwd_tf32_kernel",
+                                                  "flash_dq_tf32_kernel",
                                                   "flash_dkv_tf32_kernel"))]
-    fma = [n for n in tc if "flash_bwd_dq_kernel" in n]
     assert len(wgmma) == 3 * len(HEAD_DIMS)
-    assert len(tf32) == 2 * len(HEAD_DIMS) and len(fma) == len(HEAD_DIMS)
+    assert len(tf32) == 3 * len(HEAD_DIMS)
     assert all(tc[n] == ["HGMMA"] for n in wgmma)
     assert all(tc[n] == ["HGMMA", "HMMA"] for n in tf32)
-    assert not any(tc[n] for n in fma)
+    assert not [n for n in tc if "flash" in n and not tc[n]]
 
 
 @pytest.mark.cuda
@@ -429,6 +429,35 @@ def test_flash_bwd_dq_bf16_takes_b4_lse(cuda_device, d):
     want = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
     assert dq.dtype == torch.bfloat16 and torch.isfinite(dq.float()).all()
     assert torch.all(dq.float()[dead] == 0)
+    assert grad_over_tolerance(dq, want) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", HEAD_DIMS)
+def test_flash_bwd_dq_f32_takes_b4_lse(cuda_device, d):
+    """float32 B5 fed the lse that B4 computed on the card, with GQA, a
+    window, a query offset whose last rows see no key with an lse
+    cotangent, and a sequence that ends inside a key tile (200 keys: 3 tiles
+    of 64 and 8, 6 of 32 and 8): within grad_tolerance of the plain dq on
+    the same lse, and 0 on the rows that see no key.  B5 forms its scores
+    with B4's three-pass product over B4's key tiles."""
+    case = (2, 200, 8, 2, True, 96, 128)
+    q, k, v = _flash_inputs(case, d, torch.float32, cuda_device)
+    kw = dict(zip(("causal", "window", "q_offset"), case[4:]))
+    o, lse = flash_attention_with_lse(q, k, v, **kw)
+    rng = np.random.default_rng(d + 3)
+    do = torch.from_numpy(rng.standard_normal(q.shape).astype(np.float32)).to(cuda_device)
+    dlse = torch.from_numpy(rng.standard_normal(lse.shape).astype(np.float32)).to(cuda_device)
+    dead = torch.isneginf(lse)
+    assert dead.any() and not dead.all()
+    delta = bwd_delta(o, do, torch.where(dead, 0.0, dlse))
+    before = flash_attention_bwd_dq.launches
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention_bwd_dq.launches == before + 1
+    want = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, **kw)
+    assert dq.dtype == torch.float32 and torch.isfinite(dq).all()
+    assert torch.all(dq[dead] == 0)
     assert grad_over_tolerance(dq, want) <= 1
 
 

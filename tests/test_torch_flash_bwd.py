@@ -14,11 +14,10 @@ gradients after.  bfloat16: two bf16 ulps of the element and of its row
 (both round p and ds to bf16 before their products, from f32 values that
 differ by f32 rounding, and round the result once more), plus the same
 ``2e-5 * head``.  The last tests show that the same limit admits the
-kernels' orders of summation (float32 B5 key by key on the FMA pipes,
-float32 B6 one query tile of three-pass TF32 products at a time,
-bfloat16 one tensor-core product's tile at a time), rejects float32 B6
-with one TF32 pass in place of three, and rejects a backward that skips
-one key tile.
+kernels' orders of summation (float32 B5 one key tile and B6 one query
+tile of three-pass TF32 products at a time, bfloat16 one tensor-core
+product's tile at a time), rejects float32 B5 and B6 with one TF32 pass
+in place of three, and rejects a backward that skips one key tile.
 """
 
 import math
@@ -32,13 +31,17 @@ import torch
 from tpulab.ops.pallas.attention import flash_attention as jax_flash
 from tpulab.ops.pallas.attention import flash_attention_with_lse as jax_flash_lse
 
+from tpulab_torch.ops.cuda._build import MAX_SHARED
 from tpulab_torch.ops.cuda.attention import (
+    HEAD_DIMS,
     bwd_delta,
     flash_attention_bwd_plain,
     flash_attention_with_lse,
     flash_bwd_plain_masked,
     grad_over_tolerance,
+    key_tile,
     softmax_scale,
+    tf32_shared_bytes,
     visible,
 )
 from tpulab_torch.runtime import fpenv
@@ -219,12 +222,12 @@ def test_flash_grads_bf16_head_dims_match_tpulab(d, window):
 
 def _kernel_order(q, k, v, do, lse, delta, keep, skip_tile=None, bk=64, bq=1, bk_dq=1,
                   products="f32"):
-    """The kernels' sums in PyTorch: B5 accumulates dq one tile of ``bk_dq``
-    keys at a time from f32 scores, B6 dk and dv over each head of the GQA
-    group one tile of ``bq`` queries at a time (a tensor-core product's
-    tile), its four products formed as ``products`` says
-    (:func:`test_torch_flash.tf32_product`: S^T and dP^T, then P^T do and
-    dS^T q' per tile), p and ds rounded as the kernels round them.
+    """The kernels' sums in PyTorch, every product formed as ``products``
+    says (:func:`test_torch_flash.tf32_product`), p and ds rounded as the
+    kernels round them: the scores S and dP once for both; B5 accumulates
+    dq one tile of ``bk_dq`` keys at a time, each tile's dS K added in f32;
+    B6 dk and dv over each head of the GQA group one tile of ``bq`` queries
+    at a time (a tensor-core product's tile), P^T do and dS^T q' per tile.
     ``skip_tile`` plants a fault: rows past that key tile (of ``bk`` keys)
     do not see its keys."""
     b, s, h, d = q.shape
@@ -242,19 +245,16 @@ def _kernel_order(q, k, v, do, lse, delta, keep, skip_tile=None, bk=64, bq=1, bk
         ds = p * (dps - delta_t)
         return p.to(q.dtype).float(), ds.to(q.dtype).float()
 
-    # B5: f32 scores, dq one key tile at a time
-    pr, dsr = p_ds(torch.einsum("bqhd,bkhd->bhqk", qs, kf),
-                   torch.einsum("bqhd,bkhd->bhqk", do.float(), vf))
+    heads = lambda x: x.transpose(1, 2)  # (b, s, h, d) -> (b, h, s, d)
+    pr, dsr = p_ds(tf32_product(heads(qs), heads(kf).transpose(-1, -2), products),
+                   tf32_product(heads(do.float()), heads(vf).transpose(-1, -2), products))
+    # B5: dq one key tile at a time
     acc = torch.zeros(b, h, s, d)
     for j in range(0, s, bk_dq):
         t = slice(j, j + bk_dq)
-        acc = acc + torch.einsum("bhqk,bkhd->bhqd", dsr[..., t], kf[:, t])
+        acc = acc + tf32_product(dsr[..., t], heads(kf)[:, :, t], products)
     dq = (acc.to(q.dtype).float() * scale).to(q.dtype).transpose(1, 2)
-    # B6: its own products, dk and dv one query tile at a time
-    if products != "f32":
-        heads = lambda x: x.transpose(1, 2)  # (b, s, h, d) -> (b, h, s, d)
-        pr, dsr = p_ds(tf32_product(heads(qs), heads(kf).transpose(-1, -2), products),
-                       tf32_product(heads(do.float()), heads(vf).transpose(-1, -2), products))
+    # B6: dk and dv one query tile at a time
     dk = torch.zeros(b, s, k.shape[2], d)
     dv = torch.zeros_like(dk)
     for hh in range(h):
@@ -268,19 +268,20 @@ def _kernel_order(q, k, v, do, lse, delta, keep, skip_tile=None, bk=64, bq=1, bk
 
 
 # (s, h, kv_heads, d, dtype, window, q_offset, B6's query tile, B5's key
-# tile, B6's products): one batch row of the training step's shapes (head_dim
+# tile, the products): one batch row of the training step's shapes (head_dim
 # 64 and the demo's 16), a window, GQA, a query offset with an lse cotangent,
 # a sequence that ends inside a tile, and every head dim in bfloat16.  The
-# tiles and products are the kernels': in float32 B5 sums key by key on the
-# FMA pipes (key tile 1) and B6 runs three TF32 passes (``"tf32x3"``) over
-# 64 queries (32 at head_dim 128); in bfloat16 B6 sums 64 queries (32 at
-# head_dim 128) and B5 64 keys, their products exact in f32
+# tiles and products are the kernels': in float32 B5 and B6 run three TF32
+# passes (``"tf32x3"``), B5 over B4's key tiles (64 keys, 32 from head_dim
+# 64 on: ``key_tile``), B6 over 64 queries (32 at head_dim 128); in
+# bfloat16 B6 sums 64 queries (32 at head_dim 128) and B5 64 keys, their
+# products exact in f32
 ORDER_CASES = [
     (1024, 2, 2, 64, torch.bfloat16, 0, 0, 64, 64, "f32"),
-    (1024, 2, 2, 64, torch.float32, 0, 0, 64, 1, "tf32x3"),
-    (1024, 4, 2, 16, torch.float32, 0, 0, 64, 1, "tf32x3"),
+    (1024, 2, 2, 64, torch.float32, 0, 0, 64, 32, "tf32x3"),
+    (1024, 4, 2, 16, torch.float32, 0, 0, 64, 64, "tf32x3"),
     (1024, 2, 2, 64, torch.bfloat16, 256, 0, 64, 64, "f32"),
-    (512, 2, 1, 64, torch.float32, 128, 512, 64, 1, "tf32x3"),
+    (512, 2, 1, 64, torch.float32, 128, 512, 64, 32, "tf32x3"),
     (512, 2, 2, 128, torch.bfloat16, 0, 0, 32, 64, "f32"),
     (512, 8, 2, 64, torch.bfloat16, 0, 0, 64, 64, "f32"),
     (512, 2, 1, 16, torch.bfloat16, 128, 512, 64, 64, "f32"),
@@ -289,8 +290,8 @@ ORDER_CASES = [
     (512, 4, 1, 128, torch.bfloat16, 200, 0, 32, 64, "f32"),
     (512, 2, 2, 64, torch.bfloat16, 128, 512, 64, 64, "f32"),
     (512, 2, 2, 8, torch.bfloat16, 0, 0, 64, 64, "f32"),
-    (1024, 4, 4, 128, torch.float32, 0, 0, 32, 1, "tf32x3"),
-    (2048, 2, 2, 64, torch.float32, 256, 0, 64, 1, "tf32x3"),
+    (1024, 4, 4, 128, torch.float32, 0, 0, 32, 32, "tf32x3"),
+    (2048, 2, 2, 64, torch.float32, 256, 0, 64, 32, "tf32x3"),
 ]
 F32_ORDER_CASES = [c for c in ORDER_CASES if c[4] == torch.float32]
 
@@ -311,6 +312,7 @@ def _order_inputs(case):
 
 @pytest.mark.parametrize("case", ORDER_CASES)
 def test_grad_tolerance_admits_the_kernels_sums(case):
+    assert case[8] == key_tile(case[3], case[4])  # B5 walks B4's key tiles
     args, want = _order_inputs(case)
     for g, w in zip(_kernel_order(*args, bq=case[7], bk_dq=case[8], products=case[9]), want):
         assert grad_over_tolerance(g, w) <= 1
@@ -318,13 +320,26 @@ def test_grad_tolerance_admits_the_kernels_sums(case):
 
 @pytest.mark.parametrize("case", F32_ORDER_CASES)
 def test_grad_tolerance_rejects_one_tf32_pass(case):
-    """float32 B6 with one TF32 pass per product in place of three:
-    ``grad_tolerance`` rejects its dk by more than 10x and its dv by more
-    than 1x (dv's operands, p and do, carry no cancelling sum)."""
+    """float32 B5 and B6 with one TF32 pass per product in place of three:
+    ``grad_tolerance`` rejects their dq and dk by more than 10x and dv by
+    more than 1x (dv's operands, p and do, carry no cancelling sum)."""
     args, want = _order_inputs(case)
-    _, dk, dv = _kernel_order(*args, bq=case[7], bk_dq=case[8], products="tf32")
+    dq, dk, dv = _kernel_order(*args, bq=case[7], bk_dq=case[8], products="tf32")
+    assert grad_over_tolerance(dq, want[0]) > 10
     assert grad_over_tolerance(dk, want[1]) > 10
     assert grad_over_tolerance(dv, want[2]) > 1
+
+
+@pytest.mark.parametrize("d,want", [(8, 82_944), (16, 82_944), (32, 82_944), (64, 115_712),
+                                    (128, 230_400)])
+def test_float32_dq_shared_memory(d, want):
+    """float32 B5's block: 1024 bytes of alignment, the q' and do parts (64
+    rows each) and the K and V parts of B4's key tile with the next raw
+    tile, each row 128 bytes a 32 head dims; within what a block may take."""
+    assert d in HEAD_DIMS
+    rows = 4 * 64 + 6 * key_tile(d, torch.float32)
+    assert tf32_shared_bytes(d, "flash_dq") == 1024 + rows * 128 * max(1, d // 32) == want
+    assert want <= MAX_SHARED
 
 
 @pytest.mark.parametrize("case,tile", [(ORDER_CASES[0], 8), (ORDER_CASES[0], 14),

@@ -28,15 +28,25 @@
 // Bound: operations at the model path's shapes (B5 6*d and B6 8*d flops per
 // visible (query, key) pair, against ~4 reads of (s, d) per head).
 //
-// In float32 B5 (flash_bwd_dq_kernel) runs on the f32 FMA pipes
-// (Precision.HIGHEST, no TF32): each row lives in registers of TPR threads
-// (flash_common.cuh), and the K/V tile that every row of the block reads is
-// staged in shared memory as f32.  It recomputes the scores in its own
-// order, not in B4's tensor-core order.
+// In float32 both run on the tensor cores, every product in three TF32
+// passes (flash_tf32.cuh), which keep the f32 limits where one pass misses
+// them, and each tile's product over keys or queries starts from zero and
+// joins its running sum by one f32 add.
 //
-// In float32 B6 (flash_dkv_tf32_kernel) runs on the tensor cores, every
-// product in three TF32 passes (flash_tf32.cuh), which keep the f32 limits
-// where one pass misses them: one warpgroup holds the block's 64 keys, K
+// B5 (flash_dq_tf32_kernel): one warpgroup holds the block's 64 queries, q'
+// and do split into hi and lo parts once (through registers) and resident
+// in shared memory, each thread's two rows' lse and delta in registers, and
+// dQ in f32 registers across every key tile.  Key tiles are B4's (64 keys,
+// 32 from head dim 64 on: tl_tf32::key_tile); raw K and V arrive by
+// cp.async, the next tile's copy in flight while this one computes, and
+// are split when they land.  Per tile, three products: S = Q'K^T, the very
+// wgmma_x3 call B4 makes on the same splits, so p = exp(S - lse) comes
+// from the scores behind the forward's lse; dP = dO V^T, a wgmma of the
+// same shape; then, in f32 registers, p (0 where masked) and dS = p (dP -
+// delta); and dQ += dS K, which reduces over keys and runs as mma.sync
+// (B4's P V with dS for P and the K parts of the score product for V).
+//
+// B6 (flash_dkv_tf32_kernel): one warpgroup holds the block's 64 keys, K
 // and V split into hi and lo parts once (through registers), and dK, dV in
 // f32 registers across every query tile of the group.  Query tiles of 64
 // rows (32 at head dim 128, so shared memory fits) arrive raw by cp.async
@@ -86,43 +96,55 @@ namespace {
 
 using namespace tl_flash;
 
-template <int D, typename T>
-__global__ void __launch_bounds__(Geometry<D>::THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int s, int h, int kvh,
-                    float scale, int causal, int window, int q_offset) {
-  using G = Geometry<D>;
-  constexpr int TPR = G::TPR, DPT = G::DPT, CPT = G::CPT, BK = G::BK, NC = D / 4;
-  __shared__ float4 ks[BK][NC];
-  __shared__ float4 vs[BK][NC];
-  float* ksf = reinterpret_cast<float*>(ks);
-  float* vsf = reinterpret_cast<float*>(vs);
+struct Args {
+  const void *q, *k, *v, *dout, *lse, *delta;
+  void *dq, *dk, *dv;
+  int b, s, h, kvh;
+  float scale;
+  int causal, window, q_offset;
+  cudaStream_t stream;
+};
 
+// ----------------------------------------- B5 in f32 on the tensor cores
+
+template <int D>
+struct DqTF32 {
+  static constexpr int BK = tl_tf32::key_tile<D>();            // keys per tile: B4's
+  static constexpr int QTILE = tl_tf32::tile_bytes<BQ, D>();  // bytes of a q' or do part
+  static constexpr int TILE = tl_tf32::tile_bytes<BK, D>();   // bytes of a K or V part
+  // alignment; q', do hi and lo; K, V hi and lo; the next raw K and V
+  static constexpr int SMEM = 1024 + 4 * QTILE + 6 * TILE;
+};
+
+template <int D>
+__global__ void __launch_bounds__(tl_tc::THREADS)
+flash_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dq, int s, int h, int kvh, float scale, int causal,
+                     int window, int q_offset) {
+  using namespace tl_tc;
+  using C = DqTF32<D>;
+  constexpr int BK = C::BK, QTILE = C::QTILE, TILE = C::TILE;
+  constexpr int NS = BK / 2, NA = D / 2;  // accumulator floats of S or dP, and of dQ
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t sbase = (raw + 1023) & ~1023u;
+  uint8_t* base = smem_raw + (sbase - raw);
+  // q' hi, lo; do hi, lo; K hi, lo; V hi, lo; raw K, raw V
+  const uint32_t sqh = sbase, sql = sqh + QTILE, sdh = sql + QTILE, sdl = sdh + QTILE;
+  const uint32_t skh = sdl + QTILE, skl = skh + TILE, svh = skl + TILE, svl = svh + TILE;
+  const uint32_t srk = svl + TILE, srv = srk + TILE;
+  auto at = [&](uint32_t a) { return base + (a - sbase); };
+
+  const int tid = threadIdx.x;
+  const int g = (tid % 32) / 4, t = tid % 4;  // the lane's group and its place in it
+  const int r0 = (tid / 32) * 16 + g;         // this thread's rows: r0, r0 + 8
+  const int cq = 2 * t;                       // its columns: 8 j + cq, + 1
   const int qt = gridDim.x - 1 - blockIdx.x;  // heaviest causal tiles first
   const int bi = blockIdx.y / h;
   const int hi = blockIdx.y % h;
   const int kh = hi / (h / kvh);
-  const int row = threadIdx.x / TPR;
-  const int t = threadIdx.x % TPR;
-  const int qi = qt * BQ + row;
-  const long long qpos = static_cast<long long>(q_offset) + qi;
-  // this row's index in the (batch, seq, heads) layout of q, do, lse, delta
-  const long long r = (static_cast<long long>(bi) * s + min(qi, s - 1)) * h + hi;
-
-  float qr[DPT], dor[DPT], acc[DPT];
-#pragma unroll
-  for (int c = 0; c < CPT; ++c) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const long long at = r * D + (c * TPR + t) * 4 + e;
-      qr[c * 4 + e] = prescaled<T>(q[at], scale);
-      dor[c * 4 + e] = to_f32<T>(dout[at]);
-      acc[c * 4 + e] = 0.0f;
-    }
-  }
-  const float row_lse = lse[r];
-  const float row_delta = delta[r];
 
   // the keys this query tile can see (the forward's range)
   const long long q_lo = static_cast<long long>(q_offset) + qt * BQ;
@@ -135,94 +157,110 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const int kt_begin = static_cast<int>(k_begin / BK);
   const int kt_end = k_end >= k_begin ? static_cast<int>(k_end / BK) + 1 : kt_begin;
 
+  const long long q_row = static_cast<long long>(h) * D;     // elements between queries
   const long long kv_row = static_cast<long long>(kvh) * D;  // elements between keys
-  const T* kbase = k + static_cast<long long>(bi) * s * kv_row + kh * D;
-  const T* vbase = v + static_cast<long long>(bi) * s * kv_row + kh * D;
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // every row is done with the previous tile
-    for (int e = threadIdx.x; e < BK * D; e += G::THREADS) {
-      const int j = e / D;
-      const int dd = e % D;
-      const int kj = k0 + j;
-      float kx = 0.0f, vx = 0.0f;
-      if (kj < s) {
-        kx = to_f32<T>(kbase[kj * kv_row + dd]);
-        vx = to_f32<T>(vbase[kj * kv_row + dd]);
-      }
-      ksf[j * D + dd] = kx;
-      vsf[j * D + dd] = vx;
-    }
-    __syncthreads();
+  const long long q_at = (static_cast<long long>(bi) * s + qt * BQ) * h + hi;  // row of (b, s, h)
+  const float* kbase = k + static_cast<long long>(bi) * s * kv_row + kh * D;
+  const float* vbase = v + static_cast<long long>(bi) * s * kv_row + kh * D;
+  auto load_kv = [&](int kt) {
+    const long long k0 = static_cast<long long>(kt) * BK;
+    tl_tf32::load_tile<BK, D>(srk, kbase + k0 * kv_row, kv_row, s - kt * BK, tid);
+    tl_tf32::load_tile<BK, D>(srv, vbase + k0 * kv_row, kv_row, s - kt * BK, tid);
+  };
+  if (kt_begin < kt_end) load_kv(kt_begin);
+  cp_commit();
+  // q' = f32(q * scale) and do, split once for the block (B4 splits q' so)
+  tl_tf32::stage_split<BQ, D>(at(sqh), at(sql), q + q_at * D, q_row, s - qt * BQ, scale, tid);
+  tl_tf32::stage_split<BQ, D>(at(sdh), at(sdl), dout + q_at * D, q_row, s - qt * BQ, 1.0f, tid);
 
-    // a tile inside every row's range needs no positional mask
+  // this thread's rows' lse and delta; rows past s take 0, so their p is
+  // finite and their dS (from zero-filled do) is 0
+  float row_lse[2], row_delta[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int i = r0 + 8 * rr;
+    const bool ok = qt * BQ + i < s;
+    row_lse[rr] = ok ? lse[q_at + static_cast<long long>(i) * h] : 0.0f;
+    row_delta[rr] = ok ? delta[q_at + static_cast<long long>(i) * h] : 0.0f;
+  }
+
+  float acc[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i] = 0.0f;
+
+  for (int kt = kt_begin; kt < kt_end; ++kt) {
+    cp_wait<0>();
+    __syncthreads();  // this tile landed; every warp is done with the last one's parts
+    tl_tf32::split_tile<BK, D>(at(srk), at(skh), at(skl), 1.0f, tid);
+    tl_tf32::split_tile<BK, D>(at(srv), at(svh), at(svl), 1.0f, tid);
+    fence_async_shared();
+    __syncthreads();  // the parts are visible to wgmma; the raw tiles are free
+    if (kt + 1 < kt_end) load_kv(kt + 1);  // in flight while this tile computes
+    cp_commit();
+
+    // S = Q'K^T (B4's call on B4's splits) and dP = dO V^T, each in three passes
+    float sc[NS], dp[NS];
+    wg_fence();
+    tl_tf32::wgmma_x3<BK, D>(sc, sqh, sql, skh, skl);
+    tl_tf32::wgmma_x3<BK, D>(dp, sdh, sdl, svh, svl);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    // p = exp(S - lse), 0 where masked; dS = p (dP - delta)
+    const int k0 = kt * BK;
     const bool full = k0 + BK <= s &&
                       (!causal || (k0 + BK - 1 <= q_lo && (window == 0 || k0 > q_hi - window)));
-#pragma unroll 4
-    for (int j = 0; j < BK; ++j) {
-      float sp = 0.0f, dpp = 0.0f;
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float4 kk = ks[j][c * TPR + t];
-        const float4 vv = vs[j][c * TPR + t];
-        sp = fmaf(qr[c * 4 + 0], kk.x, sp);
-        sp = fmaf(qr[c * 4 + 1], kk.y, sp);
-        sp = fmaf(qr[c * 4 + 2], kk.z, sp);
-        sp = fmaf(qr[c * 4 + 3], kk.w, sp);
-        dpp = fmaf(dor[c * 4 + 0], vv.x, dpp);
-        dpp = fmaf(dor[c * 4 + 1], vv.y, dpp);
-        dpp = fmaf(dor[c * 4 + 2], vv.z, dpp);
-        dpp = fmaf(dor[c * 4 + 3], vv.w, dpp);
-      }
-      sp = row_sum<TPR>(sp);
-      dpp = row_sum<TPR>(dpp);
+    for (int i = 0; i < NS; ++i) {
+      const int rr = (i / 2) % 2;
       bool keep = true;
       if (!full) {
-        const long long kp = k0 + j;
+        const long long kp = k0 + 8 * (i / 4) + cq + (i % 2);
+        const long long qpos = q_lo + r0 + 8 * rr;
         keep = kp < s;
         if (causal) {
           keep = keep && kp <= qpos;
           if (window > 0) keep = keep && kp > qpos - window;
         }
       }
-      const float p = keep ? expf(sp - row_lse) : 0.0f;
-      const float ds = round_to<T>(p * (dpp - row_delta));
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        const float4 kk = ks[j][c * TPR + t];
-        acc[c * 4 + 0] = fmaf(ds, kk.x, acc[c * 4 + 0]);
-        acc[c * 4 + 1] = fmaf(ds, kk.y, acc[c * 4 + 1]);
-        acc[c * 4 + 2] = fmaf(ds, kk.z, acc[c * 4 + 2]);
-        acc[c * 4 + 3] = fmaf(ds, kk.w, acc[c * 4 + 3]);
-      }
+      const float p = keep ? exp_mufu(sc[i] - row_lse[rr]) : 0.0f;
+      dp[i] = p * (dp[i] - row_delta[rr]);
     }
+
+    // dQ += dS K, the tile's product in three passes from the K parts of S
+    float part[NA];
+    tl_tf32::mma_x3<BK, D>(part, dp, at(skh), at(skl), g, t);
+#pragma unroll
+    for (int i = 0; i < NA; ++i) acc[i] = __fadd_rn(acc[i], part[i]);
   }
 
-  if (qi < s) {
+  // dq = f32(dq' * scale): the prescale's gradient, as autodiff gives it
 #pragma unroll
-    for (int c = 0; c < CPT; ++c) {
+  for (int rr = 0; rr < 2; ++rr) {
+    const int i = r0 + 8 * rr;
+    if (qt * BQ + i < s) {
+      float* row = dq + (q_at + static_cast<long long>(i) * h) * D;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float dq_scaled = __fmul_rn(round_to<T>(acc[c * 4 + e]), scale);
-        dq[r * D + (c * TPR + t) * 4 + e] = from_f32<T>(dq_scaled);
+      for (int j = 0; j < NA / 4; ++j) {
+        *reinterpret_cast<float2*>(row + 8 * j + cq) =
+            make_float2(__fmul_rn(acc[4 * j + 2 * rr], scale),
+                        __fmul_rn(acc[4 * j + 2 * rr + 1], scale));
       }
     }
   }
 }
 
-struct Args {
-  const void *q, *k, *v, *dout, *lse, *delta;
-  void *dq, *dk, *dv;
-  int b, s, h, kvh;
-  float scale;
-  int causal, window, q_offset;
-  cudaStream_t stream;
-};
-
 template <int D>
-int launch_dq(const Args& a) {
+int launch_dq_tf32(const Args& a, int smem) {
+  if (smem != DqTF32<D>::SMEM) return static_cast<int>(cudaErrorInvalidValue);
+  auto kernel = flash_dq_tf32_kernel<D>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((a.s + BQ - 1) / BQ, a.b * a.h);
-  flash_bwd_dq_kernel<D, float><<<grid, Geometry<D>::THREADS, 0, a.stream>>>(
+  kernel<<<grid, tl_tc::THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
@@ -816,19 +854,22 @@ int launch_dq_wgmma(const Args& a, int smem) {
 // d), lse and delta contiguous (b, s, h) f32.  Launch on `stream`; return
 // cudaGetLastError().
 
-// B5 in float32, on the FMA pipes
+// B5 in float32, on the tensor cores in three TF32 passes; besides, the
+// base pointers are 16-byte aligned and smem is the block's dynamic shared
+// memory in bytes (the wrapper's tf32_shared_bytes; any other value is
+// refused)
 extern "C" int tl_flash_bwd_dq(int d, const void* q, const void* k, const void* v,
                                const void* dout, const void* lse, const void* delta, void* dq,
                                int b, int s, int h, int kvh, float scale, int causal, int window,
-                               int q_offset, void* stream) {
+                               int q_offset, int smem, void* stream) {
   const Args a{q, k, v, dout, lse, delta, dq, nullptr, nullptr, b, s, h, kvh, scale,
                causal, window, q_offset, static_cast<cudaStream_t>(stream)};
   switch (d) {
-    case 8: return launch_dq<8>(a);
-    case 16: return launch_dq<16>(a);
-    case 32: return launch_dq<32>(a);
-    case 64: return launch_dq<64>(a);
-    case 128: return launch_dq<128>(a);
+    case 8: return launch_dq_tf32<8>(a, smem);
+    case 16: return launch_dq_tf32<16>(a, smem);
+    case 32: return launch_dq_tf32<32>(a, smem);
+    case 64: return launch_dq_tf32<64>(a, smem);
+    case 128: return launch_dq_tf32<128>(a, smem);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -889,6 +930,33 @@ extern "C" int tl_flash_bwd_dkv_bf16(int d, const void* q, const void* k, const 
     case 32: return launch_dkv_wgmma<32>(a, smem);
     case 64: return launch_dkv_wgmma<64>(a, smem);
     case 128: return launch_dkv_wgmma<128>(a, smem);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+namespace {
+
+template <int D>
+int dq_blocks(int* blocks) {
+  return tl_tf32::blocks_per_sm(flash_dq_tf32_kernel<D>, DqTF32<D>::SMEM, blocks);
+}
+
+template <int D>
+int dkv_blocks(int* blocks) {
+  return tl_tf32::blocks_per_sm(flash_dkv_tf32_kernel<D>, DkvTF32<D>::SMEM, blocks);
+}
+
+}  // namespace
+
+// Blocks of the float32 B5 (dkv = 0) or B6 (dkv = 1) instance for head dim
+// d that one SM holds at once, into *blocks; returns the CUDA error
+extern "C" int tl_flash_bwd_blocks_per_sm(int dkv, int d, int* blocks) {
+  switch (d) {
+    case 8: return dkv ? dkv_blocks<8>(blocks) : dq_blocks<8>(blocks);
+    case 16: return dkv ? dkv_blocks<16>(blocks) : dq_blocks<16>(blocks);
+    case 32: return dkv ? dkv_blocks<32>(blocks) : dq_blocks<32>(blocks);
+    case 64: return dkv ? dkv_blocks<64>(blocks) : dq_blocks<64>(blocks);
+    case 128: return dkv ? dkv_blocks<128>(blocks) : dq_blocks<128>(blocks);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

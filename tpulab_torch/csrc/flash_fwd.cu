@@ -71,7 +71,7 @@ using namespace tl_flash;
 
 template <int D>
 struct FwdTF32 {
-  static constexpr int BK = D <= 32 ? 64 : 32;                  // keys per tile
+  static constexpr int BK = tl_tf32::key_tile<D>();             // keys per tile
   static constexpr int QTILE = tl_tf32::tile_bytes<BQ, D>();   // bytes of a q' part
   static constexpr int TILE = tl_tf32::tile_bytes<BK, D>();    // bytes of a K or V part
   // alignment; q' hi and lo; K hi and lo; V hi and lo; the next raw K and V
@@ -482,6 +482,28 @@ extern "C" int tl_flash_fwd_bf16(int d, const void* q, const void* k, const void
     case 32: return launch_wgmma<32>(TL_FLASH_ARGS, smem, cs);
     case 64: return launch_wgmma<64>(TL_FLASH_ARGS, smem, cs);
     case 128: return launch_wgmma<128>(TL_FLASH_ARGS, smem, cs);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+namespace {
+
+template <int D>
+int fwd_blocks(int* blocks) {
+  return tl_tf32::blocks_per_sm(flash_fwd_tf32_kernel<D>, FwdTF32<D>::SMEM, blocks);
+}
+
+}  // namespace
+
+// Blocks of the float32 instance for head dim d that one SM holds at once,
+// into *blocks; returns the CUDA error
+extern "C" int tl_flash_fwd_blocks_per_sm(int d, int* blocks) {
+  switch (d) {
+    case 8: return fwd_blocks<8>(blocks);
+    case 16: return fwd_blocks<16>(blocks);
+    case 32: return fwd_blocks<32>(blocks);
+    case 64: return fwd_blocks<64>(blocks);
+    case 128: return fwd_blocks<128>(blocks);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

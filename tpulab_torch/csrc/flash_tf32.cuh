@@ -1,7 +1,7 @@
 // What the float32 flash kernels on Hopper's tensor cores share (B4 in
-// flash_fwd.cu, B6 in flash_bwd.cu): f32 tiles staged in shared memory and
-// split into two TF32 parts, and the three-pass products over those parts
-// (CUTLASS's OpMultiplyAddFastF32, written out here).
+// flash_fwd.cu, B5 and B6 in flash_bwd.cu): f32 tiles staged in shared
+// memory and split into two TF32 parts, and the three-pass products over
+// those parts (CUTLASS's OpMultiplyAddFastF32, written out here).
 //
 // The split.  An f32 value x becomes hi = cvt.rna.tf32.f32(x) and lo =
 // cvt.rna.tf32.f32(x - hi), both with their low 13 bits zero, so the
@@ -19,16 +19,17 @@
 // 8-column k-step is 32 bytes, so flash_tc.cuh's desc_k<R> addresses it
 // unchanged.  Below 32 columns only the first D of each row's 32 are used.
 //
-// The products.  Those that reduce over the head dim (B4's S = Q'K^T, B6's
-// S^T = K q'^T and dP^T = V do^T) read both operands K-major from shared
-// memory: wgmma m64nNk8 tf32.  Those that reduce over keys or queries (B4's
-// O += P V, B6's dV += P^T do and dK += dS^T q') would need their B operand
-// K-major along keys or queries, a transpose that wgmma cannot make for
-// 32-bit operands and cp.async cannot make on the way in.  They run as
-// mma.sync m16n8k8 tf32 instead, one per warp and 16 rows, whose fragments
-// are loaded element by element: A from the score accumulator's registers
-// (a warp's 16 rows of a wgmma accumulator are an m16n8 accumulator's
-// rows), B from the same K-major tile that stages the operand.  Within each
+// The products.  Those that reduce over the head dim (B4's and B5's S =
+// Q'K^T, B5's dP = dO V^T, B6's S^T = K q'^T and dP^T = V do^T) read both
+// operands K-major from shared memory: wgmma m64nNk8 tf32.  Those that
+// reduce over keys or queries (B4's O += P V, B5's dQ += dS K, B6's dV +=
+// P^T do and dK += dS^T q') would need their B operand K-major along keys
+// or queries, a transpose that wgmma cannot make for 32-bit operands and
+// cp.async cannot make on the way in.  They run as mma.sync m16n8k8 tf32
+// instead, one per warp and 16 rows, whose fragments are loaded element by
+// element: A from the score accumulator's registers (a warp's 16 rows of a
+// wgmma accumulator are an m16n8 accumulator's rows), B from the same
+// K-major tile that stages the operand.  Within each
 // 8-wide k-step the logical index t < 4 takes key (query) 2 t and t + 4
 // takes 2 t + 1, on both sides: then A's parts are the accumulator's
 // registers in place, and the B loads of a warp fall in 32 distinct banks
@@ -57,6 +58,25 @@ __device__ __forceinline__ uint32_t swz(int rows, int row, int col) {
 template <int R, int D>
 constexpr int tile_bytes() {
   return R * ((D + 31) / 32) * 128;
+}
+
+// keys per tile of the kernels that walk keys, B4 and B5: 64, and 32 from
+// head dim 64 on, so that B4's hi and lo parts leave room for two blocks an
+// SM.  B5 walks B4's tiles with B4's score product, so its scores are B4's.
+template <int D>
+constexpr int key_tile() {
+  return D <= 32 ? 64 : 32;
+}
+
+// blocks of `kernel` (one warpgroup, `smem` bytes of dynamic shared memory)
+// that one SM holds at once, into *blocks; returns the CUDA error
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int smem, int* blocks) {
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, THREADS, smem);
+  }
+  return static_cast<int>(err);
 }
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {

@@ -70,9 +70,10 @@ SIGNATURES: Dict[str, List] = {
     "tl_flash_fwd_bf16": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, *[_L] * 9,
                           ctypes.c_float, _I, _I, _I, _I, _P],
     # d, q, k, v, do, lse, delta, dq, b, s, h, kv_heads, scale, causal,
-    # window, q_offset, stream (contiguous operands; float32)
-    "tl_flash_bwd_dq": [_I, *[_P] * 7, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _P],
-    # the same with the shared-memory bytes before the stream (bfloat16)
+    # window, q_offset, shared-memory bytes, stream (contiguous operands;
+    # float32)
+    "tl_flash_bwd_dq": [_I, *[_P] * 7, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _P],
+    # the same (bfloat16)
     "tl_flash_bwd_dq_bf16": [_I, *[_P] * 7, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I, _P],
     # d, then as tl_flash_bwd_dq with dk, dv in place of dq and the
     # shared-memory bytes before the stream (float32)
@@ -80,6 +81,10 @@ SIGNATURES: Dict[str, List] = {
     # the same (bfloat16)
     "tl_flash_bwd_dkv_bf16": [_I, *[_P] * 8, _I, _I, _I, _I, ctypes.c_float, _I, _I, _I, _I,
                               _P],
+    # d, out: blocks of the float32 B4 instance an SM holds at once
+    "tl_flash_fwd_blocks_per_sm": [_I, ctypes.POINTER(_I)],
+    # B6 (1) or B5 (0), d, out: the same for the float32 backward
+    "tl_flash_bwd_blocks_per_sm": [_I, _I, ctypes.POINTER(_I)],
     # dtype, d, quantized, q, kpool, vpool, kscale, vscale, tables, lengths,
     # out, workspace, tickets, slots, h, kv_heads, block_size, max_blocks,
     # window, q divisor, splits, span, shared-memory bytes, stream

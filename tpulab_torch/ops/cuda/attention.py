@@ -11,16 +11,15 @@ with its default 1024-row blocks, and have no block knobs: the CUDA kernels
 mask by position, so they need no padding.  :func:`flash_attention_partial`
 makes every check but the default block's, for the sequence-parallel
 bodies (``tpulab`` picks them a block that divides the local length), and
-the backward refuses no length.  The dtype picks the kernel: bfloat16
-runs B4, B5 and B6 on the tensor cores (``wgmma``); float32 runs B4 and B6
-on the tensor cores too, every product in three TF32 passes
+the backward refuses no length.  Every kernel runs on the tensor cores,
+and the dtype picks its design: bfloat16 runs B4, B5 and B6 as ``wgmma``;
+float32 runs them with every product in three TF32 passes
 (``csrc/flash_tf32.cuh``), which keep the f32 limits that the Pallas
-kernel's ``Precision.HIGHEST`` asks for, and B5 on the FMA pipes.  The
-tensor-core kernels' 16-byte copies need 16-byte-aligned rows, so an
-operand that is not aligned is copied first.  In bfloat16, B5 recomputes
-the scores with B4's own product, so its ``p = exp(s - lse)`` comes from
-the scores behind the forward's lse; in float32 it sums them in another
-order, and p may exceed 1 by a few ulps.
+kernel's ``Precision.HIGHEST`` asks for.  The kernels' 16-byte copies need
+16-byte-aligned rows, so an operand that is not aligned is copied first.
+In both dtypes B5 recomputes the scores with B4's own product over B4's
+key tiles, so its ``p = exp(s - lse)`` comes from the scores behind the
+forward's lse.
 
 K and V may be narrower than q (grouped-query attention): query head ``i``
 reads kv head ``i // (heads // kv_heads)``, the contiguous mapping of
@@ -52,6 +51,7 @@ held to are :func:`o_tolerance` and :func:`grad_tolerance`.
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import Optional, Tuple
 
@@ -67,17 +67,11 @@ HEAD_DIMS = (8, 16, 32, 64, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: query rows per block (``BQ`` in csrc/flash_fwd.cu)
 BLOCK_Q = 64
-#: threads of a tensor-core block of B4, B5 or B6: one warpgroup
+#: threads of a block of B4, B5 or B6: one warpgroup
 TC_THREADS = 128
 #: the JAX wrapper's default block; a sequence it would have to pad is
 #: refused where padding is refused there
 _JAX_BLOCK = 1024
-
-
-def _threads(d: int) -> int:
-    """Threads per block of float32 B5, on the FMA pipes, for head dim
-    ``d`` (``Geometry``)."""
-    return BLOCK_Q * min(d // 4, 4)
 
 
 #: the bfloat16 kernels, by their rows in ``chip_smoke.py``
@@ -103,36 +97,57 @@ def tc_shared_bytes(d: int, kernel: str) -> int:
     raise ValueError(f"no tensor-core kernel {kernel!r}; have {TC_KERNELS}")
 
 
-#: the float32 kernels on the tensor cores (three TF32 passes)
-TF32_KERNELS = ("flash_fwd", "flash_dkv")
+#: the float32 kernels, on the tensor cores in three TF32 passes
+TF32_KERNELS = ("flash_fwd", "flash_dq", "flash_dkv")
 
 
 def key_tile(d: int, dtype: torch.dtype) -> int:
-    """Keys per tile of B4 at head dim ``d`` (``FwdTC::BK``, ``FwdTF32::BK``
-    in csrc/flash_fwd.cu): 64, and in float32 32 from head_dim 64 on, where
-    the hi and lo parts of 64 keys would leave one block an SM."""
+    """Keys per tile of B4 and B5 at head dim ``d`` (``FwdTC::BK``,
+    ``DqTC::BK``, and in float32 ``tl_tf32::key_tile``): 64, and in
+    float32 32 from head_dim 64 on, where the hi and lo parts of 64 keys
+    would leave one block of B4 an SM."""
     return 32 if dtype == torch.float32 and d >= 64 else 64
 
 
 def tf32_shared_bytes(d: int, kernel: str) -> int:
     """Dynamic shared memory of one block of the float32 ``kernel`` (one
-    of :data:`TF32_KERNELS`: B4 or B6), in bytes (``FwdTF32`` and
-    ``DkvTF32`` in csrc/): 1024 bytes of alignment, then f32 tiles of
-    128-byte rows per 32 head dims (one row of 128 bytes below 32), each
-    tensor as a hi and a lo part.  B4: q' (64 rows), the K and V parts of
-    one tile of 64 keys (32 from head_dim 64 on, so that two blocks fit an
-    SM), and the next tile's raw K and V: 82,944 bytes at head_dim 64.  B6:
-    the block's K and V (64 rows each), the q' and do parts of one tile of
-    64 queries (32 at head_dim 128), the next tile's raw q and do, and
-    lse and delta raw and current: 230,912 bytes at head_dim 128, within
-    the 232,448 a block may take."""
+    of :data:`TF32_KERNELS`: B4, B5 or B6), in bytes (``FwdTF32``,
+    ``DqTF32`` and ``DkvTF32`` in csrc/): 1024 bytes of alignment, then f32
+    tiles of 128-byte rows per 32 head dims (one row of 128 bytes below
+    32), each tensor as a hi and a lo part.  B4: q' (64 rows), the K and V
+    parts of one tile of 64 keys (32 from head_dim 64 on, so that two
+    blocks fit an SM), and the next tile's raw K and V: 82,944 bytes at
+    head_dim 64.  B5: q' and do (64 rows each) and B4's key tile of K and
+    V with the next tile's raw K and V: 82,944 bytes up to head_dim 32,
+    115,712 at 64 (two blocks fill the SM's 233,472 bytes, 1,024 reserved
+    a block), 230,400 at 128.  B6: the block's K and V (64 rows each), the
+    q' and do parts of one tile of 64 queries (32 at head_dim 128), the
+    next tile's raw q and do, and lse and delta raw and current: 230,912
+    bytes at head_dim 128.  Each is within the 232,448 a block may take."""
     row = 128 * max(1, d // 32)
-    if kernel == "flash_fwd":
-        return 1024 + 2 * BLOCK_Q * row + 6 * key_tile(d, torch.float32) * row
+    if kernel in ("flash_fwd", "flash_dq"):
+        rows = 2 * BLOCK_Q if kernel == "flash_fwd" else 4 * BLOCK_Q
+        return 1024 + rows * row + 6 * key_tile(d, torch.float32) * row
     if kernel == "flash_dkv":
         bt = 32 if d > 64 else 64
         return 1024 + 4 * BLOCK_Q * row + 6 * bt * row + 4 * bt * 4
     raise ValueError(f"no float32 tensor-core kernel {kernel!r}; have {TF32_KERNELS}")
+
+
+def tf32_blocks_per_sm(d: int, kernel: str) -> int:
+    """Blocks of the float32 ``kernel`` (one of :data:`TF32_KERNELS`) at
+    head dim ``d`` that one SM of the current card holds at once, at its
+    :func:`tf32_shared_bytes` (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    if kernel not in TF32_KERNELS:
+        raise ValueError(f"no float32 tensor-core kernel {kernel!r}; have {TF32_KERNELS}")
+    lib = _build.load_library()
+    blocks = ctypes.c_int(0)
+    if kernel == "flash_fwd":
+        rc = lib.tl_flash_fwd_blocks_per_sm(d, ctypes.byref(blocks))
+    else:
+        rc = lib.tl_flash_bwd_blocks_per_sm(int(kernel == "flash_dkv"), d, ctypes.byref(blocks))
+    _build.check_launch(rc, f"occupancy of float32 {kernel} at head_dim {d}")
+    return blocks.value
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -456,22 +471,21 @@ def _bwd_operands(q, k, v, do, lse, delta):
 
 def _launch_bwd(kernel: str, q, k, v, do, lse, delta, outs, causal, window, q_offset) -> None:
     """B5 (``kernel="flash_dq"``) or B6 (``"flash_dkv"``) on contiguous,
-    16-byte-aligned operands: in float32 ``tl_flash_bwd_dq`` on the FMA
-    pipes and ``tl_flash_bwd_dkv`` on the tensor cores (three TF32
-    passes), in bfloat16 their ``_bf16`` entry points on the tensor cores."""
+    16-byte-aligned operands, one warpgroup a block: in float32
+    ``tl_flash_bwd_dq`` and ``tl_flash_bwd_dkv`` (three TF32 passes), in
+    bfloat16 their ``_bf16`` entry points."""
     b, s, h, d = q.shape
     bf16 = q.dtype == torch.bfloat16
     name = {"flash_dq": "tl_flash_bwd_dq", "flash_dkv": "tl_flash_bwd_dkv"}[kernel]
     name += "_bf16" if bf16 else ""
-    fma = not bf16 and kernel == "flash_dq"  # float32 B5
-    smem = 0 if fma else (tc_shared_bytes if bf16 else tf32_shared_bytes)(d, kernel)
+    smem = (tc_shared_bytes if bf16 else tf32_shared_bytes)(d, kernel)
     _build.check_geometry((-(-s // BLOCK_Q), b * (h if kernel == "flash_dq" else k.shape[2])),
-                          (_threads(d) if fma else TC_THREADS,), smem)
+                          (TC_THREADS,), smem)
     lib = _build.load_library()
     rc = getattr(lib, name)(
         d, *(t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)),
         b, s, h, k.shape[2], softmax_scale(d), int(bool(causal)), window, q_offset,
-        *(() if fma else (smem,)), _build.stream_handle(q.device),
+        smem, _build.stream_handle(q.device),
     )
     _build.check_launch(rc, f"{name} kernel")
 
@@ -544,9 +558,9 @@ def grad_tolerance(want: torch.Tensor) -> torch.Tensor:
 
     float32: ``GRAD_F32 * (|want| + row + head)``, where ``row`` is the
     largest ``|want|`` of its (batch, seq, head) row and ``head`` of its
-    (batch, head): the kernels sum key by key (B5) or tile by tile of
-    three-pass TF32 products (B6) where the plain version sums in einsum's
-    order, and a gradient's terms cancel (``sum_k ds = 0`` when dlse is
+    (batch, head): the kernels sum tile by tile of three-pass TF32
+    products (B5 over key tiles, B6 over query tiles) where the plain
+    version sums in einsum's order, and a gradient's terms cancel (``sum_k ds = 0`` when dlse is
     0), so rounding scales with the operands, not with the result; a row that sees one key has ``ds = dp
     - delta``, zero but for rounding, and only ``head`` bounds it.
     bfloat16: two bf16 ulps of the element and two of ``row`` (p and ds
